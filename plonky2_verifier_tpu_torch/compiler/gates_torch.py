@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from plonky2_verifier_tpu.gates import CONST, LKPSEL, PI, SEL, WIRE
+from ..gates import CONST, LKPSEL, PI, SEL, WIRE
 
 from ..ops import field as tf
 from ..ops.field import GExt
@@ -28,20 +28,20 @@ from .levelize import LevelizedProgram
 INPUT_KINDS = (SEL, LKPSEL, CONST, WIRE, PI)
 
 
-def _idx(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+def _idx(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
 
 
 class GateProgram(nn.Module):
-    def __init__(self, lp: LevelizedProgram):
+    def __init__(self, lp: LevelizedProgram, device):
         super().__init__()
         self.n_tape = lp.n_tape
         self.input_slots = dict(lp.input_slots)
         self.n_levels = lp.n_levels
-        self.register_buffer("lit_values", tf.from_u64(lp.lit_values))
+        self.register_buffer("lit_values", tf.from_u64(lp.lit_values, device))
         for name in ("add_src1", "add_src2", "add_dst", "mul_src1", "mul_src2", "mul_dst", "out_slots"):
-            self.register_buffer(name, _idx(getattr(lp, name)))
-        self.register_buffer("add_sign", tf.from_u64(lp.add_sign))
+            self.register_buffer(name, _idx(getattr(lp, name), device))
+        self.register_buffer("add_sign", tf.from_u64(lp.add_sign, device))
         self.n_out_per_prog = [len(s) for s in lp.out_slots_per_prog]
 
     def forward(self, inputs: Dict[str, GExt], batch_shape, per_prog: bool = False):
@@ -91,6 +91,6 @@ class GateProgram(nn.Module):
 
 
 def run_levelized(lp: LevelizedProgram, inputs: Dict[str, GExt], batch_shape, per_prog: bool = False):
-    """One-shot form of `GateProgram(lp)(...)` on the inputs' device."""
+    """One-shot form of `GateProgram(lp, device)(...)` on the inputs' device."""
     device = next(iter(inputs.values())).re.device
-    return GateProgram(lp).to(device)(inputs, batch_shape, per_prog)
+    return GateProgram(lp, device)(inputs, batch_shape, per_prog)

@@ -24,9 +24,9 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from plonky2_verifier_tpu.gate_parser import Gate
-from plonky2_verifier_tpu.gates import CONST, LKPSEL, LOCAL, PI, SEL, WIRE, Expr, gate_program
-from plonky2_verifier_tpu.golden import field as gf
+from ..gate_parser import Gate
+from ..gates import CONST, LKPSEL, LOCAL, PI, SEL, WIRE, Expr, gate_program
+from ..golden import field as gf
 
 P_MINUS_1 = gf.P - 1
 

@@ -12,11 +12,20 @@
 // chunk padding was a Mosaic alignment rule and is not carried over.
 #include "poseidon.cuh"
 
+using namespace p2v;
+
 namespace {
 
-__global__ void __launch_bounds__(p2v::THREADS)
+constexpr int THREADS = 64;
+
+unsigned grid_for(int64_t n) {
+    const int64_t blocks = (n + THREADS - 1) / THREADS;
+    const int64_t cap = (int64_t)g_sms * 64;  // grid-stride beyond this
+    return (unsigned)(blocks < cap ? blocks : cap);
+}
+
+__global__ void __launch_bounds__(THREADS)
 sponge_kernel(const uint64_t* __restrict__ rows, uint64_t* __restrict__ out, int64_t n, int width) {
-    using namespace p2v;
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
         const uint64_t* row = rows + i * width;
@@ -36,13 +45,13 @@ sponge_kernel(const uint64_t* __restrict__ rows, uint64_t* __restrict__ out, int
 
 }  // namespace
 
-extern "C" int p2v_sponge_init(const void* rc, const void* circ, const void* diag) {
-    return (int)p2v::upload_constants(rc, circ, diag);
+extern "C" int p2v_sponge_init(const void* pre, const void* post, const void* circ, const void* diag) {
+    return (int)upload_constants(pre, post, circ, diag);
 }
 
 extern "C" int p2v_sponge_rows(const void* rows, void* out, int64_t n, int width, void* stream) {
     if (n > 0) {
-        sponge_kernel<<<p2v::grid_for(n), p2v::THREADS, 0, (cudaStream_t)stream>>>(
+        sponge_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
             (const uint64_t*)rows, (uint64_t*)out, n, width);
     }
     return (int)cudaGetLastError();

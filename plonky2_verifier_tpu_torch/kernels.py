@@ -1,11 +1,12 @@
 """Build, load and launch the port's CUDA kernels.
 
-`build()` compiles csrc/*.cu with nvcc for sm_90a into one shared library
-with a plain C interface, under csrc/_build/, named by a sha256 of the
-sources and flags so that an edited source rebuilds. `load()` opens it with
-ctypes once per process, uploads the Poseidon constants from
-golden/poseidon_constants.py into each kernel's constant memory, and returns
-the `KernelLibrary` whose methods launch the kernels.
+`build()` compiles each csrc/*.cu with nvcc for sm_90a into its own shared
+library with a plain C interface, under csrc/_build/, all compiles started
+together; a library is named by a sha256 of its source, the shared header
+and the flags, so an edited source rebuilds. `load()` opens them with ctypes
+once per process, uploads the Poseidon tables (`folded_round_constants`, the
+MDS) into each kernel's constant memory, and returns the `KernelLibrary`
+whose methods launch the kernels.
 
 Both raise on any failure (no CUDA device, no nvcc, a compile error, a
 refused launch); nothing here falls back to the plain PyTorch versions.
@@ -20,26 +21,49 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
 import numpy as np
 import torch
 
-from plonky2_verifier_tpu.golden.poseidon_constants import ALL_ROUND_CONSTANTS, MDS_CIRC, MDS_DIAG
+from .golden.field import P
+from .golden.poseidon import mds_matrix
+from .golden.poseidon_constants import ALL_ROUND_CONSTANTS, MDS_CIRC, MDS_DIAG
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = ("permutation", "sponge", "merkle")
 KERNELS = ("permutation", "sponge_rows", "merkle_fold")
+# launch counters: the permutation kernel has two entry points
+COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "merkle_fold")
+FORMS = {"auto": 0, "thread": 1, "split": 2}
+WIDTH, N_ROUNDS, FIRST_PARTIAL, FIRST_LAST_FULL = 12, 30, 4, 26
 
 
-def _sources():
-    names = sorted(f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
-    return [os.path.join(CSRC, f) for f in names]
+def folded_round_constants():
+    """The round constants as the kernels take them (csrc/poseidon.cuh):
+    `pre` (12) is added to the input, and `post[r]` (30, 12) is what round
+    r's MDS rows start their sums from, i.e. the constants entering round
+    r + 1. In a partial round only lane 0 passes the S-box, so the constants
+    of lanes 1-11 commute with the MDS: they are carried forward, multiplied
+    through, and arrive in post[25] before the last four full rounds."""
+    rc = [list(ALL_ROUND_CONSTANTS[WIDTH * r : WIDTH * (r + 1)]) for r in range(N_ROUNDS)]
+    mds = mds_matrix()
+    post = [[0] * WIDTH for _ in range(N_ROUNDS)]
+    for r in range(N_ROUNDS - 1):
+        if not FIRST_PARTIAL <= r + 1 <= FIRST_LAST_FULL:
+            post[r] = rc[r + 1]
+    carried = [0] * WIDTH  # what lanes 1-11 still owe, entering partial round r
+    for r in range(FIRST_PARTIAL, FIRST_LAST_FULL):
+        e = [(d + c) % P for d, c in zip(carried, rc[r])]
+        post[r - 1] = [e[0]] + [0] * (WIDTH - 1)
+        carried = [sum(mds[i][j] * e[j] for j in range(1, WIDTH)) % P for i in range(WIDTH)]
+    post[FIRST_LAST_FULL - 1] = [(d + c) % P for d, c in zip(carried, rc[FIRST_LAST_FULL])]
+    return rc[0], post
 
 
 def _nvcc() -> str:
@@ -53,29 +77,82 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile the kernels if their sources changed; return the library path.
-    Prints nvcc's report (registers and spills per kernel) when it compiles."""
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def build() -> dict:
+    """Compile the kernels whose sources changed, all at once; return the
+    library path of each source. Prints nvcc's report (registers and spills
+    per kernel) when it compiles."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device; torch.cuda.is_available() is False")
     nvcc = _nvcc()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
-    lib = os.path.join(BUILD_DIR, f"libp2v_kernels_{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
+    header = _read(os.path.join(CSRC, "poseidon.cuh"))
+    libs, running = {}, []
+    for name in SOURCES:
+        src = os.path.join(CSRC, f"{name}.cu")
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + header + _read(src))
+        libs[name] = lib = os.path.join(BUILD_DIR, f"libp2v_{name}_{h.hexdigest()[:16]}.so")
+        if os.path.exists(lib):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        running.append((name, proc, tmp, lib))
+    failed = []
+    for name, proc, tmp, lib in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n{out}\n{err}")
+            continue
+        print("\n".join(l for l in err.splitlines() if "registers" in l or "spill" in l or "Compiling" in l))
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def sass_instruction_count() -> dict:
+    """A cross-check of the kernels' distance from W (csrc/poseidon.cuh): the
+    SASS instructions one thread-form permutation executes, by opcode (IMAD
+    and IADD3 split by their first modifier: IMAD.WIDE multiplies, IMAD.MOV
+    is a register move, IADD3.X an add with carry).
+    permutation.cu is compiled with -DP2V_COUNT_ROUNDS, which adds four
+    straight-line kernels: loads and stores only, the first constant add
+    with the last canonicalisation, one full round, one partial round. A
+    permutation is the second, 8 of the third and 22 of the fourth, each
+    less the first. (The shipped loop adds a few instructions a round for
+    its counter and table address.) Needs nvcc and cuobjdump."""
+    nvcc = _nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp] + [p for p in _sources() if p.endswith(".cu")]
+    cubin = os.path.join(BUILD_DIR, f"permutation_count.{os.getpid()}.cubin")
+    cmd = [nvcc, *ARCH_FLAGS, "-DP2V_COUNT_ROUNDS", "-cubin", "-o", cubin, os.path.join(CSRC, "permutation.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    print("\n".join(l for l in res.stderr.splitlines() if "registers" in l or "spill" in l))
-    os.replace(tmp, lib)
-    return lib
+    sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
+    os.remove(cubin)
+    pieces = [{} for _ in range(4)]
+    piece = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"count_kernelILi(\d)E", line)
+            piece = pieces[int(m.group(1))] if m else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*(?:\.(?:WIDE|MOV|SHL|IADD|X))?)", line)
+        if piece is not None and m and m.group(1) != "NOP":
+            piece[m.group(1)] = piece.get(m.group(1), 0) + 1
+    if not all(pieces):
+        raise RuntimeError("the counting kernels were not found in the SASS")
+    base, ends, full, partial = pieces
+    ops = set().union(*pieces)
+    counts = {op: ends.get(op, 0) + 8 * full.get(op, 0) + 22 * partial.get(op, 0) - 31 * base.get(op, 0) for op in ops}
+    return {op: n for op, n in counts.items() if n}
 
 
 def _check_cuda(err: int, what: str):
@@ -83,15 +160,15 @@ def _check_cuda(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def _check_tensor(t: torch.Tensor, name: str, shape):
-    """Raise unless t is a contiguous int64 tensor on the current CUDA device
-    whose shape matches `shape` (None matches any size)."""
+def _check_tensor(t: torch.Tensor, name: str, shape, dtype=torch.int64):
+    """Raise unless t is a contiguous `dtype` tensor on the current CUDA
+    device whose shape matches `shape` (None matches any size)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f"{name} must be on the current device cuda:{torch.cuda.current_device()}, got {t.device}")
-    if t.dtype != torch.int64:
-        raise ValueError(f"{name} must be int64, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {str(dtype).removeprefix('torch.')}, got {t.dtype}")
     if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
@@ -103,43 +180,77 @@ def _stream() -> ctypes.c_void_p:
 
 
 class KernelLibrary:
-    """The loaded kernels; `launches` counts launches per kernel."""
+    """The loaded kernels; `launches` counts launches per entry point."""
 
-    def __init__(self, path: str):
+    def __init__(self, paths: dict):
         torch.cuda.init()
-        self._lib = lib = ctypes.CDLL(path)
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         signatures = {
-            "p2v_permutation": [vp, vp, i64, vp],
-            "p2v_sponge_rows": [vp, vp, i64, i32, vp],
-            "p2v_merkle_fold": [vp, vp, vp, vp, i64, i32, vp],
+            "permutation": {
+                "p2v_permutation": [vp, vp, i64, i32, vp],
+                "p2v_permutation_scan": [vp, vp, vp, vp, i64, i64, i32, i32, vp],
+            },
+            "sponge": {"p2v_sponge_rows": [vp, vp, i64, i32, vp]},
+            "merkle": {"p2v_merkle_fold": [vp, vp, vp, vp, i64, i32, vp]},
         }
-        for name in ("p2v_permutation_init", "p2v_sponge_init", "p2v_merkle_init"):
-            signatures[name] = [vp, vp, vp]
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        rc = np.array(ALL_ROUND_CONSTANTS, dtype=np.uint64)
+        if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
+            raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
+        pre, post = folded_round_constants()
+        pre, post = np.array(pre, dtype=np.uint64), np.array(post, dtype=np.uint64)
         circ = np.array(MDS_CIRC, dtype=np.uint32)
         diag = np.array(MDS_DIAG, dtype=np.uint32)
-        for name in ("p2v_permutation_init", "p2v_sponge_init", "p2v_merkle_init"):
-            err = getattr(lib, name)(rc.ctypes.data, circ.ctypes.data, diag.ctypes.data)
-            _check_cuda(err, name)
-        self.launches = dict.fromkeys(KERNELS, 0)
+        self._fn = {}
+        self._libs = []
+        for source, fns in signatures.items():
+            lib = ctypes.CDLL(paths[source])
+            self._libs.append(lib)
+            fns = dict(fns, **{f"p2v_{source}_init": [vp, vp, vp, vp]})
+            for name, argtypes in fns.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                self._fn[name] = fn
+            err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data, circ.ctypes.data, diag.ctypes.data)
+            _check_cuda(err, f"p2v_{source}_init")
+        self.launches = dict.fromkeys(COUNTERS, 0)
 
     def reset_launches(self):
-        self.launches = dict.fromkeys(KERNELS, 0)
+        self.launches = dict.fromkeys(COUNTERS, 0)
 
-    def permutation(self, state: torch.Tensor) -> torch.Tensor:
-        """states (n, 12) -> permuted states (n, 12)."""
+    def permutation(self, state: torch.Tensor, form: str = "auto") -> torch.Tensor:
+        """states (n, 12) -> permuted states (n, 12). `form` picks the kernel:
+        "thread" (a state per thread), "split" (a state per half-warp) or
+        "auto" (by n, as csrc/permutation.cu says)."""
         _check_tensor(state, "state", (None, 12))
         out = torch.empty_like(state)
         n = state.shape[0]
         if n:
-            _check_cuda(self._lib.p2v_permutation(state.data_ptr(), out.data_ptr(), n, _stream()), "permutation")
+            err = self._fn["p2v_permutation"](state.data_ptr(), out.data_ptr(), n, FORMS[form], _stream())
+            _check_cuda(err, "permutation")
             self.launches["permutation"] += 1
         return out
+
+    def permutation_scan(
+        self, data: torch.Tensor, ov_idx: torch.Tensor, ov_mask: torch.Tensor, form: str = "auto"
+    ) -> torch.Tensor:
+        """The transcript scan in one launch: data (B, n_data), the static
+        schedule ov_idx (n_perms, 12) int64 and ov_mask (n_perms, 12) bool
+        -> states (n_perms, B, 12). From a zero state, step i overwrites the
+        masked lanes with data[:, ov_idx[i]], permutes, and records the state."""
+        _check_tensor(data, "data", (None, None))
+        n_perms = ov_idx.shape[0]
+        _check_tensor(ov_idx, "ov_idx", (None, 12))
+        _check_tensor(ov_mask, "ov_mask", (n_perms, 12), torch.bool)
+        batch, n_data = data.shape
+        states = torch.empty((n_perms, batch, 12), dtype=torch.int64, device=data.device)
+        if batch and n_perms:
+            err = self._fn["p2v_permutation_scan"](
+                data.data_ptr(), ov_idx.data_ptr(), ov_mask.data_ptr(), states.data_ptr(),
+                batch, n_data, n_perms, FORMS[form], _stream(),
+            )
+            _check_cuda(err, "permutation_scan")
+            self.launches["permutation_scan"] += 1
+        return states
 
     def sponge_rows(self, rows: torch.Tensor, width: int) -> torch.Tensor:
         """rows (n, width) -> digests (n, 4)."""
@@ -147,7 +258,7 @@ class KernelLibrary:
         n = rows.shape[0]
         out = torch.empty((n, 4), dtype=torch.int64, device=rows.device)
         if n:
-            err = self._lib.p2v_sponge_rows(rows.data_ptr(), out.data_ptr(), n, width, _stream())
+            err = self._fn["p2v_sponge_rows"](rows.data_ptr(), out.data_ptr(), n, width, _stream())
             _check_cuda(err, "sponge_rows")
             self.launches["sponge_rows"] += 1
         return out
@@ -160,7 +271,7 @@ class KernelLibrary:
         _check_tensor(sibs, "sibs", (n, None, 4))
         out = torch.empty_like(digest)
         if n:
-            err = self._lib.p2v_merkle_fold(
+            err = self._fn["p2v_merkle_fold"](
                 digest.data_ptr(), index.data_ptr(), sibs.data_ptr(), out.data_ptr(), n, sibs.shape[1], _stream()
             )
             _check_cuda(err, "merkle_fold")

@@ -25,7 +25,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from plonky2_verifier_tpu.golden.field import P, W
+from ..golden.field import P, W
 
 I64 = torch.int64
 M32 = 0xFFFFFFFF
@@ -46,8 +46,21 @@ P_I64 = signed(P)
 # host boundary
 
 
-def from_u64(x, device="cpu") -> torch.Tensor:
-    """uint64 numpy array (or values) -> int64 tensor with the same bits."""
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `None` means the CUDA card, and
+    raises where there is none (nothing quietly runs on the CPU); anything
+    else is taken as given, e.g. "cpu" in the tests."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'no CUDA device (torch.cuda.is_available() is False); pass device="cpu" to run on the CPU'
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def from_u64(x, device) -> torch.Tensor:
+    """uint64 numpy array (or values) -> int64 tensor on `device` with the same bits."""
     x = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
     return torch.from_numpy(x.view(np.int64).copy()).to(device)
 
@@ -57,11 +70,11 @@ def to_u64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
 
-def constant(value: int, shape=(), device="cpu") -> torch.Tensor:
+def constant(value: int, shape, device) -> torch.Tensor:
     return torch.full(tuple(shape), signed(value % P), dtype=I64, device=device)
 
 
-def zeros(shape=(), device="cpu") -> torch.Tensor:
+def zeros(shape, device) -> torch.Tensor:
     return torch.zeros(tuple(shape), dtype=I64, device=device)
 
 
@@ -206,11 +219,11 @@ class GExt:
         return GExt(sub(self.re, o.re), sub(self.im, o.im))
 
 
-def ext_constant(re: int, im: int = 0, shape=(), device="cpu") -> GExt:
+def ext_constant(re: int, im: int = 0, shape=(), *, device) -> GExt:
     return GExt(constant(re, shape, device), constant(im, shape, device))
 
 
-def ext_zeros(shape=(), device="cpu") -> GExt:
+def ext_zeros(shape, device) -> GExt:
     return GExt(zeros(shape, device), zeros(shape, device))
 
 

@@ -8,9 +8,10 @@ and then the MDS  y_i = sum_t CIRC[t] x_{(i+t) mod 12} + DIAG[i] x_i
 (semantics: golden/poseidon.py, which carries the known-answer test).
 
 `permutation` runs the CUDA kernel (csrc/permutation.cu) for a CUDA tensor
-and `permutation_plain` for a CPU tensor. The round constants and the MDS
+and `permutation_plain` for a CPU tensor; `permutation_scan`, the
+transcript's chain of overwrite-and-permute steps, likewise. The round constants and the MDS
 come from golden/poseidon_constants.py; the plain version reads them from a
-`PoseidonConstants` module, so `.to(device)` moves them with their owner,
+`PoseidonConstants` module built on the caller's device (the card by default),
 and the kernel reads the copy uploaded to constant memory when it loads.
 """
 
@@ -20,8 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from plonky2_verifier_tpu.golden.poseidon import mds_matrix
-from plonky2_verifier_tpu.golden.poseidon_constants import ALL_ROUND_CONSTANTS
+from ..golden.poseidon import mds_matrix
+from ..golden.poseidon_constants import ALL_ROUND_CONSTANTS
 
 from . import field as tf
 
@@ -31,13 +32,15 @@ N_ROUNDS = 30
 
 class PoseidonConstants(nn.Module):
     """Buffers for the plain permutation: round constants (30, 12) and the
-    full MDS matrix (12, 12), entries <= 49."""
+    full MDS matrix (12, 12), entries <= 49. They are built on `device`;
+    `None` means the CUDA card and raises where there is none."""
 
-    def __init__(self):
+    def __init__(self, device=None):
         super().__init__()
+        device = tf.resolve_device(device)
         rc = np.array(ALL_ROUND_CONSTANTS, dtype=np.uint64).reshape(N_ROUNDS, WIDTH)
-        self.register_buffer("rc", tf.from_u64(rc))
-        self.register_buffer("mds", torch.tensor(mds_matrix(), dtype=torch.int64))
+        self.register_buffer("rc", tf.from_u64(rc, device))
+        self.register_buffer("mds", torch.tensor(mds_matrix(), dtype=torch.int64, device=device))
 
 
 def _sbox7(x):
@@ -85,6 +88,33 @@ def permutation(state, consts: PoseidonConstants):
     lead = state.shape[:-1]
     out = kernels.load().permutation(state.reshape(-1, WIDTH).contiguous())
     return out.reshape(*lead, WIDTH)
+
+
+def permutation_scan_plain(data, ov_idx, ov_mask, consts: PoseidonConstants):
+    """The transcript scan as a loop of plain permutations: data (B, n_data),
+    the static schedule ov_idx, ov_mask (n_perms, 12) -> states
+    (n_perms, B, 12). From a zero state, step i overwrites the masked lanes
+    with data[:, ov_idx[i]], permutes, and records the state."""
+    state = tf.zeros((data.shape[0], WIDTH), data.device)
+    states = []
+    for i in range(ov_idx.shape[0]):
+        gathered = data.index_select(1, ov_idx[i])  # (B, 12)
+        state = permutation_plain(torch.where(ov_mask[i], gathered, state), consts)
+        states.append(state)
+    if not states:
+        return tf.zeros((0, data.shape[0], WIDTH), data.device)
+    return torch.stack(states)
+
+
+def permutation_scan(data, ov_idx, ov_mask, consts: PoseidonConstants):
+    """The transcript scan: one launch of the CUDA kernel
+    (csrc/permutation.cu, p2v_permutation_scan) for a CUDA tensor, the plain
+    loop for a CPU tensor."""
+    if data.device.type == "cpu":
+        return permutation_scan_plain(data, ov_idx, ov_mask, consts)
+    from .. import kernels
+
+    return kernels.load().permutation_scan(data.contiguous(), ov_idx, ov_mask)
 
 
 def sponge(inputs, width: int, consts: PoseidonConstants):

@@ -3,9 +3,10 @@
 The counterpart of plonky2_verifier_tpu/verifier_jax.py, batched over the
 proof batch B (and inside FRI over the Q query rounds):
 
-1. public-input hash + transcript replay (the template's static schedule, a
-   loop of one gather, one masked overwrite and one permutation per step)
-   -> every Fiat-Shamir challenge, bit-exact;
+1. public-input hash + transcript replay (the template's static schedule:
+   per step one gather, one masked overwrite and one permutation; on the
+   card the whole scan is one kernel launch) -> every Fiat-Shamir challenge,
+   bit-exact;
 2. Plonk checks at zeta: selectors, L0, partial products, the gate
    constraints (levelized gate program), alpha-combination, quotient equation;
 3. FRI: proof of work, the four-oracle Merkle openings, combineInitial, the
@@ -15,6 +16,11 @@ Field values are int64 tensors holding u64 bit patterns (ops/field.py). The
 Poseidon chains go through ops/poseidon.py and ops/hash.py, which launch the
 CUDA kernels for CUDA tensors. Lookup templates are not ported yet: the
 constructor raises NotImplementedError for them.
+
+Entry points: `verify_batch(tpl, arrays)` (numpy in, numpy out) and
+`TorchVerifier(tpl)`. Both run on the CUDA card unless the caller passes a
+device, and raise where there is no card; `device="cpu"` runs every kernel's
+plain version.
 """
 
 from __future__ import annotations
@@ -25,10 +31,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from plonky2_verifier_tpu.compiler.template import CircuitTemplate
-from plonky2_verifier_tpu.gates import CONST, LKPSEL, PI, SEL, WIRE
-from plonky2_verifier_tpu.golden import field as gf
-from plonky2_verifier_tpu.golden.plonk import UNUSED_SELECTOR
+from .compiler.template import CircuitTemplate
+from .gates import CONST, LKPSEL, PI, SEL, WIRE
+from .golden import field as gf
+from .golden.plonk import UNUSED_SELECTOR
 
 from .compiler.gates_torch import GateProgram
 from .compiler.levelize import levelize_gates
@@ -112,10 +118,12 @@ def _bit_reverse(idx, bits: int):
 class TorchVerifier(nn.Module):
     """Batched verifier for one circuit template. The template's constants
     (Poseidon tables, transcript schedule, gate program, selector matrices,
-    fold weights) are buffers, so `.to(device)` moves them."""
+    fold weights) are buffers built on `device`: `None` means the CUDA card
+    and raises where there is none; the tests pass "cpu"."""
 
-    def __init__(self, tpl: CircuitTemplate, debug: bool = False):
+    def __init__(self, tpl: CircuitTemplate, debug: bool = False, device=None):
         super().__init__()
+        device = tf.resolve_device(device)
         if tpl.common.num_lookup_polys > 0:
             raise NotImplementedError("lookup templates are not ported yet")
         if tpl.lde_bits > 32 or tpl.pow_bits > 32:
@@ -124,7 +132,7 @@ class TorchVerifier(nn.Module):
         self.debug = debug
         common = tpl.common
 
-        self.poseidon = tp.PoseidonConstants()
+        self.poseidon = tp.PoseidonConstants(device)
 
         # static transcript schedule: per permutation, which lanes are
         # overwritten and from which data positions
@@ -136,8 +144,8 @@ class TorchVerifier(nn.Module):
             for lane, pos in ov:
                 ov_mask[i, lane] = True
                 ov_idx[i, lane] = pos
-        self.register_buffer("_ov_mask", torch.from_numpy(ov_mask))
-        self.register_buffer("_ov_idx", torch.from_numpy(ov_idx))
+        self.register_buffer("_ov_mask", torch.from_numpy(ov_mask).to(device))
+        self.register_buffer("_ov_idx", torch.from_numpy(ov_idx).to(device))
 
         self.gates = GateProgram(
             levelize_gates(
@@ -146,9 +154,10 @@ class TorchVerifier(nn.Module):
                 tpl.n_lookup_selectors,
                 tpl.n_gate_constants,
                 tpl.num_wires,
-            )
+            ),
+            device,
         )
-        self.register_buffer("_k_is", tf.from_u64(np.array(common.k_is, dtype=np.uint64)))
+        self.register_buffer("_k_is", tf.from_u64(np.array(common.k_is, dtype=np.uint64), device))
 
         # selector factor matrices (Gate/Selector.hs:78-95): per gate,
         # (UNUSED if several groups) and every other index of its group
@@ -163,9 +172,9 @@ class TorchVerifier(nn.Module):
             fs = ([UNUSED_SELECTOR] if multi else []) + [j for j in range(rng.start, rng.end) if j != g]
             tmat[g, : len(fs)] = fs
             mask[g, : len(fs)] = True
-        self.register_buffer("_sel_consts", tf.from_u64(tmat))
-        self.register_buffer("_sel_mask", torch.from_numpy(mask))
-        self.register_buffer("_sel_cols", torch.tensor(si.selector_indices, dtype=torch.int64))
+        self.register_buffer("_sel_consts", tf.from_u64(tmat, device))
+        self.register_buffer("_sel_mask", torch.from_numpy(mask).to(device))
+        self.register_buffer("_sel_cols", torch.tensor(si.selector_indices, dtype=torch.int64, device=device))
 
         # per fold step: bit-reversal to subgroup order and the IDFT weights
         # wmat[k, j] = omega^{-jk}
@@ -177,8 +186,8 @@ class TorchVerifier(nn.Module):
             wmat = np.array(
                 [[gf.fpow(omega_inv, j * k) for j in range(arity)] for k in range(arity)], dtype=np.uint64
             )
-            self.register_buffer(f"_coset_perm_{s}", torch.from_numpy(perm))
-            self.register_buffer(f"_idft_{s}", tf.from_u64(wmat))
+            self.register_buffer(f"_coset_perm_{s}", torch.from_numpy(perm).to(device))
+            self.register_buffer(f"_idft_{s}", tf.from_u64(wmat, device))
 
     # -- host side ------------------------------------------------------------
     def prepare(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -210,14 +219,10 @@ class TorchVerifier(nn.Module):
         return data
 
     def _run_transcript(self, data):
-        B = data.shape[0]
-        state = tf.zeros((B, 12), data.device)
-        states = []
-        for i in range(self._ov_idx.shape[0]):
-            gathered = data.index_select(1, self._ov_idx[i])  # (B, 12)
-            state = torch.where(self._ov_mask[i], gathered, state)
-            state = tp.permutation(state, self.poseidon)
-            states.append(state)
+        """Replay the schedule over data (B, n_data): one scan-kernel launch
+        on the card, the plain loop on the CPU; returns each challenge as
+        the list of (B,) words squeezed for it."""
+        states = tp.permutation_scan(data, self._ov_idx, self._ov_mask, self.poseidon)  # (n_perms, B, 12)
         return {
             name: [states[pi][:, lane] for pi, lane in coords]
             for name, coords in self.tpl.schedule.challenges.items()
@@ -464,3 +469,21 @@ class TorchVerifier(nn.Module):
 
         round_ok = merkle_ok & fold_ok & final_ok
         return pow_ok & round_ok.all(dim=1)
+
+
+def verify_batch(tpl: CircuitTemplate, arrays: Dict[str, np.ndarray], debug: bool = False, device=None):
+    """One-call entry point, the counterpart of verifier_jax.verify_batch:
+    flattened uint64 host arrays in, numpy verdicts out ("ok", "eqs_ok",
+    "fri_ok", each (B,) bool; with debug=True also "debug", the challenge
+    intermediates as uint64 arrays). Runs on the CUDA card unless `device`
+    says otherwise, and raises where there is no card."""
+    v = TorchVerifier(tpl, debug=debug, device=device)
+    with torch.no_grad():
+        out = v(v.prepare(arrays))
+
+    def host(x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(host(y) for y in x)
+        return x.cpu().numpy() if x.dtype == torch.bool else tf.to_u64(x)
+
+    return {k: {n: host(x) for n, x in val.items()} if k == "debug" else host(val) for k, val in out.items()}

@@ -31,7 +31,7 @@ def _jax(fn, *xs):
 
 
 def _torch(fn, *xs):
-    return tf.to_u64(fn(*[tf.from_u64(x) for x in xs]))
+    return tf.to_u64(fn(*[tf.from_u64(x, "cpu") for x in xs]))
 
 
 BINARY = [
@@ -73,7 +73,7 @@ def test_pow_const(ab, e):
 def test_pow_dynamic(ab):
     a, _ = ab
     exps = np.random.default_rng(3).integers(0, 1 << 15, size=a.shape, dtype=np.uint64)
-    got = tf.to_u64(tf.pow_dynamic(tf.from_u64(a), tf.from_u64(exps), 15))
+    got = tf.to_u64(tf.pow_dynamic(tf.from_u64(a, "cpu"), tf.from_u64(exps, "cpu"), 15))
     want = jf.to_u64(jf.pow_dynamic(jf.from_u64(a), jf.from_u64(exps).lo, 15))
     np.testing.assert_array_equal(got, want)
     assert [int(x) for x in got] == [pow(int(x), int(e), P) for x, e in zip(a, exps)]
@@ -84,7 +84,7 @@ def _ext_pair(seed):
 
 
 def _t_ext(re, im):
-    return tf.GExt(tf.from_u64(re), tf.from_u64(im))
+    return tf.GExt(tf.from_u64(re, "cpu"), tf.from_u64(im, "cpu"))
 
 
 def _j_ext(re, im):
@@ -139,7 +139,7 @@ def test_ext_equal_and_where():
 
 def test_u64_round_trip_and_unsigned_compare():
     a = _values(11)
-    np.testing.assert_array_equal(tf.to_u64(tf.from_u64(a)), a)
+    np.testing.assert_array_equal(tf.to_u64(tf.from_u64(a, "cpu")), a)
     b = a[::-1].copy()
-    np.testing.assert_array_equal(tf.ult(tf.from_u64(a), tf.from_u64(b)).numpy(), a < b)
-    np.testing.assert_array_equal(tf.to_u64(tf.shr(tf.from_u64(a), 13)), a >> np.uint64(13))
+    np.testing.assert_array_equal(tf.ult(tf.from_u64(a, "cpu"), tf.from_u64(b, "cpu")).numpy(), a < b)
+    np.testing.assert_array_equal(tf.to_u64(tf.shr(tf.from_u64(a, "cpu"), 13)), a >> np.uint64(13))

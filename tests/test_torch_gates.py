@@ -63,7 +63,7 @@ def test_run_levelized_matches_jax(programs):
         _, w = lp.input_slots[kind]
         re = rng.integers(0, gf.P, size=(B, w), dtype=np.uint64)
         im = rng.integers(0, gf.P, size=(B, w), dtype=np.uint64)
-        t_inputs[kind] = tf.GExt(tf.from_u64(re), tf.from_u64(im))
+        t_inputs[kind] = tf.GExt(tf.from_u64(re, "cpu"), tf.from_u64(im, "cpu"))
         j_inputs[kind] = jf.GExt(jf.from_u64(re), jf.from_u64(im))
     got = gates_torch.run_levelized(lp, t_inputs, (B,), per_prog=True)
     want = gates_jax.run_levelized(lp, j_inputs, (B,), per_prog=True)

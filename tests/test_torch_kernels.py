@@ -11,14 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from plonky2_verifier_tpu.golden import hashing as gh
-from plonky2_verifier_tpu.golden import poseidon as gp
+from plonky2_verifier_tpu_torch.golden import hashing as gh
+from plonky2_verifier_tpu_torch.golden import poseidon as gp
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
 
 pytestmark = pytest.mark.cuda
 P = tf.P
+EDGE = np.array([0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1], dtype=np.uint64)
 
 
 @pytest.fixture(scope="module")
@@ -32,20 +33,53 @@ def lib():
 
 @pytest.fixture(scope="module")
 def consts(lib):
-    return tp.PoseidonConstants().to("cuda")
+    return tp.PoseidonConstants("cuda")
 
 
 def _rand(seed, shape):
     return tf.from_u64(np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64), "cuda")
 
 
-def test_permutation_kat_and_random(lib, consts):
-    kat = lib.permutation(tf.from_u64(np.arange(12, dtype=np.uint64).reshape(1, 12), "cuda"))
+def _schedule(seed, n_perms, n_data):
+    rng = np.random.default_rng(seed)
+    ov_idx = torch.from_numpy(rng.integers(0, n_data, size=(n_perms, 12), dtype=np.int64)).cuda()
+    ov_mask = torch.from_numpy(rng.integers(0, 3, size=(n_perms, 12)) == 0).cuda()
+    return ov_idx, ov_mask
+
+
+@pytest.mark.parametrize("form", ["thread", "split", "auto"])
+def test_permutation_kat_and_random(lib, consts, form):
+    kat = lib.permutation(tf.from_u64(np.arange(12, dtype=np.uint64).reshape(1, 12), "cuda"), form)
     assert tuple(int(x) for x in tf.to_u64(kat)[0]) == gp.KAT_OUTPUT
-    edge = np.array([0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1], dtype=np.uint64)
-    band = tf.from_u64(edge[np.random.default_rng(1).integers(0, len(edge), size=(999, 12))], "cuda")
+    band = tf.from_u64(EDGE[np.random.default_rng(1).integers(0, len(EDGE), size=(999, 12))], "cuda")
     for x in (band, _rand(2, (4099, 12))):
-        assert torch.equal(lib.permutation(x), tp.permutation_plain(x, consts))
+        assert torch.equal(lib.permutation(x, form), tp.permutation_plain(x, consts))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 1024, 8192, 8193, 70001])
+def test_permutation_forms_agree_at_every_size(lib, consts, n):
+    """Sizes around a half-warp, a block of the lane-split form and the
+    launcher's switch between the forms."""
+    x = _rand(n, (n, 12))
+    want = lib.permutation(x, "thread")
+    assert torch.equal(lib.permutation(x, "split"), want)
+    assert torch.equal(lib.permutation(x, "auto"), want)
+    assert torch.equal(want[:64], tp.permutation_plain(x[:64], consts))
+
+
+@pytest.mark.parametrize("form", ["thread", "split", "auto"])
+@pytest.mark.parametrize("batch", [1, 5, 1024])
+def test_permutation_scan(lib, consts, batch, form):
+    ov_idx, ov_mask = _schedule(batch, 9, 40)
+    data = _rand(50 + batch, (batch, 40))
+    data[0, :3] = tf.from_u64(EDGE[-3:], "cuda")  # proof words need not be canonical
+    got = lib.permutation_scan(data, ov_idx, ov_mask, form)
+    assert got.shape == (9, batch, 12)
+    assert torch.equal(got, tp.permutation_scan_plain(data, ov_idx, ov_mask, consts))
+    state, host = [0] * 12, tf.to_u64(data)[0]
+    for i, m in zip(ov_idx.cpu().tolist(), ov_mask.cpu().tolist()):
+        state = gp.permutation([int(host[j]) if keep else s for j, keep, s in zip(i, m, state)])
+    assert [int(v) for v in tf.to_u64(got[-1, 0])] == state
 
 
 @pytest.mark.parametrize("width", [0, 1, 3, 7, 8, 9, 16, 20, 32, 83, 135])
@@ -70,6 +104,15 @@ def test_merkle_fold(lib, consts, path_len):
     assert tuple(int(x) for x in tf.to_u64(got)[0]) == root
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 118273, 300007])
+def test_merkle_fold_grid_sizes(lib, consts, n):
+    """Fewer paths than a warp, one wave of blocks and a few paths beyond
+    it (132 SMs x 28 blocks x 32 threads = 118,272), and several paths a thread."""
+    dig, sibs = _rand(n, (n, 4)), _rand(n + 1, (n, 2, 4))
+    idx = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << 32, size=n, dtype=np.int64)).cuda()
+    assert torch.equal(lib.merkle_fold(dig, idx, sibs), th.merkle_fold_plain(dig, idx, sibs, 2, consts))
+
+
 def test_wrappers_count_launches_and_dispatch(lib, consts):
     before = dict(lib.launches)
     x = _rand(30, (2, 3, 12))
@@ -79,7 +122,12 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     dig, sibs = _rand(32, (2, 3, 4)), _rand(33, (2, 3, 4, 4))
     idx = torch.arange(6, dtype=torch.int64, device="cuda").reshape(2, 3) * 5
     assert torch.equal(th.merkle_fold(dig, idx, sibs, 4, consts), th.merkle_fold_plain(dig, idx, sibs, 4, consts))
-    assert {k: lib.launches[k] - before[k] for k in before} == {"permutation": 1, "sponge_rows": 1, "merkle_fold": 1}
+    ov_idx, ov_mask = _schedule(34, 3, 20)
+    data = _rand(35, (4, 20))
+    assert torch.equal(tp.permutation_scan(data, ov_idx, ov_mask, consts), tp.permutation_scan_plain(data, ov_idx, ov_mask, consts))
+    assert {k: lib.launches[k] - before[k] for k in before} == {
+        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "merkle_fold": 1
+    }
 
 
 def test_kernel_inputs_are_validated(lib):
@@ -92,3 +140,33 @@ def test_kernel_inputs_are_validated(lib):
         lib.sponge_rows(_rand(41, (4, 9)), 8)
     with pytest.raises(ValueError, match="index"):
         lib.merkle_fold(_rand(42, (4, 4)), torch.zeros(3, dtype=torch.int64, device="cuda"), _rand(43, (4, 2, 4)))
+    ov_idx, ov_mask = _schedule(44, 3, 20)
+    with pytest.raises(ValueError, match="bool"):
+        lib.permutation_scan(_rand(45, (4, 20)), ov_idx, ov_mask.to(torch.int64))
+    with pytest.raises(KeyError):
+        lib.permutation(x, "warp")
+
+
+def test_entry_points_default_to_the_card(lib):
+    """TorchVerifier, verify_batch and PoseidonConstants without a device
+    argument build and run on the card, through the kernels, with the
+    verdicts of the CPU path."""
+    from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
+    from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
+    from plonky2_verifier_tpu_torch.prover.prove import prove
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier, verify_batch
+
+    fx = fibonacci_fixture(n_arith_rows=13, num_query_rounds=2, proof_of_work_bits=2)
+    tpl = CircuitTemplate(fx.common)
+    arrays = flatten_proofs(tpl, [prove(fx)] * 3)
+    arrays["openings1"][1, 0, 0] ^= np.uint64(1)
+    assert {b.device.type for b in TorchVerifier(tpl).buffers()} == {"cuda"}
+    assert tp.PoseidonConstants().rc.device.type == "cuda"
+    before = dict(lib.launches)
+    card = verify_batch(tpl, arrays, debug=True)
+    assert lib.launches["permutation_scan"] == before["permutation_scan"] + 1
+    assert lib.launches["merkle_fold"] > before["merkle_fold"] and lib.launches["sponge_rows"] > before["sponge_rows"]
+    cpu = verify_batch(tpl, arrays, debug=True, device="cpu")
+    assert card["ok"].tolist() == cpu["ok"].tolist() == [True, False, True]
+    np.testing.assert_array_equal(card["debug"]["zeta"][0], cpu["debug"]["zeta"][0])
+    np.testing.assert_array_equal(card["debug"]["query_indices"], cpu["debug"]["query_indices"])

@@ -17,6 +17,7 @@ from plonky2_verifier_tpu.ops import field as jf
 from plonky2_verifier_tpu.ops import poseidon as jp
 from plonky2_verifier_tpu.verifier_jax import JaxVerifier
 from plonky2_verifier_tpu.verifier_jax import sponge_rows as jax_sponge_rows
+from plonky2_verifier_tpu_torch import kernels
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
@@ -28,7 +29,7 @@ EDGE = np.array([0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1], dty
 
 @pytest.fixture(scope="module")
 def consts():
-    return tp.PoseidonConstants()
+    return tp.PoseidonConstants("cpu")
 
 
 @pytest.fixture(autouse=True)
@@ -42,7 +43,7 @@ def _rand(seed, shape):
 
 
 def test_permutation_kat(consts):
-    out = tp.permutation_plain(tf.from_u64(np.arange(12, dtype=np.uint64)), consts)
+    out = tp.permutation_plain(tf.from_u64(np.arange(12, dtype=np.uint64), "cpu"), consts)
     assert tuple(int(x) for x in tf.to_u64(out)) == gp.KAT_OUTPUT
 
 
@@ -50,7 +51,7 @@ def test_permutation_random_and_edge_vs_jax(consts):
     rng = np.random.default_rng(1)
     edge_states = EDGE[rng.integers(0, len(EDGE), size=(32, 12))]
     states = np.concatenate([_rand(2, (64, 12)), np.repeat(EDGE[:, None], 12, axis=1), edge_states])
-    got = tf.to_u64(tp.permutation_plain(tf.from_u64(states), consts))
+    got = tf.to_u64(tp.permutation_plain(tf.from_u64(states, "cpu"), consts))
     np.testing.assert_array_equal(got, jf.to_u64(jp._permutation_jnp(jf.from_u64(states))))
     for i in range(0, len(states), 17):
         assert [int(x) for x in got[i]] == gp.permutation([int(x) for x in states[i]])
@@ -59,10 +60,10 @@ def test_permutation_random_and_edge_vs_jax(consts):
 @pytest.mark.parametrize("width", [0, 1, 3, 8, 9, 20, 32, 135])
 def test_sponge_rows_vs_jax(consts, width):
     rows = _rand(100 + width, (2, 3, width))
-    got = tf.to_u64(th.sponge_rows_plain(tf.from_u64(rows), width, consts))
+    got = tf.to_u64(th.sponge_rows_plain(tf.from_u64(rows, "cpu"), width, consts))
     np.testing.assert_array_equal(got, jf.to_u64(jax_sponge_rows(jf.from_u64(rows), width)))
-    np.testing.assert_array_equal(got, tf.to_u64(tp.sponge(tf.from_u64(rows), width, consts)))
-    np.testing.assert_array_equal(got, tf.to_u64(th.sponge_rows(tf.from_u64(rows), width, consts)))
+    np.testing.assert_array_equal(got, tf.to_u64(tp.sponge(tf.from_u64(rows, "cpu"), width, consts)))
+    np.testing.assert_array_equal(got, tf.to_u64(th.sponge_rows(tf.from_u64(rows, "cpu"), width, consts)))
     flat_rows, flat_got = rows.reshape(6, width), got.reshape(6, 4)
     for i in range(2):
         assert tuple(int(x) for x in flat_got[i]) == gh.sponge([int(x) for x in flat_rows[i]])
@@ -80,7 +81,7 @@ def test_merkle_fold_vs_golden_and_jax(consts, path_len):
     n = 6
     digest, index, sibs, cap = _merkle_case(7 + path_len, n, path_len)
     root = tf.to_u64(
-        th.merkle_fold_plain(tf.from_u64(digest), torch.from_numpy(index), tf.from_u64(sibs), path_len, consts)
+        th.merkle_fold_plain(tf.from_u64(digest, "cpu"), torch.from_numpy(index), tf.from_u64(sibs, "cpu"), path_len, consts)
     )
     for i in range(n):
         res, want = gh.reconstruct_merkle_root(
@@ -96,7 +97,7 @@ def test_merkle_fold_vs_golden_and_jax(consts, path_len):
         )
     )
     ok_torch = merkle_batched(
-        tf.from_u64(digest), torch.from_numpy(index), tf.from_u64(sibs), tf.from_u64(cap), path_len, consts
+        tf.from_u64(digest, "cpu"), torch.from_numpy(index), tf.from_u64(sibs, "cpu"), tf.from_u64(cap, "cpu"), path_len, consts
     ).numpy()
     np.testing.assert_array_equal(ok_torch, ok_jax)
     np.testing.assert_array_equal(ok_torch, np.arange(n) % 2 == 0)
@@ -105,16 +106,56 @@ def test_merkle_fold_vs_golden_and_jax(consts, path_len):
 def test_compress_and_verify_merkle_path(consts):
     digest, index, sibs, cap = _merkle_case(31, 4, 3)
     x, y = _rand(40, (4, 4)), _rand(41, (4, 4))
-    got = tf.to_u64(tp.compress(tf.from_u64(x), tf.from_u64(y), consts))
+    got = tf.to_u64(tp.compress(tf.from_u64(x, "cpu"), tf.from_u64(y, "cpu"), consts))
     for i in range(4):
         assert tuple(int(v) for v in got[i]) == gh.compress(tuple(int(v) for v in x[i]), tuple(int(v) for v in y[i]))
-    root = th.merkle_fold_plain(tf.from_u64(digest), torch.from_numpy(index), tf.from_u64(sibs), 3, consts)
+    root = th.merkle_fold_plain(tf.from_u64(digest, "cpu"), torch.from_numpy(index), tf.from_u64(sibs, "cpu"), 3, consts)
     residual = index >> 3
     cap[np.arange(4), residual] = tf.to_u64(root)
     cap[1, residual[1], 0] ^= np.uint64(1)
-    ok = tp.verify_merkle_path(tf.from_u64(digest), torch.from_numpy(index), tf.from_u64(sibs), tf.from_u64(cap), 3, consts)
+    ok = tp.verify_merkle_path(tf.from_u64(digest, "cpu"), torch.from_numpy(index), tf.from_u64(sibs, "cpu"), tf.from_u64(cap, "cpu"), 3, consts)
     ok_jax = jp.verify_merkle_path(
         jf.from_u64(digest), np.asarray(index, dtype=np.uint32), jf.from_u64(sibs), jf.from_u64(cap), 3
     )
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_jax))
     assert ok.tolist() == [True, False, True, True]
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_permutation_scan_plain_vs_golden(consts, batch):
+    """The transcript scan's plain loop: from a zero state, each step
+    overwrites the masked lanes from the data row, permutes and records."""
+    rng = np.random.default_rng(60 + batch)
+    n_perms, n_data = 5, 23
+    ov_idx = rng.integers(0, n_data, size=(n_perms, 12), dtype=np.int64)
+    ov_mask = rng.integers(0, 3, size=(n_perms, 12)) == 0
+    data = _rand(61 + batch, (batch, n_data))
+    data[0, :3] = EDGE[-3:]  # proof words need not be canonical
+    got = tf.to_u64(tp.permutation_scan_plain(tf.from_u64(data, "cpu"), torch.from_numpy(ov_idx), torch.from_numpy(ov_mask), consts))
+    assert got.shape == (n_perms, batch, 12)
+    for b in range(batch):
+        state = [0] * 12
+        for step in range(n_perms):
+            state = gp.permutation([int(data[b, i]) if m else s for i, m, s in zip(ov_idx[step], ov_mask[step], state)])
+            assert [int(x) for x in got[step, b]] == state
+    empty = tp.permutation_scan_plain(tf.from_u64(data, "cpu"), torch.zeros((0, 12), dtype=torch.int64), torch.zeros((0, 12), dtype=torch.bool), consts)
+    assert empty.shape == (0, batch, 12)
+
+
+def test_folded_round_constants_give_the_same_permutation():
+    """The kernels' tables (kernels.folded_round_constants): round 0's
+    constants up front, every later constant started from inside the
+    previous round's MDS sums, the partial rounds' lanes 1-11 carried through
+    the MDS to the last full rounds. In Python ints, against golden/."""
+    pre, post = kernels.folded_round_constants()
+    assert len(pre) == 12 and len(post) == 30 and all(len(row) == 12 for row in post)
+    assert all(0 <= c < P for row in [pre] + post for c in row)
+    assert all(row[1:] == [0] * 11 for row in post[3:25]) and post[29] == [0] * 12
+    mds = gp.mds_matrix()
+    rng = np.random.default_rng(70)
+    for state in [list(range(12))] + [[int(x) for x in row] for row in rng.integers(0, P, size=(8, 12), dtype=np.uint64)]:
+        s = [(x + c) % P for x, c in zip(state, pre)]
+        for r in range(30):
+            s = [gp._sbox(x) for x in s] if r < 4 or r >= 26 else [gp._sbox(s[0])] + s[1:]
+            s = [(sum(mds[i][j] * s[j] for j in range(12)) + post[r][i]) % P for i in range(12)]
+        assert s == gp.permutation(state)

@@ -23,8 +23,9 @@ from plonky2_verifier_tpu.models.lookup import lookup_fixture
 from plonky2_verifier_tpu.models.poseidon_chain import poseidon_chain_fixture
 from plonky2_verifier_tpu.prover.prove import prove
 from plonky2_verifier_tpu.verifier_jax import JaxVerifier
+from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.ops.field import to_u64
-from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier, verify_batch
 
 HETERO = [(1, 2), (3, 5), (10, 11), (7, 1)]
 MUTATED = ["openings1", "pow_witness", "leaves_1", "final_poly", "public_inputs", "circuit_digest"]
@@ -47,7 +48,7 @@ def _flip(arrays, name, lane):
 
 
 def _run_both(tpl, arrays):
-    tv = TorchVerifier(tpl, debug=True)
+    tv = TorchVerifier(tpl, debug=True, device="cpu")
     jv = JaxVerifier(tpl, debug=True)
     return tv(tv.prepare(arrays)), jv(jv.prepare(arrays))
 
@@ -64,7 +65,7 @@ def fib():
     assert int(pi[0]) < 2**64 - P
     pi[0] += np.uint64(P)
     t_out, j_out = _run_both(tpl, arrays)
-    return fx0.common, lanes, t_out, j_out
+    return fx0.common, lanes, t_out, j_out, tpl, arrays
 
 
 @pytest.fixture(scope="module")
@@ -84,19 +85,20 @@ def _jax_u64(pair):
     return (hi << np.uint64(32)) | lo
 
 
-def _debug_pairs(t_dbg, j_dbg):
-    """(name, port u64 array, JAX u64 array) for every debug intermediate."""
-    yield "zeta.re", to_u64(t_dbg["zeta"][0]), _jax_u64(j_dbg["zeta"][:2])
-    yield "zeta.im", to_u64(t_dbg["zeta"][1]), _jax_u64(j_dbg["zeta"][2:])
-    yield "fri_alpha.re", to_u64(t_dbg["fri_alpha"][0]), _jax_u64(j_dbg["fri_alpha"][:2])
-    yield "fri_alpha.im", to_u64(t_dbg["fri_alpha"][1]), _jax_u64(j_dbg["fri_alpha"][2:])
+def _debug_pairs(t_dbg, j_dbg, u=to_u64):
+    """(name, port u64 array, JAX u64 array) for every debug intermediate;
+    `u` turns the port's value into a uint64 array (tensors by default)."""
+    yield "zeta.re", u(t_dbg["zeta"][0]), _jax_u64(j_dbg["zeta"][:2])
+    yield "zeta.im", u(t_dbg["zeta"][1]), _jax_u64(j_dbg["zeta"][2:])
+    yield "fri_alpha.re", u(t_dbg["fri_alpha"][0]), _jax_u64(j_dbg["fri_alpha"][:2])
+    yield "fri_alpha.im", u(t_dbg["fri_alpha"][1]), _jax_u64(j_dbg["fri_alpha"][2:])
     for i, (t, j) in enumerate(zip(t_dbg["betas"], j_dbg["betas"])):
-        yield f"betas[{i}]", to_u64(t), _jax_u64(j)
+        yield f"betas[{i}]", u(t), _jax_u64(j)
     for i, (t, j) in enumerate(zip(t_dbg["alphas"], j_dbg["alphas"])):
-        yield f"alphas[{i}]", to_u64(t), _jax_u64(j)
-    yield "pow_response", to_u64(t_dbg["pow_response"]), _jax_u64(j_dbg["pow_response"])
-    yield "query_indices", to_u64(t_dbg["query_indices"]), np.asarray(j_dbg["query_indices"], dtype=np.uint64)
-    yield "pi_hash", to_u64(t_dbg["pi_hash"]), _jax_u64(j_dbg["pi_hash"])
+        yield f"alphas[{i}]", u(t), _jax_u64(j)
+    yield "pow_response", u(t_dbg["pow_response"]), _jax_u64(j_dbg["pow_response"])
+    yield "query_indices", u(t_dbg["query_indices"]), np.asarray(j_dbg["query_indices"], dtype=np.uint64)
+    yield "pi_hash", u(t_dbg["pi_hash"]), _jax_u64(j_dbg["pi_hash"])
 
 
 def _assert_lane_matches_golden(common, dbg, lane, vkey, pwp):
@@ -118,7 +120,7 @@ def test_cached_fixture_verifies():
     this also writes it when no other test has yet."""
     common, vkey, pwp = get_fixture_proof("fibonacci", num_query_rounds=8, x0=6, x1=7)
     tpl = CircuitTemplate(common)
-    v = TorchVerifier(tpl, debug=True)
+    v = TorchVerifier(tpl, debug=True, device="cpu")
     out = v(v.prepare(flatten_proofs(tpl, [(vkey, pwp)])))
     assert out["ok"].tolist() == [True]
     _assert_lane_matches_golden(common, out["debug"], 0, vkey, pwp)
@@ -126,43 +128,80 @@ def test_cached_fixture_verifies():
 
 @pytest.mark.parametrize("key", ["ok", "eqs_ok", "fri_ok"])
 def test_fibonacci_verdicts_match_jax(fib, key):
-    _, _, t_out, j_out = fib
+    _, _, t_out, j_out, _, _ = fib
     np.testing.assert_array_equal(t_out[key].numpy(), np.asarray(j_out[key]))
 
 
 def test_fibonacci_accepts_exactly_the_intact_lanes(fib):
-    _, _, t_out, _ = fib
+    _, _, t_out, _, _, _ = fib
     assert t_out["ok"].tolist() == [True] * len(HETERO) + [False] * len(MUTATED) + [True]
 
 
 def test_noncanonical_public_input_hashes_as_its_field_element(fib):
-    _, _, t_out, _ = fib
+    _, _, t_out, _, _, _ = fib
     pi_hash = to_u64(t_out["debug"]["pi_hash"])
     np.testing.assert_array_equal(pi_hash[NONCANONICAL], pi_hash[0])
 
 
 @pytest.mark.parametrize("i,name", list(enumerate(MUTATED)), ids=MUTATED)
 def test_mutation_rejected(fib, i, name):
-    _, _, t_out, j_out = fib
+    _, _, t_out, j_out, _, _ = fib
     lane = len(HETERO) + i
     assert not bool(t_out["ok"][lane]), f"mutating {name} was accepted"
     assert not bool(np.asarray(j_out["ok"])[lane])
 
 
 def test_fibonacci_debug_matches_jax(fib):
-    _, _, t_out, j_out = fib
+    _, _, t_out, j_out, _, _ = fib
     for name, got, want in _debug_pairs(t_out["debug"], j_out["debug"]):
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 @pytest.mark.parametrize("lane", range(len(HETERO)))
 def test_heterogeneous_lane_matches_golden(fib, lane):
-    common, lanes, t_out, _ = fib
+    common, lanes, t_out, _, _, _ = fib
     _assert_lane_matches_golden(common, t_out["debug"], lane, *lanes[lane])
 
 
+def test_verify_batch_on_cpu_matches_jax(fib):
+    """The one-call entry point, numpy in and numpy out, with device="cpu":
+    JaxVerifier's verdicts and challenge intermediates, bit for bit."""
+    _, _, t_out, j_out, tpl, arrays = fib
+    out = verify_batch(tpl, arrays, debug=True, device="cpu")
+    for key in ("ok", "eqs_ok", "fri_ok"):
+        assert isinstance(out[key], np.ndarray) and out[key].dtype == np.bool_
+        np.testing.assert_array_equal(out[key], np.asarray(j_out[key]), err_msg=key)
+    assert out["debug"]["zeta"][0].dtype == np.uint64
+    for name, got, want in _debug_pairs(out["debug"], j_out["debug"], u=lambda x: x):  # already uint64 numpy
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(out["debug"]["pi_hash"], to_u64(t_out["debug"]["pi_hash"]))
+    assert "debug" not in verify_batch(tpl, {k: a[:2] for k, a in arrays.items()}, device="cpu")
+
+
+def test_run_transcript_plain_loop_matches_jax_challenges(fib):
+    """_run_transcript on a CPU tensor is the plain loop over the schedule
+    (one gather, one masked overwrite, one plain permutation a step); its
+    challenges are JaxVerifier's debug challenges."""
+    _, _, t_out, j_out, tpl, arrays = fib
+    v = TorchVerifier(tpl, device="cpu")
+    a = v.prepare(arrays)
+    data = v._transcript_data(a, t_out["debug"]["pi_hash"])
+    states = tp.permutation_scan_plain(data, v._ov_idx, v._ov_mask, v.poseidon)
+    assert states.shape == (len(tpl.schedule.permutes), data.shape[0], 12)
+    ch = v._run_transcript(data)
+    for i, j in enumerate(j_out["debug"]["betas"]):
+        np.testing.assert_array_equal(to_u64(ch["betas"][i]), _jax_u64(j), err_msg=f"betas[{i}]")
+    for i, j in enumerate(j_out["debug"]["alphas"]):
+        np.testing.assert_array_equal(to_u64(ch["alphas"][i]), _jax_u64(j), err_msg=f"alphas[{i}]")
+    np.testing.assert_array_equal(to_u64(ch["zeta"][0]), _jax_u64(j_out["debug"]["zeta"][:2]))
+    np.testing.assert_array_equal(to_u64(ch["zeta"][1]), _jax_u64(j_out["debug"]["zeta"][2:]))
+    np.testing.assert_array_equal(to_u64(ch["pow_response"][0]), _jax_u64(j_out["debug"]["pow_response"]))
+    pi, lane = tpl.schedule.challenges["pow_response"][0]
+    np.testing.assert_array_equal(to_u64(states[pi][:, lane]), to_u64(ch["pow_response"][0]))
+
+
 def test_heterogeneous_transcripts_are_distinct(fib):
-    _, _, t_out, _ = fib
+    _, _, t_out, _, _, _ = fib
     zeta_re = to_u64(t_out["debug"]["zeta"][0])[: len(HETERO)]
     assert len(set(int(z) for z in zeta_re)) == len(HETERO)
 
@@ -180,4 +219,4 @@ def test_poseidon_chain_matches_jax(pos):
 def test_lookup_template_is_refused():
     tpl = CircuitTemplate(lookup_fixture(num_query_rounds=4, proof_of_work_bits=4).common)
     with pytest.raises(NotImplementedError, match="lookup"):
-        TorchVerifier(tpl)
+        TorchVerifier(tpl, device="cpu")

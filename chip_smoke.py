@@ -2,7 +2,9 @@
 """Smoke test of the PyTorch port on one CUDA card: build the Poseidon
 kernels, hold each against its plain PyTorch version and the golden model,
 time both, then verify a batch of 1024 standard-shape fibonacci proofs
-through TorchVerifier and check verdicts and transcripts.
+through TorchVerifier and check verdicts and transcripts, and then batches
+of 512 and 1024 proofs of the gate-zoo circuit (all 16 gate kinds and the
+lookup argument) the same way.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -14,21 +16,36 @@ success):
    card, on the known-answer state, the p-edge band, 2^20 + 37 random states
    (the permutation in both of its forms, a state per thread and a state per
    half-warp), every sponge width and every path length used, plus rows
-   against golden/; the transcript-scan entry point against the plain loop on
-   a real schedule at batch 1, 5 and 1024, and lane 0 against golden/;
+   against golden/; the grouped sponge entry point on every width mixed in
+   one launch (row counts that are no multiple of the block, an empty
+   segment, the edge band) against its plain version, against the
+   one-matrix entry point and against golden/; the transcript-scan entry
+   point against the plain loop on a real schedule at batch 1, 5 and 1024,
+   and lane 0 against golden/;
 4. main path: the standard fixture (degree 12, 28 queries, PoW 16), batch
    1024, all accepted; lane 0's transcript equal to golden; six single-array
    mutations rejected on exactly their lanes; a 4-lane heterogeneous batch
    accepted with every lane's transcript equal to golden; over the main-path
    run the scan was launched at least once and the sponge and Merkle kernels
-   more than zero times;
+   more than zero times (the sponge twice: the public-input hash and one
+   grouped launch for every leaf hash);
 5. kernel times at the main path's shapes (batch 1024), kernel and plain,
    each pair also compared bit for bit, each beside its bound (the integer
    work W of csrc/poseidon.cuh over the card's int32 rate at its maximum SM
    clock, or the bytes over 3.35 TB/s, whichever is larger); the
-   permutation's step time in both forms at n = 64 ... 16384;
-6. timing: 10 verifier calls after warm-up -> proofs/s, step ms, and the
-   transcript alone.
+   permutation's step time in both forms at n = 64 ... 16384; the grouped
+   sponge launch over the six row matrices of one verifier call, at the
+   fibonacci path's widths and at the gate zoo's, beside the same matrices
+   hashed one launch each;
+6. timing: 5 verifier calls after warm-up -> proofs/s, step ms, and the
+   transcript alone;
+7. second path: the gate-zoo fixture with lookups (degree 12, 28 queries,
+   PoW 16; proved by a child process that starts with phase 2 and is waited
+   for here), at batch 512 and 1024: all accepted, lane 0's transcript
+   (the lookup deltas among it) equal to golden, seven single-array
+   mutations (one a lookup opening inside openings1) rejected on exactly
+   their lanes through verify_batch, the launch counters set to 0 before the
+   first call and read after it, then step ms and proofs/s.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 
@@ -49,6 +66,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024
 DEVICE = None  # the card; a rehearsal on the CPU sets "cpu" with a stand-in kernel library
 STANDARD = {"n_arith_rows": 4093, "num_query_rounds": 28, "proof_of_work_bits": 16}
+ZOO = {"target_degree_bits": 12, "num_query_rounds": 28, "proof_of_work_bits": 16}  # the gate-zoo shape
+ZOO_BATCHES = [512, 1024]
+TIMED_CALLS = 5
+ZOO_TIMED_CALLS = 3
 P = 0xFFFFFFFF00000001
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
 SPONGE_WIDTHS = [0, 1, 3, 7, 8, 9, 16, 20, 32, 83, 135]
@@ -187,7 +208,7 @@ def check_kernels(lib, consts):
             c.compare(got, want, f"scan B={B} ({form})")
             c.compare(got[:, 0], golden, f"scan B={B} ({form}) lane 0 vs golden")
 
-    # sponge
+    # sponge: one matrix a launch
     c = checks["sponge_rows"]
     for width in SPONGE_WIDTHS:
         rows_np = _rand(rng, (4099, width))
@@ -196,6 +217,31 @@ def check_kernels(lib, consts):
         c.compare(got, th.sponge_rows_plain(rows, width, consts), f"width {width}")
         golden = np.array([gh.sponge([int(v) for v in r]) for r in rows_np[:4]], dtype=np.uint64).reshape(4, 4)
         c.compare(got[:4], golden, f"width {width} vs golden")
+
+    # sponge, grouped: every width mixed in one launch, row counts that are
+    # no multiple of the block, an empty segment, and the edge band
+    sizes = [4099, 31, 1, 33, 0, 64, 1000, 32, 7, 2049, 513]
+    group_np = [_rand(rng, (n, w)) for n, w in zip(sizes, SPONGE_WIDTHS)]
+    group_np += [edge[rng.integers(0, len(EDGE), size=(777, w))] for w in (135, 20, 9)]
+    group = [tf.from_u64(x, dev) for x in group_np]
+    if len(group) > lib.max_segments:
+        raise AssertionError(f"{len(group)} segments do not fit one launch of {lib.max_segments}")
+    before = lib.launches["sponge_rows_grouped"]
+    got = lib.sponge_rows_grouped(group)
+    if lib.launches["sponge_rows_grouped"] != before + 1:
+        raise AssertionError("the mixed group took more than one launch")
+    want = th.sponge_rows_grouped_plain(group, consts)
+    for x_np, x, g, w in zip(group_np, group, got, want):
+        what = f"grouped segment {x_np.shape}"
+        c.compare(g, w, what)
+        c.compare(g, lib.sponge_rows(x, x.shape[1]), f"{what} vs sponge_rows")
+        k = min(4, x_np.shape[0])
+        golden = np.array([gh.sponge([int(v) for v in r]) for r in x_np[:k]], dtype=np.uint64).reshape(k, 4)
+        c.compare(g[:k], golden, f"{what} vs golden")
+    # more matrices than one launch takes
+    many = [tf.from_u64(_rand(rng, (5 + k, 1 + k)), dev) for k in range(lib.max_segments + 3)]
+    for g, w in zip(lib.sponge_rows_grouped(many), th.sponge_rows_grouped_plain(many, consts)):
+        c.compare(g, w, f"grouped beyond one launch {tuple(g.shape)}")
 
     # merkle: path lengths, and sizes on both sides of one wave of blocks
     c = checks["merkle_fold"]
@@ -231,10 +277,12 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_kernels(lib, consts, v, dev, checks, rate):
+def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     """Kernel and plain times at the main path's shapes, each pair also held
     bit-exact against each other, each beside its bound; returns, per kernel,
-    the times of its largest main-path call and prints every shape."""
+    the times of its largest main-path call and prints every shape. The
+    grouped sponge launch is timed at the main path's six matrices and at
+    those of `zoo_tpl`, the second path's template."""
     import torch
 
     from plonky2_verifier_tpu_torch.ops import field as tf
@@ -277,12 +325,27 @@ def time_kernels(lib, consts, v, dev, checks, rate):
         print(f"time permutation step n={n}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in forms.items())
               + f", bound {bound_ms(n, n * 192, rate)[0]:.5f} ms")
 
-    widths = [(B, tpl.n_pi)] + [(B * Q, w) for w in tpl.oracle_widths] + [(B * Q, 2 << st["arity_bits"]) for st in tpl.steps]
-    for n, w in widths:
+    def leaf_shapes(t):
+        return [(B * t.num_queries, w) for w in t.oracle_widths] + [(B * t.num_queries, 2 << st["arity_bits"]) for st in t.steps]
+
+    for n, w in [(B, tpl.n_pi)] + leaf_shapes(tpl):
         rows = tf.from_u64(_rand(rng, (n, w)), "cuda")
         res = measure("sponge_rows", f"({n}, {w})", lambda: lib.sponge_rows(rows, w), lambda: th.sponge_rows_plain(rows, w, consts), 20, n * -(-w // 8), n * (w + 4) * 8)
         if w == max(tpl.oracle_widths):
-            out["sponge_rows"] = res
+            widest = res
+    # every leaf hash of one verifier call in one launch, beside one launch a matrix
+    for name, t in [("the main path", tpl), ("the gate-zoo path", zoo_tpl)]:
+        shapes = leaf_shapes(t)
+        group = [tf.from_u64(_rand(rng, shape), "cuda") for shape in shapes]
+        res = measure(
+            "sponge_rows", f"grouped, {name}: {shapes}",
+            lambda: torch.cat(lib.sponge_rows_grouped(group)), lambda: torch.cat(th.sponge_rows_grouped_plain(group, consts)),
+            20, sum(n * -(-w // 8) for n, w in shapes), sum(n * (w + 4) * 8 for n, w in shapes), plain_iters=1,
+        )
+        apart = _time_ms(lambda: [lib.sponge_rows(rows, rows.shape[1]) for rows in group], 20, 2)
+        print(f"time sponge_rows grouped, {name}: the same matrices one launch each {apart:.4f} ms")
+        if t is tpl:
+            out["sponge_rows"] = dict(res, widest=widest)
 
     paths = [(B * 4 * Q, tpl.initial_path_len)] + [(B * Q, st["path_len"]) for st in tpl.steps]
     for n, L in paths:
@@ -305,7 +368,9 @@ def _transcript_equals_golden(common, dbg, lane, vkey, pwp):
     got = {
         "zeta": (u(dbg["zeta"][0])[0], u(dbg["zeta"][1])[0]),
         "betas": [u(b)[0] for b in dbg["betas"]],
+        "gammas": [u(g)[0] for g in dbg["gammas"]],
         "alphas": [u(a)[0] for a in dbg["alphas"]],
+        "deltas": [tuple(u(x)[0] for x in d) for d in dbg["deltas"]],
         "fri_alpha": (u(dbg["fri_alpha"][0])[0], u(dbg["fri_alpha"][1])[0]),
         "pow_response": u(dbg["pow_response"])[0],
         "query_indices": u(dbg["query_indices"]),
@@ -314,7 +379,9 @@ def _transcript_equals_golden(common, dbg, lane, vkey, pwp):
     want = {
         "zeta": tuple(ch.zeta),
         "betas": list(ch.betas),
+        "gammas": list(ch.gammas),
         "alphas": list(ch.alphas),
+        "deltas": [(d.a, d.b, d.alpha, d.delta) for d in ch.deltas],
         "fri_alpha": tuple(ch.fri.alpha),
         "pow_response": ch.fri.pow_response,
         "query_indices": list(ch.fri.query_indices),
@@ -325,6 +392,32 @@ def _transcript_equals_golden(common, dbg, lane, vkey, pwp):
             raise AssertionError(f"lane {lane}: {k} differs from golden: {got[k]} != {want[k]}")
 
 
+def _check_launches(launches, what: str):
+    """The scan once, the Merkle walk at least once, and the sponge twice:
+    the public-input hash and one grouped launch for every leaf hash."""
+    if launches["permutation_scan"] < 1 or launches["merkle_fold"] <= 0:
+        raise AssertionError(f"a kernel was not launched on {what}: {launches}")
+    if (launches["sponge_rows"], launches["sponge_rows_grouped"]) != (1, 1):
+        raise AssertionError(f"{what} should launch the sponge twice (one matrix, one group): {launches}")
+
+
+def _check_mutations(tpl, arrays, batch: int, names):
+    """Lane k gets one u64 of array names[k] flipped (a (name, column) pair
+    flips that column's first word); exactly those lanes must be rejected,
+    through the one-call entry point."""
+    from plonky2_verifier_tpu_torch.verifier_torch import verify_batch
+
+    mutated = {k: a.copy() for k, a in arrays.items()}
+    for lane, name in enumerate(names):
+        name, column = name if isinstance(name, tuple) else (name, 0)
+        mutated[name].reshape(batch, -1)[lane, column] ^= np.uint64(1)
+    out_m = verify_batch(tpl, mutated, device=DEVICE)["ok"]
+    rejected = sorted(int(i) for i in np.flatnonzero(~out_m))
+    print(f"mutations {names}: rejected lanes {rejected}")
+    if rejected != list(range(len(names))):
+        raise AssertionError("mutated lanes are not exactly the rejected ones")
+
+
 def main_path(lib):
     import torch
 
@@ -332,7 +425,7 @@ def main_path(lib):
     from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
     from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
     from plonky2_verifier_tpu_torch.prover.prove import prove
-    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier, verify_batch
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 
     t = time.time()
     common, vkey, pwp = get_fixture_proof("fibonacci", **STANDARD)
@@ -357,20 +450,10 @@ def main_path(lib):
     print(f"accepted {n_ok}/{BATCH} (eqs_ok {int(out['eqs_ok'].sum())}, fri_ok {int(out['fri_ok'].sum())})")
     if n_ok != BATCH:
         raise AssertionError("standard batch not fully accepted")
-    if launches["permutation_scan"] < 1 or launches["sponge_rows"] <= 0 or launches["merkle_fold"] <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    _check_launches(launches, "the main path")
     _transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
     print("lane 0 transcript equals golden")
-
-    mutated = {k: a.copy() for k, a in arrays.items()}
-    for lane, name in enumerate(MUTATED):
-        mutated[name].reshape(BATCH, -1)[lane, 0] ^= np.uint64(1)
-    out_m = verify_batch(tpl, mutated, device=DEVICE)["ok"]  # the one-call entry point
-    rejected = sorted(int(i) for i in np.flatnonzero(~out_m))
-    print(f"mutations {MUTATED}: rejected lanes {rejected}")
-    if rejected != list(range(len(MUTATED))):
-        raise AssertionError("mutated lanes are not exactly the rejected ones")
-    del mutated
+    _check_mutations(tpl, arrays, BATCH, MUTATED)
 
     fx0 = fibonacci_fixture(num_query_rounds=6)
     tpl6 = CircuitTemplate(fx0.common)
@@ -385,13 +468,12 @@ def main_path(lib):
     return v, dev, launches
 
 
-def time_main_path(v, dev):
+def time_main_path(v, dev, batch: int, iters: int, warmup: int = 2):
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         v(dev)
     torch.cuda.synchronize()
-    iters = 10
     t = time.time()
     for _ in range(iters):
         out = v(dev)
@@ -400,14 +482,93 @@ def time_main_path(v, dev):
     if not bool(out["ok"].all()):
         raise AssertionError("timed batch not fully accepted")
     print(f"step_ms {step * 1e3:.3f}")
-    print(f"proofs_per_s {BATCH / step:.1f}")
-    print(f"batch {BATCH}")
+    print(f"proofs_per_s {batch / step:.1f}")
+    print(f"batch {batch}")
 
     # transcript alone (one scan launch plus the slicing of its states)
     pi_hash = torch.zeros_like(dev["circuit_digest"])
     data = v._transcript_data(dev, pi_hash)
     print(f"transcript_ms {_time_ms(lambda: v._run_transcript(data), 20, 2):.3f}")
     return step
+
+
+ZOO_PROVER = """
+import sys, time
+sys.path.insert(0, {root!r})
+from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+t = time.time()
+get_fixture_proof("gate_zoo", **{params!r})
+print(f"{{time.time() - t:.1f}}")
+"""
+
+
+def start_zoo_prover():
+    """A child process that proves the gate-zoo fixture into the fixture
+    cache while this process builds, checks and drives the first path."""
+    code = ZOO_PROVER.format(root=ROOT, params=ZOO)
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def zoo_fixture(prover=None):
+    """The gate-zoo template and proof; waits for `prover` first, if given."""
+    from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
+    from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+
+    t = time.time()
+    if prover is not None:
+        out, err = prover.communicate()
+        if prover.returncode != 0:
+            raise RuntimeError(f"proving the gate-zoo fixture failed ({prover.returncode}):\n{err}")
+        print(f"gate zoo fixture: proved in {out.strip()} s by the child process, waited {time.time() - t:.1f} s for it")
+    common, vkey, pwp = get_fixture_proof("gate_zoo", **ZOO)
+    tpl = CircuitTemplate(common)
+    print(f"gate zoo fixture: {time.time() - t:.1f} s (degree_bits {tpl.degree_bits}, {tpl.num_queries} queries, PoW {tpl.pow_bits}, "
+          f"{tpl.num_wires} wires, {len(common.gates)} gates of {len({g.kind for g in common.gates})} kinds, {tpl.n_lookup} lookup openings, "
+          f"oracle widths {tpl.oracle_widths})")
+    if tpl.n_lookup == 0:
+        raise AssertionError("the gate-zoo fixture has no lookups")
+    return tpl, common, vkey, pwp
+
+
+def zoo_path(lib, zoo):
+    """The second path: the gate-zoo template with lookups through
+    TorchVerifier at each batch of ZOO_BATCHES. Returns the launch counts of
+    each batch's first call."""
+    import torch
+
+    from plonky2_verifier_tpu_torch.compiler import flatten_proofs
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+
+    tpl, common, vkey, pwp = zoo
+    # one u64 flipped in each array, and a lookup opening inside openings1
+    lookup_at = 2 * (tpl.n_const_cols + tpl.n_sigmas + tpl.num_wires + tpl.n_zs + tpl.n_pp + tpl.n_quot)
+    names = MUTATED + [("openings1", lookup_at)]
+    v = TorchVerifier(tpl, debug=True, device=DEVICE)
+    counts = {}
+    for batch in ZOO_BATCHES:
+        arrays = flatten_proofs(tpl, [(vkey, pwp)] * batch)
+        dev = v.prepare(arrays)
+        torch.cuda.synchronize()
+        lib.reset_launches()
+        t = time.time()
+        out = v(dev)
+        torch.cuda.synchronize()
+        first_s = time.time() - t
+        counts[batch] = launches = dict(lib.launches)
+        print(f"gate zoo batch {batch}: first call {first_s:.3f} s, launches {launches}")
+        n_ok = int(out["ok"].sum())
+        print(f"gate zoo batch {batch}: accepted {n_ok}/{batch} (eqs_ok {int(out['eqs_ok'].sum())}, fri_ok {int(out['fri_ok'].sum())})")
+        if n_ok != batch:
+            raise AssertionError(f"gate-zoo batch {batch} not fully accepted")
+        _check_launches(launches, f"the gate-zoo path at batch {batch}")
+        _transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
+        print(f"gate zoo batch {batch}: lane 0 transcript equals golden")
+        _check_mutations(tpl, arrays, batch, names)
+        if ZOO_TIMED_CALLS:
+            print(f"gate zoo batch {batch} timing:")
+            time_main_path(v, dev, batch, ZOO_TIMED_CALLS, warmup=1)
+        del dev, arrays
+    return counts
 
 
 def main():
@@ -418,22 +579,31 @@ def main():
     from plonky2_verifier_tpu_torch import kernels
     from plonky2_verifier_tpu_torch.ops.poseidon import PoseidonConstants
 
-    t = time.time()
-    lib = kernels.load()
-    print(f"build_s {time.time() - t:.1f}")
-    consts = PoseidonConstants()
+    prover = start_zoo_prover()
+    try:
+        t = time.time()
+        lib = kernels.load()
+        print(f"build_s {time.time() - t:.1f}")
+        consts = PoseidonConstants()
 
-    checks = check_kernels(lib, consts)
-    v, dev, launches = main_path(lib)
-    times = time_kernels(lib, consts, v, dev, checks, rate)
-    time_main_path(v, dev)
+        checks = check_kernels(lib, consts)
+        v, dev, launches = main_path(lib)
+        zoo = zoo_fixture(prover)
+    finally:
+        if prover.poll() is None:
+            prover.kill()
+            prover.wait()
+    times = time_kernels(lib, consts, v, dev, checks, rate, zoo[0])
+    time_main_path(v, dev, BATCH, TIMED_CALLS)
+    del dev
+    zoo_launches = zoo_path(lib, zoo)
     if "--sass" in sys.argv[1:]:
         counts = kernels.sass_instruction_count()
         top = sorted(counts.items(), key=lambda kv: -kv[1])
         print(f"sass: {sum(counts.values())} instructions in one thread-form permutation "
               f"(W = {W_INSTRUCTIONS}): " + ", ".join(f"{k} {n}" for k, n in top))
-    print(f"launches on the main path: permutation {launches['permutation']}, permutation_scan {launches['permutation_scan']}, "
-          f"sponge_rows {launches['sponge_rows']}, merkle_fold {launches['merkle_fold']}")
+    for what, n in [("the main path", launches)] + [(f"the gate-zoo path at batch {b}", n) for b, n in zoo_launches.items()]:
+        print(f"launches on {what}: " + ", ".join(f"{k} {n[k]}" for k in kernels.COUNTERS))
     print(f"card: {smi}")
 
     sources = {"permutation": "permutation.cu", "sponge_rows": "sponge.cu", "merkle_fold": "merkle.cu"}
@@ -441,6 +611,11 @@ def main():
         "permutation": "plonky2_verifier_tpu/ops/pallas_poseidon.py:122",
         "sponge_rows": "plonky2_verifier_tpu/ops/pallas_hash.py:112",
         "merkle_fold": "plonky2_verifier_tpu/ops/pallas_hash.py:171",
+    }
+    entry_points = {
+        "permutation": ("permutation", "permutation_scan"),
+        "sponge_rows": ("sponge_rows", "sponge_rows_grouped"),
+        "merkle_fold": ("merkle_fold",),
     }
     rows = []
     for name in kernels.KERNELS:
@@ -450,8 +625,8 @@ def main():
             "route": "cuda",
             "source": f"plonky2_verifier_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name],
-            # the permutation kernel's two entry points count together
-            "launches": launches[name] + (launches["permutation_scan"] if name == "permutation" else 0),
+            # a kernel's entry points count together; the first path's run
+            "launches": sum(launches[k] for k in entry_points[name]),
             "max_abs_err": checks[name].max_abs_err,
             "ms": round(tm["ms"], 6),
             "plain_ms": round(tm["plain_ms"], 6),
@@ -459,8 +634,13 @@ def main():
             "bound_by": tm["bound_by"],
             "library_ms": None,  # no PyTorch operator computes Poseidon over Goldilocks
         }
-        if "step" in tm:  # one (1024, 12) step beside the scan that the main path launches
-            row.update({f"step_{k}": round(x, 6) if isinstance(x, float) else x for k, x in tm["step"].items()})
+        for b, n in zoo_launches.items():
+            row[f"launches_zoo_{b}"] = sum(n[k] for k in entry_points[name])
+        # beside the launch the main path makes: one (1024, 12) permutation
+        # step beside the scan, the widest single matrix beside the grouped sponge
+        for extra in ("step", "widest"):
+            if extra in tm:
+                row.update({f"{extra}_{k}": round(x, 6) if isinstance(x, float) else x for k, x in tm[extra].items()})
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -38,8 +38,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("permutation", "sponge", "merkle")
 KERNELS = ("permutation", "sponge_rows", "merkle_fold")
-# launch counters: the permutation kernel has two entry points
-COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "merkle_fold")
+# launch counters: the permutation and sponge kernels have two entry points each
+COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold")
+# also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
+SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
 FORMS = {"auto": 0, "thread": 1, "split": 2}
 WIDTH, N_ROUNDS, FIRST_PARTIAL, FIRST_LAST_FULL = 12, 30, 4, 26
 
@@ -82,25 +84,27 @@ def _read(path: str) -> bytes:
         return f.read()
 
 
-def build() -> dict:
+def build(extra_flags=()) -> dict:
     """Compile the kernels whose sources changed, all at once; return the
     library path of each source. Prints nvcc's report (registers and spills
-    per kernel) when it compiles."""
+    per kernel) when it compiles. `extra_flags` go to nvcc after the
+    standing ones (the probe tool's -D switches)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device; torch.cuda.is_available() is False")
     nvcc = _nvcc()
+    flags = [*NVCC_FLAGS, *extra_flags]
     header = _read(os.path.join(CSRC, "poseidon.cuh"))
     libs, running = {}, []
     for name in SOURCES:
         src = os.path.join(CSRC, f"{name}.cu")
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + header + _read(src))
+        h = hashlib.sha256(" ".join(flags).encode() + header + _read(src))
         libs[name] = lib = os.path.join(BUILD_DIR, f"libp2v_{name}_{h.hexdigest()[:16]}.so")
         if os.path.exists(lib):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            [nvcc, *flags, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
         running.append((name, proc, tmp, lib))
     failed = []
@@ -190,7 +194,11 @@ class KernelLibrary:
                 "p2v_permutation": [vp, vp, i64, i32, vp],
                 "p2v_permutation_scan": [vp, vp, vp, vp, i64, i64, i32, i32, vp],
             },
-            "sponge": {"p2v_sponge_rows": [vp, vp, i64, i32, vp]},
+            "sponge": {
+                "p2v_sponge_rows": [vp, vp, i64, i32, vp, vp],
+                "p2v_sponge_rows_grouped": [vp, vp, vp, vp, i32, vp, vp, vp],
+                "p2v_sponge_max_segments": [],
+            },
             "merkle": {"p2v_merkle_fold": [vp, vp, vp, vp, i64, i32, vp]},
         }
         if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
@@ -205,6 +213,8 @@ class KernelLibrary:
             lib = ctypes.CDLL(paths[source])
             self._libs.append(lib)
             fns = dict(fns, **{f"p2v_{source}_init": [vp, vp, vp, vp]})
+            if hasattr(lib, "p2v_sponge_rows_variant"):  # built with SPONGE_VARIANTS_FLAG
+                fns["p2v_sponge_rows_variant"] = [vp, vp, vp, vp, i32, vp, i32, i32, vp, vp]
             for name, argtypes in fns.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -212,6 +222,7 @@ class KernelLibrary:
                 self._fn[name] = fn
             err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data, circ.ctypes.data, diag.ctypes.data)
             _check_cuda(err, f"p2v_{source}_init")
+        self.max_segments = self._fn["p2v_sponge_max_segments"]()
         self.launches = dict.fromkeys(COUNTERS, 0)
 
     def reset_launches(self):
@@ -258,10 +269,48 @@ class KernelLibrary:
         n = rows.shape[0]
         out = torch.empty((n, 4), dtype=torch.int64, device=rows.device)
         if n:
-            err = self._fn["p2v_sponge_rows"](rows.data_ptr(), out.data_ptr(), n, width, _stream())
+            counter = torch.empty(1, dtype=torch.int32, device=rows.device)  # the blocks draw their rows from it
+            err = self._fn["p2v_sponge_rows"](rows.data_ptr(), out.data_ptr(), n, width, counter.data_ptr(), _stream())
             _check_cuda(err, "sponge_rows")
             self.launches["sponge_rows"] += 1
         return out
+
+    def sponge_rows_grouped(self, rows_list, variant=None) -> list:
+        """Several row matrices, each (n_k, width_k), hashed together:
+        returns their digests (n_k, 4) in the order given. One launch takes
+        `max_segments` matrices, longest rows first; a longer list takes
+        several launches. `variant` (the probe tool's) is (bound,
+        blocks_per_sm, drawn): the kernel built with SPONGE_VARIANTS_FLAG
+        under that launch bound, as p2v_sponge_rows_variant in
+        csrc/sponge.cu says, its blocks drawing their rows or striding."""
+        for k, rows in enumerate(rows_list):
+            _check_tensor(rows, f"rows[{k}]", (None, None))
+        counts = [rows.shape[0] for rows in rows_list]
+        starts = [sum(counts[:k]) for k in range(len(counts))]
+        device = torch.device("cuda", torch.cuda.current_device())
+        out = torch.empty((sum(counts), 4), dtype=torch.int64, device=device)
+        order = sorted((k for k in range(len(rows_list)) if counts[k]), key=lambda k: -rows_list[k].shape[1])
+        for at in range(0, len(order), self.max_segments):
+            seg = order[at : at + self.max_segments]
+            args = [
+                (ctypes.c_void_p * len(seg))(*(rows_list[k].data_ptr() for k in seg)),
+                (ctypes.c_int64 * len(seg))(*(counts[k] for k in seg)),
+                (ctypes.c_int * len(seg))(*(rows_list[k].shape[1] for k in seg)),
+                (ctypes.c_int64 * len(seg))(*(starts[k] for k in seg)),
+                len(seg),
+                out.data_ptr(),
+            ]
+            counter = torch.empty(1, dtype=torch.int32, device=device)  # the blocks draw their rows from it
+            if variant is None:
+                err = self._fn["p2v_sponge_rows_grouped"](*args, counter.data_ptr(), _stream())
+            else:
+                bound, blocks_per_sm, drawn = variant
+                err = self._fn["p2v_sponge_rows_variant"](
+                    *args, bound, blocks_per_sm, counter.data_ptr() if drawn else None, _stream()
+                )
+            _check_cuda(err, "sponge_rows_grouped")
+            self.launches["sponge_rows_grouped"] += 1
+        return [out[s : s + n] for s, n in zip(starts, counts)]
 
     def merkle_fold(self, digest: torch.Tensor, index: torch.Tensor, sibs: torch.Tensor) -> torch.Tensor:
         """digest (n, 4), index (n,), sibs (n, L, 4) -> roots (n, 4)."""

@@ -3,6 +3,9 @@
 - `sponge_rows`: the rate-8 overwrite sponge over rows (..., width) ->
   (..., 4). A partial last chunk overwrites only `width % 8` lanes; width 0
   gives zeros.
+- `sponge_rows_grouped`: the same sponge over several row tensors of
+  different widths at once, one kernel launch on the card (none of the
+  verifier's row hashes waits for another).
 - `merkle_fold`: the L-level Merkle walk. At level l the index bit l orders
   (current, sibling); compress is the permutation of [left, right, 0^4],
   keeping lanes 0-3. Returns the root; the cap compare stays with the caller.
@@ -37,8 +40,24 @@ def sponge_rows(rows, width: int, consts: PoseidonConstants):
     from .. import kernels
 
     lead = rows.shape[:-1]
-    out = kernels.load().sponge_rows(rows.reshape(-1, width).contiguous(), width)
+    out = kernels.load().sponge_rows(rows.reshape(lead.numel(), width).contiguous(), width)
     return out.reshape(*lead, 4)
+
+
+def sponge_rows_grouped_plain(rows_list, consts: PoseidonConstants):
+    return [sponge_rows_plain(rows, rows.shape[-1], consts) for rows in rows_list]
+
+
+def sponge_rows_grouped(rows_list, consts: PoseidonConstants):
+    """A list of rows (..., width_k) -> the list of their digests (..., 4)."""
+    rows_list = list(rows_list)
+    if all(rows.device.type == "cpu" for rows in rows_list):
+        return sponge_rows_grouped_plain(rows_list, consts)
+    from .. import kernels
+
+    flat = [rows.reshape(rows.shape[:-1].numel(), rows.shape[-1]).contiguous() for rows in rows_list]
+    outs = kernels.load().sponge_rows_grouped(flat)
+    return [out.reshape(*rows.shape[:-1], 4) for out, rows in zip(outs, rows_list)]
 
 
 def merkle_fold_plain(digest, index, sibs, path_len: int, consts: PoseidonConstants):

@@ -12,7 +12,14 @@ Run from the repository root:  python3 -m plonky2_verifier_tpu_torch.tools.probe
    shape (873 data words, 113 steps, 8 lanes overwritten a step), each
    beside its bound: where the forms cross says where the launcher's switch
    (csrc/permutation.cu SPLIT_MAX_STATES) should sit;
-4. times the Merkle walk and the row sponge at the standard shape's sizes;
+4. times the Merkle walk and the row sponge at the standard shape's sizes,
+   then the grouped sponge launch over the six matrices of one verifier call
+   (fibonacci and gate-zoo widths, batch 1024) beside the same six hashed one
+   launch each, and the kernel under other launch bounds, with other
+   numbers of blocks an SM, and with blocks that stride where the shipped
+   ones draw their rows from a counter (csrc/sponge.cu built with
+   -DP2V_SPONGE_VARIANTS), every variant held bit-exact against the shipped
+   kernel;
 5. builds csrc/probe_cycles.cu and prints the cycles one warp spends in one
    modular multiply, one S-box, one shuffle, and one permutation in each
    form (clock64 around 20 dependent repetitions);
@@ -40,6 +47,46 @@ SCAN_BATCHES = [1, 64, 1024, 4096, 16384]
 N_DATA, N_PERMS = 873, 113  # the standard shape's transcript
 MERKLE_SHAPES = [(114688, 11), (28672, 7), (28672, 3)]
 SPONGE_SHAPES = [(1024, 3), (28672, 83), (28672, 135), (28672, 20), (28672, 16), (28672, 32)]
+# the six row matrices one verifier call hashes at batch 1024, 28 queries
+SPONGE_GROUPS = {
+    "fibonacci": [(28672, 135), (28672, 83), (28672, 32), (28672, 32), (28672, 20), (28672, 16)],
+    "gate zoo": [(28672, 135), (28672, 91), (28672, 34), (28672, 32), (28672, 32), (28672, 16)],
+}
+# csrc/sponge.cu p2v_sponge_rows_variant: (launch bound, blocks an SM, drawn)
+SPONGE_VARIANTS = [(16, g, True) for g in (4, 6, 8, 10, 12, 16)] + [
+    (16, 8, False),
+    (16, 0, False),
+    (28, 8, True),
+    (28, 28, True),
+    (1, 8, True),
+]
+
+
+def probe_sponge_groups(lib, rng, rate):
+    """The grouped launch beside one launch a matrix, then the kernel under
+    each of SPONGE_VARIANTS, on the matrices of SPONGE_GROUPS."""
+    variants = kernels.KernelLibrary(kernels.build((kernels.SPONGE_VARIANTS_FLAG,)))
+    for name, shapes in SPONGE_GROUPS.items():
+        group = [tf.from_u64(cs._rand(rng, shape), "cuda") for shape in shapes]
+        perms = sum(n * -(-w // 8) for n, w in shapes)
+        bound = cs.bound_ms(perms, sum(n * (w + 4) * 8 for n, w in shapes), rate)[0]
+        want = lib.sponge_rows_grouped(group)
+        for g, rows in zip(want, group):
+            if not torch.equal(g, lib.sponge_rows(rows, rows.shape[1])):
+                raise AssertionError(f"{name}: grouped launch differs from sponge_rows at {tuple(rows.shape)}")
+        apart = cs._time_ms(lambda: [lib.sponge_rows(rows, rows.shape[1]) for rows in group], 20, 3)
+        ms = cs._time_ms(lambda: lib.sponge_rows_grouped(group), 20, 3)
+        print(f"sponge group {name} ({perms} permutations): one launch {ms:.4f} ms, six launches {apart:.4f} ms, "
+              f"bound {bound:.4f} ms, share {bound / ms:.3f}")
+        for variant in SPONGE_VARIANTS:
+            for g, w in zip(variants.sponge_rows_grouped(group, variant), want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name}: variant {variant} differs from the shipped kernel")
+            ms = cs._time_ms(lambda: variants.sponge_rows_grouped(group, variant), 20, 3)
+            one = cs._time_ms(lambda: variants.sponge_rows_grouped(group[:1], variant), 20, 3)
+            blocks = f"{variant[1]} blocks an SM" if variant[1] else "one block a warp of rows"
+            print(f"sponge group {name}, launch bound {variant[0]}, {blocks}, {'drawn' if variant[2] else 'strided'}: "
+                  f"{ms:.4f} ms, share {bound / ms:.3f}; {tuple(group[0].shape)} alone {one:.4f} ms")
 
 
 def cycles_probe() -> str:
@@ -91,6 +138,7 @@ def main():
         rows = tf.from_u64(cs._rand(rng, (n, width)), "cuda")
         ms, bound = cs._time_ms(lambda: lib.sponge_rows(rows, width), 20, 3), cs.bound_ms(n * -(-width // 8), 0, rate)[0]
         print(f"sponge_rows ({n}, {width}): {ms:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f}")
+    probe_sponge_groups(lib, rng, rate)
 
     print(cycles_probe())
     counts = kernels.sass_instruction_count()

@@ -7,15 +7,17 @@ proof batch B (and inside FRI over the Q query rounds):
    per step one gather, one masked overwrite and one permutation; on the
    card the whole scan is one kernel launch) -> every Fiat-Shamir challenge,
    bit-exact;
-2. Plonk checks at zeta: selectors, L0, partial products, the gate
-   constraints (levelized gate program), alpha-combination, quotient equation;
-3. FRI: proof of work, the four-oracle Merkle openings, combineInitial, the
-   coset folds (IDFT as a multiply-add loop over the arity), the final poly.
+2. Plonk checks at zeta: selectors, L0, partial products, the lookup
+   argument (where the template has lookup tables), the gate constraints
+   (levelized gate program), alpha-combination, quotient equation;
+3. FRI: proof of work, the leaf hashes of the four oracles and of every fold
+   step's coset (one grouped sponge launch on the card), the Merkle
+   openings, combineInitial, the coset folds (IDFT as a multiply-add loop
+   over the arity), the final poly.
 
 Field values are int64 tensors holding u64 bit patterns (ops/field.py). The
 Poseidon chains go through ops/poseidon.py and ops/hash.py, which launch the
-CUDA kernels for CUDA tensors. Lookup templates are not ported yet: the
-constructor raises NotImplementedError for them.
+CUDA kernels for CUDA tensors.
 
 Entry points: `verify_batch(tpl, arrays)` (numpy in, numpy out) and
 `TorchVerifier(tpl)`. Both run on the CUDA card unless the caller passes a
@@ -124,8 +126,6 @@ class TorchVerifier(nn.Module):
     def __init__(self, tpl: CircuitTemplate, debug: bool = False, device=None):
         super().__init__()
         device = tf.resolve_device(device)
-        if tpl.common.num_lookup_polys > 0:
-            raise NotImplementedError("lookup templates are not ported yet")
         if tpl.lde_bits > 32 or tpl.pow_bits > 32:
             raise ValueError("lde domains beyond 2^32 and PoW beyond 32 bits are unsupported")
         self.tpl = tpl
@@ -252,12 +252,23 @@ class TorchVerifier(nn.Module):
             tpl.n_const_cols, tpl.n_sigmas, tpl.num_wires, tpl.n_zs, tpl.n_pp, tpl.n_quot, tpl.n_lookup
         ]
         offs = np.concatenate([[0], np.cumsum(widths)])
-        constants, sigmas, wires, zs, pps, quots, _ = (
+        constants, sigmas, wires, zs, pps, quots, lookup_zs = (
             o1[:, int(offs[i]) : int(offs[i + 1])] for i in range(len(widths))
         )
         zs_next = o2[:, : tpl.n_zs]
+        lookup_zs_next = o2[:, tpl.n_zs :]
 
-        eqs_ok = self._plonk_checks(pi_hash, constants, sigmas, wires, zs, zs_next, pps, quots, betas, gammas, alphas, zeta)
+        # lookup challenge 4-tuples (a, b, alpha, delta), one a round: chunks
+        # of betas ++ gammas ++ deltas
+        deltas = []
+        if tpl.common.num_lookup_polys > 0:
+            all4 = betas + gammas + ch["deltas"]
+            deltas = [tuple(all4[i : i + 4]) for i in range(0, len(all4), 4)]
+
+        eqs_ok = self._plonk_checks(
+            pi_hash, constants, sigmas, wires, zs, zs_next, pps, lookup_zs, lookup_zs_next, quots,
+            betas, gammas, alphas, deltas, zeta,
+        )
         fri_ok = self._fri_checks(a, o1, o2, zeta, fri_alpha, fri_betas, pow_response, qidx, final_poly)
 
         out = {"ok": eqs_ok & fri_ok, "eqs_ok": eqs_ok, "fri_ok": fri_ok}
@@ -265,7 +276,9 @@ class TorchVerifier(nn.Module):
             out["debug"] = {
                 "zeta": (zeta.re, zeta.im),
                 "betas": list(betas),
+                "gammas": list(gammas),
                 "alphas": list(alphas),
+                "deltas": deltas,
                 "fri_alpha": (fri_alpha.re, fri_alpha.im),
                 "pow_response": pow_response,
                 "query_indices": qidx,
@@ -274,7 +287,10 @@ class TorchVerifier(nn.Module):
         return out
 
     # -- plonk ----------------------------------------------------------------------
-    def _plonk_checks(self, pi_hash, constants, sigmas, wires, zs, zs_next, pps, quots, betas, gammas, alphas, zeta):
+    def _plonk_checks(
+        self, pi_hash, constants, sigmas, wires, zs, zs_next, pps, lookup_zs, lookup_zs_next, quots,
+        betas, gammas, alphas, deltas, zeta,
+    ):
         tpl = self.tpl
         common = tpl.common
         r = tpl.r
@@ -339,7 +355,10 @@ class TorchVerifier(nn.Module):
             acc = ext_sum_axis(tf.emul(sel_live.unsqueeze(-1), cons_all), axis=1)
 
         # assemble, alpha-combine, quotient equation
-        constraint_vec = tf.ext_concat([zs1, pp_vec, acc], dim=1)  # (B, K)
+        lookup_vec = []
+        if common.num_lookup_polys > 0:
+            lookup_vec = [self._lookup_checks(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas)]
+        constraint_vec = tf.ext_concat([zs1, pp_vec] + lookup_vec + [acc], dim=1)  # (B, K)
         combined = horner_scaled(constraint_vec, torch.stack(alphas, dim=1))  # (B, r)
         quots_r = quots.reshape(B, r, maxdeg)
         q = horner_ext(quots_r, zeta_n.unsqueeze(1).expand(B, r))
@@ -355,6 +374,119 @@ class TorchVerifier(nn.Module):
         one = tf.ext_constant(1, shape=(1, 1, 1), device=x.re.device)
         terms = tf.ext_where(self._sel_mask, consts - x.unsqueeze(-1), one)
         return tree_prod_last(terms)  # (B, n_gates)
+
+    def _lookup_checks(self, lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas) -> GExt:
+        """The log-derivative lookup equations at zeta, the counterpart of
+        verifier_jax.py  _lookup_checks, all challenge rounds on a leading
+        round axis. lkp_sels (B, 4 + luts), wires (B, num_wires), lookup_zs
+        and lookup_zs_next (B, r * polys) with the layout [RE, SLDC_0 ...]
+        a round, deltas r tuples (a, b, alpha, delta) of (B,) words ->
+        (B, r * (4 + luts + 2 * n_sldc)), a round after the other, each
+        [last_sldc, init_sum, init_re] ++ finals_re ++ [re_trans] ++
+        interleaved (sum_trans, ldc_trans) per SLDC chunk."""
+        tpl = self.tpl
+        common = tpl.common
+        r = tpl.r
+        B = wires.shape[0]
+        dev = wires.re.device
+        num_lu = common.config.num_routed_wires // 2  # (input, output) slots of a LookupGate row
+        num_lut = common.config.num_routed_wires // 3  # (input, output, multiplicity) slots of a table row
+        n_polys = common.num_lookup_polys
+        n_sldc = n_polys - 1
+        lu_deg = common.quotient_degree_factor - 1
+        lut_deg = -(-num_lut // n_sldc)
+
+        av, bv, alv, dlv = (torch.stack([d[k] for d in deltas], dim=1) for k in range(4))  # (B, r)
+        lz = lookup_zs.reshape(B, r, n_polys)
+        lzn = lookup_zs_next.reshape(B, r, n_polys)
+        re_o, sldc = lz[..., 0], lz[..., 1:]
+        re_next, sldc_next = lzn[..., 0], lzn[..., 1:]
+
+        def sel(i: int, rank: int = 2) -> GExt:
+            return lkp_sels[:, i].reshape((B,) + (1,) * (rank - 1))
+
+        pairs_in = wires[:, 0 : 2 * num_lu : 2].unsqueeze(1)  # (B, 1, num_lu)
+        pairs_out = wires[:, 1 : 2 * num_lu : 2].unsqueeze(1)
+        trip_in = wires[:, 0 : 3 * num_lut : 3].unsqueeze(1)  # (B, 1, num_lut)
+        trip_out = wires[:, 1 : 3 * num_lut : 3].unsqueeze(1)
+        trip_mult = wires[:, 2 : 3 * num_lut : 3].unsqueeze(1)
+
+        def combo(inp: GExt, out: GExt, c) -> GExt:
+            return inp + tf.escale(c.unsqueeze(-1), out)  # (B, r, slots)
+
+        lu_combos = combo(pairs_in, pairs_out, av)
+        lut_combos_a = combo(trip_in, trip_out, av)
+        lut_combos_b = combo(trip_in, trip_out, bv)
+        alpha_e = tf.ext_from_base(alv.unsqueeze(-1))
+
+        def chunked_terms(combos: GExt, deg: int, slots: int):
+            """alpha - combo in chunks (B, r, n_sldc, deg), padded with 1, and
+            the mask (n_sldc, deg) of the real slots."""
+            t = alpha_e - combos
+            pad = n_sldc * deg - slots
+            if pad:
+                t = tf.ext_concat([t, tf.ext_constant(1, shape=(B, r, pad), device=dev)], dim=-1)
+            mask = torch.arange(n_sldc * deg, device=dev).reshape(n_sldc, deg) < slots
+            return t.reshape(B, r, n_sldc, deg), mask
+
+        def leave_one_out(terms: GExt, deg: int):
+            """The product over the last axis (B, r, n_sldc) and the products
+            that leave one slot out (B, r, n_sldc, deg), from the exclusive
+            prefix and suffix products."""
+            one = tf.ext_constant(1, shape=tuple(terms.shape[:-1]), device=dev)
+            pre, suf = [one], [one]
+            for j in range(deg - 1):
+                pre.append(tf.emul(pre[-1], terms[..., j]))
+                suf.append(tf.emul(suf[-1], terms[..., deg - 1 - j]))
+            full = tf.emul(pre[-1], terms[..., deg - 1])
+            return full, tf.emul(tf.ext_stack(pre, dim=-1), tf.ext_stack(suf[::-1], dim=-1))
+
+        lu_terms, lu_mask = chunked_terms(lu_combos, lu_deg, num_lu)
+        lut_terms, lut_mask = chunked_terms(lut_combos_a, lut_deg, num_lut)
+        lu_prod, lu_loo = leave_one_out(lu_terms, lu_deg)
+        lut_prod, lut_loo = leave_one_out(lut_terms, lut_deg)
+        # sums over the real slots only
+        nothing = tf.ext_zeros((1, 1, 1, 1), dev)
+        lu_sum = ext_sum_axis(tf.ext_where(lu_mask, lu_loo, nothing), -1)
+        mults = trip_mult
+        mult_pad = n_sldc * lut_deg - num_lut
+        if mult_pad:
+            mults = tf.ext_concat([mults, tf.ext_zeros((B, 1, mult_pad), dev)], dim=-1)
+        mults = mults.reshape(B, 1, n_sldc, lut_deg)
+        lut_sum = ext_sum_axis(tf.ext_where(lut_mask, tf.emul(mults, lut_loo), nothing), -1)
+
+        # transitions of the SLDC chunks: chunk 0 follows the last chunk at omega x
+        prev = tf.ext_concat([sldc_next[..., -1:], sldc[..., :-1]], dim=-1)
+        dmin = sldc - prev  # (B, r, n_sldc)
+        eq_sum_t = tf.emul(sel(0, 3), tf.emul(lut_prod, dmin) - lut_sum)
+        eq_ldc_t = tf.emul(sel(1, 3), tf.emul(lu_prod, dmin) + lu_sum)
+        inter = tf.ext_stack([eq_sum_t, eq_ldc_t], dim=-1).reshape(B, r, 2 * n_sldc)
+
+        # RE transition: re minus the delta-Horner from re_next over the b-combos
+        cur = re_next
+        for k in range(num_lut):
+            cur = tf.escale(dlv, cur) + lut_combos_b[..., k]
+        eq_re_t = tf.emul(sel(0), re_o - cur)  # (B, r)
+
+        # final RE per table: the padded table's (input, output) columns as
+        # polynomials in delta, both Horner sums in one loop
+        eq_finals = []
+        for k, table in enumerate(common.luts):
+            rows = -(-len(table) // num_lut) * num_lut
+            padded = list(table) + [table[0]] * (rows - len(table))
+            coeffs = tf.from_u64(np.array(padded, dtype=np.uint64), dev)  # (rows, 2)
+            acc = tf.zeros((B, r, 2), dev)
+            for c in coeffs:
+                acc = tf.add(tf.mul(dlv.unsqueeze(-1), acc), c)
+            expected = tf.add(acc[..., 0], tf.mul(bv, acc[..., 1]))
+            eq_finals.append(tf.emul(sel(4 + k), re_o - tf.ext_from_base(expected)))
+
+        eq_last = tf.emul(sel(3), sldc[..., -1])
+        eq_ini_sum = tf.emul(sel(2), sldc[..., 0])
+        eq_ini_re = tf.emul(sel(2), re_o)
+        singles = [eq_last, eq_ini_sum, eq_ini_re] + eq_finals + [eq_re_t]
+        per_round = tf.ext_concat([e.unsqueeze(-1) for e in singles] + [inter], dim=-1)
+        return per_round.reshape(B, r * per_round.shape[-1])
 
     # -- FRI ------------------------------------------------------------------------
     def _fri_checks(self, a, o1, o2, zeta, fri_alpha, fri_betas, pow_response, qidx, final_poly):
@@ -380,10 +512,20 @@ class TorchVerifier(nn.Module):
         y0 = horner_ext(o1, fri_alpha)  # (B,)
         y1 = horner_ext(o2, fri_alpha)
 
+        # every leaf hash up front, in one grouped launch: the four oracles'
+        # rows and each fold step's coset leaf ((re, im) interleaved) are all
+        # proof data, so none waits for another
+        for o in range(4):
+            if a[f"leaves_{o}"].shape[-1] != tpl.oracle_widths[o]:
+                raise ValueError(f"leaves_{o} rows have {a[f'leaves_{o}'].shape[-1]} elements, expected {tpl.oracle_widths[o]}")
+        leaf_digests = th.sponge_rows_grouped(
+            [a[f"leaves_{o}"] for o in range(4)]
+            + [a[f"step_evals_{s}"].reshape(B, Q, 2 << st["arity_bits"]) for s, st in enumerate(tpl.steps)],
+            self.poseidon,
+        )
+
         # initial tree checks: the four oracles walk as one stacked batch
-        digests = torch.stack(
-            [th.sponge_rows(a[f"leaves_{o}"], tpl.oracle_widths[o], self.poseidon) for o in range(4)], dim=1
-        )  # (B, 4, Q, 4)
+        digests = torch.stack(leaf_digests[:4], dim=1)  # (B, 4, Q, 4)
         sibs = torch.stack([a[f"sibs_{o}"] for o in range(4)], dim=1)  # (B, 4, Q, L, 4)
         caps = torch.stack([a[k] for k in ("cap_cs", "cap_w", "cap_zp", "cap_q")], dim=1)  # (B, 4, cap, 4)
         cap_b = caps.unsqueeze(2).expand(B, 4, Q, *caps.shape[2:])
@@ -417,12 +559,11 @@ class TorchVerifier(nn.Module):
             arity = 1 << abits
             evals = a[f"step_evals_{s}"]  # (B, Q, A, 2)
             evals_ext = GExt(evals[..., 0], evals[..., 1])  # (B, Q, A)
-            # Merkle check of the flattened coset leaf ((re, im) interleaved)
-            digest = th.sponge_rows(evals.reshape(B, Q, 2 * arity), 2 * arity, self.poseidon)
+            # Merkle check of the coset leaf
             new_idx = idx >> abits
             cap = a[f"step_cap_{s}"]
             cap_b = cap.unsqueeze(1).expand(B, Q, *cap.shape[1:])
-            ok_m = merkle_batched(digest, new_idx, a[f"step_sibs_{s}"], cap_b, st["path_len"], self.poseidon)
+            ok_m = merkle_batched(leaf_digests[4 + s], new_idx, a[f"step_sibs_{s}"], cap_b, st["path_len"], self.poseidon)
             # the running evaluation matches the opened coset slot
             slot = (idx & (arity - 1)).unsqueeze(-1)
             opened = GExt(evals_ext.re.gather(-1, slot).squeeze(-1), evals_ext.im.gather(-1, slot).squeeze(-1))

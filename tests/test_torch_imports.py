@@ -119,26 +119,37 @@ def counted(name, fn):
     return run
 tp.permutation_scan = counted("permutation_scan", tp.permutation_scan)
 th.sponge_rows = counted("sponge_rows", th.sponge_rows)
+th.sponge_rows_grouped = counted("sponge_rows_grouped", th.sponge_rows_grouped)
 th.merkle_fold = counted("merkle_fold", th.merkle_fold)
 cs.DEVICE, cs.BATCH = "cpu", 6
 cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
+cs.ZOO = {"num_query_rounds": 2, "proof_of_work_bits": 2}
+cs.ZOO_BATCHES, cs.ZOO_TIMED_CALLS = [7, 8], 0
 torch.cuda.synchronize = lambda: None
 v, dev, launches = cs.main_path(lib)
-assert launches["permutation_scan"] == 1 and launches["sponge_rows"] > 0 and launches["merkle_fold"] > 0, launches
+assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
+assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
+prover = cs.start_zoo_prover()
+zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover))
+assert prover.returncode == 0
+assert sorted(zoo_launches) == [7, 8] and all(n["sponge_rows_grouped"] == 1 for n in zoo_launches.values()), zoo_launches
 bad = LOADED
 assert not bad, bad
 """
 
 
 def test_chip_smoke_main_path_rehearsal_loads_no_jax():
-    """chip_smoke.main_path end to end on the CPU at a tiny size, the kernel
-    library replaced by counters around the plain versions: every phase
-    passes, the launch check holds, and no forbidden module was loaded."""
+    """chip_smoke.main_path and zoo_path (its fixture proved by the child
+    process) end to end on the CPU at a tiny size, the kernel library
+    replaced by counters around the plain versions: every phase passes, the
+    launch checks hold, and no forbidden module was loaded."""
     code = REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "rejected lanes [0, 1, 2, 3, 4, 5]" in res.stdout
+    assert "rejected lanes [0, 1, 2, 3, 4, 5]\n" in res.stdout
+    assert res.stdout.count("rejected lanes [0, 1, 2, 3, 4, 5, 6]\n") == 2  # the zoo path, each batch
+    assert "gate zoo batch 8: lane 0 transcript equals golden" in res.stdout
 
 
 @pytest.fixture
@@ -159,6 +170,8 @@ def test_cpu_wrappers_take_plain_path(no_library):
     assert torch.equal(tp.permutation(x, consts), tp.permutation_plain(x, consts))
     rows = _rand(1, (5, 20))
     assert torch.equal(th.sponge_rows(rows, 20, consts), th.sponge_rows_plain(rows, 20, consts))
+    grouped = th.sponge_rows_grouped([rows, _rand(9, (2, 3, 9))], consts)
+    assert torch.equal(grouped[0], th.sponge_rows_plain(rows, 20, consts)) and grouped[1].shape == (2, 3, 4)
     dig, sibs = _rand(2, (2, 3, 4)), _rand(3, (2, 3, 5, 4))
     idx = torch.arange(6, dtype=torch.int64).reshape(2, 3) * 37
     assert torch.equal(th.merkle_fold(dig, idx, sibs, 5, consts), th.merkle_fold_plain(dig, idx, sibs, 5, consts))
@@ -225,6 +238,8 @@ def test_non_cpu_tensor_raises_instead_of_falling_back():
         tp.permutation(meta, consts)
     with pytest.raises(RuntimeError, match="CUDA"):
         th.sponge_rows(torch.empty((4, 9), dtype=torch.int64, device="meta"), 9, consts)
+    with pytest.raises(RuntimeError, match="CUDA"):  # one matrix off the CPU is enough
+        th.sponge_rows_grouped([_rand(9, (4, 9)), torch.empty((4, 9), dtype=torch.int64, device="meta")], consts)
 
 
 def test_kernel_input_checks_reject_cpu_tensors():

@@ -91,6 +91,48 @@ def test_sponge_rows(lib, consts, width):
     assert tuple(int(x) for x in tf.to_u64(got)[0]) == gh.sponge([int(x) for x in host[0]])
 
 
+SPONGE_GROUP = [(517, 135), (31, 83), (0, 8), (1, 32), (33, 32), (64, 20), (4099, 16), (7, 0), (300, 9)]
+
+
+def test_sponge_rows_grouped_mixed_widths_in_one_launch(lib, consts):
+    """Every width in one launch, row counts on both sides of a warp, an
+    empty matrix and a width of 0: the plain version, the one-matrix entry
+    point and (row 0 of each) the golden sponge."""
+    group = [_rand(50 + k, shape) for k, shape in enumerate(SPONGE_GROUP)]
+    group[0][:9] = tf.from_u64(np.repeat(EDGE[:, None], 135, axis=1), "cuda")  # p and 2^64 - 1 among them
+    before = lib.launches["sponge_rows_grouped"]
+    got = lib.sponge_rows_grouped(group)
+    assert lib.launches["sponge_rows_grouped"] == before + 1
+    want = th.sponge_rows_grouped_plain(group, consts)
+    for rows, g, w in zip(group, got, want):
+        assert g.shape == (rows.shape[0], 4)
+        assert torch.equal(g, w)
+        assert torch.equal(g, lib.sponge_rows(rows, rows.shape[1]))
+        if rows.shape[0]:
+            assert tuple(int(x) for x in tf.to_u64(g)[0]) == gh.sponge([int(x) for x in tf.to_u64(rows)[0]])
+
+
+@pytest.mark.parametrize("n", [1, 33, 33793, 70001])
+def test_sponge_rows_more_rows_than_the_grid(lib, consts, n):
+    """Fewer rows than a warp, and more warps of rows than the 8 one-warp
+    blocks an SM that the launch starts (132 x 8 x 32 = 33,792 rows)."""
+    rows = _rand(n, (n, 9))
+    assert torch.equal(lib.sponge_rows(rows, 9), th.sponge_rows_plain(rows, 9, consts))
+    a, b = lib.sponge_rows_grouped([rows, rows[: n // 2, :4].contiguous()])
+    assert torch.equal(a, lib.sponge_rows(rows, 9))
+    assert torch.equal(b, th.sponge_rows_plain(rows[: n // 2, :4], 4, consts))
+
+
+def test_sponge_rows_grouped_beyond_one_launch(lib, consts):
+    group = [_rand(70 + k, (5 + k, 1 + k)) for k in range(lib.max_segments + 3)]
+    before = lib.launches["sponge_rows_grouped"]
+    got = lib.sponge_rows_grouped(group)
+    assert lib.launches["sponge_rows_grouped"] == before + 2
+    for g, w in zip(got, th.sponge_rows_grouped_plain(group, consts)):
+        assert torch.equal(g, w)
+    assert lib.sponge_rows_grouped([]) == []
+
+
 @pytest.mark.parametrize("path_len", [0, 1, 3, 7, 11])
 def test_merkle_fold(lib, consts, path_len):
     n = 517
@@ -125,8 +167,11 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     ov_idx, ov_mask = _schedule(34, 3, 20)
     data = _rand(35, (4, 20))
     assert torch.equal(tp.permutation_scan(data, ov_idx, ov_mask, consts), tp.permutation_scan_plain(data, ov_idx, ov_mask, consts))
+    group = [_rand(36, (2, 3, 20)), _rand(37, (5, 9))]
+    for g, w in zip(th.sponge_rows_grouped(group, consts), th.sponge_rows_grouped_plain(group, consts)):
+        assert torch.equal(g, w)
     assert {k: lib.launches[k] - before[k] for k in before} == {
-        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "merkle_fold": 1
+        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1
     }
 
 
@@ -138,6 +183,8 @@ def test_kernel_inputs_are_validated(lib):
         lib.permutation(x.to(torch.int32))
     with pytest.raises(ValueError, match="shape"):
         lib.sponge_rows(_rand(41, (4, 9)), 8)
+    with pytest.raises(ValueError, match=r"rows\[1\]"):
+        lib.sponge_rows_grouped([_rand(46, (4, 9)), _rand(47, (4, 9)).cpu()])
     with pytest.raises(ValueError, match="index"):
         lib.merkle_fold(_rand(42, (4, 4)), torch.zeros(3, dtype=torch.int64, device="cuda"), _rand(43, (4, 2, 4)))
     ov_idx, ov_mask = _schedule(44, 3, 20)
@@ -165,7 +212,10 @@ def test_entry_points_default_to_the_card(lib):
     before = dict(lib.launches)
     card = verify_batch(tpl, arrays, debug=True)
     assert lib.launches["permutation_scan"] == before["permutation_scan"] + 1
-    assert lib.launches["merkle_fold"] > before["merkle_fold"] and lib.launches["sponge_rows"] > before["sponge_rows"]
+    assert lib.launches["merkle_fold"] > before["merkle_fold"]
+    # the sponge twice: the public-input hash, and every leaf hash in one grouped launch
+    assert lib.launches["sponge_rows"] == before["sponge_rows"] + 1
+    assert lib.launches["sponge_rows_grouped"] == before["sponge_rows_grouped"] + 1
     cpu = verify_batch(tpl, arrays, debug=True, device="cpu")
     assert card["ok"].tolist() == cpu["ok"].tolist() == [True, False, True]
     np.testing.assert_array_equal(card["debug"]["zeta"][0], cpu["debug"]["zeta"][0])

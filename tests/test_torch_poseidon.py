@@ -69,6 +69,26 @@ def test_sponge_rows_vs_jax(consts, width):
         assert tuple(int(x) for x in flat_got[i]) == gh.sponge([int(x) for x in flat_rows[i]])
 
 
+GROUP_SHAPES = [(2, 3, 135), (5, 20), (1, 4, 32), (3, 0), (0, 8), (7, 9)]
+
+
+@pytest.mark.parametrize("k", range(len(GROUP_SHAPES)), ids=[str(s) for s in GROUP_SHAPES])
+def test_sponge_rows_grouped_vs_jax(consts, k):
+    """Matrices of mixed widths (and leading axes) through the grouped entry
+    point on the CPU: matrix k equals its own sponge_rows_plain and the JAX
+    sponge_rows reference, whatever else is in the group."""
+    group = [tf.from_u64(_rand(200 + i, shape), "cpu") for i, shape in enumerate(GROUP_SHAPES)]
+    got = th.sponge_rows_grouped(group, consts)
+    plain = th.sponge_rows_grouped_plain(group, consts)
+    assert len(got) == len(plain) == len(group)
+    rows, width = group[k], GROUP_SHAPES[k][-1]
+    assert got[k].shape == rows.shape[:-1] + (4,)
+    assert torch.equal(got[k], plain[k])
+    assert torch.equal(got[k], th.sponge_rows_plain(rows, width, consts))
+    want = jf.to_u64(jax_sponge_rows(jf.from_u64(tf.to_u64(rows)), width))
+    np.testing.assert_array_equal(tf.to_u64(got[k]), want)
+
+
 def _merkle_case(seed, n, path_len, cap_len=4):
     """Random digests, indices (bits above path_len set) and siblings, and
     caps that hold the true root for even rows and a wrong one for odd rows."""

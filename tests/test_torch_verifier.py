@@ -19,7 +19,6 @@ from plonky2_verifier_tpu.golden.challenges import proof_challenges
 from plonky2_verifier_tpu.golden.hashing import sponge
 from plonky2_verifier_tpu.models.cache import get_fixture_proof
 from plonky2_verifier_tpu.models.fibonacci import fibonacci_fixture
-from plonky2_verifier_tpu.models.lookup import lookup_fixture
 from plonky2_verifier_tpu.models.poseidon_chain import poseidon_chain_fixture
 from plonky2_verifier_tpu.prover.prove import prove
 from plonky2_verifier_tpu.verifier_jax import JaxVerifier
@@ -214,9 +213,3 @@ def test_poseidon_chain_matches_jax(pos):
     for name, got, want in _debug_pairs(t_out["debug"], j_out["debug"]):
         np.testing.assert_array_equal(got, want, err_msg=name)
     _assert_lane_matches_golden(common, t_out["debug"], 0, *proof)
-
-
-def test_lookup_template_is_refused():
-    tpl = CircuitTemplate(lookup_fixture(num_query_rounds=4, proof_of_work_bits=4).common)
-    with pytest.raises(NotImplementedError, match="lookup"):
-        TorchVerifier(tpl, device="cpu")

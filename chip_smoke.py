@@ -2,15 +2,18 @@
 """Smoke test of the PyTorch port on one CUDA card: build the Poseidon
 kernels, hold each against its plain PyTorch version and the golden model,
 time both, then verify a batch of 1024 standard-shape fibonacci proofs
-through TorchVerifier and check verdicts and transcripts, and then batches
+through TorchVerifier and check verdicts and transcripts, then batches
 of 512 and 1024 proofs of the gate-zoo circuit (all 16 gate kinds and the
-lookup argument) the same way.
+lookup argument) the same way, then the serving path: 10,000 proofs as raw
+JSON bytes through the native C++ ingest and StreamVerifier, both shapes
+mixed through the command line, and small circuits of many shapes.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failed check raises, so the last line is printed only on
 success):
-1. device: needs CUDA; prints nvidia-smi's name and power limit;
+1. device: needs CUDA; prints nvidia-smi's name and power limit, and the
+   host compiler (g++) that the native ingest is built with;
 2. build: compiles csrc/*.cu with nvcc (kernels.load) and prints seconds;
 3. kernel checks: each kernel bit-exact against its *_plain version on the
    card, on the known-answer state, the p-edge band, 2^20 + 37 random states
@@ -25,7 +28,9 @@ success):
 4. main path: the standard fixture (degree 12, 28 queries, PoW 16), batch
    1024, all accepted; lane 0's transcript equal to golden; six single-array
    mutations rejected on exactly their lanes; a 4-lane heterogeneous batch
-   accepted with every lane's transcript equal to golden; over the main-path
+   accepted with every lane's transcript equal to golden, and every kernel
+   held against its plain version at that small batch's shapes
+   (hold_against_plain; phase 5 does so at batch 1024); over the main-path
    run the scan was launched at least once and the sponge and Merkle kernels
    more than zero times (the sponge twice: the public-input hash and one
    grouped launch for every leaf hash);
@@ -45,7 +50,32 @@ success):
    (the lookup deltas among it) equal to golden, seven single-array
    mutations (one a lookup opening inside openings1) rejected on exactly
    their lanes through verify_batch, the launch counters set to 0 before the
-   first call and read after it, then step ms and proofs/s.
+   first call and read after it, every kernel held against its plain version
+   at this template's shapes at that batch, then step ms and proofs/s;
+8. ingest: the native C++ parser must have built (no Python tier here); 64
+   standard-shape (vkey, proof) JSON byte pairs through it, with one worker
+   and with several, equal flatten_proofs of the same proofs; native and
+   Python ms a proof, JSON bytes a proof (tools/bench_ingest.py);
+9. third path, the stream: 10,000 standard-shape proofs as raw JSON byte
+   pairs, every 1,000th with a flipped pow_witness, through
+   StreamVerifier(tpl, 1024, raw_json=True): 9,990 accepted, 10 rejected, 10
+   batches (the last of 784 live lanes); over the run the scan was launched
+   10 times, the sponge 20 (10 one-matrix, 10 grouped) and the Merkle walk
+   30; the Python ingest tier is made to raise for the run; the final
+   snapshot beside the first path's step, the copy ms a batch, and the share
+   of the ingest that the prefetch hid; ingest_s + device_wait_s must not
+   exceed elapsed_s (the kernels' shapes are those of phase 5);
+10. the command line: both cached triples in a temporary directory through
+   `stream DIR --batch 512 --repeat 1024` (two shapes, 1,024 accepted each,
+   exit code 0, every kernel launched once a batch and the Merkle walk three
+   times) and `verify PREFIX --batch 4` (exit code 0), in process; then every
+   kernel against its plain version at both shapes at batch 512 and at the
+   first at batch 4;
+11. shape variety: the six-point shape grid and fuzz seeds 13 and 23
+   (tools/shape_circuits.py) through TorchVerifier at batch 2: accepted,
+   lane 0's transcript equal to golden, and a batch with one fault a lane
+   rejected on exactly those lanes; then every kernel against its plain
+   version at each circuit's shapes at both of those batch sizes.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 
@@ -54,10 +84,13 @@ With --sass it also prints the SASS instructions one permutation executes
 kernels' distance from W.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,6 +110,9 @@ PATH_LENS = [0, 1, 3, 7, 11]
 N_RANDOM = (1 << 20) + 37  # random permutation states, not a multiple of the block
 MUTATED = ["openings1", "pow_witness", "leaves_1", "final_poly", "public_inputs", "circuit_digest"]
 SCAN_BATCHES = [1, 5, 1024]
+INGEST_PROOFS = 64
+STREAM_PROOFS, STREAM_CORRUPT_EVERY = 10_000, 1000
+CLI_BATCH, CLI_REPEAT, CLI_VERIFY_BATCH = 512, 1024, 4
 STEP_SIZES = [64, 1024, 4096, 16384]
 # The yardstick (csrc/poseidon.cuh): W 32-bit integer instructions a
 # permutation, over SMs x 64 int32 lanes x the maximum SM clock; bytes over
@@ -96,6 +132,7 @@ def device_phase():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    print(subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True).stdout.splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -161,6 +198,10 @@ def _golden_scan_lane(data_row, ov_idx, ov_mask):
     return np.array(states, dtype=np.uint64)
 
 
+def new_checks():
+    return {k: KernelCheck(k) for k in ("permutation", "sponge_rows", "merkle_fold")}
+
+
 def check_kernels(lib, consts):
     import torch
 
@@ -175,7 +216,7 @@ def check_kernels(lib, consts):
 
     rng = np.random.default_rng(2024)
     dev = consts.rc.device
-    checks = {k: KernelCheck(k) for k in ("permutation", "sponge_rows", "merkle_fold")}
+    checks = new_checks()
 
     # permutation: both forms, and the form the launcher picks
     c = checks["permutation"]
@@ -275,6 +316,52 @@ def _time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def hold_against_plain(v, batch: int, checks, what: str):
+    """Every kernel wrapper against its plain version, bit for bit, on random
+    inputs of the shapes that one call of the verifier `v` at `batch` gives
+    it: the transcript scan on v's own schedule, the public-input hash (width
+    0 where the circuit has none), every leaf hash in one grouped launch, the
+    stacked initial Merkle walk and each fold step's. A walk of length 0 is
+    never launched (verifier_torch.merkle_batched) and is passed over here
+    too. These launches are no part of a path's count: call it outside the
+    window in which a path's launches are counted."""
+    import torch
+
+    from plonky2_verifier_tpu_torch.ops import field as tf
+    from plonky2_verifier_tpu_torch.ops import hash as th
+    from plonky2_verifier_tpu_torch.ops import poseidon as tp
+
+    tpl, consts = v.tpl, v.poseidon
+    dev, Q = consts.rc.device, tpl.num_queries
+    rng = np.random.default_rng(batch)
+    rand = lambda *shape: tf.from_u64(_rand(rng, shape), dev)
+    t = time.time()
+
+    data = rand(batch, tpl.schedule.n_data)
+    checks["permutation"].compare(
+        tp.permutation_scan(data, v._ov_idx, v._ov_mask, consts), tp.permutation_scan_plain(data, v._ov_idx, v._ov_mask, consts),
+        f"{what}: scan ({batch}, {data.shape[1]}) x {v._ov_idx.shape[0]} steps",
+    )
+    c = checks["sponge_rows"]
+    pi = rand(batch, tpl.n_pi)
+    c.compare(th.sponge_rows(pi, tpl.n_pi, consts), th.sponge_rows_plain(pi, tpl.n_pi, consts), f"{what}: public inputs ({batch}, {tpl.n_pi})")
+    widths = list(tpl.oracle_widths) + [2 << st["arity_bits"] for st in tpl.steps]
+    group = [rand(batch, Q, w) for w in widths]
+    for w, got, want in zip(widths, th.sponge_rows_grouped(group, consts), th.sponge_rows_grouped_plain(group, consts)):
+        c.compare(got, want, f"{what}: grouped ({batch}, {Q}, {w})")
+    c = checks["merkle_fold"]
+    oracles = len(tpl.oracle_widths)
+    paths = [((batch, oracles, Q), tpl.initial_path_len)] + [((batch, Q), st["path_len"]) for st in tpl.steps]
+    for lead, L in paths:
+        if L == 0:
+            continue
+        dig, sib = rand(*lead, 4), rand(*lead, L, 4)
+        idx = torch.from_numpy(rng.integers(0, 1 << 32, size=lead, dtype=np.int64)).to(dev)
+        c.compare(th.merkle_fold(dig, idx, sib, L, consts), th.merkle_fold_plain(dig, idx, sib, L, consts), f"{what}: walk {lead}, L={L}")
+    print(f"held against plain, {what} at batch {batch}: scan {tuple(data.shape)} x {v._ov_idx.shape[0]}, public inputs {tpl.n_pi}, "
+          f"grouped widths {widths}, walks {[(lead, L) for lead, L in paths if L]}: bit-exact in {time.time() - t:.1f} s")
 
 
 def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
@@ -418,10 +505,11 @@ def _check_mutations(tpl, arrays, batch: int, names):
         raise AssertionError("mutated lanes are not exactly the rejected ones")
 
 
-def main_path(lib):
+def main_path(lib, checks):
     import torch
 
     from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
+    from plonky2_verifier_tpu_torch.metrics import perms_per_proof
     from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
     from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
     from plonky2_verifier_tpu_torch.prover.prove import prove
@@ -430,7 +518,10 @@ def main_path(lib):
     t = time.time()
     common, vkey, pwp = get_fixture_proof("fibonacci", **STANDARD)
     tpl = CircuitTemplate(common)
-    print(f"fixture: {time.time() - t:.1f} s (degree_bits {tpl.degree_bits}, {tpl.num_queries} queries, PoW {tpl.pow_bits})")
+    print(f"fixture: {time.time() - t:.1f} s (degree_bits {tpl.degree_bits}, {tpl.num_queries} queries, PoW {tpl.pow_bits}, "
+          f"{perms_per_proof(tpl)} permutations a proof)")
+    if STANDARD["n_arith_rows"] == 4093 and perms_per_proof(tpl) != 2774:
+        raise AssertionError(f"the standard shape should count 2,774 permutations a proof, not {perms_per_proof(tpl)}")
     t = time.time()
     arrays = flatten_proofs(tpl, [(vkey, pwp)] * BATCH)
     print(f"flatten_proofs x{BATCH}: {time.time() - t:.1f} s, {sum(a.nbytes for a in arrays.values())} bytes")
@@ -465,7 +556,8 @@ def main_path(lib):
     for lane, (vk, pw) in enumerate(lanes):
         _transcript_equals_golden(fx0.common, out6["debug"], lane, vk, pw)
     print("heterogeneous 4-lane batch accepted; every lane's transcript equals golden")
-    return v, dev, launches
+    hold_against_plain(v6, len(lanes), checks, "the heterogeneous batch")
+    return v, dev, launches, (tpl, common, vkey, pwp)
 
 
 def time_main_path(v, dev, batch: int, iters: int, warmup: int = 2):
@@ -530,9 +622,10 @@ def zoo_fixture(prover=None):
     return tpl, common, vkey, pwp
 
 
-def zoo_path(lib, zoo):
+def zoo_path(lib, zoo, checks):
     """The second path: the gate-zoo template with lookups through
-    TorchVerifier at each batch of ZOO_BATCHES. Returns the launch counts of
+    TorchVerifier at each batch of ZOO_BATCHES, the kernels then held against
+    their plain versions at that batch's shapes. Returns the launch counts of
     each batch's first call."""
     import torch
 
@@ -564,6 +657,7 @@ def zoo_path(lib, zoo):
         _transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
         print(f"gate zoo batch {batch}: lane 0 transcript equals golden")
         _check_mutations(tpl, arrays, batch, names)
+        hold_against_plain(v, batch, checks, "the gate-zoo path")
         if ZOO_TIMED_CALLS:
             print(f"gate zoo batch {batch} timing:")
             time_main_path(v, dev, batch, ZOO_TIMED_CALLS, warmup=1)
@@ -571,7 +665,185 @@ def zoo_path(lib, zoo):
     return counts
 
 
+def ingest_phase(fixture):
+    """The native ingest must be the tier that runs here, and must equal
+    flatten_proofs with one worker and with several (tools/bench_ingest.py
+    asserts it); prints its times."""
+    from plonky2_verifier_tpu_torch import native
+    from plonky2_verifier_tpu_torch.tools.bench_ingest import bench
+
+    tpl, _, vkey, pwp = fixture
+    t = time.time()
+    if native.get_fastload() is None:
+        raise RuntimeError(f"the native ingest did not build or load: {native.last_build_error}")
+    print(f"ingest: native parser ready in {time.time() - t:.1f} s ({native._so_path()})")
+    res = bench(tpl, vkey, pwp, INGEST_PROOFS)
+    if "native_mt_ms_per_proof" not in res:
+        raise AssertionError(f"the native ingest was not measured: {res}")
+    print(f"ingest: {json.dumps(res)}")
+    return res
+
+
+def _merkle_launches(tpl) -> int:
+    """Merkle launches a verifier call: the stacked initial walk and every
+    fold step whose path is not empty."""
+    return (1 if tpl.initial_path_len else 0) + sum(1 for st in tpl.steps if st["path_len"])
+
+
+def stream_path(lib, fixture, step_s: float, ingest: dict):
+    """The third path: raw JSON bytes -> native ingest -> pinned buffers ->
+    the card -> TorchVerifier -> StreamMetrics. Returns the launch counts of
+    the whole run."""
+    import torch
+
+    from plonky2_verifier_tpu_torch import native
+    from plonky2_verifier_tpu_torch.parallel.stream import StreamVerifier
+    from plonky2_verifier_tpu_torch.tools.stream_verify import proof_stream
+
+    tpl, _, vkey, pwp = fixture
+    items, expected = proof_stream(vkey, pwp, STREAM_PROOFS, STREAM_CORRUPT_EVERY, raw=True)
+
+    def refuse(*_):
+        raise AssertionError("the stream fell to the Python ingest tier")
+
+    python_tier, native._flatten_python = native._flatten_python, refuse
+    try:
+        sv = StreamVerifier(tpl, BATCH, raw_json=True, device=DEVICE)
+        lib.reset_launches()
+        m = sv.run(items, on_batch=lambda mm: print(f"stream: {mm.line()}", flush=True))
+        torch.cuda.synchronize()
+        launches = dict(lib.launches)
+    finally:
+        native._flatten_python = python_tier
+    snap = m.snapshot()
+    batches = -(-STREAM_PROOFS // BATCH)
+    print(f"stream: final {json.dumps(snap)}")
+    print(f"stream: launches {launches}, {sv.ingest_workers} ingest workers")
+    got = (m.proofs, m.accepted, m.rejected, m.batches)
+    if got != (STREAM_PROOFS, STREAM_PROOFS - expected, expected, batches):
+        raise AssertionError(f"stream counted (proofs, accepted, rejected, batches) = {got}")
+    want = {"permutation": 0, "permutation_scan": batches, "sponge_rows": batches,
+            "sponge_rows_grouped": batches, "merkle_fold": batches * _merkle_launches(tpl)}
+    if launches != want:
+        raise AssertionError(f"stream launches {launches}, expected {want}")
+    calls_s = snap["elapsed_s"] - m.ingest_s - m.device_wait_s
+    hidden = 1 - m.ingest_s / sv.ingest_work_s
+    per_batch = ingest["native_mt_ms_per_proof"] * BATCH / 1e3
+    print(f"stream: {snap['proofs_per_sec']} proofs/s over all ({snap['steady_proofs_per_sec']} after the first batch); "
+          f"first path's step {step_s * 1e3:.3f} ms -> {BATCH / step_s:.1f} proofs/s at {BATCH} / step, "
+          f"{BATCH / (step_s + per_batch):.1f} at {BATCH} / (step + ingest of {per_batch * 1e3:.1f} ms a batch)")
+    print(f"stream: ingest work {sv.ingest_work_s:.3f} s ({sv.ingest_work_s / STREAM_PROOFS * 1e3:.3f} ms a proof, beside the verifier "
+          f"calls), of which the calling thread waited for ingest_s = {m.ingest_s:.3f} s: the prefetch hid {hidden:.3f} of it; "
+          f"device_wait_s {m.device_wait_s:.3f} s; elapsed - ingest_s - device_wait_s = {calls_s:.3f} s")
+    if m.ingest_s + m.device_wait_s > snap["elapsed_s"]:
+        raise AssertionError(f"ingest_s + device_wait_s = {m.ingest_s + m.device_wait_s} exceeds elapsed_s = {snap['elapsed_s']}")
+    if sv._staging is not None:  # a CPU rehearsal stages nothing
+        pinned, on_card = sv._staging.pinned[0], sv._staging.on_card[0]
+        copy_ms = _time_ms(lambda: [on_card[k].copy_(pinned[k], non_blocking=True) for k in pinned], 5)
+        print(f"stream: copy to the card {copy_ms:.3f} ms a batch ({sum(t.numel() * 8 for t in pinned.values())} bytes from the "
+              f"stream's pinned set to its device set, 5 copies timed after the run)")
+    return launches
+
+
+def cli_path(lib, fixtures, checks):
+    """The command line in process: `stream` over a directory that holds one
+    triple of each shape, then `verify` on the first triple, then the kernels
+    held against their plain versions at each shape's CLI_BATCH shapes.
+    Returns the launch counts of the `stream` command."""
+    from plonky2_verifier_tpu_torch.__main__ import main as cli
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+
+    device = [] if DEVICE is None else ["--device", DEVICE]
+    with tempfile.TemporaryDirectory() as folder:
+        for name, (_, common, vkey, pwp) in fixtures.items():
+            for obj, kind in [(common, "common"), (vkey, "vkey"), (pwp, "proof")]:
+                with open(os.path.join(folder, f"{name}_{kind}.json"), "w") as f:
+                    json.dump(obj.to_json(), f)
+        printed = io.StringIO()
+        lib.reset_launches()
+        t = time.time()
+        with contextlib.redirect_stdout(printed):
+            rc = cli(["stream", folder, "--batch", str(CLI_BATCH), "--repeat", str(CLI_REPEAT)] + device)
+        launches = dict(lib.launches)
+        lines = printed.getvalue().strip().splitlines()
+        print("\n".join(f"cli stream: {line}" for line in lines))
+        summary = json.loads(lines[-1])
+        print(f"cli stream: exit code {rc}, {time.time() - t:.1f} s, launches {launches}")
+        counts = sorted((m["proofs"], m["accepted"]) for m in summary["per_shape"].values())
+        if rc != 0 or summary["shapes"] != len(fixtures) or counts != [(CLI_REPEAT, CLI_REPEAT)] * len(fixtures):
+            raise AssertionError(f"cli stream: exit code {rc}, {summary}")
+        calls = -(-CLI_REPEAT // CLI_BATCH)  # batches a shape
+        want = {"permutation": 0, "permutation_scan": calls * len(fixtures), "sponge_rows": calls * len(fixtures),
+                "sponge_rows_grouped": calls * len(fixtures), "merkle_fold": calls * sum(_merkle_launches(f[0]) for f in fixtures.values())}
+        if launches != want:
+            raise AssertionError(f"cli stream: launches {launches}, expected {want}")
+        rc = cli(["verify", os.path.join(folder, next(iter(fixtures))), "--batch", str(CLI_VERIFY_BATCH)] + device)
+        if rc != 0:
+            raise AssertionError(f"cli verify: exit code {rc}")
+    for k, (name, fixture) in enumerate(fixtures.items()):
+        v = TorchVerifier(fixture[0], device=DEVICE)
+        hold_against_plain(v, CLI_BATCH, checks, f"the command line's stream, {name}")
+        if k == 0:
+            hold_against_plain(v, CLI_VERIFY_BATCH, checks, f"the command line's verify, {name}")
+    return launches
+
+
+def check_circuit(name: str, common, vkey, pwp, faults):
+    """One proof of a small circuit through TorchVerifier: a batch of 2 accepted with
+    lane 0's transcript equal to golden, then a batch that holds one fault a
+    lane (the first word of that array flipped; empty arrays passed over)
+    and one intact lane behind them, rejected on exactly the faulted lanes.
+    Returns the template."""
+    from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+
+    tpl = CircuitTemplate(common)
+    v = TorchVerifier(tpl, debug=True, device=DEVICE)
+    out = v(v.prepare(flatten_proofs(tpl, [(vkey, pwp)] * 2)))
+    if v.to_host(out).tolist() != [True, True]:
+        raise AssertionError(f"{name}: an honest proof was rejected: {out['ok']}, eqs {out['eqs_ok']}, fri {out['fri_ok']}")
+    _transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
+    arrays = flatten_proofs(tpl, [(vkey, pwp)] * (len(faults) + 1))
+    live = [f for f in faults if f in arrays and arrays[f].size]
+    for lane, fault in enumerate(live):
+        arrays[fault].reshape(len(faults) + 1, -1)[lane, 0] ^= np.uint64(1)
+    ok = v.to_host(v(v.prepare({k: a[: len(live) + 1] for k, a in arrays.items()}))).tolist()
+    if ok != [False] * len(live) + [True]:
+        raise AssertionError(f"{name}: faults {live} gave verdicts {ok}")
+    print(f"shape {name}: degree_bits {tpl.degree_bits}, cap {tpl.cap_len}, initial path {tpl.initial_path_len}, steps "
+          f"{[(st['arity_bits'], st['path_len'], st['cap_len']) for st in tpl.steps]}, final poly {tpl.final_poly_len}, "
+          f"{tpl.n_pi} public inputs, {tpl.num_queries} queries: accepted, transcript equals golden, rejected {live}")
+    return v, [2, len(live) + 1]
+
+
+def shapes_path(lib, checks):
+    """Shape variety: the grid points and the fuzz circuits of
+    tools/shape_circuits.py, each through check_circuit, the kernels then
+    held against their plain versions at each circuit's shapes at both of
+    its batch sizes. Returns the launch counts of the verifier calls."""
+    from plonky2_verifier_tpu_torch.prover.prove import prove
+    from plonky2_verifier_tpu_torch.tools import shape_circuits as sc
+
+    lib.reset_launches()
+    t = time.time()
+    circuits = [(f"grid {pt}", sc.grid_fixture(*pt), sc.GRID_FAULTS) for pt in sc.GRID]
+    circuits += [(f"fuzz {seed}", sc.fuzz_fixture(seed), sc.FUZZ_FAULTS) for seed in sc.FUZZ_SEEDS]
+    ran = [check_circuit(name, fx.common, *prove(fx), faults) for name, fx, faults in circuits]
+    launches = dict(lib.launches)
+    tpls = [v.tpl for v, _ in ran]
+    print(f"shapes: {len(tpls)} circuits in {time.time() - t:.1f} s, launches {launches}")
+    want = 2 * sum(_merkle_launches(tpl) for tpl in tpls)
+    calls = 2 * len(tpls)
+    if (launches["permutation_scan"], launches["sponge_rows"], launches["sponge_rows_grouped"], launches["merkle_fold"]) != (calls, calls, calls, want):
+        raise AssertionError(f"shapes: launches {launches}, expected {calls} of the scan and of each sponge entry and {want} Merkle walks")
+    for (name, _, _), (v, batches) in zip(circuits, ran):
+        for batch in batches:
+            hold_against_plain(v, batch, checks, f"shape {name}")
+    return launches
+
+
 def main():
+    t_start = time.time()
     smi, rate = device_phase()
     sys.path.insert(0, ROOT)
     import torch
@@ -587,22 +859,28 @@ def main():
         consts = PoseidonConstants()
 
         checks = check_kernels(lib, consts)
-        v, dev, launches = main_path(lib)
+        v, dev, launches, fib = main_path(lib, checks)
         zoo = zoo_fixture(prover)
     finally:
         if prover.poll() is None:
             prover.kill()
             prover.wait()
     times = time_kernels(lib, consts, v, dev, checks, rate, zoo[0])
-    time_main_path(v, dev, BATCH, TIMED_CALLS)
-    del dev
-    zoo_launches = zoo_path(lib, zoo)
+    step_s = time_main_path(v, dev, BATCH, TIMED_CALLS)
+    del v, dev
+    zoo_launches = zoo_path(lib, zoo, checks)
+    ingest = ingest_phase(fib)
+    stream_launches = stream_path(lib, fib, step_s, ingest)
+    cli_launches = cli_path(lib, {"fibonacci": fib, "gate_zoo": zoo}, checks)
+    shape_launches = shapes_path(lib, checks)
     if "--sass" in sys.argv[1:]:
         counts = kernels.sass_instruction_count()
         top = sorted(counts.items(), key=lambda kv: -kv[1])
         print(f"sass: {sum(counts.values())} instructions in one thread-form permutation "
               f"(W = {W_INSTRUCTIONS}): " + ", ".join(f"{k} {n}" for k, n in top))
-    for what, n in [("the main path", launches)] + [(f"the gate-zoo path at batch {b}", n) for b, n in zoo_launches.items()]:
+    paths = [("the main path", launches)] + [(f"the gate-zoo path at batch {b}", n) for b, n in zoo_launches.items()]
+    paths += [(f"the stream of {STREAM_PROOFS}", stream_launches), ("the command line's stream", cli_launches), ("the shape circuits", shape_launches)]
+    for what, n in paths:
         print(f"launches on {what}: " + ", ".join(f"{k} {n[k]}" for k in kernels.COUNTERS))
     print(f"card: {smi}")
 
@@ -636,12 +914,16 @@ def main():
         }
         for b, n in zoo_launches.items():
             row[f"launches_zoo_{b}"] = sum(n[k] for k in entry_points[name])
+        row["launches_stream"] = sum(stream_launches[k] for k in entry_points[name])
+        row["launches_cli"] = sum(cli_launches[k] for k in entry_points[name])
+        row["launches_shapes"] = sum(shape_launches[k] for k in entry_points[name])
         # beside the launch the main path makes: one (1024, 12) permutation
         # step beside the scan, the widest single matrix beside the grouped sponge
         for extra in ("step", "widest"):
             if extra in tm:
                 row.update({f"{extra}_{k}": round(x, 6) if isinstance(x, float) else x for k, x in tm[extra].items()})
         rows.append(row)
+    print(f"total_s {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

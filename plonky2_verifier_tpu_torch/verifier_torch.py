@@ -194,6 +194,18 @@ class TorchVerifier(nn.Module):
         """Flattened uint64 host arrays -> int64 tensors on this module's device."""
         return prepare(arrays, self._ov_idx.device)
 
+    def to_host(self, out, into=None) -> np.ndarray:
+        """The verdict lanes `ok` of one call's output as a numpy bool array
+        (B,). Without `into` it waits for the device. With `into`, a pinned
+        bool tensor (B,), the copy is only enqueued on the current stream and
+        the array shares `into`'s memory: the caller reads it after an event
+        it records behind this call."""
+        ok = out["ok"]
+        if into is None:
+            return ok.cpu().numpy()
+        into.copy_(ok, non_blocking=True)
+        return into.numpy()
+
     def forward(self, a: Dict[str, torch.Tensor]):
         return self._verify(a)
 

@@ -2,7 +2,7 @@
 
 plonky2_verifier_tpu_torch keeps a file-for-file copy of the JAX-free
 modules it needs (types, gate parser, gate programs, template, flatten,
-golden model, fixture models, prover), because it may import nothing of
+metrics, the native C++ ingest, golden model, fixture models, prover), because it may import nothing of
 plonky2_verifier_tpu. Each copy must equal its original once the package
 name in import lines is normalised; and, run end to end, the port's prover
 gives the same proof bytes, its flatten_proofs the same arrays, and its
@@ -31,7 +31,8 @@ from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
 from plonky2_verifier_tpu_torch.prover.prove import prove
 
 COPIED = (
-    ["types.py", "gate_parser.py", "gates.py", "compiler/template.py", "compiler/flatten.py"]
+    ["types.py", "gate_parser.py", "gates.py", "compiler/template.py", "compiler/flatten.py", "metrics.py"]
+    + ["native/__init__.py", "native/fastload.cpp"]
     + [f"golden/{m}.py" for m in ("__init__", "field", "poseidon", "poseidon_constants", "hashing", "duplex", "challenges", "plonk", "fri", "verifier")]
     + [f"models/{m}.py" for m in ("__init__", "builder", "cache", "fibonacci", "poseidon_chain", "lookup", "gate_zoo")]
     + [f"prover/{m}.py" for m in ("__init__", "fft", "merkle", "npf", "nphash", "npplonk", "prove", "witness")]
@@ -59,6 +60,20 @@ def test_every_host_module_of_the_closure_is_copied():
         theirs = sorted(f for f in os.listdir(os.path.join(os.path.dirname(ref_pkg.__file__), folder)) if f.endswith(".py"))
         ours = sorted(f for f in os.listdir(os.path.join(os.path.dirname(port_pkg.__file__), folder)) if f.endswith(".py"))
         assert ours == theirs, folder
+
+
+def test_perms_per_proof_agrees_across_packages():
+    """The analytic permutation count of both metrics modules on one small
+    template (chip_smoke.py holds the standard shape to its 2,774)."""
+    from plonky2_verifier_tpu.metrics import perms_per_proof as ref_perms
+    from plonky2_verifier_tpu_torch.metrics import perms_per_proof
+
+    tpl = CircuitTemplate(fibonacci_fixture(num_query_rounds=6).common)
+    ref_tpl = RefTemplate(ref_fixture(num_query_rounds=6).common)
+    per_round = sum(-(-w // 8) for w in tpl.oracle_widths) + 4 * tpl.initial_path_len
+    per_round += sum(-(-(2 << st["arity_bits"]) // 8) + st["path_len"] for st in tpl.steps)
+    want = len(tpl.schedule.permutes) + -(-tpl.n_pi // 8) + 6 * per_round
+    assert perms_per_proof(tpl) == ref_perms(ref_tpl) == want
 
 
 def test_both_packages_share_the_fixture_cache():

@@ -3,7 +3,8 @@
 - Importing every port module (and chip_smoke.py) loads no JAX and nothing
   of the JAX package; no source file of the port, nor chip_smoke.py, holds
   an import of either at any depth of nesting; a CPU rehearsal of
-  chip_smoke.main_path loads neither.
+  chip_smoke's paths (main, gate zoo, ingest, stream, command line, shapes)
+  loads neither.
 - On CPU tensors the wrappers take their plain versions and never touch the
   kernel library.
 - Without CUDA, the entry points (TorchVerifier, PoseidonConstants,
@@ -12,6 +13,7 @@
   and chip_smoke.py exits non-zero without printing a result."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -48,6 +50,14 @@ PORT_MODULES = [
     "plonky2_verifier_tpu_torch.models.gate_zoo",
     "plonky2_verifier_tpu_torch.prover.prove",
     "plonky2_verifier_tpu_torch.tools.probe_kernels",
+    "plonky2_verifier_tpu_torch.metrics",
+    "plonky2_verifier_tpu_torch.native",
+    "plonky2_verifier_tpu_torch.parallel",
+    "plonky2_verifier_tpu_torch.parallel.stream",
+    "plonky2_verifier_tpu_torch.__main__",
+    "plonky2_verifier_tpu_torch.tools.stream_verify",
+    "plonky2_verifier_tpu_torch.tools.bench_ingest",
+    "plonky2_verifier_tpu_torch.tools.shape_circuits",
     "chip_smoke",
 ]
 FORBIDDEN = ["jax", "jaxlib", "plonky2_verifier_tpu"]
@@ -112,6 +122,7 @@ class Lib:  # stands in for the kernel library: counts, then runs the plain vers
         self.launches = dict.fromkeys(kernels.COUNTERS, 0)
 
 lib = Lib(); lib.reset_launches()
+checks = cs.new_checks()
 def counted(name, fn):
     def run(*a):
         lib.launches[name] += 1
@@ -126,11 +137,11 @@ cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 
 cs.ZOO = {"num_query_rounds": 2, "proof_of_work_bits": 2}
 cs.ZOO_BATCHES, cs.ZOO_TIMED_CALLS = [7, 8], 0
 torch.cuda.synchronize = lambda: None
-v, dev, launches = cs.main_path(lib)
+v, dev, launches, fib = cs.main_path(lib, checks)
 assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
 assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
 prover = cs.start_zoo_prover()
-zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover))
+zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
 assert prover.returncode == 0
 assert sorted(zoo_launches) == [7, 8] and all(n["sponge_rows_grouped"] == 1 for n in zoo_launches.values()), zoo_launches
 bad = LOADED
@@ -150,6 +161,53 @@ def test_chip_smoke_main_path_rehearsal_loads_no_jax():
     assert "rejected lanes [0, 1, 2, 3, 4, 5]\n" in res.stdout
     assert res.stdout.count("rejected lanes [0, 1, 2, 3, 4, 5, 6]\n") == 2  # the zoo path, each batch
     assert "gate zoo batch 8: lane 0 transcript equals golden" in res.stdout
+
+
+SERVING_REHEARSAL = REHEARSAL[: REHEARSAL.index("cs.DEVICE, cs.BATCH")] + """
+import json, os, time
+from plonky2_verifier_tpu_torch import native
+from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
+from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+from plonky2_verifier_tpu_torch.tools import shape_circuits as sc
+
+cs.DEVICE, cs.BATCH = "cpu", 4
+cs.INGEST_PROOFS, cs.STREAM_PROOFS, cs.STREAM_CORRUPT_EVERY = 5, 10, 4
+cs.CLI_BATCH, cs.CLI_REPEAT = 2, 3
+torch.cuda.synchronize = lambda: None
+
+def fixture(queries):
+    common, vkey, pwp = get_fixture_proof("fibonacci", n_arith_rows=13, num_query_rounds=queries, proof_of_work_bits=2)
+    return CircuitTemplate(common), common, vkey, pwp
+
+fib = fixture(6)
+ingest = cs.ingest_phase(fib)
+assert os.path.dirname(native.get_fastload().__file__).endswith(os.path.join("plonky2_verifier_tpu_torch", "native", "_build"))
+launches = cs.stream_path(lib, fib, 1.0, ingest)
+assert launches["permutation_scan"] == 3 and launches["sponge_rows_grouped"] == 3, launches
+cli = cs.cli_path(lib, {"fibonacci": fib, "other": fixture(2)}, checks)
+assert cli["permutation_scan"] == 4 and cli["sponge_rows_grouped"] == 4, cli
+sc.GRID, sc.FUZZ_SEEDS = [(4, 2, 0)], [13]
+shapes = cs.shapes_path(lib, checks)
+assert shapes["permutation_scan"] == 4 and shapes["merkle_fold"] == 4, shapes
+bad = LOADED
+assert not bad, bad
+"""
+
+
+def test_chip_smoke_serving_phases_rehearsal_loads_no_jax():
+    """chip_smoke's ingest, stream, command-line and shape phases end to end
+    on the CPU (6 queries, batch 4; 10 proofs with every 4th corrupt; one grid
+    point and one fuzz seed), the kernel library replaced by counters around
+    the plain versions: every phase passes, the launch checks hold, the native
+    ingest built in the port's own folder ran, no forbidden module was loaded."""
+    code = SERVING_REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stdout + res.stderr
+    final = json.loads(next(l for l in res.stdout.splitlines() if l.startswith("stream: final ")).removeprefix("stream: final "))
+    assert (final["proofs"], final["accepted"], final["rejected"], final["batches"]) == (10, 8, 2, 3)
+    assert "cli stream: exit code 0" in res.stdout and "verified (torch, batch 4" in res.stdout
+    assert "shape grid (4, 2, 0):" in res.stdout and "shape fuzz 13:" in res.stdout
 
 
 @pytest.fixture

@@ -6,7 +6,9 @@ through TorchVerifier and check verdicts and transcripts, then batches
 of 512 and 1024 proofs of the gate-zoo circuit (all 16 gate kinds and the
 lookup argument) the same way, then the serving path: 10,000 proofs as raw
 JSON bytes through the native C++ ingest and StreamVerifier, both shapes
-mixed through the command line, and small circuits of many shapes.
+mixed through the command line, and small circuits of many shapes, then
+several devices as a process each, all on the one card, and a profile of one
+verifier call at both shapes.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -25,8 +27,9 @@ success):
    one-matrix entry point and against golden/; the transcript-scan entry
    point against the plain loop on a real schedule at batch 1, 5 and 1024,
    and lane 0 against golden/;
-4. main path: the standard fixture (degree 12, 28 queries, PoW 16), batch
-   1024, all accepted; lane 0's transcript equal to golden; six single-array
+4. main path: the standard fixture (degree 12, 28 queries, PoW 16; proved
+   by a child process that starts with phase 2 and is waited for here),
+   batch 1024, all accepted; lane 0's transcript equal to golden; six single-array
    mutations rejected on exactly their lanes; a 4-lane heterogeneous batch
    accepted with every lane's transcript equal to golden, and every kernel
    held against its plain version at that small batch's shapes
@@ -69,13 +72,33 @@ success):
    `stream DIR --batch 512 --repeat 1024` (two shapes, 1,024 accepted each,
    exit code 0, every kernel launched once a batch and the Merkle walk three
    times) and `verify PREFIX --batch 4` (exit code 0), in process; then every
-   kernel against its plain version at both shapes at batch 512 and at the
-   first at batch 4;
-11. shape variety: the six-point shape grid and fuzz seeds 13 and 23
+   kernel against its plain version at the first shape at batch 512 and at
+   batch 4 (phase 7 held the second at 512);
+11. shape variety (run between phases 3 and 4, while the child processes
+   still prove): the six-point shape grid and fuzz seeds 13 and 23
    (tools/shape_circuits.py) through TorchVerifier at batch 2: accepted,
    lane 0's transcript equal to golden, and a batch with one fault a lane
    rejected on exactly those lanes; then every kernel against its plain
-   version at each circuit's shapes at both of those batch sizes.
+   version at each circuit's shapes at both of those batch sizes;
+12. fourth path, several devices as a process each, all on the one card and
+   joined by gloo (parallel/mesh.py; the children load the kernel library
+   built in phase 2 and the fixture cached in phase 4): 2 x 1, 1 x 2 and
+   2 x 2 meshes through ShardedVerifier on a global batch of 1024 standard
+   proofs with a flipped pow_witness in one dp shard and a flipped opening in
+   the other: every rank's lanes and the gathered verdict equal the
+   one-process TorchVerifier's on the same arrays, n_valid 1022 on every
+   rank, lane 0's transcript equal to golden in the ranks that hold it; each
+   rank's launch counters set to 0 before its first call and read after it
+   (scan 1, sponge 1 + 1, Merkle 3); the last rank of the 1 x 2 mesh and of
+   the 2 x 2 mesh holds every kernel against its plain version at its shapes
+   (1024 and 512 lanes, 14 queries); two timed calls a rank between barriers. Then 8,192 raw-JSON
+   proofs, every 1,000th corrupt, through StreamVerifier(tpl, 2048,
+   mesh=2 x 1): 8,184 / 8 and 4 batches on both ranks, launches a rank 4 / 8
+   / 12, proofs/s over all beside phase 9's one-process stream;
+13. tools/profile_verifier.py at the standard shape and at the gate zoo's,
+   batch 1024: stage times (a synchronise around each), cudaLaunchKernel
+   calls a forward, kernel time and the card's idle share (torch.profiler),
+   seconds to construct, for the first call and for a warm call.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 
@@ -102,18 +125,17 @@ STANDARD = {"n_arith_rows": 4093, "num_query_rounds": 28, "proof_of_work_bits": 
 ZOO = {"target_degree_bits": 12, "num_query_rounds": 28, "proof_of_work_bits": 16}  # the gate-zoo shape
 ZOO_BATCHES = [512, 1024]
 TIMED_CALLS = 5
-ZOO_TIMED_CALLS = 3
-P = 0xFFFFFFFF00000001
-EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
-SPONGE_WIDTHS = [0, 1, 3, 7, 8, 9, 16, 20, 32, 83, 135]
-PATH_LENS = [0, 1, 3, 7, 11]
-N_RANDOM = (1 << 20) + 37  # random permutation states, not a multiple of the block
+ZOO_TIMED_CALLS = 2
 MUTATED = ["openings1", "pow_witness", "leaves_1", "final_poly", "public_inputs", "circuit_digest"]
-SCAN_BATCHES = [1, 5, 1024]
 INGEST_PROOFS = 64
 STREAM_PROOFS, STREAM_CORRUPT_EVERY = 10_000, 1000
 CLI_BATCH, CLI_REPEAT, CLI_VERIFY_BATCH = 512, 1024, 4
 STEP_SIZES = [64, 1024, 4096, 16384]
+MESHES = [(2, 1), (1, 2), (2, 2)]  # dp x qp, every rank on the one card
+MESH_HOLDS = [(1, 2), (2, 2)]  # the meshes whose last rank holds the kernels against plain at its shapes
+MESH_BATCH, MESH_TIMED_CALLS, MESH_TIMEOUT_S = 1024, 2, 300
+MESH_STREAM_DP, MESH_STREAM_BATCH, MESH_STREAM_PROOFS = 2, 2048, 8192
+PROFILE = [("fibonacci", 1024), ("gate_zoo", 1024)]  # tools/profile_verifier.py's (model, batch)
 # The yardstick (csrc/poseidon.cuh): W 32-bit integer instructions a
 # permutation, over SMs x 64 int32 lanes x the maximum SM clock; bytes over
 # the H100's 3.35 TB/s beside it.
@@ -153,215 +175,68 @@ def bound_ms(permutations: int, n_bytes: int, rate: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def _rand(rng, shape):
-    return rng.integers(0, P, size=shape, dtype=np.uint64)
-
-
-def _max_abs_err(got: np.ndarray, want: np.ndarray) -> int:
-    bad = got != want
-    if not bad.any():
-        return 0
-    return max(abs(int(x) - int(y)) for x, y in zip(got[bad][:1000], want[bad][:1000]))
-
-
-class KernelCheck:
-    """Accumulates one kernel's comparison results."""
-
-    def __init__(self, name):
-        self.name = name
-        self.max_abs_err = 0
-        self.cases = 0
-
-    def compare(self, got, want, what: str):
-        from plonky2_verifier_tpu_torch.ops.field import to_u64
-
-        got = to_u64(got)
-        if not isinstance(want, np.ndarray):
-            want = to_u64(want)
-        if got.shape != want.shape:
-            raise AssertionError(f"{self.name} {what}: shape {got.shape} != {want.shape}")
-        err = _max_abs_err(got, want)
-        self.max_abs_err = max(self.max_abs_err, err)
-        self.cases += got.size
-        if err:
-            raise AssertionError(f"{self.name} {what}: {int((got != want).sum())} words differ, max |err| {err}")
-
-
-def _golden_scan_lane(data_row, ov_idx, ov_mask):
-    """The transcript scan of one lane in Python ints (golden/poseidon.py)."""
-    from plonky2_verifier_tpu_torch.golden import poseidon as gp
-
-    state, states = [0] * 12, []
-    for idx, mask in zip(ov_idx, ov_mask):
-        state = gp.permutation([int(data_row[i]) if m else s for i, m, s in zip(idx, mask, state)])
-        states.append(state)
-    return np.array(states, dtype=np.uint64)
-
-
-def new_checks():
-    return {k: KernelCheck(k) for k in ("permutation", "sponge_rows", "merkle_fold")}
-
-
-def check_kernels(lib, consts):
-    import torch
-
-    from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
-    from plonky2_verifier_tpu_torch.golden import hashing as gh
-    from plonky2_verifier_tpu_torch.golden import poseidon as gp
-    from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
-    from plonky2_verifier_tpu_torch.ops import field as tf
-    from plonky2_verifier_tpu_torch.ops import hash as th
-    from plonky2_verifier_tpu_torch.ops import poseidon as tp
-    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
-
-    rng = np.random.default_rng(2024)
-    dev = consts.rc.device
-    checks = new_checks()
-
-    # permutation: both forms, and the form the launcher picks
-    c = checks["permutation"]
-    edge = np.array(EDGE, dtype=np.uint64)
-    band = np.concatenate(
-        [np.repeat(edge[:, None], 12, axis=1), edge[rng.integers(0, len(EDGE), size=(4096, 12))]]
-    )
-    cases = [("edge band", band), (f"random {N_RANDOM}", _rand(rng, (N_RANDOM, 12))), ("random 37", _rand(rng, (37, 12)))]
-    for form in ("thread", "split", "auto"):
-        kat = lib.permutation(tf.from_u64(np.arange(12, dtype=np.uint64).reshape(1, 12), dev), form)
-        c.compare(kat, np.array([gp.KAT_OUTPUT], dtype=np.uint64), f"KAT ({form})")
-        for what, states in cases:
-            x = tf.from_u64(states, dev)
-            got = lib.permutation(x, form)
-            c.compare(got, tp.permutation_plain(x, consts), f"{what} ({form})")
-            golden = np.array([gp.permutation([int(v) for v in s]) for s in states[:8]], dtype=np.uint64)
-            c.compare(got[:8], golden, f"{what} ({form}) vs golden")
-
-    # the scan entry point on a real schedule (the 6-query fibonacci template's)
-    sched = TorchVerifier(CircuitTemplate(fibonacci_fixture(num_query_rounds=6).common), device=dev)
-    ov_idx, ov_mask = sched._ov_idx, sched._ov_mask
-    for B in SCAN_BATCHES:
-        data_np = _rand(rng, (B, sched.tpl.schedule.n_data))
-        data_np[0, :4] = np.array([P, 2**64 - 1, P - 1, 0], dtype=np.uint64)  # proof words need not be canonical
-        data = tf.from_u64(data_np, dev)
-        want = tp.permutation_scan_plain(data, ov_idx, ov_mask, consts)
-        golden = _golden_scan_lane(data_np[0], ov_idx.cpu().numpy(), ov_mask.cpu().numpy())
-        for form in ("thread", "split", "auto"):
-            got = lib.permutation_scan(data, ov_idx, ov_mask, form)
-            c.compare(got, want, f"scan B={B} ({form})")
-            c.compare(got[:, 0], golden, f"scan B={B} ({form}) lane 0 vs golden")
-
-    # sponge: one matrix a launch
-    c = checks["sponge_rows"]
-    for width in SPONGE_WIDTHS:
-        rows_np = _rand(rng, (4099, width))
-        rows = tf.from_u64(rows_np, dev)
-        got = lib.sponge_rows(rows, width)
-        c.compare(got, th.sponge_rows_plain(rows, width, consts), f"width {width}")
-        golden = np.array([gh.sponge([int(v) for v in r]) for r in rows_np[:4]], dtype=np.uint64).reshape(4, 4)
-        c.compare(got[:4], golden, f"width {width} vs golden")
-
-    # sponge, grouped: every width mixed in one launch, row counts that are
-    # no multiple of the block, an empty segment, and the edge band
-    sizes = [4099, 31, 1, 33, 0, 64, 1000, 32, 7, 2049, 513]
-    group_np = [_rand(rng, (n, w)) for n, w in zip(sizes, SPONGE_WIDTHS)]
-    group_np += [edge[rng.integers(0, len(EDGE), size=(777, w))] for w in (135, 20, 9)]
-    group = [tf.from_u64(x, dev) for x in group_np]
-    if len(group) > lib.max_segments:
-        raise AssertionError(f"{len(group)} segments do not fit one launch of {lib.max_segments}")
-    before = lib.launches["sponge_rows_grouped"]
-    got = lib.sponge_rows_grouped(group)
-    if lib.launches["sponge_rows_grouped"] != before + 1:
-        raise AssertionError("the mixed group took more than one launch")
-    want = th.sponge_rows_grouped_plain(group, consts)
-    for x_np, x, g, w in zip(group_np, group, got, want):
-        what = f"grouped segment {x_np.shape}"
-        c.compare(g, w, what)
-        c.compare(g, lib.sponge_rows(x, x.shape[1]), f"{what} vs sponge_rows")
-        k = min(4, x_np.shape[0])
-        golden = np.array([gh.sponge([int(v) for v in r]) for r in x_np[:k]], dtype=np.uint64).reshape(k, 4)
-        c.compare(g[:k], golden, f"{what} vs golden")
-    # more matrices than one launch takes
-    many = [tf.from_u64(_rand(rng, (5 + k, 1 + k)), dev) for k in range(lib.max_segments + 3)]
-    for g, w in zip(lib.sponge_rows_grouped(many), th.sponge_rows_grouped_plain(many, consts)):
-        c.compare(g, w, f"grouped beyond one launch {tuple(g.shape)}")
-
-    # merkle: path lengths, and sizes on both sides of one wave of blocks
-    c = checks["merkle_fold"]
-    for L, n in [(L, 4099) for L in PATH_LENS] + [(2, 1), (2, 31), (1, 200003)]:
-        dig_np = _rand(rng, (n, 4))
-        idx_np = rng.integers(0, 1 << 32, size=n, dtype=np.int64)  # bits above L set
-        sib_np = _rand(rng, (n, L, 4))
-        dig_np[0], sib_np[0, :, 0] = np.array([P, 2**64 - 1, P - 1, 0], dtype=np.uint64), np.uint64(P)  # not canonical
-        dig, idx, sib = tf.from_u64(dig_np, dev), torch.from_numpy(idx_np).to(dev), tf.from_u64(sib_np, dev)
-        got = lib.merkle_fold(dig, idx, sib)
-        c.compare(got, th.merkle_fold_plain(dig, idx, sib, L, consts), f"L={L} n={n}")
-        golden = np.array(
-            [gh.reconstruct_merkle_root(tuple(int(v) for v in dig_np[i]), int(idx_np[i]), [tuple(int(v) for v in s) for s in sib_np[i]])[1] for i in range(min(n, 4))],
-            dtype=np.uint64,
-        )
-        c.compare(got[: min(n, 4)], golden, f"L={L} n={n} vs golden")
-    for c in checks.values():
-        print(f"check {c.name}: {c.cases} words bit-exact against plain and golden")
-    return checks
-
-
-def _time_ms(fn, iters: int, warmup: int = 1) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def hold_against_plain(v, batch: int, checks, what: str):
+def hold_against_plain(v, batch, checks, what: str, queries=None):
     """Every kernel wrapper against its plain version, bit for bit, on random
     inputs of the shapes that one call of the verifier `v` at `batch` gives
     it: the transcript scan on v's own schedule, the public-input hash (width
     0 where the circuit has none), every leaf hash in one grouped launch, the
     stacked initial Merkle walk and each fold step's. A walk of length 0 is
     never launched (verifier_torch.merkle_batched) and is passed over here
-    too. These launches are no part of a path's count: call it outside the
-    window in which a path's launches are counted."""
+    too. `batch` may be a list of batch sizes: each wrapper is then called
+    once at each size, and the plain version (lane by lane the same work,
+    and thousands of launches whatever the size) once, on all those lanes
+    together. These launches are no part of a path's count: call it outside
+    the window in which a path's launches are counted. `queries`: the query
+    rounds a rank of a mesh with qp > 1 checks, where not all of them."""
     import torch
 
     from plonky2_verifier_tpu_torch.ops import field as tf
     from plonky2_verifier_tpu_torch.ops import hash as th
     from plonky2_verifier_tpu_torch.ops import poseidon as tp
+    from plonky2_verifier_tpu_torch.tools.check_hash_kernels import rand_words
 
     tpl, consts = v.tpl, v.poseidon
-    dev, Q = consts.rc.device, tpl.num_queries
-    rng = np.random.default_rng(batch)
-    rand = lambda *shape: tf.from_u64(_rand(rng, shape), dev)
+    dev, Q = consts.rc.device, queries or tpl.num_queries
+    batches = [batch] if isinstance(batch, int) else list(batch)
+    lanes = sum(batches)
+    ends = np.cumsum(batches)
+    parts = [slice(int(end - b), int(end)) for b, end in zip(batches, ends)]  # the lanes of each batch size
+    rng = np.random.default_rng(lanes)
+    rand = lambda *shape: tf.from_u64(rand_words(rng, shape), dev)
     t = time.time()
 
-    data = rand(batch, tpl.schedule.n_data)
-    checks["permutation"].compare(
-        tp.permutation_scan(data, v._ov_idx, v._ov_mask, consts), tp.permutation_scan_plain(data, v._ov_idx, v._ov_mask, consts),
-        f"{what}: scan ({batch}, {data.shape[1]}) x {v._ov_idx.shape[0]} steps",
-    )
+    data = rand(lanes, tpl.schedule.n_data)
+    want = tp.permutation_scan_plain(data, v._ov_idx, v._ov_mask, consts)
+    for b, part in zip(batches, parts):
+        checks["permutation"].compare(
+            tp.permutation_scan(data[part], v._ov_idx, v._ov_mask, consts), want[:, part],  # states (steps, lanes, 12)
+            f"{what}: scan ({b}, {data.shape[1]}) x {v._ov_idx.shape[0]} steps",
+        )
     c = checks["sponge_rows"]
-    pi = rand(batch, tpl.n_pi)
-    c.compare(th.sponge_rows(pi, tpl.n_pi, consts), th.sponge_rows_plain(pi, tpl.n_pi, consts), f"{what}: public inputs ({batch}, {tpl.n_pi})")
+    pi = rand(lanes, tpl.n_pi)
+    want = th.sponge_rows_plain(pi, tpl.n_pi, consts)
+    for b, part in zip(batches, parts):
+        c.compare(th.sponge_rows(pi[part], tpl.n_pi, consts), want[part], f"{what}: public inputs ({b}, {tpl.n_pi})")
     widths = list(tpl.oracle_widths) + [2 << st["arity_bits"] for st in tpl.steps]
-    group = [rand(batch, Q, w) for w in widths]
-    for w, got, want in zip(widths, th.sponge_rows_grouped(group, consts), th.sponge_rows_grouped_plain(group, consts)):
-        c.compare(got, want, f"{what}: grouped ({batch}, {Q}, {w})")
+    group = [rand(lanes, Q, w) for w in widths]
+    want = th.sponge_rows_grouped_plain(group, consts)
+    for b, part in zip(batches, parts):
+        for w, got, plain in zip(widths, th.sponge_rows_grouped([rows[part] for rows in group], consts), want):
+            c.compare(got, plain[part], f"{what}: grouped ({b}, {Q}, {w})")
     c = checks["merkle_fold"]
     oracles = len(tpl.oracle_widths)
-    paths = [((batch, oracles, Q), tpl.initial_path_len)] + [((batch, Q), st["path_len"]) for st in tpl.steps]
+    paths = [((oracles, Q), tpl.initial_path_len)] + [((Q,), st["path_len"]) for st in tpl.steps]
     for lead, L in paths:
         if L == 0:
             continue
-        dig, sib = rand(*lead, 4), rand(*lead, L, 4)
-        idx = torch.from_numpy(rng.integers(0, 1 << 32, size=lead, dtype=np.int64)).to(dev)
-        c.compare(th.merkle_fold(dig, idx, sib, L, consts), th.merkle_fold_plain(dig, idx, sib, L, consts), f"{what}: walk {lead}, L={L}")
-    print(f"held against plain, {what} at batch {batch}: scan {tuple(data.shape)} x {v._ov_idx.shape[0]}, public inputs {tpl.n_pi}, "
-          f"grouped widths {widths}, walks {[(lead, L) for lead, L in paths if L]}: bit-exact in {time.time() - t:.1f} s")
+        dig, sib = rand(lanes, *lead, 4), rand(lanes, *lead, L, 4)
+        idx = torch.from_numpy(rng.integers(0, 1 << 32, size=(lanes,) + lead, dtype=np.int64)).to(dev)
+        want = th.merkle_fold_plain(dig, idx, sib, L, consts)
+        for b, part in zip(batches, parts):
+            c.compare(th.merkle_fold(dig[part], idx[part], sib[part], L, consts), want[part], f"{what}: walk {(b,) + lead}, L={L}")
+    print(f"held against plain, {what} at batch {' and '.join(map(str, batches))}, {Q} queries: scan (batch, {data.shape[1]}) x {v._ov_idx.shape[0]}, "
+          f"public inputs {tpl.n_pi}, grouped widths {widths}, walks {[('batch',) + lead + (L,) for lead, L in paths if L]}: "
+          f"bit-exact in {time.time() - t:.1f} s")
 
 
 def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
@@ -375,6 +250,8 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     from plonky2_verifier_tpu_torch.ops import field as tf
     from plonky2_verifier_tpu_torch.ops import hash as th
     from plonky2_verifier_tpu_torch.ops import poseidon as tp
+    from plonky2_verifier_tpu_torch.tools.bench_poseidon import event_ms
+    from plonky2_verifier_tpu_torch.tools.check_hash_kernels import rand_words
 
     rng = np.random.default_rng(7)
     tpl = v.tpl
@@ -382,7 +259,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
 
     def measure(name, what, kernel, plain, iters, permutations, n_bytes, plain_iters=2):
         checks[name].compare(kernel(), plain(), what)
-        ms, plain_ms = _time_ms(kernel, iters, 2), _time_ms(plain, plain_iters, plain_iters - 1)
+        ms, plain_ms = event_ms(kernel, iters, 2), event_ms(plain, plain_iters, plain_iters - 1)
         b_ms, by = bound_ms(permutations, n_bytes, rate)
         print(f"time {name} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
               f"{permutations} permutations, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of bound {b_ms / ms:.3f}")
@@ -401,14 +278,14 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     )
     for form in ("thread", "split"):
         checks["permutation"].compare(lib.permutation_scan(data, ov_idx, ov_mask, form), lib.permutation_scan(data, ov_idx, ov_mask), f"scan form {form}")
-        print(f"time permutation scan ({B}) form {form}: {_time_ms(lambda: lib.permutation_scan(data, ov_idx, ov_mask, form), 10, 2):.4f} ms")
+        print(f"time permutation scan ({B}) form {form}: {event_ms(lambda: lib.permutation_scan(data, ov_idx, ov_mask, form), 10, 2):.4f} ms")
 
     # one step, in both forms and as the launcher picks
     for n in STEP_SIZES:
-        x = tf.from_u64(_rand(rng, (n, 12)), "cuda")
+        x = tf.from_u64(rand_words(rng, (n, 12)), "cuda")
         if n == B:
             out["permutation"]["step"] = measure("permutation", f"({n}, 12)", lambda: lib.permutation(x), lambda: tp.permutation_plain(x, consts), 200, n, n * 192)
-        forms = {form: _time_ms(lambda: lib.permutation(x, form), 200, 5) for form in ("thread", "split", "auto")}
+        forms = {form: event_ms(lambda: lib.permutation(x, form), 200, 5) for form in ("thread", "split", "auto")}
         print(f"time permutation step n={n}: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in forms.items())
               + f", bound {bound_ms(n, n * 192, rate)[0]:.5f} ms")
 
@@ -416,29 +293,29 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
         return [(B * t.num_queries, w) for w in t.oracle_widths] + [(B * t.num_queries, 2 << st["arity_bits"]) for st in t.steps]
 
     for n, w in [(B, tpl.n_pi)] + leaf_shapes(tpl):
-        rows = tf.from_u64(_rand(rng, (n, w)), "cuda")
+        rows = tf.from_u64(rand_words(rng, (n, w)), "cuda")
         res = measure("sponge_rows", f"({n}, {w})", lambda: lib.sponge_rows(rows, w), lambda: th.sponge_rows_plain(rows, w, consts), 20, n * -(-w // 8), n * (w + 4) * 8)
         if w == max(tpl.oracle_widths):
             widest = res
     # every leaf hash of one verifier call in one launch, beside one launch a matrix
     for name, t in [("the main path", tpl), ("the gate-zoo path", zoo_tpl)]:
         shapes = leaf_shapes(t)
-        group = [tf.from_u64(_rand(rng, shape), "cuda") for shape in shapes]
+        group = [tf.from_u64(rand_words(rng, shape), "cuda") for shape in shapes]
         res = measure(
             "sponge_rows", f"grouped, {name}: {shapes}",
             lambda: torch.cat(lib.sponge_rows_grouped(group)), lambda: torch.cat(th.sponge_rows_grouped_plain(group, consts)),
             20, sum(n * -(-w // 8) for n, w in shapes), sum(n * (w + 4) * 8 for n, w in shapes), plain_iters=1,
         )
-        apart = _time_ms(lambda: [lib.sponge_rows(rows, rows.shape[1]) for rows in group], 20, 2)
+        apart = event_ms(lambda: [lib.sponge_rows(rows, rows.shape[1]) for rows in group], 20, 2)
         print(f"time sponge_rows grouped, {name}: the same matrices one launch each {apart:.4f} ms")
         if t is tpl:
             out["sponge_rows"] = dict(res, widest=widest)
 
     paths = [(B * 4 * Q, tpl.initial_path_len)] + [(B * Q, st["path_len"]) for st in tpl.steps]
     for n, L in paths:
-        dig = tf.from_u64(_rand(rng, (n, 4)), "cuda")
+        dig = tf.from_u64(rand_words(rng, (n, 4)), "cuda")
         idx = torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.int64)).cuda()
-        sib = tf.from_u64(_rand(rng, (n, L, 4)), "cuda")
+        sib = tf.from_u64(rand_words(rng, (n, L, 4)), "cuda")
         res = measure("merkle_fold", f"({n}, L={L})", lambda: lib.merkle_fold(dig, idx, sib), lambda: th.merkle_fold_plain(dig, idx, sib, L, consts), 20, n * L, n * (72 + 32 * L))
         if L == tpl.initial_path_len:
             out["merkle_fold"] = res
@@ -563,6 +440,8 @@ def main_path(lib, checks):
 def time_main_path(v, dev, batch: int, iters: int, warmup: int = 2):
     import torch
 
+    from plonky2_verifier_tpu_torch.tools.bench_poseidon import event_ms
+
     for _ in range(warmup):
         v(dev)
     torch.cuda.synchronize()
@@ -580,25 +459,33 @@ def time_main_path(v, dev, batch: int, iters: int, warmup: int = 2):
     # transcript alone (one scan launch plus the slicing of its states)
     pi_hash = torch.zeros_like(dev["circuit_digest"])
     data = v._transcript_data(dev, pi_hash)
-    print(f"transcript_ms {_time_ms(lambda: v._run_transcript(data), 20, 2):.3f}")
+    print(f"transcript_ms {event_ms(lambda: v._run_transcript(data), 20, 2):.3f}")
     return step
 
 
-ZOO_PROVER = """
+PROVER = """
 import sys, time
 sys.path.insert(0, {root!r})
 from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
 t = time.time()
-get_fixture_proof("gate_zoo", **{params!r})
+get_fixture_proof({name!r}, **{params!r})
 print(f"{{time.time() - t:.1f}}")
 """
 
 
-def start_zoo_prover():
-    """A child process that proves the gate-zoo fixture into the fixture
-    cache while this process builds, checks and drives the first path."""
-    code = ZOO_PROVER.format(root=ROOT, params=ZOO)
+def start_prover(name: str, params: dict):
+    """A child process that proves one fixture into the fixture cache while
+    this process builds and checks the kernels."""
+    code = PROVER.format(root=ROOT, name=name, params=params)
     return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wait_for_prover(prover, what: str):
+    t = time.time()
+    out, err = prover.communicate()
+    if prover.returncode != 0:
+        raise RuntimeError(f"proving the {what} fixture failed ({prover.returncode}):\n{err}")
+    print(f"{what} fixture: proved (or found cached) in {out.strip()} s by a child process, waited {time.time() - t:.1f} s for it")
 
 
 def zoo_fixture(prover=None):
@@ -606,12 +493,9 @@ def zoo_fixture(prover=None):
     from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
     from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
 
-    t = time.time()
     if prover is not None:
-        out, err = prover.communicate()
-        if prover.returncode != 0:
-            raise RuntimeError(f"proving the gate-zoo fixture failed ({prover.returncode}):\n{err}")
-        print(f"gate zoo fixture: proved in {out.strip()} s by the child process, waited {time.time() - t:.1f} s for it")
+        wait_for_prover(prover, "gate zoo")
+    t = time.time()
     common, vkey, pwp = get_fixture_proof("gate_zoo", **ZOO)
     tpl = CircuitTemplate(common)
     print(f"gate zoo fixture: {time.time() - t:.1f} s (degree_bits {tpl.degree_bits}, {tpl.num_queries} queries, PoW {tpl.pow_bits}, "
@@ -693,11 +577,12 @@ def _merkle_launches(tpl) -> int:
 def stream_path(lib, fixture, step_s: float, ingest: dict):
     """The third path: raw JSON bytes -> native ingest -> pinned buffers ->
     the card -> TorchVerifier -> StreamMetrics. Returns the launch counts of
-    the whole run."""
+    the whole run and its final snapshot."""
     import torch
 
     from plonky2_verifier_tpu_torch import native
     from plonky2_verifier_tpu_torch.parallel.stream import StreamVerifier
+    from plonky2_verifier_tpu_torch.tools.bench_poseidon import event_ms
     from plonky2_verifier_tpu_torch.tools.stream_verify import proof_stream
 
     tpl, _, vkey, pwp = fixture
@@ -739,10 +624,10 @@ def stream_path(lib, fixture, step_s: float, ingest: dict):
         raise AssertionError(f"ingest_s + device_wait_s = {m.ingest_s + m.device_wait_s} exceeds elapsed_s = {snap['elapsed_s']}")
     if sv._staging is not None:  # a CPU rehearsal stages nothing
         pinned, on_card = sv._staging.pinned[0], sv._staging.on_card[0]
-        copy_ms = _time_ms(lambda: [on_card[k].copy_(pinned[k], non_blocking=True) for k in pinned], 5)
+        copy_ms = event_ms(lambda: [on_card[k].copy_(pinned[k], non_blocking=True) for k in pinned], 5)
         print(f"stream: copy to the card {copy_ms:.3f} ms a batch ({sum(t.numel() * 8 for t in pinned.values())} bytes from the "
               f"stream's pinned set to its device set, 5 copies timed after the run)")
-    return launches
+    return launches, snap
 
 
 def cli_path(lib, fixtures, checks):
@@ -781,10 +666,11 @@ def cli_path(lib, fixtures, checks):
         if rc != 0:
             raise AssertionError(f"cli verify: exit code {rc}")
     for k, (name, fixture) in enumerate(fixtures.items()):
+        if name == "gate_zoo" and CLI_BATCH in ZOO_BATCHES:
+            continue  # zoo_path held this template at this batch
         v = TorchVerifier(fixture[0], device=DEVICE)
-        hold_against_plain(v, CLI_BATCH, checks, f"the command line's stream, {name}")
-        if k == 0:
-            hold_against_plain(v, CLI_VERIFY_BATCH, checks, f"the command line's verify, {name}")
+        # the first shape at verify's batch too
+        hold_against_plain(v, [CLI_BATCH, CLI_VERIFY_BATCH] if k == 0 else CLI_BATCH, checks, f"the command line's stream{' and verify' if k == 0 else ''}, {name}")
     return launches
 
 
@@ -793,7 +679,7 @@ def check_circuit(name: str, common, vkey, pwp, faults):
     lane 0's transcript equal to golden, then a batch that holds one fault a
     lane (the first word of that array flipped; empty arrays passed over)
     and one intact lane behind them, rejected on exactly the faulted lanes.
-    Returns the template."""
+    Returns the verifier and the sizes of the two batches."""
     from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
     from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 
@@ -837,9 +723,212 @@ def shapes_path(lib, checks):
     if (launches["permutation_scan"], launches["sponge_rows"], launches["sponge_rows_grouped"], launches["merkle_fold"]) != (calls, calls, calls, want):
         raise AssertionError(f"shapes: launches {launches}, expected {calls} of the scan and of each sponge entry and {want} Merkle walks")
     for (name, _, _), (v, batches) in zip(circuits, ran):
-        for batch in batches:
-            hold_against_plain(v, batch, checks, f"shape {name}")
+        hold_against_plain(v, batches, checks, f"shape {name}")
     return launches
+
+
+def mesh_arrays(tpl, vkey, pwp, batch: int):
+    """The mesh phase's global batch, made the same way in the parent and in
+    every rank: `batch` copies of the proof, lane 1 with a flipped
+    pow_witness and lane batch // 2 + 3 (another dp shard) with a flipped
+    opening. Returns (arrays, the two faulted lanes)."""
+    from plonky2_verifier_tpu_torch.compiler import flatten_proofs
+
+    arrays = {k: np.repeat(a, batch, axis=0) for k, a in flatten_proofs(tpl, [(vkey, pwp)]).items()}
+    bad = [1 % batch, (batch // 2 + 3) % batch]
+    arrays["pow_witness"][bad[0]] ^= np.uint64(1)
+    arrays["openings1"][bad[1], 0, 0] ^= np.uint64(1)
+    return arrays, bad
+
+
+def _rank_setup(standard, device):
+    """What every rank of the mesh phase starts with: the kernel library the
+    parent built (None on the CPU), a function that waits for the card (a
+    no-op on the CPU), and the cached fixture."""
+    import torch
+
+    from plonky2_verifier_tpu_torch import kernels
+    from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
+    from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+
+    on_card = device is None
+    lib = kernels.load() if on_card else None
+    common, vkey, pwp = get_fixture_proof("fibonacci", **standard)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    return lib, sync, CircuitTemplate(common), common, vkey, pwp
+
+
+def mesh_verify_rank(dp: int, qp: int, batch: int, timed_calls: int, hold_rank, standard, device):
+    """One rank of a dp x qp mesh of the mesh phase (every rank on the one
+    card): its share of the global batch through ShardedVerifier, the launch
+    counters of its first call, the gathered verdict, lane 0's transcript
+    against golden in the ranks that hold it, `timed_calls` calls between
+    barriers, and in rank `hold_rank` (None: in no rank) every kernel against
+    its plain version at this rank's shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from plonky2_verifier_tpu_torch.parallel import ShardedVerifier, make_mesh
+    from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
+
+    lib, sync, tpl, common, vkey, pwp = _rank_setup(standard, device)
+    arrays, _ = mesh_arrays(tpl, vkey, pwp, batch)
+    mesh = make_mesh(dp, qp)
+    sv = ShardedVerifier(tpl, mesh, device=device)
+    sharded = sv.shard_arrays(arrays)
+    sync()
+    launches = None
+    if lib is not None:
+        lib.reset_launches()
+    t = time.time()
+    out = sv(sharded)
+    sync()
+    first_s = time.time() - t
+    if lib is not None:
+        launches = dict(lib.launches)
+        _check_launches(launches, f"rank {mesh.rank} of the {dp} x {qp} mesh")
+        if launches["merkle_fold"] != _merkle_launches(tpl):
+            raise AssertionError(f"rank {mesh.rank}: {launches['merkle_fold']} Merkle launches, expected {_merkle_launches(tpl)}")
+    res = {"rank": mesh.rank, "at": [mesh.dp_index, mesh.qp_index], "first_s": first_s, "launches": launches,
+           "ok": out["ok"].cpu().tolist(), "gathered": sv.gather(out["ok"]).tolist(), "n_valid": out["n_valid"]}
+    if mesh.dp_index == 0:  # this rank holds lane 0
+        sv.inner.debug = True
+        with torch.no_grad():
+            dbg = sv.inner(sharded, queries=sv.queries)["debug"]
+        sv.inner.debug = False
+        _transcript_equals_golden(common, dbg, 0, vkey, pwp)
+        res["lane0_transcript_equals_golden"] = True
+    dist.barrier()
+    sync()
+    t = time.time()
+    for _ in range(timed_calls):
+        sv(sharded)
+    sync()
+    dist.barrier()
+    res["step_ms"] = (time.time() - t) / max(timed_calls, 1) * 1e3
+    if mesh.rank == hold_rank:
+        checks = new_checks()
+        per_rank = batch // dp
+        queries = None if sv.queries is None else sv.queries.stop - sv.queries.start
+        hold_against_plain(sv.inner, per_rank, checks, f"rank {mesh.rank} of the {dp} x {qp} mesh", queries)
+        res["held"] = {k: (c.cases, c.max_abs_err) for k, c in checks.items()}
+    return res
+
+
+def mesh_stream_rank(dp: int, batch: int, n_proofs: int, corrupt_every: int, standard, device):
+    """One rank of the mesh phase's stream: the same `n_proofs` raw-JSON
+    proofs in every rank, through StreamVerifier over a dp x 1 mesh."""
+    import torch.distributed as dist
+
+    from plonky2_verifier_tpu_torch.parallel import StreamVerifier, make_mesh
+    from plonky2_verifier_tpu_torch.tools.stream_verify import proof_stream
+
+    lib, sync, tpl, _, vkey, pwp = _rank_setup(standard, device)
+    items, expected = proof_stream(vkey, pwp, n_proofs, corrupt_every, raw=True)
+    mesh = make_mesh(dp, 1)
+    sv = StreamVerifier(tpl, batch, mesh=mesh, raw_json=True, device=device)
+    dist.barrier()
+    if lib is not None:
+        lib.reset_launches()
+    m = sv.run(items)
+    sync()
+    snap = m.snapshot()
+    calls_s = snap["elapsed_s"] - m.ingest_s - m.device_wait_s
+    return {"rank": mesh.rank, "counts": [m.proofs, m.accepted, m.rejected, m.batches], "expected_rejected": expected,
+            "launches": None if lib is None else dict(lib.launches), "snapshot": snap, "ingest_workers": sv.ingest_workers,
+            "ingest_work_s": sv.ingest_work_s, "ingest_s": m.ingest_s, "device_wait_s": m.device_wait_s,
+            "step_ms": calls_s / m.batches * 1e3}
+
+
+def mesh_path(fixture, checks, one_process_stream: dict, step_s: float):
+    """The fourth path: several processes on the one card, joined by gloo.
+    2 x 1, 1 x 2 and 2 x 2 meshes through ShardedVerifier on a global batch
+    of MESH_BATCH with two faulted lanes, each rank's verdicts against the
+    one-process TorchVerifier's on the same arrays, then the stream over a
+    2 x 1 mesh beside the one-process stream of this run. A rank that fails,
+    or gives no answer in time, fails the run (parallel.run_ranks kills the
+    rest). Returns the launch counts summed over the ranks of the last mesh's
+    first call, and of the stream."""
+    from plonky2_verifier_tpu_torch import kernels
+    from plonky2_verifier_tpu_torch.parallel import run_ranks
+    from plonky2_verifier_tpu_torch.verifier_torch import verify_batch
+
+    tpl, _, vkey, pwp = fixture
+    arrays, bad = mesh_arrays(tpl, vkey, pwp, MESH_BATCH)
+    want = verify_batch(tpl, arrays, device=DEVICE)["ok"].tolist()
+    if want != [i not in bad for i in range(MESH_BATCH)]:
+        raise AssertionError(f"one process rejects lanes {[i for i, ok in enumerate(want) if not ok]}, expected {bad}")
+    threads = 1 if DEVICE == "cpu" else 0
+    summed = dict.fromkeys(kernels.COUNTERS, 0)
+    for dp, qp in MESHES:
+        world = dp * qp
+        t = time.time()
+        hold_rank = world - 1 if (dp, qp) in MESH_HOLDS else None
+        ranks = run_ranks(mesh_verify_rank, world, (dp, qp, MESH_BATCH, MESH_TIMED_CALLS, hold_rank, STANDARD, DEVICE),
+                          backend="gloo", timeout_s=MESH_TIMEOUT_S, threads=threads)
+        per = MESH_BATCH // dp
+        for rank, res in enumerate(ranks):
+            mine = want[rank // qp * per : (rank // qp + 1) * per]
+            if res["rank"] != rank or res["ok"] != mine or res["gathered"] != want or res["n_valid"] != MESH_BATCH - len(bad):
+                raise AssertionError(f"mesh {dp} x {qp}, rank {rank}: lanes {res['ok'][:8]}..., gathered rejects "
+                                     f"{[i for i, ok in enumerate(res['gathered']) if not ok]}, n_valid {res['n_valid']}; expected rejects {bad}")
+            if rank // qp == 0 and not res.get("lane0_transcript_equals_golden"):
+                raise AssertionError(f"mesh {dp} x {qp}, rank {rank} holds lane 0 and did not check its transcript")
+            if DEVICE is None:  # the rank checked its own counts; here once more, from what it reported
+                _check_launches(res["launches"], f"rank {rank} of the {dp} x {qp} mesh")
+        if hold_rank is not None and "held" not in ranks[hold_rank]:
+            raise AssertionError(f"mesh {dp} x {qp}: rank {hold_rank} did not hold the kernels against their plain versions")
+        for k, (cases, err) in ranks[-1].get("held", {}).items():
+            checks[k].cases += cases
+            checks[k].max_abs_err = max(checks[k].max_abs_err, err)
+        steps = [r["step_ms"] for r in ranks]
+        print(f"mesh {dp} x {qp}: {world} processes on one card, global batch {MESH_BATCH} ({per} lanes, {tpl.num_queries // qp} queries a rank): "
+              f"every rank's lanes and the gathered verdict equal one process's, n_valid {ranks[0]['n_valid']} on every rank, rejected lanes {bad}; "
+              f"lane 0's transcript equals golden in ranks {[r['rank'] for r in ranks if r.get('lane0_transcript_equals_golden')]}; "
+              f"first call {[round(r['first_s'], 3) for r in ranks]} s, launches a rank {ranks[0]['launches']}; "
+              f"step_ms a rank {[round(x, 3) for x in steps]} -> {MESH_BATCH / max(steps) * 1e3:.1f} proofs/s over the mesh "
+              f"(one process, batch {BATCH}: {step_s * 1e3:.3f} ms, {BATCH / step_s:.1f} proofs/s)"
+              + (f"; rank {hold_rank} held the kernels against plain at its shapes" if hold_rank is not None else "") + f"; {time.time() - t:.1f} s")
+        if DEVICE is None:
+            summed = {k: sum(r["launches"][k] for r in ranks) for k in kernels.COUNTERS}
+
+    dp = MESH_STREAM_DP
+    t = time.time()
+    ranks = run_ranks(mesh_stream_rank, dp, (dp, MESH_STREAM_BATCH, MESH_STREAM_PROOFS, STREAM_CORRUPT_EVERY, STANDARD, DEVICE),
+                      backend="gloo", timeout_s=MESH_TIMEOUT_S, threads=threads)
+    expected = MESH_STREAM_PROOFS // STREAM_CORRUPT_EVERY
+    batches = -(-MESH_STREAM_PROOFS // MESH_STREAM_BATCH)
+    want_launches = {"permutation": 0, "permutation_scan": batches, "sponge_rows": batches,
+                     "sponge_rows_grouped": batches, "merkle_fold": batches * _merkle_launches(tpl)}
+    for rank, res in enumerate(ranks):
+        if res["counts"] != [MESH_STREAM_PROOFS, MESH_STREAM_PROOFS - expected, expected, batches]:
+            raise AssertionError(f"mesh stream, rank {rank}: (proofs, accepted, rejected, batches) = {res['counts']}")
+        if DEVICE is None and res["launches"] != want_launches:
+            raise AssertionError(f"mesh stream, rank {rank}: launches {res['launches']}, expected {want_launches}")
+    rate = min(r["snapshot"]["proofs_per_sec"] for r in ranks)
+    print(f"mesh stream {dp} x 1: {MESH_STREAM_PROOFS} proofs at global batch {MESH_STREAM_BATCH}, counts {ranks[0]['counts']} on every rank, "
+          f"launches a rank {ranks[0]['launches']}, {ranks[0]['ingest_workers']} ingest workers a rank; {rate} proofs/s over all "
+          f"(the slower rank's clock; after the first batch {[r['snapshot']['steady_proofs_per_sec'] for r in ranks]}) beside the one-process "
+          f"stream's {one_process_stream['proofs_per_sec']} ({one_process_stream['steady_proofs_per_sec']} after the first batch) in this run: "
+          f"ratio {rate / one_process_stream['proofs_per_sec']:.3f}; step a rank (elapsed - ingest_s - device_wait_s, a batch) "
+          f"{[round(r['step_ms'], 3) for r in ranks]} ms for {MESH_STREAM_BATCH // dp} lanes; ingest work s {[round(r['ingest_work_s'], 3) for r in ranks]}, "
+          f"paid {[round(r['ingest_s'], 3) for r in ranks]}, device_wait_s {[round(r['device_wait_s'], 3) for r in ranks]}; {time.time() - t:.1f} s")
+    stream_launches = {k: sum(r["launches"][k] for r in ranks) for k in kernels.COUNTERS} if DEVICE is None else dict(summed)
+    return summed, stream_launches
+
+
+def profile_path():
+    """tools/profile_verifier.py at each (model, batch) of PROFILE: stage
+    times, launches a forward and the card's idle share, one line each."""
+    from plonky2_verifier_tpu_torch.tools.profile_verifier import profile_verifier
+
+    for model, batch in PROFILE:
+        t = time.time()
+        res = profile_verifier(model, batch, DEVICE)
+        staged = sum(res["stages_ms"].values())
+        if not 0.95 * res["staged_call_ms"] <= staged <= res["staged_call_ms"]:
+            raise AssertionError(f"profile {model}: the stages add up to {staged} ms of a call of {res['staged_call_ms']} ms")
+        print(f"profile {model} batch {batch} ({time.time() - t:.1f} s): {json.dumps(res)}")
 
 
 def main():
@@ -850,29 +939,49 @@ def main():
 
     from plonky2_verifier_tpu_torch import kernels
     from plonky2_verifier_tpu_torch.ops.poseidon import PoseidonConstants
+    from plonky2_verifier_tpu_torch.tools.check_hash_kernels import check_kernels
 
-    prover = start_zoo_prover()
+    last = [time.time()]
+
+    def phase(name: str):
+        print(f"phase_s {name} {time.time() - last[0]:.1f}", flush=True)
+        last[0] = time.time()
+
+    provers = [start_prover("fibonacci", STANDARD), start_prover("gate_zoo", ZOO)]  # both prove beside the build and the kernel checks
     try:
         t = time.time()
         lib = kernels.load()
         print(f"build_s {time.time() - t:.1f}")
         consts = PoseidonConstants()
 
-        checks = check_kernels(lib, consts)
+        checks = check_kernels(lib, consts)  # phase 3, at that tool's full size
+        phase("build and kernel checks")
+        shape_launches = shapes_path(lib, checks)  # phase 11 here: it needs no cached fixture, and the children are still proving
+        phase("shape circuits")
+        wait_for_prover(provers[0], "fibonacci")
         v, dev, launches, fib = main_path(lib, checks)
-        zoo = zoo_fixture(prover)
+        phase("main path")
+        zoo = zoo_fixture(provers[1])
     finally:
-        if prover.poll() is None:
-            prover.kill()
-            prover.wait()
+        for prover in provers:
+            if prover.poll() is None:
+                prover.kill()
+                prover.wait()
     times = time_kernels(lib, consts, v, dev, checks, rate, zoo[0])
     step_s = time_main_path(v, dev, BATCH, TIMED_CALLS)
     del v, dev
+    phase("kernel times and timed calls")
     zoo_launches = zoo_path(lib, zoo, checks)
+    phase("gate-zoo path")
     ingest = ingest_phase(fib)
-    stream_launches = stream_path(lib, fib, step_s, ingest)
+    stream_launches, stream_snap = stream_path(lib, fib, step_s, ingest)
+    phase("ingest and stream")
     cli_launches = cli_path(lib, {"fibonacci": fib, "gate_zoo": zoo}, checks)
-    shape_launches = shapes_path(lib, checks)
+    phase("command line")
+    mesh_launches, mesh_stream_launches = mesh_path(fib, checks, stream_snap, step_s)
+    phase("mesh of processes")
+    profile_path()
+    phase("profiles")
     if "--sass" in sys.argv[1:]:
         counts = kernels.sass_instruction_count()
         top = sorted(counts.items(), key=lambda kv: -kv[1])
@@ -880,6 +989,8 @@ def main():
               f"(W = {W_INSTRUCTIONS}): " + ", ".join(f"{k} {n}" for k, n in top))
     paths = [("the main path", launches)] + [(f"the gate-zoo path at batch {b}", n) for b, n in zoo_launches.items()]
     paths += [(f"the stream of {STREAM_PROOFS}", stream_launches), ("the command line's stream", cli_launches), ("the shape circuits", shape_launches)]
+    paths += [(f"the {MESHES[-1][0]} x {MESHES[-1][1]} mesh's first call, its ranks together", mesh_launches),
+              (f"the mesh stream of {MESH_STREAM_PROOFS}, its ranks together", mesh_stream_launches)]
     for what, n in paths:
         print(f"launches on {what}: " + ", ".join(f"{k} {n[k]}" for k in kernels.COUNTERS))
     print(f"card: {smi}")
@@ -917,6 +1028,8 @@ def main():
         row["launches_stream"] = sum(stream_launches[k] for k in entry_points[name])
         row["launches_cli"] = sum(cli_launches[k] for k in entry_points[name])
         row["launches_shapes"] = sum(shape_launches[k] for k in entry_points[name])
+        # every rank of the last mesh's first call, and of the mesh stream, together
+        row["launches_mesh"] = sum(mesh_launches[k] + mesh_stream_launches[k] for k in entry_points[name])
         # beside the launch the main path makes: one (1024, 12) permutation
         # step beside the scan, the widest single matrix beside the grouped sponge
         for extra in ("step", "widest"):

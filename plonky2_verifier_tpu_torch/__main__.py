@@ -26,6 +26,13 @@ a .jsonl manifest whose lines are {"prefix": "..."} or {"common_file":
 native C++ ingest as raw bytes (never json.loads'd on the host) unless
 --no-raw.
 
+With P2V_DISTRIBUTED=1 and PyTorch's MASTER_ADDR, MASTER_PORT, WORLD_SIZE
+and RANK in the environment, `stream` is one process of several, one a
+device (parallel.stream.init_distributed): start it once a rank with the same
+arguments. Every rank reads the same items and verifies its share of every
+batch; rank 0 prints the summary, and every rank exits with the code that
+the global counts give.
+
 Exit code 0 iff every proof verifies, 1 on a rejection, 2 when `stream`
 finds no proof triple.
 """
@@ -159,12 +166,26 @@ def _stream_items(path: str):
 
 
 def _cmd_stream(args) -> int:
+    from .parallel import init_distributed, make_mesh
+
+    if not init_distributed(device=args.device):
+        return _stream(args, None)
+    import torch.distributed as dist
+
+    try:
+        return _stream(args, make_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def _stream(args, mesh) -> int:
     import json
 
-    from .parallel.stream import BucketedStreamVerifier
+    from .parallel import BucketedStreamVerifier
 
+    quiet = args.quiet or (mesh is not None and mesh.rank != 0)
     bsv = BucketedStreamVerifier(
-        batch=args.batch, raw_json=not args.no_raw, ingest_workers=args.workers, device=args.device
+        batch=args.batch, mesh=mesh, raw_json=not args.no_raw, ingest_workers=args.workers, device=args.device
     )
     items = list(_stream_items(args.path))
     if not items:
@@ -182,7 +203,7 @@ def _cmd_stream(args) -> int:
         ]
 
     def progress(key, m):
-        if not args.quiet:
+        if not quiet:
             print(f"{key} {m.line()}", flush=True)
 
     per_shape = bsv.run(items, on_batch=progress)
@@ -191,7 +212,8 @@ def _cmd_stream(args) -> int:
         total["proofs"] += m.proofs
         total["accepted"] += m.accepted
         total["rejected"] += m.rejected
-    print(json.dumps({**total, "per_shape": {k: m.snapshot() for k, m in per_shape.items()}}))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps({**total, "per_shape": {k: m.snapshot() for k, m in per_shape.items()}}))
     return 0 if total["rejected"] == 0 and total["proofs"] > 0 else 1
 
 
@@ -220,7 +242,7 @@ def main(argv=None) -> int:
     ps.add_argument("path", help="directory of *_{common,vkey,proof}.json or a .jsonl manifest")
     ps.add_argument("--batch", type=int, default=256)
     ps.add_argument("--repeat", type=int, default=1, help="cycle the item list N times")
-    ps.add_argument("--workers", type=int, default=0, help="ingest threads (0 = host cores)")
+    ps.add_argument("--workers", type=int, default=0, help="ingest threads (0 = host cores, over the processes on this host)")
     ps.add_argument("--no-raw", action="store_true", help="parsed-dataclass ingest instead of native")
     ps.add_argument("--quiet", action="store_true")
     ps.add_argument("--device", default=None, help=device_help)

@@ -35,6 +35,16 @@ own time, so they never overlap and `ingest_s + device_wait_s <= elapsed_s`:
 - `elapsed_s - ingest_s - device_wait_s` is the rest of the calling thread's
   time: the verifier calls, and reading the proofs from their iterator.
 
+Several devices (`mesh=`, a parallel/mesh.Mesh): one process a device, each
+running this same loop over the same sequence of items. `batch` stays the
+global batch; of each group a rank parses, stages, copies and verifies only
+the lanes of its dp shard (and, on a mesh with qp > 1, its share of the
+query rounds), and the accepted lanes are summed over the mesh when a batch
+is folded, so every rank's metrics hold the global counts. Collectives are
+issued by the calling thread alone, in batch order; the prefetch thread makes
+none. `init_distributed` joins the process group under PyTorch's standard
+environment variables.
+
 Mixed shapes go through BucketedStreamVerifier: items carry their
 CommonCircuitData, are grouped by the canonical shape hash, and each bucket
 owns a StreamVerifier, built at first sight of its shape; batches dispatch
@@ -58,7 +68,7 @@ from ..compiler.template import CircuitTemplate
 from ..metrics import StreamMetrics, perms_per_proof
 from ..ops.field import resolve_device
 from ..types import CommonCircuitData
-from ..verifier_torch import TorchVerifier
+from .mesh import Mesh, ShardedVerifier, join_group
 
 
 def template_key(common: CommonCircuitData) -> str:
@@ -69,11 +79,39 @@ def template_key(common: CommonCircuitData) -> str:
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a batch sharded over several devices) is not ported yet: ROADMAP.md, Queue 1 item 10"
-        )
+def init_distributed(backend: Optional[str] = None, device=None) -> bool:
+    """Env-gated start of a run over several processes, one a device.
+
+    Set P2V_DISTRIBUTED=1 plus PyTorch's standard variables (MASTER_ADDR,
+    MASTER_PORT, WORLD_SIZE, RANK) in every process; this joins the process
+    group before anything is built on a device, and `make_mesh()` then lays
+    the processes out. Returns True when it ran, and False (having touched
+    nothing) where the gate is not set; a variable missing under the gate
+    raises.
+
+    `backend` is "nccl" where every rank has a card of its own and "gloo"
+    on the CPU and where ranks share one card; left out, it is "gloo" for
+    device="cpu" and "nccl" otherwise. Under "nccl" the rank takes the card
+    `device` names or, without one, card LOCAL_RANK (RANK where that is not
+    set), and raises where this host has no such card."""
+    if os.environ.get("P2V_DISTRIBUTED") != "1":
+        return False
+    missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK") if not os.environ.get(k)]
+    if missing:
+        raise RuntimeError(f"P2V_DISTRIBUTED=1 needs {', '.join(missing)} in the environment")
+    rank, world_size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = None if device is None else torch.device(device)
+    if backend is None:
+        backend = "gloo" if dev is not None and dev.type == "cpu" else "nccl"
+    index = dev.index if dev is not None and dev.type == "cuda" else None
+    if index is None and backend == "nccl":
+        index = int(os.environ.get("LOCAL_RANK", rank))
+    if index is not None:
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} needs CUDA device {index}; this host has {torch.cuda.device_count()}")
+        torch.cuda.set_device(index)
+    join_group(backend, f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", rank, world_size)
+    return True
 
 
 class _CardStaging:
@@ -83,11 +121,8 @@ class _CardStaging:
 
     SETS = 2
 
-    def __init__(self, tpl: CircuitTemplate, batch: int, device: torch.device):
-        from ..native import alloc_batch_arrays
-
-        shapes = {k: a.shape for k, a in alloc_batch_arrays(tpl, 0).items()}
-        shapes = {k: (batch,) + tuple(s[1:]) for k, s in shapes.items()}
+    def __init__(self, shapes: dict, device: torch.device):
+        batch = shapes["pow_witness"][0]
         self.device = device
         self.copy_stream = torch.cuda.Stream(device)
         self.pinned = [
@@ -119,13 +154,13 @@ class _CardStaging:
             self.copied[slot].record()
         return on_card
 
-    def call(self, verifier, dev, slot: int):
+    def call(self, verifier, dev, slot: int, queries=None):
         """Run `verifier` on the loaded set behind its copy, and enqueue the
         verdict's way back; returns a function that waits for this batch
         alone and gives its `ok` lanes."""
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(self.copied[slot])
-        out = verifier(dev)
+        out = verifier(dev, queries=queries)
         self.consumed[slot].record(stream)
         ok = verifier.to_host(out, into=self.verdict[slot])
         self.judged[slot].record(stream)
@@ -144,7 +179,12 @@ class StreamVerifier:
     through the native C++ ingest (plonky2_verifier_tpu_torch.native,
     `ingest_workers` threads that hold no interpreter lock) instead of parsed
     dataclasses. `device=None` means the CUDA card and raises where there is
-    none; the tests pass "cpu". `mesh` must be None (not ported yet)."""
+    none; the tests pass "cpu". With `mesh` (a parallel/mesh.Mesh) this
+    process is one rank of a mesh of processes: `batch` is the global batch,
+    every rank must be given the same sequence of items, and each verifies
+    its own lanes of every group (the module docstring says more). Without
+    `ingest_workers` the parser takes the host's cores, divided by the
+    mesh's processes on this host."""
 
     def __init__(
         self,
@@ -156,14 +196,22 @@ class StreamVerifier:
         ingest_workers: int = 0,
         device=None,
     ):
-        _refuse_mesh(mesh)
+        from ..native import alloc_batch_arrays
+
         self.tpl = tpl
         self.batch = batch
         self.raw_json = raw_json
-        self.ingest_workers = ingest_workers or (os.cpu_count() or 1)
+        self.mesh = mesh if mesh is not None else Mesh()  # a world of one: no collective
+        self.ingest_workers = ingest_workers or max(1, (os.cpu_count() or 1) // self.mesh.local_world_size)
         self.device = resolve_device(device)
-        self._v = TorchVerifier(tpl, device=self.device)
-        self._staging = _CardStaging(tpl, batch, self.device) if self.device.type == "cuda" else None
+        self._sharded = ShardedVerifier(tpl, self.mesh, shard_queries=shard_queries, device=self.device)
+        self._v = self._sharded.inner
+        self._lanes = self._sharded.lanes(batch)  # this rank's lanes of every group
+        self._staging = None
+        if self.device.type == "cuda":
+            one = self._sharded.cut_queries(alloc_batch_arrays(tpl, 1))
+            per_rank = self._lanes.stop - self._lanes.start
+            self._staging = _CardStaging({k: (per_rank,) + a.shape[1:] for k, a in one.items()}, self.device)
         self._staged = 0  # batches made ready so far; picks the buffer set
         self.metrics = StreamMetrics(
             perms_per_proof=perms_per_proof(tpl), queries_per_proof=tpl.num_queries
@@ -195,7 +243,7 @@ class StreamVerifier:
         the copy. Returns (device arrays, buffer set, seconds, proofs). Runs
         on the prefetch thread in run()."""
         t0 = time.time()
-        arrays = self._flatten(group)
+        arrays = self._sharded.cut_queries(self._flatten(group[self._lanes]))
         slot = self._staged % _CardStaging.SETS
         self._staged += 1
         dev = self._v.prepare(arrays) if self._staging is None else self._staging.load(arrays, slot)
@@ -209,10 +257,10 @@ class StreamVerifier:
         self.metrics.record_ingest(dt if paid_s is None else paid_s, n)
         with torch.no_grad():
             if self._staging is None:
-                out = self._v(dev)
+                out = self._v(dev, queries=self._sharded.queries)
                 wait = lambda: self._v.to_host(out)
             else:
-                wait = self._staging.call(self._v, dev, slot)
+                wait = self._staging.call(self._v, dev, slot, self._sharded.queries)
         if self._pending is not None:
             self._fold(self._pending, on_batch)
         self._pending = (wait, live)
@@ -258,9 +306,13 @@ class StreamVerifier:
     def _fold(self, pending, on_batch) -> None:
         wait, live = pending
         t0 = time.time()
-        ok = wait()[:live]
+        ok = wait()
         self.metrics.record_device_wait(time.time() - t0)
-        self.metrics.record_batch(live, int(ok.sum()))
+        # this rank's live lanes of a padded last batch; a rank with none still joins the collectives
+        mine = min(max(live - self._lanes.start, 0), len(ok))
+        if self._sharded.shard_queries:
+            ok = self.mesh.and_over_queries(torch.from_numpy(ok)).cpu().numpy()
+        self.metrics.record_batch(live, self.mesh.sum_over_shards(int(ok[:mine].sum())))
         if on_batch is not None:
             on_batch(self.metrics)
 
@@ -273,7 +325,9 @@ class BucketedStreamVerifier:
     and partial buckets pad+flush at end-of-stream exactly like the
     single-shape loop. With `raw_json=True` the vkey/proof slots carry JSON
     bytes for the native ingest (common stays a parsed object — it is the
-    bucket key)."""
+    bucket key). `mesh` goes to every bucket's StreamVerifier: every rank
+    reads the same items, so the buckets fill and fold in the same order on
+    all of them."""
 
     def __init__(
         self,
@@ -284,7 +338,6 @@ class BucketedStreamVerifier:
         ingest_workers: int = 0,
         device=None,
     ):
-        _refuse_mesh(mesh)
         self.batch = batch
         self.mesh = mesh
         self.shard_queries = shard_queries

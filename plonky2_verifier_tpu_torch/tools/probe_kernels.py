@@ -5,7 +5,7 @@ verifier.
 Run from the repository root:  python3 -m plonky2_verifier_tpu_torch.tools.probe_kernels
 
 1. builds the kernels and prints nvcc's registers and spills;
-2. runs chip_smoke.check_kernels at a reduced random size (every kernel,
+2. runs tools/check_hash_kernels.py's check at a reduced random size (every kernel,
    form and entry point bit-exact against its plain version and golden/);
 3. times the permutation in both forms over n = 64 ... 2^20 and the scan in
    both forms over B = 1 ... 16384 on a synthetic schedule of the standard
@@ -41,6 +41,8 @@ import chip_smoke as cs
 from .. import kernels
 from ..ops import field as tf
 from ..ops import poseidon as tp
+from .bench_poseidon import event_ms
+from .check_hash_kernels import check_kernels, rand_words
 
 PERM_SIZES = [64, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 1 << 20]
 SCAN_BATCHES = [1, 64, 1024, 4096, 16384]
@@ -67,23 +69,23 @@ def probe_sponge_groups(lib, rng, rate):
     each of SPONGE_VARIANTS, on the matrices of SPONGE_GROUPS."""
     variants = kernels.KernelLibrary(kernels.build((kernels.SPONGE_VARIANTS_FLAG,)))
     for name, shapes in SPONGE_GROUPS.items():
-        group = [tf.from_u64(cs._rand(rng, shape), "cuda") for shape in shapes]
+        group = [tf.from_u64(rand_words(rng, shape), "cuda") for shape in shapes]
         perms = sum(n * -(-w // 8) for n, w in shapes)
         bound = cs.bound_ms(perms, sum(n * (w + 4) * 8 for n, w in shapes), rate)[0]
         want = lib.sponge_rows_grouped(group)
         for g, rows in zip(want, group):
             if not torch.equal(g, lib.sponge_rows(rows, rows.shape[1])):
                 raise AssertionError(f"{name}: grouped launch differs from sponge_rows at {tuple(rows.shape)}")
-        apart = cs._time_ms(lambda: [lib.sponge_rows(rows, rows.shape[1]) for rows in group], 20, 3)
-        ms = cs._time_ms(lambda: lib.sponge_rows_grouped(group), 20, 3)
+        apart = event_ms(lambda: [lib.sponge_rows(rows, rows.shape[1]) for rows in group], 20, 3)
+        ms = event_ms(lambda: lib.sponge_rows_grouped(group), 20, 3)
         print(f"sponge group {name} ({perms} permutations): one launch {ms:.4f} ms, six launches {apart:.4f} ms, "
               f"bound {bound:.4f} ms, share {bound / ms:.3f}")
         for variant in SPONGE_VARIANTS:
             for g, w in zip(variants.sponge_rows_grouped(group, variant), want):
                 if not torch.equal(g, w):
                     raise AssertionError(f"{name}: variant {variant} differs from the shipped kernel")
-            ms = cs._time_ms(lambda: variants.sponge_rows_grouped(group, variant), 20, 3)
-            one = cs._time_ms(lambda: variants.sponge_rows_grouped(group[:1], variant), 20, 3)
+            ms = event_ms(lambda: variants.sponge_rows_grouped(group, variant), 20, 3)
+            one = event_ms(lambda: variants.sponge_rows_grouped(group[:1], variant), 20, 3)
             blocks = f"{variant[1]} blocks an SM" if variant[1] else "one block a warp of rows"
             print(f"sponge group {name}, launch bound {variant[0]}, {blocks}, {'drawn' if variant[2] else 'strided'}: "
                   f"{ms:.4f} ms, share {bound / ms:.3f}; {tuple(group[0].shape)} alone {one:.4f} ms")
@@ -110,13 +112,12 @@ def main():
     lib = kernels.load()
     print(f"build_s {time.time() - t:.1f}")
     consts = tp.PoseidonConstants()
-    cs.N_RANDOM = 5000
-    cs.check_kernels(lib, consts)
+    check_kernels(lib, consts, n_random=5000)
 
     rng = np.random.default_rng(3)
     for n in PERM_SIZES:
-        x = tf.from_u64(cs._rand(rng, (n, 12)), "cuda")
-        ms = {f: cs._time_ms(lambda: lib.permutation(x, f), 50, 5) for f in ("thread", "split")}
+        x = tf.from_u64(rand_words(rng, (n, 12)), "cuda")
+        ms = {f: event_ms(lambda: lib.permutation(x, f), 50, 5) for f in ("thread", "split")}
         print(f"permutation n={n}: thread {ms['thread']:.4f} ms, split {ms['split']:.4f} ms, bound {cs.bound_ms(n, n * 192, rate)[0]:.5f} ms")
 
     mask = np.zeros((N_PERMS, 12), dtype=bool)
@@ -124,19 +125,19 @@ def main():
     idx = (np.arange(N_PERMS * 12).reshape(N_PERMS, 12) % N_DATA).astype(np.int64)
     ov_idx, ov_mask = torch.from_numpy(idx).cuda(), torch.from_numpy(mask).cuda()
     for batch in SCAN_BATCHES:
-        data = tf.from_u64(cs._rand(rng, (batch, N_DATA)), "cuda")
-        ms = {f: cs._time_ms(lambda: lib.permutation_scan(data, ov_idx, ov_mask, f), 5, 2) for f in ("thread", "split")}
+        data = tf.from_u64(rand_words(rng, (batch, N_DATA)), "cuda")
+        ms = {f: event_ms(lambda: lib.permutation_scan(data, ov_idx, ov_mask, f), 5, 2) for f in ("thread", "split")}
         print(f"scan B={batch}: thread {ms['thread']:.4f} ms, split {ms['split']:.4f} ms, bound {cs.bound_ms(batch * N_PERMS, 0, rate)[0]:.5f} ms")
 
     for n, path_len in MERKLE_SHAPES:
-        dig = tf.from_u64(cs._rand(rng, (n, 4)), "cuda")
+        dig = tf.from_u64(rand_words(rng, (n, 4)), "cuda")
         index = torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.int64)).cuda()
-        sib = tf.from_u64(cs._rand(rng, (n, path_len, 4)), "cuda")
-        ms, bound = cs._time_ms(lambda: lib.merkle_fold(dig, index, sib), 20, 3), cs.bound_ms(n * path_len, 0, rate)[0]
+        sib = tf.from_u64(rand_words(rng, (n, path_len, 4)), "cuda")
+        ms, bound = event_ms(lambda: lib.merkle_fold(dig, index, sib), 20, 3), cs.bound_ms(n * path_len, 0, rate)[0]
         print(f"merkle_fold ({n}, L={path_len}): {ms:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f}")
     for n, width in SPONGE_SHAPES:
-        rows = tf.from_u64(cs._rand(rng, (n, width)), "cuda")
-        ms, bound = cs._time_ms(lambda: lib.sponge_rows(rows, width), 20, 3), cs.bound_ms(n * -(-width // 8), 0, rate)[0]
+        rows = tf.from_u64(rand_words(rng, (n, width)), "cuda")
+        ms, bound = event_ms(lambda: lib.sponge_rows(rows, width), 20, 3), cs.bound_ms(n * -(-width // 8), 0, rate)[0]
         print(f"sponge_rows ({n}, {width}): {ms:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f}")
     probe_sponge_groups(lib, rng, rate)
 

@@ -27,7 +27,7 @@ plain version.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -110,6 +110,14 @@ def merkle_batched(digest, index, sibs, cap, path_len: int, consts: tp.PoseidonC
     return (cur == tp.select_cap_root(cap, index >> path_len)).all(dim=-1)
 
 
+# arrays whose second axis is the FRI query-round axis (parallel/mesh.py cuts them)
+QUERY_AXIS_ARRAYS = ("leaves_", "sibs_", "step_evals_", "step_sibs_")
+
+
+def is_query_axis_array(name: str) -> bool:
+    return name.startswith(QUERY_AXIS_ARRAYS)
+
+
 def _bit_reverse(idx, bits: int):
     out = torch.zeros_like(idx)
     for k in range(bits):
@@ -130,6 +138,7 @@ class TorchVerifier(nn.Module):
             raise ValueError("lde domains beyond 2^32 and PoW beyond 32 bits are unsupported")
         self.tpl = tpl
         self.debug = debug
+        self.on_stage = None  # tools/profile_verifier.py: called with a stage's name where the stage ends
         common = tpl.common
 
         self.poseidon = tp.PoseidonConstants(device)
@@ -206,8 +215,18 @@ class TorchVerifier(nn.Module):
         into.copy_(ok, non_blocking=True)
         return into.numpy()
 
-    def forward(self, a: Dict[str, torch.Tensor]):
-        return self._verify(a)
+    def forward(self, a: Dict[str, torch.Tensor], queries: Optional[slice] = None):
+        """The verdicts of one batch. With `queries=slice(q0, q1)` the
+        transcript, the Plonk checks and the proof of work run whole and FRI
+        checks query rounds q0 ... q1 - 1 alone: the per-query arrays of `a`
+        (QUERY_AXIS_ARRAYS) arrive already cut to those rounds, and `fri_ok`
+        is this slice's share of the verdict, to be ANDed with the other
+        slices' (parallel/mesh.py)."""
+        return self._verify(a, queries)
+
+    def _stage(self, name: str) -> None:
+        if self.on_stage is not None:
+            self.on_stage(name)
 
     # -- transcript -------------------------------------------------------------
     def _transcript_data(self, a, pi_hash):
@@ -241,10 +260,19 @@ class TorchVerifier(nn.Module):
         }
 
     # -- main ---------------------------------------------------------------------
-    def _verify(self, a):
+    def _verify(self, a, queries: Optional[slice] = None):
         tpl = self.tpl
+        if queries is not None:
+            q0, q1, stride = queries.indices(tpl.num_queries)
+            if stride != 1 or q1 <= q0:
+                raise ValueError(f"queries must be a non-empty contiguous slice of the {tpl.num_queries} rounds, got {queries}")
+            for name, x in a.items():
+                if is_query_axis_array(name) and x.shape[1] != q1 - q0:
+                    raise ValueError(f"{name} holds {x.shape[1]} query rounds, the slice {q0}:{q1} needs {q1 - q0}")
         pi_hash = th.sponge_rows(a["public_inputs"], tpl.n_pi, self.poseidon)
+        self._stage("pi hash")
         ch = self._run_transcript(self._transcript_data(a, pi_hash))
+        self._stage("transcript")
         betas, gammas, alphas = ch["betas"], ch["gammas"], ch["alphas"]
         zeta = GExt(*ch["zeta"])
         fri_alpha = GExt(*ch["fri_alpha"])
@@ -252,6 +280,7 @@ class TorchVerifier(nn.Module):
         pow_response = ch["pow_response"][0]
         # lde_n <= 2^32, so the index is a low-bit mask of the canonical u64
         qidx = torch.stack([q & (tpl.lde_n - 1) for q in ch["query_indices"]], dim=1)  # (B, Q)
+        fri_qidx = qidx if queries is None else qidx[:, q0:q1]
 
         def ext_view(x):
             return GExt(x[..., 0], x[..., 1])
@@ -281,7 +310,7 @@ class TorchVerifier(nn.Module):
             pi_hash, constants, sigmas, wires, zs, zs_next, pps, lookup_zs, lookup_zs_next, quots,
             betas, gammas, alphas, deltas, zeta,
         )
-        fri_ok = self._fri_checks(a, o1, o2, zeta, fri_alpha, fri_betas, pow_response, qidx, final_poly)
+        fri_ok = self._fri_checks(a, o1, o2, zeta, fri_alpha, fri_betas, pow_response, fri_qidx, final_poly)
 
         out = {"ok": eqs_ok & fri_ok, "eqs_ok": eqs_ok, "fri_ok": fri_ok}
         if self.debug:
@@ -339,6 +368,7 @@ class TorchVerifier(nn.Module):
         pv = tf.ext_stack([current[..., :-1], current[..., 1:]], dim=2)  # (B, r, 2, n_chunks)
         pn = tf.emul(pv, prods)
         pp_vec = (pn[:, :, 0] - pn[:, :, 1]).reshape(B, r * n_chunks)
+        self._stage("plonk: L0 and partial products")
 
         # gate constraints
         sel_values = self._eval_selectors(gate_sels)  # (B, n_gates)
@@ -365,18 +395,22 @@ class TorchVerifier(nn.Module):
             cons_all = tf.ext_stack(cons_rows, dim=1)  # (B, G, n_gc)
             sel_live = sel_values[:, live_gates]
             acc = ext_sum_axis(tf.emul(sel_live.unsqueeze(-1), cons_all), axis=1)
+        self._stage("plonk: selectors and gate program")
 
         # assemble, alpha-combine, quotient equation
         lookup_vec = []
         if common.num_lookup_polys > 0:
             lookup_vec = [self._lookup_checks(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas)]
+        self._stage("plonk: lookup argument")
         constraint_vec = tf.ext_concat([zs1, pp_vec] + lookup_vec + [acc], dim=1)  # (B, K)
         combined = horner_scaled(constraint_vec, torch.stack(alphas, dim=1))  # (B, r)
         quots_r = quots.reshape(B, r, maxdeg)
         q = horner_ext(quots_r, zeta_n.unsqueeze(1).expand(B, r))
         zn1 = zeta_n - one
         ok = tf.ext_equal(tf.emul(q, zn1.unsqueeze(1)), combined)  # (B, r)
-        return ok.all(dim=1)
+        ok = ok.all(dim=1)
+        self._stage("plonk: alpha combination and quotient")
+        return ok
 
     def _eval_selectors(self, gate_sels: GExt) -> GExt:
         """Closed-form selector values for all gates at once: per gate, the
@@ -523,6 +557,7 @@ class TorchVerifier(nn.Module):
         # reduced openings
         y0 = horner_ext(o1, fri_alpha)  # (B,)
         y1 = horner_ext(o2, fri_alpha)
+        self._stage("fri: proof of work and reduced openings")
 
         # every leaf hash up front, in one grouped launch: the four oracles'
         # rows and each fold step's coset leaf ((re, im) interleaved) are all
@@ -535,6 +570,7 @@ class TorchVerifier(nn.Module):
             + [a[f"step_evals_{s}"].reshape(B, Q, 2 << st["arity_bits"]) for s, st in enumerate(tpl.steps)],
             self.poseidon,
         )
+        self._stage("fri: leaf hashes")
 
         # initial tree checks: the four oracles walk as one stacked batch
         digests = torch.stack(leaf_digests[:4], dim=1)  # (B, 4, Q, 4)
@@ -543,6 +579,7 @@ class TorchVerifier(nn.Module):
         cap_b = caps.unsqueeze(2).expand(B, 4, Q, *caps.shape[2:])
         idx4 = qidx.unsqueeze(1).expand(B, 4, Q)
         merkle_ok = merkle_batched(digests, idx4, sibs, cap_b, tpl.initial_path_len, self.poseidon).all(dim=1)  # (B, Q)
+        self._stage("fri: initial Merkle walks")
 
         # combineInitial
         npp = -(-tpl.n_sigmas // common.quotient_degree_factor)
@@ -562,6 +599,7 @@ class TorchVerifier(nn.Module):
         two_div = tf.ext_div(g1 - bq(y1), point_x - omega_zeta)
         alpha_m2 = tf.ext_pow_const(bq(fri_alpha), tpl.n_zs + tpl.n_lookup)
         eval_cur = tf.emul(alpha_m2, one_div) + two_div  # (B, Q)
+        self._stage("fri: combineInitial")
 
         # folding
         fold_ok = torch.ones((B, Q), dtype=torch.bool, device=dev)
@@ -580,6 +618,7 @@ class TorchVerifier(nn.Module):
             slot = (idx & (arity - 1)).unsqueeze(-1)
             opened = GExt(evals_ext.re.gather(-1, slot).squeeze(-1), evals_ext.im.gather(-1, slot).squeeze(-1))
             fold_ok = fold_ok & ok_m & tf.ext_equal(opened, eval_cur)
+            self._stage(f"fri: step {s} Merkle walk and opened slot")
 
             # coset fold: values to subgroup order, offset, IDFT, beta-Horner
             vals = evals_ext[..., getattr(self, f"_coset_perm_{s}")]
@@ -606,6 +645,7 @@ class TorchVerifier(nn.Module):
             folded = horner_ext(ys, bq(fri_betas[s]))
             eval_cur = tf.escale(const(gf.finv(arity % gf.P)), folded)
             idx = new_idx
+            self._stage(f"fri: step {s} coset fold")
 
         # final polynomial
         x_final = tf.mul(
@@ -621,7 +661,9 @@ class TorchVerifier(nn.Module):
         final_ok = tf.ext_equal(horner_ext(fp_b, tf.ext_from_base(x_final)), eval_cur)
 
         round_ok = merkle_ok & fold_ok & final_ok
-        return pow_ok & round_ok.all(dim=1)
+        ok = pow_ok & round_ok.all(dim=1)
+        self._stage("fri: final polynomial")
+        return ok
 
 
 def verify_batch(tpl: CircuitTemplate, arrays: Dict[str, np.ndarray], debug: bool = False, device=None):

@@ -1,12 +1,18 @@
 """The port's command line (plonky2_verifier_tpu_torch/__main__.py) on the
 CPU against the JAX package's on the same files: the seven cases of
 tests/test_cli.py with --device cpu, equal exit codes and counts. The
-fixture files are written by the JAX package's CLI. Tolerance: none."""
+fixture files are written by the JAX package's CLI. Then `stream` as two
+processes under P2V_DISTRIBUTED=1: rank 0 alone prints the summary, with the
+one-process counts, and both exit with the code the global counts give.
+Tolerance: none."""
 
 import copy
 import json
 import os
 import shutil
+import socket
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -123,6 +129,47 @@ def test_cli_stream_empty_dir_is_an_error(tmp_path):
     d = tmp_path / "empty"
     d.mkdir()
     assert main(["stream", str(d), "--quiet"] + CPU) == ref_main(["stream", str(d), "--quiet"]) == 2
+
+
+@pytest.mark.parametrize("corrupt", [False, True], ids=["all-accepted", "one-corrupt"])
+def test_cli_stream_as_two_processes(prefix, tmp_path, capsys, corrupt):
+    """The same command once a rank with P2V_DISTRIBUTED=1 and PyTorch's
+    rendezvous variables: each rank verifies half of every batch of 2."""
+    d = tmp_path / "streamdir"
+    d.mkdir()
+    for kind in ("common", "vkey", "proof"):
+        shutil.copy(f"{prefix}_{kind}.json", d / f"fib_{kind}.json")
+    if corrupt:
+        _write_corrupt(prefix, d, "zbad")  # sorts behind fib: lane 1 of the batch, rank 1's
+    args = ["stream", str(d), "--batch", "2", "--repeat", "1" if corrupt else "3", "--quiet"] + CPU
+    want_rc = main(args)
+    want = _last_json(capsys)
+    assert want_rc == (1 if corrupt else 0)
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(P2V_DISTRIBUTED="1", MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank), OMP_NUM_THREADS="1")
+        cmd = [sys.executable, "-m", "plonky2_verifier_tpu_torch"] + args
+        procs.append(subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [want_rc, want_rc], outs
+    summary = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert outs[1][0].strip() == ""  # rank 0 alone prints
+    for k in ("shapes", "proofs", "accepted", "rejected"):
+        assert summary[k] == want[k], k
+    (m,), (w,) = summary["per_shape"].values(), want["per_shape"].values()
+    assert [m[k] for k in ("proofs", "accepted", "rejected", "batches")] == [w[k] for k in ("proofs", "accepted", "rejected", "batches")]
 
 
 @pytest.mark.parametrize("args", [["verify", "PREFIX", "--quiet"], ["stream", "DIR", "--quiet"]])

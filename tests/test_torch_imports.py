@@ -3,8 +3,9 @@
 - Importing every port module (and chip_smoke.py) loads no JAX and nothing
   of the JAX package; no source file of the port, nor chip_smoke.py, holds
   an import of either at any depth of nesting; a CPU rehearsal of
-  chip_smoke's paths (main, gate zoo, ingest, stream, command line, shapes)
-  loads neither.
+  chip_smoke's paths (main, gate zoo, ingest, stream, command line, shapes,
+  the mesh of processes and the profile) loads neither, in this process or
+  in a spawned rank.
 - On CPU tensors the wrappers take their plain versions and never touch the
   kernel library.
 - Without CUDA, the entry points (TorchVerifier, PoseidonConstants,
@@ -54,6 +55,13 @@ PORT_MODULES = [
     "plonky2_verifier_tpu_torch.native",
     "plonky2_verifier_tpu_torch.parallel",
     "plonky2_verifier_tpu_torch.parallel.stream",
+    "plonky2_verifier_tpu_torch.parallel.mesh",
+    "plonky2_verifier_tpu_torch.graft_entry",
+    "plonky2_verifier_tpu_torch.tools.distributed_dryrun",
+    "plonky2_verifier_tpu_torch.tools.check_hash_kernels",
+    "plonky2_verifier_tpu_torch.tools.bench_poseidon",
+    "plonky2_verifier_tpu_torch.tools.profile_verifier",
+    "plonky2_verifier_tpu_torch.tools.lookup_device_check",
     "plonky2_verifier_tpu_torch.__main__",
     "plonky2_verifier_tpu_torch.tools.stream_verify",
     "plonky2_verifier_tpu_torch.tools.bench_ingest",
@@ -122,7 +130,8 @@ class Lib:  # stands in for the kernel library: counts, then runs the plain vers
         self.launches = dict.fromkeys(kernels.COUNTERS, 0)
 
 lib = Lib(); lib.reset_launches()
-checks = cs.new_checks()
+from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
+checks = new_checks()
 def counted(name, fn):
     def run(*a):
         lib.launches[name] += 1
@@ -140,7 +149,7 @@ torch.cuda.synchronize = lambda: None
 v, dev, launches, fib = cs.main_path(lib, checks)
 assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
 assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
-prover = cs.start_zoo_prover()
+prover = cs.start_prover("gate_zoo", cs.ZOO)
 zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
 assert prover.returncode == 0
 assert sorted(zoo_launches) == [7, 8] and all(n["sponge_rows_grouped"] == 1 for n in zoo_launches.values()), zoo_launches
@@ -182,7 +191,8 @@ def fixture(queries):
 fib = fixture(6)
 ingest = cs.ingest_phase(fib)
 assert os.path.dirname(native.get_fastload().__file__).endswith(os.path.join("plonky2_verifier_tpu_torch", "native", "_build"))
-launches = cs.stream_path(lib, fib, 1.0, ingest)
+launches, snap = cs.stream_path(lib, fib, 1.0, ingest)
+assert snap["proofs"] == 10, snap
 assert launches["permutation_scan"] == 3 and launches["sponge_rows_grouped"] == 3, launches
 cli = cs.cli_path(lib, {"fibonacci": fib, "other": fixture(2)}, checks)
 assert cli["permutation_scan"] == 4 and cli["sponge_rows_grouped"] == 4, cli
@@ -208,6 +218,53 @@ def test_chip_smoke_serving_phases_rehearsal_loads_no_jax():
     assert (final["proofs"], final["accepted"], final["rejected"], final["batches"]) == (10, 8, 2, 3)
     assert "cli stream: exit code 0" in res.stdout and "verified (torch, batch 4" in res.stdout
     assert "shape grid (4, 2, 0):" in res.stdout and "shape fuzz 13:" in res.stdout
+
+
+MESH_REHEARSAL = """
+import sys, torch
+import chip_smoke as cs
+from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
+from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+from plonky2_verifier_tpu_torch.parallel import run_ranks
+from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
+
+if __name__ == "__main__":
+    cs.DEVICE, cs.BATCH = "cpu", 4
+    cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
+    cs.MESHES, cs.MESH_BATCH, cs.MESH_TIMED_CALLS, cs.MESH_TIMEOUT_S = [(2, 2)], 8, 0, 240
+    cs.MESH_STREAM_BATCH, cs.MESH_STREAM_PROOFS, cs.STREAM_CORRUPT_EVERY = 4, 10, 4
+    cs.PROFILE = [("fibonacci6", 2)]
+    torch.cuda.synchronize = lambda: None
+    common, vkey, pwp = get_fixture_proof("fibonacci", **cs.STANDARD)
+    checks = new_checks()
+    cs.mesh_path((CircuitTemplate(common), common, vkey, pwp), checks, {"proofs_per_sec": 1.0, "steady_proofs_per_sec": 1.0}, 1.0)
+    assert all(c.cases > 0 and c.max_abs_err == 0 for c in checks.values()), {k: c.cases for k, c in checks.items()}
+    cs.profile_path()
+    # a rank of run_ranks: what parallel.mesh's entry point of the children has loaded
+    in_ranks = run_ranks(eval, 2, ("LOADED".replace("sys.modules", "__import__('sys').modules"),), threads=1, timeout_s=120)
+    assert in_ranks == [[], []], in_ranks
+    bad = LOADED
+    assert not bad, bad
+"""
+
+
+def test_chip_smoke_mesh_and_profile_rehearsal_loads_no_jax(tmp_path):
+    """chip_smoke.mesh_path (one 2 x 2 mesh of gloo processes and the 2 x 1
+    mesh stream) and profile_path on the CPU at a tiny size: every rank's
+    verdicts equal one process's, the last rank holds the wrappers at its
+    shapes, the stream's global counts hold on both ranks; neither this
+    process nor a spawned rank loaded a forbidden module. The script is a
+    file: spawned children import their parent's main module by its path."""
+    script = tmp_path / "rehearse_mesh.py"
+    script.write_text(MESH_REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "mesh 2 x 2: 4 processes on one card, global batch 8 (4 lanes, 1 queries a rank)" in res.stdout
+    assert "n_valid 6 on every rank, rejected lanes [1, 7]" in res.stdout
+    assert "mesh stream 2 x 1: 10 proofs at global batch 4, counts [10, 8, 2, 3] on every rank" in res.stdout
+    assert "profile fibonacci6 batch 2" in res.stdout
 
 
 @pytest.fixture

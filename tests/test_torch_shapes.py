@@ -27,6 +27,7 @@ from plonky2_verifier_tpu_torch import types as pt
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
 from plonky2_verifier_tpu_torch.prover.prove import prove
 from plonky2_verifier_tpu_torch.tools import shape_circuits as sc
+from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
 from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 from shape_grid_check import tiny_fixture
 from test_fuzz_circuits import _random_circuit
@@ -76,7 +77,7 @@ def test_shape_against_golden(kind, arg, monkeypatch, capsys):
         rejected = sc.FUZZ_FAULTS
     assert line.rstrip().endswith(f"rejected {rejected}")
     assert batches == [2, len(rejected) + 1]  # the sizes at which the card run holds the kernels against plain
-    checks = cs.new_checks()
+    checks = new_checks()
     cs.hold_against_plain(v, 2, checks, "cpu")  # on the CPU the wrappers are the plain versions: the shapes must be accepted
     assert all(c.cases > 0 and c.max_abs_err == 0 for name, c in checks.items() if name != "merkle_fold")
 

@@ -6,11 +6,14 @@ BucketedStreamVerifier and through the port's with device="cpu": equal
 proofs, accepted, rejected and batches, per shape, and an equal order of
 folded buckets. The proofs are built by the JAX package and cross into the
 port through to_json / from_json. Tolerance: none (counts and booleans).
-Plus what the port adds: no mesh yet, the card by default, the synchronous
-form, an error on the prefetch thread, and what ingest_work_s means. The
-pinned staging runs only on the card: tests/test_torch_stream_card.py."""
+Plus what the port adds: the card by default, the synchronous form, an
+error on the prefetch thread, what ingest_work_s means, and `mesh=` as a
+process a device: the same streams in two gloo processes (2 x 1 and 1 x 2)
+hold the one-process counts on every rank. The pinned staging runs only on
+the card: tests/test_torch_stream_card.py."""
 
 import copy
+import json
 
 import pytest
 import torch
@@ -25,9 +28,11 @@ from plonky2_verifier_tpu.parallel import template_key as ref_template_key
 from plonky2_verifier_tpu_torch import types as pt
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
 from plonky2_verifier_tpu_torch.metrics import perms_per_proof
-from plonky2_verifier_tpu_torch.parallel import BucketedStreamVerifier, StreamVerifier, template_key
+from plonky2_verifier_tpu_torch.parallel import BucketedStreamVerifier, StreamVerifier, make_mesh, run_ranks, template_key
+from plonky2_verifier_tpu_torch.tools.stream_verify import stream_rank
 
 COUNTS = ("proofs", "accepted", "rejected", "batches")
+MESH_TIMEOUT_S = 240  # a spawned group that takes longer is killed and fails its test alone
 
 
 def _corrupt(pwp):
@@ -185,11 +190,77 @@ def test_bucketed_mixed_shapes(fib, fib8):
     assert sorted(folded.count(k) for k in (k4, k8)) == [1, 2]  # 2 batches A, 1 B
 
 
-@pytest.mark.parametrize("cls", [StreamVerifier, BucketedStreamVerifier])
-def test_mesh_is_not_ported_yet(fib, cls):
-    args = (CircuitTemplate(fib.port[0]), 4) if cls is StreamVerifier else (4,)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cls(*args, mesh=object(), device="cpu")
+def _raw(side):
+    """(vkey, proof, corrupt proof) of one side as JSON bytes for the native ingest."""
+    enc = lambda o: json.dumps(o.to_json()).encode()
+    return enc(side[1]), enc(side[2]), enc(side[3])
+
+
+@pytest.fixture(scope="module")
+def one_process_eleven(fib):
+    """11 proofs at batch 4 through one process, proof 10 corrupt."""
+    m = StreamVerifier(CircuitTemplate(fib.port[0]), batch=4, device="cpu").run(fib.stream(fib.port, (10,), 11))
+    return [getattr(m, k) for k in COUNTS]
+
+
+@pytest.mark.parametrize(
+    "raw,n,corrupt,dp,qp",
+    [(False, 11, 10, 2, 1), (True, 11, 10, 2, 1), (True, 9, 8, 2, 1), (False, 11, 10, 1, 2)],
+    ids=["objects-2x1", "raw-2x1", "raw-2x1-a-rank-all-padding", "objects-1x2"],
+)
+def test_stream_over_a_mesh_counts_like_one_process(fib, one_process_eleven, raw, n, corrupt, dp, qp):
+    """Two gloo processes, global batch 4: every rank reads the same items,
+    verifies its own lanes (or query rounds) and holds the global counts. With
+    9 proofs the last batch has one live lane, in rank 0: rank 1's share is
+    all padding (copies of the corrupt proof, which must count once) and it
+    still returns."""
+    if raw:
+        vk, good, bad = _raw(fib.port)
+        items = [(vk, bad if i == corrupt else good) for i in range(n)]
+    else:
+        items = fib.stream(fib.port, (corrupt,), n)
+    ranks = run_ranks(stream_rank, 2, (items, 4, dp, qp, raw, "cpu", fib.port[0]), threads=1, timeout_s=MESH_TIMEOUT_S)
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert [r[k] for k in COUNTS] == [n, n - 1, 1, 3]
+        if n == 11:
+            assert [r[k] for k in COUNTS] == one_process_eleven
+
+
+def test_bucketed_stream_over_a_mesh(fib, fib8):
+    """Two shapes interleaved through BucketedStreamVerifier in two gloo
+    processes: the per-shape counts of test_bucketed_mixed_shapes on both
+    ranks, the buckets in the same order."""
+    s4, s8 = fib.port, fib8.port
+    items = []
+    for i in range(5):
+        items.append((s4[0], s4[1], s4[2]))
+        if i < 3:
+            items.append((s8[0], s8[1], s8[3] if i == 1 else s8[2]))
+    ranks = run_ranks(stream_rank, 2, (items, 4, 2, 1, False, "cpu"), threads=1, timeout_s=MESH_TIMEOUT_S)
+    k4, k8 = template_key(s4[0]), template_key(s8[0])
+    for r in ranks:
+        assert list(r["per_shape"]) == [k4, k8]
+        assert [r["per_shape"][k4][c] for c in COUNTS] == [5, 5, 0, 2]
+        assert [r["per_shape"][k8][c] for c in COUNTS] == [3, 2, 1, 1]
+
+
+def test_ingest_workers_default_divides_the_cores_among_the_ranks(fib, monkeypatch):
+    """Without a mesh the parser takes the host's cores; with one, the cores
+    over the mesh's processes on this host (LOCAL_WORLD_SIZE, else all of
+    them), at least 1; a number given is kept."""
+    import os
+
+    tpl = CircuitTemplate(fib.port[0])
+    monkeypatch.setattr(os, "cpu_count", lambda: 8)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    workers = lambda **kw: StreamVerifier(tpl, 16, device="cpu", **kw).ingest_workers
+    assert workers() == 8
+    assert workers(mesh=make_mesh(2, 1, rank=1, world_size=2)) == 4
+    assert workers(mesh=make_mesh(16, 1, rank=3, world_size=16)) == 1
+    assert workers(mesh=make_mesh(2, 1, rank=1, world_size=2), ingest_workers=3) == 3
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")  # 16 ranks, four of them on this host
+    assert workers(mesh=make_mesh(16, 1, rank=3, world_size=16)) == 2
 
 
 @pytest.mark.parametrize("cls", [StreamVerifier, BucketedStreamVerifier])

@@ -7,8 +7,10 @@ tests/test_verifier_jax.py followed by six copies of lane 0, each with one
 u64 flipped in a different array (the mutations of test_jax_rejects_mutations),
 then lane 0 with a public input written non-canonically (x + p for x).
 Poseidon chain at 5 queries exercises a fold step and the Poseidon gate; its
-last lane has a flipped coset evaluation. Tolerance: bit-exact verdicts and
-challenge intermediates (integer arithmetic)."""
+last lane has a flipped coset evaluation. The first eight fibonacci lanes also
+go through the port's ShardedVerifier in four gloo processes (4 x 1 and
+2 x 2, and scrambled) against the same JaxVerifier verdicts. Tolerance:
+bit-exact verdicts and challenge intermediates (integer arithmetic)."""
 
 import numpy as np
 import pytest
@@ -22,8 +24,10 @@ from plonky2_verifier_tpu.models.fibonacci import fibonacci_fixture
 from plonky2_verifier_tpu.models.poseidon_chain import poseidon_chain_fixture
 from plonky2_verifier_tpu.prover.prove import prove
 from plonky2_verifier_tpu.verifier_jax import JaxVerifier
+from plonky2_verifier_tpu_torch import types as pt
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.ops.field import to_u64
+from plonky2_verifier_tpu_torch.parallel import run_ranks, verify_sharded
 from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier, verify_batch
 
 HETERO = [(1, 2), (3, 5), (10, 11), (7, 1)]
@@ -175,6 +179,33 @@ def test_verify_batch_on_cpu_matches_jax(fib):
         np.testing.assert_array_equal(got, want, err_msg=name)
     np.testing.assert_array_equal(out["debug"]["pi_hash"], to_u64(t_out["debug"]["pi_hash"]))
     assert "debug" not in verify_batch(tpl, {k: a[:2] for k, a in arrays.items()}, device="cpu")
+
+
+SCRAMBLE = [5, 3, 7, 0, 2, 6, 1, 4]  # the lane permutation of tests/test_parallel.py::test_lane_scramble
+
+
+@pytest.mark.parametrize("dp,qp,perm", [(4, 1, None), (2, 2, None), (2, 2, SCRAMBLE)], ids=["4x1", "2x2", "2x2-scrambled"])
+def test_sharded_verifier_in_four_processes_matches_jax(fib, dp, qp, perm):
+    """The first 8 lanes (four intact heterogeneous proofs, then faults in
+    openings1, pow_witness, leaves_1 and final_poly) through the port's
+    ShardedVerifier in four gloo processes. A lane's verdict does not depend
+    on its neighbours, so JaxVerifier's verdicts on the 11-lane batch are the
+    truth for these lanes, in any order. Under qp = 2 a rank checks three of
+    the six query rounds and the leaves_1 fault lies in round 0: only one
+    rank of the row sees it, and the AND over the row must carry it."""
+    common, _, _, j_out, _, arrays = fib
+    lanes = np.arange(8) if perm is None else np.array(perm)
+    truth = np.asarray(j_out["ok"])[lanes].tolist()
+    assert sum(truth) == 4
+    sub = {k: a[lanes] for k, a in arrays.items()}
+    port_common = pt.CommonCircuitData.from_json(common.to_json())
+    ranks = run_ranks(verify_sharded, 4, (port_common, sub, dp, qp, "cpu"), threads=1, timeout_s=240)
+    per = 8 // dp
+    for rank, res in enumerate(ranks):
+        assert res["rank"] == rank
+        assert res["gathered"] == truth
+        assert res["ok"] == truth[rank // qp * per : (rank // qp + 1) * per]
+        assert res["n_valid"] == 4
 
 
 def test_run_transcript_plain_loop_matches_jax_challenges(fib):

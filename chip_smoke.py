@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one CUDA card: build the Poseidon
-kernels, hold each against its plain PyTorch version and the golden model,
-time both, then verify a batch of 1024 standard-shape fibonacci proofs
+"""Smoke test of the PyTorch port on one CUDA card: build the kernels (the
+three Poseidon kernels and the two field kernels, the extension Horner sum
+and the Fermat inversion), hold each against its plain PyTorch version and
+the golden model, time both, then verify a batch of 1024 standard-shape fibonacci proofs
 through TorchVerifier and check verdicts and transcripts, then batches
 of 512 and 1024 proofs of the gate-zoo circuit (all 16 gate kinds and the
 lookup argument) the same way, then the serving path: 10,000 proofs as raw
@@ -26,7 +27,10 @@ success):
    segment, the edge band) against its plain version, against the
    one-matrix entry point and against golden/; the transcript-scan entry
    point against the plain loop on a real schedule at batch 1, 5 and 1024,
-   and lane 0 against golden/;
+   and lane 0 against golden/; the Fermat inversion on 2^20 random words,
+   the edge band and words x + p, and the Horner sum with both of its flags,
+   repeated rows, column stride 2, K = 0 and no rows
+   (tools/check_field_kernels.py);
 4. main path: the standard fixture (degree 12, 28 queries, PoW 16; proved
    by a child process that starts with phase 2 and is waited for here),
    batch 1024, all accepted; lane 0's transcript equal to golden; six single-array
@@ -36,7 +40,9 @@ success):
    (hold_against_plain; phase 5 does so at batch 1024); over the main-path
    run the scan was launched at least once and the sponge and Merkle kernels
    more than zero times (the sponge twice: the public-input hash and one
-   grouped launch for every leaf hash);
+   grouped launch for every leaf hash), the Horner sum exactly 7 times and
+   once a fold step and the inversion 3 times and once a fold step
+   (`_field_launches`; every path below checks these counts too);
 5. kernel times at the main path's shapes (batch 1024), kernel and plain,
    each pair also compared bit for bit, each beside its bound (the integer
    work W of csrc/poseidon.cuh over the card's int32 rate at its maximum SM
@@ -44,7 +50,8 @@ success):
    permutation's step time in both forms at n = 64 ... 16384; the grouped
    sponge launch over the six row matrices of one verifier call, at the
    fibonacci path's widths and at the gate zoo's, beside the same matrices
-   hashed one launch each;
+   hashed one launch each; every Horner sum and inversion of one main-path
+   call on its own arguments, each beside its plain version and its bound;
 6. timing: 5 verifier calls after warm-up -> proofs/s, step ms, and the
    transcript alone;
 7. second path: the gate-zoo fixture with lookups (degree 12, 28 queries,
@@ -140,6 +147,7 @@ PROFILE = [("fibonacci", 1024), ("gate_zoo", 1024)]  # tools/profile_verifier.py
 # permutation, over SMs x 64 int32 lanes x the maximum SM clock; bytes over
 # the H100's 3.35 TB/s beside it.
 W_INSTRUCTIONS = 19180
+INV_PRODUCTS = 72  # csrc/field.cu's chain for a^(p - 2): 63 squarings and 9 products
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 
@@ -175,14 +183,105 @@ def bound_ms(permutations: int, n_bytes: int, rate: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def field_bound_ms(instructions: int, n_bytes: int, rate: float):
+    """(bound ms, "operations" or "bytes") of a field kernel: its int32
+    instructions (16 a product, 4 an add, as W counts them) over the card's
+    int32 rate, beside the bytes over its memory rate."""
+    ops_ms = instructions / rate * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def horner_work(args):
+    """(int32 instructions, bytes) of one horner launch on `args`
+    (verifier_torch.horner_rows): a step is an emul (5 products, 2 adds) or
+    with a base-field point 2 products, then 1 add (base-field values) or 2;
+    each distinct value and point word is read once, each output written once."""
+    v_re, v_im, p_re, p_im, v_rep, p_rep = args
+    n, k = v_re.shape[0] * v_rep, v_re.shape[1]
+    products, adds = (2, 0) if p_im is None else (5, 2)
+    adds += 1 if v_im is None else 2
+    words = v_re.numel() * (1 if v_im is None else 2) + p_re.numel() * (1 if p_im is None else 2) + 2 * n
+    return n * k * (16 * products + 4 * adds), 8 * words
+
+
+def random_arrays(tpl, batch: int, queries: int, rng):
+    """Arrays of the shapes flatten_proofs gives `tpl`, the per-query ones at
+    `queries` rounds: random words with the edge band and words x + p among
+    them (tools/check_field_kernels.words)."""
+    from plonky2_verifier_tpu_torch.tools.check_field_kernels import words
+
+    B, Q = batch, queries
+    shapes = {
+        "circuit_digest": (B, 4), "public_inputs": (B, tpl.n_pi), "pow_witness": (B,), "final_poly": (B, tpl.final_poly_len, 2),
+        "openings1": (B, tpl.n_const_cols + tpl.n_sigmas + tpl.num_wires + tpl.n_zs + tpl.n_pp + tpl.n_quot + tpl.n_lookup, 2),
+        "openings2": (B, tpl.n_zs + tpl.n_lookup, 2),
+    }
+    shapes.update({k: (B, tpl.cap_len, 4) for k in ("cap_cs", "cap_w", "cap_zp", "cap_q")})
+    for o, w in enumerate(tpl.oracle_widths):
+        shapes.update({f"leaves_{o}": (B, Q, w), f"sibs_{o}": (B, Q, tpl.initial_path_len, 4)})
+    for s, st in enumerate(tpl.steps):
+        shapes.update({f"step_cap_{s}": (B, st["cap_len"], 4), f"step_evals_{s}": (B, Q, 1 << st["arity_bits"], 2),
+                       f"step_sibs_{s}": (B, Q, st["path_len"], 4)})
+    return {k: words(rng, shape) for k, shape in shapes.items()}
+
+
+def recorded_calls(targets, v, a, queries=None):
+    """The arguments of every call of the functions `targets` names, each an
+    (owner, attribute) pair (a module's wrapper, or the kernel library's
+    launch method), during one call of `v` on the arrays `a`, in call
+    order: [(attribute, args)]. The call's launches count where they are made."""
+    import torch
+
+    calls, originals = [], [(owner, name, getattr(owner, name)) for owner, name in targets]
+    for owner, name, fn in originals:
+        setattr(owner, name, lambda *args, _name=name, _fn=fn: calls.append((_name, args)) or _fn(*args))
+    try:
+        with torch.no_grad():
+            v(a, queries)
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+    return calls
+
+
+def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
+    """The field kernels' share of hold_against_plain: every Horner sum and
+    inversion of one call of `v` on random words over all the lanes,
+    recorded with its views (stride-0 rows among them); each wrapper then
+    runs on each batch size's lanes and the plain version once on all.
+    Returns the calls' shapes after the batch axis."""
+    import torch
+
+    from plonky2_verifier_tpu_torch import verifier_torch as vt
+    from plonky2_verifier_tpu_torch.ops import field as tf
+
+    Q = queries or v.tpl.num_queries
+    a = v.prepare(random_arrays(v.tpl, sum(batches), Q, rng))
+    calls = recorded_calls([(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv")], v, a, None if queries is None else slice(0, Q))
+    plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain, "inv": tf.inv_plain}
+    wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv": tf.inv}
+    stack = lambda x: torch.stack([x.re, x.im], dim=1) if isinstance(x, tf.GExt) else x  # the batch axis first
+    shapes = []
+    for name, args in calls:
+        want = stack(plain[name](*args))
+        c = checks["inv" if name == "inv" else "horner"]
+        for b, part in zip(batches, parts):
+            got = stack(wrapper[name](*(x[part] for x in args)))
+            c.compare(got, want[part], f"{what}: {name} at batch {b}, {[tuple(x.shape)[1:] for x in args]}")
+        shapes.append(f"{name} {[tuple(x.shape)[1:] for x in args]}")
+    return shapes
+
+
 def hold_against_plain(v, batch, checks, what: str, queries=None):
     """Every kernel wrapper against its plain version, bit for bit, on random
     inputs of the shapes that one call of the verifier `v` at `batch` gives
     it: the transcript scan on v's own schedule, the public-input hash (width
     0 where the circuit has none), every leaf hash in one grouped launch, the
-    stacked initial Merkle walk and each fold step's. A walk of length 0 is
-    never launched (verifier_torch.merkle_batched) and is passed over here
-    too. `batch` may be a list of batch sizes: each wrapper is then called
+    stacked initial Merkle walk and each fold step's, and every Horner sum
+    and inversion of a call on random proof words (hold_field_kernels). A
+    walk of length 0 is never launched (verifier_torch.merkle_batched) and
+    is passed over here too. `batch` may be a list of batch sizes: each wrapper is then called
     once at each size, and the plain version (lane by lane the same work,
     and thousands of launches whatever the size) once, on all those lanes
     together. These launches are no part of a path's count: call it outside
@@ -234,9 +333,10 @@ def hold_against_plain(v, batch, checks, what: str, queries=None):
         want = th.merkle_fold_plain(dig, idx, sib, L, consts)
         for b, part in zip(batches, parts):
             c.compare(th.merkle_fold(dig[part], idx[part], sib[part], L, consts), want[part], f"{what}: walk {(b,) + lead}, L={L}")
+    field = hold_field_kernels(v, batches, parts, checks, what, rng, queries)
     print(f"held against plain, {what} at batch {' and '.join(map(str, batches))}, {Q} queries: scan (batch, {data.shape[1]}) x {v._ov_idx.shape[0]}, "
-          f"public inputs {tpl.n_pi}, grouped widths {widths}, walks {[('batch',) + lead + (L,) for lead, L in paths if L]}: "
-          f"bit-exact in {time.time() - t:.1f} s")
+          f"public inputs {tpl.n_pi}, grouped widths {widths}, walks {[('batch',) + lead + (L,) for lead, L in paths if L]}, "
+          f"field calls (shapes after the batch axis) {field}: bit-exact in {time.time() - t:.1f} s")
 
 
 def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
@@ -251,19 +351,24 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     from plonky2_verifier_tpu_torch.ops import hash as th
     from plonky2_verifier_tpu_torch.ops import poseidon as tp
     from plonky2_verifier_tpu_torch.tools.bench_poseidon import event_ms
+    from plonky2_verifier_tpu_torch.tools.check_field_kernels import horner_rows_plain
     from plonky2_verifier_tpu_torch.tools.check_hash_kernels import rand_words
 
     rng = np.random.default_rng(7)
     tpl = v.tpl
     B, Q = BATCH, tpl.num_queries
 
-    def measure(name, what, kernel, plain, iters, permutations, n_bytes, plain_iters=2):
-        checks[name].compare(kernel(), plain(), what)
+    def timed(name, what, kernel, plain, iters, bound, work: str, plain_iters=2):
+        both = [kernel(), plain()]
+        checks[name].compare(*(torch.stack(x) if isinstance(x, tuple) else x for x in both), what)
         ms, plain_ms = event_ms(kernel, iters, 2), event_ms(plain, plain_iters, plain_iters - 1)
-        b_ms, by = bound_ms(permutations, n_bytes, rate)
-        print(f"time {name} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
-              f"{permutations} permutations, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of bound {b_ms / ms:.3f}")
+        b_ms, by = bound
+        print(f"time {name} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; {work}), share of bound {b_ms / ms:.3f}")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+
+    def measure(name, what, kernel, plain, iters, permutations, n_bytes, plain_iters=2):
+        work = f"{permutations} permutations, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
+        return timed(name, what, kernel, plain, iters, bound_ms(permutations, n_bytes, rate), work, plain_iters)
 
     out = {}
     # the transcript scan on the main path's own data and schedule
@@ -319,6 +424,28 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
         res = measure("merkle_fold", f"({n}, L={L})", lambda: lib.merkle_fold(dig, idx, sib), lambda: th.merkle_fold_plain(dig, idx, sib, L, consts), 20, n * L, n * (72 + 32 * L))
         if L == tpl.initial_path_len:
             out["merkle_fold"] = res
+
+    # the field kernels on the arguments of every launch of one main-path call;
+    # the row of each is its largest call (combineInitial's g0, a fold's off_inv)
+    largest = {}
+    for name, args in recorded_calls([(lib, "horner"), (lib, "inv")], v, dev):
+        if name == "horner":
+            v_re, v_im, p_re, p_im, v_rep, p_rep = args
+            what = (f"({v_re.shape[0]} x {v_rep} rows, {v_re.shape[1]}) {'base' if v_im is None else 'ext'} values, "
+                    f"{'base' if p_im is None else 'ext'} point x {p_rep}")
+            instructions, n_bytes = horner_work(args)
+            size = v_re.shape[0] * v_rep * v_re.shape[1]
+            plain = lambda args=args: horner_rows_plain(*args)
+        else:
+            (a,) = args
+            what, size = f"{tuple(a.shape)}", a.numel()
+            instructions, n_bytes = size * INV_PRODUCTS * 16, size * 16
+            plain = lambda a=a: tf.inv_plain(a)
+        work = f"{instructions} int32 instructions, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
+        res = timed(name, what, lambda args=args, fn=getattr(lib, name): fn(*args), plain, 20,
+                    field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1)
+        if size >= largest.get(name, -1):
+            largest[name], out[name] = size, res
     return out
 
 
@@ -356,13 +483,26 @@ def _transcript_equals_golden(common, dbg, lane, vkey, pwp):
             raise AssertionError(f"lane {lane}: {k} differs from golden: {got[k]} != {want[k]}")
 
 
-def _check_launches(launches, what: str):
-    """The scan once, the Merkle walk at least once, and the sponge twice:
-    the public-input hash and one grouped launch for every leaf hash."""
+def _field_launches(tpl) -> dict:
+    """Field-kernel launches a verifier call of `tpl`: the Horner sum for
+    the alpha combination, the quotient, the two reduced openings,
+    combineInitial's two sums, each fold step and the final polynomial; the
+    inversion for L0, combineInitial's two quotients and each fold step's
+    coset offset."""
+    return {"horner": 7 + len(tpl.steps), "inv": 3 + len(tpl.steps)}
+
+
+def _check_launches(launches, what: str, tpl):
+    """The scan once, the Merkle walk at least once, the sponge twice (the
+    public-input hash and one grouped launch for every leaf hash), and the
+    field kernels exactly as _field_launches counts them."""
     if launches["permutation_scan"] < 1 or launches["merkle_fold"] <= 0:
         raise AssertionError(f"a kernel was not launched on {what}: {launches}")
     if (launches["sponge_rows"], launches["sponge_rows_grouped"]) != (1, 1):
         raise AssertionError(f"{what} should launch the sponge twice (one matrix, one group): {launches}")
+    field = _field_launches(tpl)
+    if {k: launches[k] for k in field} != field:
+        raise AssertionError(f"{what} should launch the field kernels {field}: {launches}")
 
 
 def _check_mutations(tpl, arrays, batch: int, names):
@@ -418,7 +558,7 @@ def main_path(lib, checks):
     print(f"accepted {n_ok}/{BATCH} (eqs_ok {int(out['eqs_ok'].sum())}, fri_ok {int(out['fri_ok'].sum())})")
     if n_ok != BATCH:
         raise AssertionError("standard batch not fully accepted")
-    _check_launches(launches, "the main path")
+    _check_launches(launches, "the main path", tpl)
     _transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
     print("lane 0 transcript equals golden")
     _check_mutations(tpl, arrays, BATCH, MUTATED)
@@ -537,7 +677,7 @@ def zoo_path(lib, zoo, checks):
         print(f"gate zoo batch {batch}: accepted {n_ok}/{batch} (eqs_ok {int(out['eqs_ok'].sum())}, fri_ok {int(out['fri_ok'].sum())})")
         if n_ok != batch:
             raise AssertionError(f"gate-zoo batch {batch} not fully accepted")
-        _check_launches(launches, f"the gate-zoo path at batch {batch}")
+        _check_launches(launches, f"the gate-zoo path at batch {batch}", tpl)
         _transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
         print(f"gate zoo batch {batch}: lane 0 transcript equals golden")
         _check_mutations(tpl, arrays, batch, names)
@@ -608,7 +748,8 @@ def stream_path(lib, fixture, step_s: float, ingest: dict):
     if got != (STREAM_PROOFS, STREAM_PROOFS - expected, expected, batches):
         raise AssertionError(f"stream counted (proofs, accepted, rejected, batches) = {got}")
     want = {"permutation": 0, "permutation_scan": batches, "sponge_rows": batches,
-            "sponge_rows_grouped": batches, "merkle_fold": batches * _merkle_launches(tpl)}
+            "sponge_rows_grouped": batches, "merkle_fold": batches * _merkle_launches(tpl),
+            **{k: batches * n for k, n in _field_launches(tpl).items()}}
     if launches != want:
         raise AssertionError(f"stream launches {launches}, expected {want}")
     calls_s = snap["elapsed_s"] - m.ingest_s - m.device_wait_s
@@ -659,7 +800,8 @@ def cli_path(lib, fixtures, checks):
             raise AssertionError(f"cli stream: exit code {rc}, {summary}")
         calls = -(-CLI_REPEAT // CLI_BATCH)  # batches a shape
         want = {"permutation": 0, "permutation_scan": calls * len(fixtures), "sponge_rows": calls * len(fixtures),
-                "sponge_rows_grouped": calls * len(fixtures), "merkle_fold": calls * sum(_merkle_launches(f[0]) for f in fixtures.values())}
+                "sponge_rows_grouped": calls * len(fixtures), "merkle_fold": calls * sum(_merkle_launches(f[0]) for f in fixtures.values()),
+                **{k: calls * sum(_field_launches(f[0])[k] for f in fixtures.values()) for k in ("horner", "inv")}}
         if launches != want:
             raise AssertionError(f"cli stream: launches {launches}, expected {want}")
         rc = cli(["verify", os.path.join(folder, next(iter(fixtures))), "--batch", str(CLI_VERIFY_BATCH)] + device)
@@ -720,8 +862,11 @@ def shapes_path(lib, checks):
     print(f"shapes: {len(tpls)} circuits in {time.time() - t:.1f} s, launches {launches}")
     want = 2 * sum(_merkle_launches(tpl) for tpl in tpls)
     calls = 2 * len(tpls)
+    field = {k: 2 * sum(_field_launches(tpl)[k] for tpl in tpls) for k in ("horner", "inv")}
     if (launches["permutation_scan"], launches["sponge_rows"], launches["sponge_rows_grouped"], launches["merkle_fold"]) != (calls, calls, calls, want):
         raise AssertionError(f"shapes: launches {launches}, expected {calls} of the scan and of each sponge entry and {want} Merkle walks")
+    if {k: launches[k] for k in field} != field:
+        raise AssertionError(f"shapes: launches {launches}, expected the field kernels {field}")
     for (name, _, _), (v, batches) in zip(circuits, ran):
         hold_against_plain(v, batches, checks, f"shape {name}")
     return launches
@@ -786,7 +931,7 @@ def mesh_verify_rank(dp: int, qp: int, batch: int, timed_calls: int, hold_rank, 
     first_s = time.time() - t
     if lib is not None:
         launches = dict(lib.launches)
-        _check_launches(launches, f"rank {mesh.rank} of the {dp} x {qp} mesh")
+        _check_launches(launches, f"rank {mesh.rank} of the {dp} x {qp} mesh", tpl)
         if launches["merkle_fold"] != _merkle_launches(tpl):
             raise AssertionError(f"rank {mesh.rank}: {launches['merkle_fold']} Merkle launches, expected {_merkle_launches(tpl)}")
     res = {"rank": mesh.rank, "at": [mesh.dp_index, mesh.qp_index], "first_s": first_s, "launches": launches,
@@ -875,7 +1020,7 @@ def mesh_path(fixture, checks, one_process_stream: dict, step_s: float):
             if rank // qp == 0 and not res.get("lane0_transcript_equals_golden"):
                 raise AssertionError(f"mesh {dp} x {qp}, rank {rank} holds lane 0 and did not check its transcript")
             if DEVICE is None:  # the rank checked its own counts; here once more, from what it reported
-                _check_launches(res["launches"], f"rank {rank} of the {dp} x {qp} mesh")
+                _check_launches(res["launches"], f"rank {rank} of the {dp} x {qp} mesh", tpl)
         if hold_rank is not None and "held" not in ranks[hold_rank]:
             raise AssertionError(f"mesh {dp} x {qp}: rank {hold_rank} did not hold the kernels against their plain versions")
         for k, (cases, err) in ranks[-1].get("held", {}).items():
@@ -899,7 +1044,8 @@ def mesh_path(fixture, checks, one_process_stream: dict, step_s: float):
     expected = MESH_STREAM_PROOFS // STREAM_CORRUPT_EVERY
     batches = -(-MESH_STREAM_PROOFS // MESH_STREAM_BATCH)
     want_launches = {"permutation": 0, "permutation_scan": batches, "sponge_rows": batches,
-                     "sponge_rows_grouped": batches, "merkle_fold": batches * _merkle_launches(tpl)}
+                     "sponge_rows_grouped": batches, "merkle_fold": batches * _merkle_launches(tpl),
+                     **{k: batches * n for k, n in _field_launches(tpl).items()}}
     for rank, res in enumerate(ranks):
         if res["counts"] != [MESH_STREAM_PROOFS, MESH_STREAM_PROOFS - expected, expected, batches]:
             raise AssertionError(f"mesh stream, rank {rank}: (proofs, accepted, rejected, batches) = {res['counts']}")
@@ -995,16 +1141,21 @@ def main():
         print(f"launches on {what}: " + ", ".join(f"{k} {n[k]}" for k in kernels.COUNTERS))
     print(f"card: {smi}")
 
-    sources = {"permutation": "permutation.cu", "sponge_rows": "sponge.cu", "merkle_fold": "merkle.cu"}
+    sources = {"permutation": "permutation.cu", "sponge_rows": "sponge.cu", "merkle_fold": "merkle.cu", "horner": "field.cu", "inv": "field.cu"}
     replaces = {
         "permutation": "plonky2_verifier_tpu/ops/pallas_poseidon.py:122",
         "sponge_rows": "plonky2_verifier_tpu/ops/pallas_hash.py:112",
         "merkle_fold": "plonky2_verifier_tpu/ops/pallas_hash.py:171",
+        # no Pallas kernel: functions that jax.jit compiles into loops on the device
+        "horner": "plonky2_verifier_tpu/verifier_jax.py:45 horner_ext (and :62 horner_scaled)",
+        "inv": "plonky2_verifier_tpu/ops/field.py:264 inv",
     }
     entry_points = {
         "permutation": ("permutation", "permutation_scan"),
         "sponge_rows": ("sponge_rows", "sponge_rows_grouped"),
         "merkle_fold": ("merkle_fold",),
+        "horner": ("horner",),
+        "inv": ("inv",),
     }
     rows = []
     for name in kernels.KERNELS:
@@ -1021,7 +1172,7 @@ def main():
             "plain_ms": round(tm["plain_ms"], 6),
             "bound_ms": round(tm["bound_ms"], 6),
             "bound_by": tm["bound_by"],
-            "library_ms": None,  # no PyTorch operator computes Poseidon over Goldilocks
+            "library_ms": None,  # no PyTorch operator computes Poseidon or any arithmetic over Goldilocks
         }
         for b, n in zoo_launches.items():
             row[f"launches_zoo_{b}"] = sum(n[k] for k in entry_points[name])

@@ -1,0 +1,59 @@
+// Goldilocks arithmetic (p = 2^64 - 2^32 + 1) with the exact semantics of
+// the plain PyTorch field, plonky2_verifier_tpu_torch/ops/field.py, for the
+// field kernels (field.cu). Every function takes any u64 words, canonical
+// or not, and returns the bits the plain version returns for them:
+//
+// - `add` is ops/field.add: the wrapped sum, 2^32 - 1 (= 2^64 mod p) added
+//   back where the sum wrapped, then one conditional subtraction of p.
+//   With one canonical operand (every call in field.cu has one) the result
+//   is canonical and exact mod p; with two words >= p it need not be, and
+//   neither is the plain version's: the bits are the same either way.
+// - `mul` forms the exact 128-bit product (Hopper's native __umul64hi) and
+//   reduces it as ops/field.reduce128 does: canonical for any (lo, hi).
+// - `emul` is ops/field.emul in F_p[X]/(X^2 - 7): re = add(rr, 7 ii) with
+//   7 ii as the canonical product mul(ii, 7) (ops/field.mul_small),
+//   im = add(ri, ir).
+//
+// poseidon.cuh keeps its own lazily reduced arithmetic for the permutation;
+// nothing here is shared with it.
+#pragma once
+
+#include <cstdint>
+
+namespace gl {
+
+constexpr uint64_t P = 0xFFFFFFFF00000001ull;
+constexpr uint64_t EPSILON = 0xFFFFFFFFull;  // 2^64 mod p
+constexpr uint64_t W = 7;                    // X^2 = W in the extension
+
+__device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
+    uint64_t s = a + b;
+    if (s < a) s += EPSILON;  // wrapped past 2^64; cannot wrap again
+    if (s >= P) s -= P;
+    return s;
+}
+
+__device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
+    const uint64_t hi_hi = hi >> 32, hi_lo = hi & EPSILON;
+    uint64_t t0 = lo - hi_hi;
+    if (lo < hi_hi) t0 -= EPSILON;  // borrowed: take 2^32 - 1 (add p)
+    const uint64_t t1 = hi_lo * EPSILON;  // < 2^64
+    uint64_t t2 = t0 + t1;
+    if (t2 < t1) t2 += EPSILON;
+    if (t2 >= P) t2 -= P;
+    return t2;
+}
+
+__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) { return reduce128(a * b, __umul64hi(a, b)); }
+
+struct Ext {
+    uint64_t re, im;
+};
+
+__device__ __forceinline__ Ext emul(Ext a, Ext b) {
+    const uint64_t rr = mul(a.re, b.re), ii = mul(a.im, b.im);
+    const uint64_t ri = mul(a.re, b.im), ir = mul(a.im, b.re);
+    return {add(rr, mul(ii, W)), add(ri, ir)};
+}
+
+}  // namespace gl

@@ -2,11 +2,14 @@
 
 `build()` compiles each csrc/*.cu with nvcc for sm_90a into its own shared
 library with a plain C interface, under csrc/_build/, all compiles started
-together; a library is named by a sha256 of its source, the shared header
-and the flags, so an edited source rebuilds. `load()` opens them with ctypes
-once per process, uploads the Poseidon tables (`folded_round_constants`, the
-MDS) into each kernel's constant memory, and returns the `KernelLibrary`
-whose methods launch the kernels.
+together; a library is named by a sha256 of its source, the headers
+(csrc/*.cuh) and the flags, so an edited source rebuilds. `load()` opens
+them with ctypes once per process, uploads the Poseidon tables
+(`folded_round_constants`, the MDS) into each Poseidon kernel's constant
+memory, and returns the `KernelLibrary` whose methods launch the kernels:
+the three Poseidon kernels (permutation.cu, sponge.cu, merkle.cu) and the
+two field kernels (field.cu: the extension Horner sum and the Fermat
+inversion).
 
 Both raise on any failure (no CUDA device, no nvcc, a compile error, a
 refused launch); nothing here falls back to the plain PyTorch versions.
@@ -36,10 +39,11 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("permutation", "sponge", "merkle")
-KERNELS = ("permutation", "sponge_rows", "merkle_fold")
+SOURCES = ("permutation", "sponge", "merkle", "field")
+POSEIDON_SOURCES = ("permutation", "sponge", "merkle")  # take the Poseidon tables at load
+KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv")
 # launch counters: the permutation and sponge kernels have two entry points each
-COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold")
+COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv")
 # also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
 SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
 FORMS = {"auto": 0, "thread": 1, "split": 2}
@@ -93,7 +97,7 @@ def build(extra_flags=()) -> dict:
         raise RuntimeError("the CUDA kernels need a CUDA device; torch.cuda.is_available() is False")
     nvcc = _nvcc()
     flags = [*NVCC_FLAGS, *extra_flags]
-    header = _read(os.path.join(CSRC, "poseidon.cuh"))
+    header = b"".join(_read(os.path.join(CSRC, h)) for h in sorted(os.listdir(CSRC)) if h.endswith(".cuh"))
     libs, running = {}, []
     for name in SOURCES:
         src = os.path.join(CSRC, f"{name}.cu")
@@ -164,9 +168,10 @@ def _check_cuda(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def _check_tensor(t: torch.Tensor, name: str, shape, dtype=torch.int64):
-    """Raise unless t is a contiguous `dtype` tensor on the current CUDA
-    device whose shape matches `shape` (None matches any size)."""
+def _check_tensor(t: torch.Tensor, name: str, shape, dtype=torch.int64, contiguous: bool = True):
+    """Raise unless t is a `dtype` tensor on the current CUDA device whose
+    shape matches `shape` (None matches any size), contiguous unless the
+    kernel is given its strides (`contiguous=False`)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device.index != torch.cuda.current_device():
@@ -175,7 +180,7 @@ def _check_tensor(t: torch.Tensor, name: str, shape, dtype=torch.int64):
         raise ValueError(f"{name} must be {str(dtype).removeprefix('torch.')}, got {t.dtype}")
     if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -200,6 +205,10 @@ class KernelLibrary:
                 "p2v_sponge_max_segments": [],
             },
             "merkle": {"p2v_merkle_fold": [vp, vp, vp, vp, i64, i32, vp]},
+            "field": {
+                "p2v_horner": [vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, vp],
+                "p2v_inv": [vp, vp, i64, vp],
+            },
         }
         if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
             raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
@@ -212,7 +221,8 @@ class KernelLibrary:
         for source, fns in signatures.items():
             lib = ctypes.CDLL(paths[source])
             self._libs.append(lib)
-            fns = dict(fns, **{f"p2v_{source}_init": [vp, vp, vp, vp]})
+            if source in POSEIDON_SOURCES:
+                fns = dict(fns, **{f"p2v_{source}_init": [vp, vp, vp, vp]})
             if hasattr(lib, "p2v_sponge_rows_variant"):  # built with SPONGE_VARIANTS_FLAG
                 fns["p2v_sponge_rows_variant"] = [vp, vp, vp, vp, i32, vp, i32, i32, vp, vp]
             for name, argtypes in fns.items():
@@ -220,8 +230,9 @@ class KernelLibrary:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 self._fn[name] = fn
-            err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data, circ.ctypes.data, diag.ctypes.data)
-            _check_cuda(err, f"p2v_{source}_init")
+            if source in POSEIDON_SOURCES:
+                err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data, circ.ctypes.data, diag.ctypes.data)
+                _check_cuda(err, f"p2v_{source}_init")
         self.max_segments = self._fn["p2v_sponge_max_segments"]()
         self.launches = dict.fromkeys(COUNTERS, 0)
 
@@ -325,6 +336,45 @@ class KernelLibrary:
             )
             _check_cuda(err, "merkle_fold")
             self.launches["merkle_fold"] += 1
+        return out
+
+    def horner(self, v_re, v_im, p_re, p_im, v_rep: int = 1, p_rep: int = 1):
+        """The extension Horner sum: out[n] = sum_k p[n // p_rep]^k
+        v[n // v_rep, k] for n < rows of v x v_rep (= rows of p x p_rep), as
+        verifier_torch.horner_ext_plain computes it. v_re and v_im are
+        (rows, K) at any strides, the same for both (v_im None: base-field
+        values); p_re and p_im (rows,) at any stride (p_im None: a
+        base-field point). Returns (out_re, out_im), each (n,)."""
+        _check_tensor(v_re, "v_re", (None, None), contiguous=False)
+        _check_tensor(p_re, "p_re", (None,), contiguous=False)
+        n = v_re.shape[0] * v_rep
+        if v_rep < 1 or p_rep < 1 or p_re.shape[0] * p_rep != n:
+            raise ValueError(f"rows: values {v_re.shape[0]} x {v_rep} and point {p_re.shape[0]} x {p_rep} differ")
+        for t, name, like in ((v_im, "v_im", v_re), (p_im, "p_im", p_re)):
+            if t is not None:
+                _check_tensor(t, name, (None,) * like.dim(), contiguous=False)
+                if t.shape != like.shape or t.stride() != like.stride():
+                    raise ValueError(f"{name} has shape {tuple(t.shape)} and strides {t.stride()}, "
+                                     f"unlike the real part's {tuple(like.shape)} and {like.stride()}")
+        out = torch.empty((2, n), dtype=torch.int64, device=v_re.device)
+        if n:
+            ptr = lambda t: None if t is None else t.data_ptr()
+            err = self._fn["p2v_horner"](
+                v_re.data_ptr(), ptr(v_im), p_re.data_ptr(), ptr(p_im), out[0].data_ptr(), out[1].data_ptr(),
+                n, v_re.shape[1], v_re.stride(0), v_re.stride(1), v_rep, p_re.stride(0), p_rep, _stream(),
+            )
+            _check_cuda(err, "horner")
+            self.launches["horner"] += 1
+        return out[0], out[1]
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """a^(p - 2) elementwise, inv(0) = 0; a contiguous, any shape."""
+        _check_tensor(a, "a", (None,) * a.dim())
+        out = torch.empty_like(a)
+        if a.numel():
+            err = self._fn["p2v_inv"](a.data_ptr(), out.data_ptr(), a.numel(), _stream())
+            _check_cuda(err, "inv")
+            self.launches["inv"] += 1
         return out
 
 

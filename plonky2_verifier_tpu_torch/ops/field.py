@@ -14,7 +14,9 @@ as plonky2_verifier_tpu.ops.field._reduce128. Every result is canonical, so
 values are bit-exact against the golden model.
 
 The quadratic extension F_p[X]/(X^2 - 7) is a (re, im) pair of elements
-(`GExt`). `inv(0) = 0`, as in the JAX package.
+(`GExt`). `inv(0) = 0`, as in the JAX package. `inv` is the one op here
+with a CUDA kernel (csrc/field.cu); the others are plain PyTorch on any
+device.
 """
 
 from __future__ import annotations
@@ -182,9 +184,20 @@ def pow_dynamic(base, exponent, n_bits: int):
     return acc
 
 
-def inv(a):
+def inv_plain(a):
     """a^(p-2) by Fermat; inv(0) = 0, as in the JAX package."""
     return pow_const(a, P - 2)
+
+
+def inv(a):
+    """a^(p-2), inv(0) = 0: one launch of the CUDA kernel (csrc/field.cu)
+    for a CUDA tensor, inv_plain for a CPU tensor. `ext_inv` and `ext_div`
+    reach it through this name."""
+    if a.device.type == "cpu":
+        return inv_plain(a)
+    from .. import kernels
+
+    return kernels.load().inv(a.contiguous())  # the verifier's inputs are (B, Q) at most
 
 
 # ---------------------------------------------------------------------------

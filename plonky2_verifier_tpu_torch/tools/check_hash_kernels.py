@@ -1,5 +1,6 @@
-"""Bit-exactness check of the three CUDA hash kernels on the card, the
-counterpart of tools/check_hash_kernels.py.
+"""Bit-exactness check of the port's CUDA kernels on the card: the three
+hash kernels, the counterpart of tools/check_hash_kernels.py, then the two
+field kernels (tools/check_field_kernels.py).
 
 Run from the repository root:
   python3 -m plonky2_verifier_tpu_torch.tools.check_hash_kernels [--device cpu]
@@ -16,7 +17,9 @@ Holds, against the plain PyTorch versions and the golden (Python-int) model:
   that are no multiple of the block, an empty segment, the edge band, more
   matrices than one launch takes);
 - the Merkle path walk over every path length in use, sibling ordering by
-  index bit, sizes on both sides of one wave of blocks.
+  index bit, sizes on both sides of one wave of blocks;
+- the extension Horner sum and the Fermat inversion
+  (`check_field_kernels.check_field_kernels`).
 
 Prints one JSON line; exit code 0 iff every word is bit-exact. chip_smoke.py
 calls `check_kernels` for its kernel phase. With --device cpu the plain
@@ -37,6 +40,7 @@ from ..golden import poseidon as gp
 from ..ops import field as tf
 from ..ops import hash as th
 from ..ops import poseidon as tp
+from .check_field_kernels import check_field_kernels, horner_rows_plain
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -45,7 +49,7 @@ PATH_LENS = [0, 1, 3, 7, 11]
 N_RANDOM = (1 << 20) + 37  # random permutation states, not a multiple of the block
 N_ROWS = 4099
 SCAN_BATCHES = [1, 5, 1024]
-KERNELS = ("permutation", "sponge_rows", "merkle_fold")
+KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv")
 
 
 def rand_words(rng, shape) -> np.ndarray:
@@ -92,7 +96,7 @@ class PlainLibrary:
 
     def __init__(self, consts):
         self.consts = consts
-        self.launches = {"sponge_rows_grouped": 0}
+        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0}
 
     def permutation(self, state, form="auto"):
         return tp.permutation_plain(state, self.consts)
@@ -109,6 +113,16 @@ class PlainLibrary:
 
     def merkle_fold(self, digest, index, sibs):
         return th.merkle_fold_plain(digest, index, sibs, sibs.shape[1], self.consts)
+
+    def horner(self, v_re, v_im, p_re, p_im, v_rep=1, p_rep=1):
+        if v_re.shape[0]:
+            self.launches["horner"] += 1
+        return horner_rows_plain(v_re, v_im, p_re, p_im, v_rep, p_rep)
+
+    def inv(self, a):
+        if a.numel():
+            self.launches["inv"] += 1
+        return tf.inv_plain(a)
 
 
 def golden_scan_lane(data_row, ov_idx, ov_mask):
@@ -214,15 +228,15 @@ def check_kernels(lib, consts, n_random: int = N_RANDOM, n_rows: int = N_ROWS, s
             dtype=np.uint64,
         )
         c.compare(got[: min(n, 4)], golden, f"L={L} n={n} vs golden")
-    for c in checks.values():
-        print(f"check {c.name}: {c.cases} words bit-exact against plain and golden")
-    return checks
+    for name in ("permutation", "sponge_rows", "merkle_fold"):
+        print(f"check {name}: {checks[name].cases} words bit-exact against plain and golden")
+    return check_field_kernels(lib, checks, dev, n_random)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python3 -m plonky2_verifier_tpu_torch.tools.check_hash_kernels")
     p.add_argument("--device", default=None, help="without it the CUDA card, and an error where there is none")
-    p.add_argument("--random", type=int, default=N_RANDOM, help="random permutation states")
+    p.add_argument("--random", type=int, default=N_RANDOM, help="random permutation states, and words to invert")
     p.add_argument("--rows", type=int, default=N_ROWS, help="rows of each sponge matrix and Merkle batch")
     args = p.parse_args(argv)
 

@@ -16,10 +16,13 @@ fixture, for --device cpu) and a batch of copies of its cached proof:
     openings, leaf hashes, initial Merkle walks, combineInitial, each fold
     step's Merkle walk and its coset fold, the final polynomial). The stages
     add up to the staged call. Beside them, summed across stages, the time
-    inside `horner_ext`, `inv` and `pow_dynamic` (each call synchronised);
+    inside `horner_ext`, `horner_scaled`, `inv` and `pow_dynamic` (each call
+    synchronised; on the card the first three are one kernel launch a call);
 (b) under torch.profiler, on the card: `cudaLaunchKernel` calls a forward,
-    the kernels' time on the device, and the idle share of the card (1 -
-    kernel time / wall time) over the profiled forward and over a warm one;
+    the launches and device time of each of the port's own kernels, the
+    kernels launched most often, the kernels' time on the device,
+    and the idle share of the card (1 - kernel time / wall time) over the
+    profiled forward and over a warm one;
 (c) what a program that compiles nothing per template has in place of
     compile times: seconds for the kernel library (built or found built),
     for `TorchVerifier(tpl)`, for the first call and for a warm call.
@@ -30,6 +33,7 @@ Prints the stages as lines and one JSON line at the end. Times of a
 
 import argparse
 import json
+import re
 import sys
 import time
 
@@ -46,7 +50,10 @@ MODELS = {
     "gate_zoo": ("gate_zoo", {"target_degree_bits": 12, "num_query_rounds": 28, "proof_of_work_bits": 16}),
     "fibonacci6": ("fibonacci", {"num_query_rounds": 6}),
 }
-INNER = ("horner_ext", "inv", "pow_dynamic")  # summed across the stages they run in
+# csrc/*.cu's kernels: a function of an anonymous namespace at the name's start
+# (PyTorch's own kernels there are templates over its namespaces)
+PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+(?:<[^>:]*>)?)\(")
+INNER = ((vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv"), (tf, "pow_dynamic"))  # summed across the stages they run in
 
 
 def _sync(device):
@@ -59,7 +66,7 @@ def stage_times(v, dev) -> dict:
     (TorchVerifier.on_stage) and around every call of the INNER functions.
     -> {"staged_call_ms", "stages_ms": {stage: ms}, "inner_ms": {function: ms}}."""
     device = v._ov_idx.device
-    stages, inner = {}, dict.fromkeys(INNER, 0.0)
+    stages, inner = {}, dict.fromkeys((name for _, name in INNER), 0.0)
     last = [0.0]
 
     def on_stage(name):
@@ -79,7 +86,7 @@ def stage_times(v, dev) -> dict:
 
         return run
 
-    originals = {"horner_ext": (vt, vt.horner_ext), "inv": (tf, tf.inv), "pow_dynamic": (tf, tf.pow_dynamic)}
+    originals = {name: (module, getattr(module, name)) for module, name in INNER}
     for name, (module, fn) in originals.items():
         setattr(module, name, timed(name, fn))
     v.on_stage = on_stage
@@ -119,13 +126,18 @@ def device_profile(v, dev, warm_call_ms: float) -> dict:
             v(dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches, kernels, kernel_ns, by_kernel = 0, 0, 0, {}
+    launches, kernels, kernel_ns, by_kernel, count, port = 0, 0, 0, {}, {}, {}
     for ev in prof.profiler.kineto_results.events():
         name = ev.name()
         if ev.device_type() == DeviceType.CUDA:
             kernels += 1
             kernel_ns += ev.duration_ns()
             by_kernel[name] = by_kernel.get(name, 0) + ev.duration_ns()
+            count[name] = count.get(name, 0) + 1
+            own = PORT_KERNEL.match(name)
+            if own:
+                n, ns = port.get(own.group(1), (0, 0))
+                port[own.group(1)] = (n + 1, ns + ev.duration_ns())
         elif name == "cudaLaunchKernel":
             launches += 1
     if kernel_ns == 0 or launches == 0:
@@ -140,6 +152,8 @@ def device_profile(v, dev, warm_call_ms: float) -> dict:
         "idle_share": 1 - kernel_ms / wall_ms,
         "idle_share_of_warm_call": 1 - kernel_ms / warm_call_ms,
         "top_kernels_ms": {k[:160]: round(ns / 1e6, 3) for k, ns in top},
+        "most_launched": {k[:160]: n for k, n in sorted(count.items(), key=lambda kv: -kv[1])[:8]},
+        "port_kernels": {k: {"launches": n, "device_ms": ns / 1e6} for k, (n, ns) in sorted(port.items())},
     }
 
 

@@ -16,8 +16,9 @@ proof batch B (and inside FRI over the Q query rounds):
    over the arity), the final poly.
 
 Field values are int64 tensors holding u64 bit patterns (ops/field.py). The
-Poseidon chains go through ops/poseidon.py and ops/hash.py, which launch the
-CUDA kernels for CUDA tensors.
+Poseidon chains go through ops/poseidon.py and ops/hash.py, the Horner sums
+through `horner_ext` / `horner_scaled` here and the Fermat inversions through
+ops/field.inv; each launches its CUDA kernel for CUDA tensors.
 
 Entry points: `verify_batch(tpl, arrays)` (numpy in, numpy out) and
 `TorchVerifier(tpl)`. Both run on the CUDA card unless the caller passes a
@@ -27,6 +28,7 @@ plain version.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -51,7 +53,7 @@ def prepare(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return {k: tf.from_u64(v, device) for k, v in arrays.items()}
 
 
-def horner_ext(values: GExt, point: GExt) -> GExt:
+def horner_ext_plain(values: GExt, point: GExt) -> GExt:
     """sum_i point^i values[..., i], Horner from zero as in the JAX verifier
     (the first step's add also reduces a non-canonical proof value)."""
     acc = tf.ext_zeros(values.shape[:-1], point.re.device)
@@ -60,7 +62,7 @@ def horner_ext(values: GExt, point: GExt) -> GExt:
     return acc
 
 
-def horner_scaled(values: GExt, scale) -> GExt:
+def horner_scaled_plain(values: GExt, scale) -> GExt:
     """sum_i scale^i values[..., i] with a base-field scale. `scale` may carry
     extra trailing axes: values (B, K) with scale (B, r) -> (B, r)."""
     lead = values.shape[:-1]
@@ -70,6 +72,80 @@ def horner_scaled(values: GExt, scale) -> GExt:
         v = values[..., i].reshape(*lead, *((1,) * len(extra)))
         acc = v + tf.escale(scale, acc)
     return acc
+
+
+def as_ext(x) -> GExt:
+    """A GExt as given; an int64 tensor of base-field words as a GExt."""
+    return x if isinstance(x, GExt) else tf.ext_from_base(x)
+
+
+def horner_ext(values, point) -> GExt:
+    """sum_i point^i values[..., i] for values (..., K) and point (...,),
+    each a GExt or an int64 tensor of base-field words (imaginary part
+    zero, never built). One launch of the CUDA kernel (csrc/field.cu) for
+    CUDA tensors, horner_ext_plain for CPU tensors."""
+    if (point if isinstance(point, torch.Tensor) else point.re).device.type == "cpu":
+        return horner_ext_plain(as_ext(values), as_ext(point))
+    return _horner_kernel(values, point)
+
+
+def horner_scaled(values: GExt, scale) -> GExt:
+    """horner_scaled_plain's sum: the CUDA kernel for CUDA tensors (the
+    values broadcast over scale's extra axes as a stride-0 view)."""
+    if scale.device.type == "cpu":
+        return horner_scaled_plain(values, scale)
+    k = values.shape[-1]
+    shape = (*values.shape[:-1], *(1,) * (scale.dim() - len(values.shape[:-1])), k)
+    return _horner_kernel(values.reshape(*shape).expand(*scale.shape, k), scale)
+
+
+def _rows(t: torch.Tensor, lead: int):
+    """t (*lead axes, *tail) -> (rows, rep) with rows (m, *tail) such that row
+    i of the flattened lead axes is rows[i // rep]. The trailing lead axes
+    that t broadcasts (stride 0 or size 1, as `expand` and `unsqueeze` leave
+    them) make up rep and are never copied; `reshape` flattens the rest and
+    copies only the axes it cannot merge (the quotient's (B, r) rows of
+    openings1: B x r x maxdeg words), and such a copy repeats no row."""
+    keep, rep = lead, 1
+    while keep and (t.stride(keep - 1) == 0 or t.shape[keep - 1] == 1):
+        keep -= 1
+        rep *= t.shape[keep]
+    rows = t[(slice(None),) * keep + (0,) * (lead - keep)]
+    return rows.reshape(math.prod(t.shape[:keep]), *t.shape[lead:]), rep
+
+
+def horner_rows(values, point):
+    """The arguments of KernelLibrary.horner for horner_ext(values, point):
+    (v_re, v_im, p_re, p_im, v_rep, p_rep), v_im / p_im None for a
+    base-field operand; None where the point has no element."""
+    v_re, v_im = (values, None) if isinstance(values, torch.Tensor) else (values.re, values.im)
+    p_re, p_im = (point, None) if isinstance(point, torch.Tensor) else (point.re, point.im)
+    lead = p_re.dim()
+    if tuple(v_re.shape[:-1]) != tuple(p_re.shape):
+        raise ValueError(f"values {tuple(v_re.shape)} do not end a point of shape {tuple(p_re.shape)} in a coefficient axis")
+    if not p_re.numel():
+        return None
+    (v_re, v_rep), (p_re, p_rep) = _rows(v_re, lead), _rows(p_re, lead)
+    if v_im is not None:
+        v_im, rep = _rows(v_im, lead)
+        if (rep, v_im.stride()) != (v_rep, v_re.stride()):  # the parts laid out unlike each other: one layout for both
+            v_re, v_im, v_rep = v_re.repeat_interleave(v_rep, 0), v_im.repeat_interleave(rep, 0), 1
+    if p_im is not None:
+        p_im, rep = _rows(p_im, lead)
+        if (rep, p_im.stride()) != (p_rep, p_re.stride()):
+            p_re, p_im, p_rep = p_re.repeat_interleave(p_rep, 0), p_im.repeat_interleave(rep, 0), 1
+    return v_re, v_im, p_re, p_im, v_rep, p_rep
+
+
+def _horner_kernel(values, point) -> GExt:
+    from . import kernels
+
+    p_re = point if isinstance(point, torch.Tensor) else point.re
+    args = horner_rows(values, point)
+    if args is None:
+        return tf.ext_zeros(p_re.shape, p_re.device)
+    re, im = kernels.load().horner(*args)
+    return GExt(re.reshape(p_re.shape), im.reshape(p_re.shape))
 
 
 def tree_prod_last(v: GExt) -> GExt:
@@ -588,8 +664,8 @@ class TorchVerifier(nn.Module):
         oracle_lookup = pp_leaf[..., r * npp :]
         first_batch = torch.cat([a["leaves_0"], a["leaves_1"], oracle_pp, a["leaves_3"], oracle_lookup], dim=-1)
         second_batch = torch.cat([oracle_pp[..., :r], oracle_lookup], dim=-1)
-        g0 = horner_ext(tf.ext_from_base(first_batch), bq(fri_alpha))
-        g1 = horner_ext(tf.ext_from_base(second_batch), bq(fri_alpha))
+        g0 = horner_ext(first_batch, bq(fri_alpha))  # base-field values
+        g1 = horner_ext(second_batch, bq(fri_alpha))
 
         rev_idx = _bit_reverse(qidx, tpl.lde_bits)
         point_x = tf.ext_from_base(tf.mul(const(gf.MULT_GEN), tf.pow_dynamic(const(tpl.g_lde), rev_idx, tpl.lde_bits)))
@@ -658,7 +734,7 @@ class TorchVerifier(nn.Module):
         )
         F = tpl.final_poly_len
         fp_b = GExt(final_poly.re.unsqueeze(1).expand(B, Q, F), final_poly.im.unsqueeze(1).expand(B, Q, F))
-        final_ok = tf.ext_equal(horner_ext(fp_b, tf.ext_from_base(x_final)), eval_cur)
+        final_ok = tf.ext_equal(horner_ext(fp_b, x_final), eval_cur)  # a base-field point
 
         round_ok = merkle_ok & fold_ok & final_ok
         ok = pow_ok & round_ok.all(dim=1)

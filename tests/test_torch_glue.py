@@ -1,0 +1,174 @@
+"""The field glue that launches the field kernels on the card
+(csrc/field.cu), on the CPU: `verifier_torch.horner_ext`, `horner_scaled`
+and `ops/field.inv` take their plain versions for CPU tensors, and each is
+held bit for bit against the JAX package's own function on the CPU
+(`verifier_jax.horner_ext`, `horner_scaled`, `ops.field.inv`).
+
+Inputs are made with numpy from a seed, half drawn from the p-edge band and
+half non-canonical words x + p (x < 2^32 - 1), as proof words may be. The
+shapes are the verifier's in small: combineInitial's base-field leaf words
+(3, 7, 254), the reduced openings (3, 16), horner_scaled's (3, 2, 5) and
+(3, 5) x (3, 2), no coefficients and no rows. A point with a zero imaginary
+part gives the same bits as a base-field point through both forms, which
+is what the kernel's BASE_POINT flag relies on. Last, the wrappers' card
+path (`_horner_kernel`: the verifier's views flattened to rows, stride-0
+rows passed as repeats) with the kernel library replaced by the plain
+version of its interface. Tolerance: bit-exact. No verifier forward."""
+
+import numpy as np
+import pytest
+import torch
+
+from plonky2_verifier_tpu import verifier_jax as vj
+from plonky2_verifier_tpu.ops import field as jf
+from plonky2_verifier_tpu_torch import kernels
+from plonky2_verifier_tpu_torch import verifier_torch as vt
+from plonky2_verifier_tpu_torch.ops import field as tf
+from plonky2_verifier_tpu_torch.ops.field import GExt
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import horner_rows_plain
+
+P = tf.P
+EDGE = np.array([0, 1, 2, P - 1, P - 2, 2**32 - 1, 2**32, 2**32 + 1, 2**63, P - 2**32], dtype=np.uint64)
+
+
+def _words(seed, shape) -> np.ndarray:
+    """Half the edge band, half x + p with x < 2^32 - 1, shuffled."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    w = np.concatenate([EDGE[rng.integers(0, len(EDGE), size=n - n // 2)], rng.integers(0, 2**32 - 1, size=n // 2, dtype=np.uint64) + np.uint64(P)])
+    rng.shuffle(w)
+    return w.reshape(shape)
+
+
+def _ext_np(seed, shape):
+    return _words(seed, shape), _words(seed + 1000, shape)
+
+
+def _port(re, im=None) -> GExt:
+    return GExt(tf.from_u64(re, "cpu"), tf.from_u64(np.zeros_like(re) if im is None else im, "cpu"))
+
+
+def _jax(re, im=None):
+    return jf.GExt(jf.from_u64(re), jf.from_u64(np.zeros_like(re) if im is None else im))
+
+
+def _equal(port: GExt, jax_out):
+    np.testing.assert_array_equal(tf.to_u64(port.re), jf.to_u64(jax_out.re))
+    np.testing.assert_array_equal(tf.to_u64(port.im), jf.to_u64(jax_out.im))
+
+
+@pytest.mark.parametrize("lead,k", [((3, 7), 254), ((3,), 16), ((3, 2), 5), ((3,), 0), ((0,), 5)], ids=["leaves", "openings", "quotient", "K0", "N0"])
+def test_horner_ext_extension_values(lead, k):
+    v, pt = _ext_np(1, lead + (k,)), _ext_np(2, lead)
+    got = vt.horner_ext(_port(*v), _port(*pt))
+    assert got.shape == lead
+    _equal(got, vj.horner_ext(_jax(*v), _jax(*pt)))
+
+
+@pytest.mark.parametrize("lead,k", [((3, 7), 254), ((3,), 16), ((3,), 0)], ids=["leaves", "openings", "K0"])
+def test_horner_ext_base_field_values(lead, k):
+    """Values given as a base-field tensor (combineInitial's form) against the
+    JAX function on ext_from_base of the same words."""
+    v, pt = _words(3, lead + (k,)), _ext_np(4, lead)
+    got = vt.horner_ext(tf.from_u64(v, "cpu"), _port(*pt))
+    _equal(got, vj.horner_ext(jf.ext_from_base(jf.from_u64(v)), _jax(*pt)))
+
+
+@pytest.mark.parametrize("v_shape,s_shape", [((3, 2, 5), (3, 2)), ((3, 5), (3, 2)), ((3, 0), (3, 2)), ((0, 5), (0, 2))], ids=["same-lead", "extra-axis", "K0", "N0"])
+def test_horner_scaled(v_shape, s_shape):
+    v, s = _ext_np(5, v_shape), _words(6, s_shape)
+    got = vt.horner_scaled(_port(*v), tf.from_u64(s, "cpu"))
+    assert got.shape == s_shape
+    _equal(got, vj.horner_scaled(_jax(*v), jf.from_u64(s)))
+
+
+@pytest.mark.parametrize("base_values", [False, True], ids=["ext-values", "base-values"])
+def test_point_with_zero_imaginary_part_through_both_forms(base_values):
+    """emul with im = 0 and escale give the same bits: horner_ext at
+    (x, 0), horner_ext at the base-field x and horner_scaled at x agree with
+    each other and with both JAX functions."""
+    lead, k = (3, 7), 33
+    v = (_words(7, lead + (k,)), None) if base_values else _ext_np(7, lead + (k,))
+    x = _words(8, lead)
+    values = tf.from_u64(v[0], "cpu") if base_values else _port(*v)
+    at_pair = vt.horner_ext(values, _port(x))
+    at_base = vt.horner_ext(values, tf.from_u64(x, "cpu"))
+    scaled = vt.horner_scaled(vt.as_ext(values), tf.from_u64(x, "cpu"))
+    for got in (at_base, scaled):
+        assert torch.equal(got.re, at_pair.re) and torch.equal(got.im, at_pair.im)
+    _equal(at_pair, vj.horner_ext(_jax(*v), _jax(x)))
+    _equal(at_pair, vj.horner_scaled(_jax(*v), jf.from_u64(x)))
+
+
+@pytest.mark.parametrize("shape", [(3, 28), (517,), (0,)])
+def test_inv(shape):
+    a = _words(9, shape)
+    got = tf.to_u64(tf.inv(tf.from_u64(a, "cpu")))
+    np.testing.assert_array_equal(got, jf.to_u64(jf.inv(jf.from_u64(a))))
+    assert [int(x) for x in got.reshape(-1)] == [pow(int(x) % P, P - 2, P) for x in a.reshape(-1)]
+
+
+def test_inv_of_zero_is_zero():
+    zero = np.array([0, P], dtype=np.uint64)  # 0 and its non-canonical twin
+    assert tf.to_u64(tf.inv(tf.from_u64(zero, "cpu"))).tolist() == [0, 0]
+    assert jf.to_u64(jf.inv(jf.from_u64(zero))).tolist() == [0, 0]
+
+
+class _RowsLibrary:
+    """The kernel library's `horner` by the plain version, recording what
+    each call was given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def horner(self, v_re, v_im, p_re, p_im, v_rep=1, p_rep=1):
+        self.calls.append({"v_rows": v_re.shape[0], "v_rep": v_rep, "p_rows": p_re.shape[0], "p_rep": p_rep,
+                           "v_strides": v_re.stride(), "base": (v_im is None, p_im is None)})
+        return horner_rows_plain(v_re, v_im, p_re, p_im, v_rep, p_rep)
+
+
+def _layouts():
+    """The views the verifier hands the Horner wrappers (B = 6, Q = 5, r = 2)
+    and the rows, repeats and flags that must reach the kernel."""
+    B, Q, r = 6, 5, 2
+    op = tf.from_u64(_words(10, (B, 40, 2)), "cpu")
+    o1 = GExt(op[..., 0], op[..., 1])
+    alpha = _port(*_ext_np(11, (B,)))
+    bq = GExt(alpha.re.unsqueeze(1).expand(B, Q), alpha.im.unsqueeze(1).expand(B, Q))
+    leaves = tf.from_u64(_words(12, (B, Q, 37)), "cpu")
+    zeta = _port(*_ext_np(13, (B, 1)))
+    x = tf.from_u64(_words(14, (B, Q)), "cpu")
+    fp = GExt(op[:, :8, 0].unsqueeze(1).expand(B, Q, 8), op[:, :8, 1].unsqueeze(1).expand(B, Q, 8))
+    unlike = GExt(tf.from_u64(_words(15, (B, 1, 9)), "cpu").expand(B, Q, 9), tf.from_u64(_words(16, (B, Q, 9)), "cpu"))
+    return [
+        ("reduced openings", o1, alpha, {"v_rows": B, "v_rep": 1, "p_rows": B, "p_rep": 1, "v_strides": (80, 2), "base": (False, False)}),
+        ("combineInitial", leaves, bq, {"v_rows": B * Q, "v_rep": 1, "p_rows": B, "p_rep": Q, "v_strides": (37, 1), "base": (True, False)}),
+        ("quotient", o1[:, 10:26].reshape(B, r, 8), GExt(zeta.re.expand(B, r), zeta.im.expand(B, r)),
+         {"v_rows": B * r, "v_rep": 1, "p_rows": B, "p_rep": r, "v_strides": (8, 1), "base": (False, False)}),
+        ("final polynomial", fp, x, {"v_rows": B, "v_rep": Q, "p_rows": B * Q, "p_rep": 1, "v_strides": (80, 2), "base": (False, True)}),
+        ("parts laid out unlike each other", unlike, bq, {"v_rows": B * Q, "v_rep": 1, "p_rows": B, "p_rep": Q, "v_strides": (9, 1), "base": (False, False)}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5), ids=[c[0] for c in _layouts()])
+def test_card_path_rows_and_repeats(monkeypatch, case):
+    """`_horner_kernel` on the verifier's own views: a stride-0 axis reaches
+    the kernel as a repeat (never copied), a reshape that cannot be merged
+    is copied without repeats, and the result equals the plain version's."""
+    lib = _RowsLibrary()
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    _, values, point, want = _layouts()[case]
+    got = vt._horner_kernel(values, point)
+    plain = vt.horner_ext_plain(vt.as_ext(values), vt.as_ext(point))
+    assert torch.equal(got.re, plain.re) and torch.equal(got.im, plain.im)
+    assert lib.calls == [want]
+
+
+def test_card_path_horner_scaled_broadcasts_values_over_scales(monkeypatch):
+    lib = _RowsLibrary()
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    values, scale = _port(*_ext_np(17, (6, 11))), tf.from_u64(_words(18, (6, 2)), "cpu")
+    got = vt._horner_kernel(values.reshape(6, 1, 11).expand(6, 2, 11), scale)
+    want = vt.horner_scaled_plain(values, scale)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert lib.calls == [{"v_rows": 6, "v_rep": 2, "p_rows": 12, "p_rep": 1, "v_strides": (11, 1), "base": (False, True)}]

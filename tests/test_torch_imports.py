@@ -7,7 +7,7 @@
   the mesh of processes and the profile) loads neither, in this process or
   in a spawned rank.
 - On CPU tensors the wrappers take their plain versions and never touch the
-  kernel library.
+  kernel library (the field kernels' Horner sums and inversion too).
 - Without CUDA, the entry points (TorchVerifier, PoseidonConstants,
   verify_batch) raise unless given device="cpu", building the kernels
   raises, a wrapper given a non-CPU tensor raises instead of falling back,
@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from plonky2_verifier_tpu_torch import kernels
+from plonky2_verifier_tpu_torch import verifier_torch as vt
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
@@ -59,6 +60,7 @@ PORT_MODULES = [
     "plonky2_verifier_tpu_torch.graft_entry",
     "plonky2_verifier_tpu_torch.tools.distributed_dryrun",
     "plonky2_verifier_tpu_torch.tools.check_hash_kernels",
+    "plonky2_verifier_tpu_torch.tools.check_field_kernels",
     "plonky2_verifier_tpu_torch.tools.bench_poseidon",
     "plonky2_verifier_tpu_torch.tools.profile_verifier",
     "plonky2_verifier_tpu_torch.tools.lookup_device_check",
@@ -120,8 +122,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 REHEARSAL = """
 import sys, torch
 import chip_smoke as cs
-from plonky2_verifier_tpu_torch import kernels
-from plonky2_verifier_tpu_torch.ops import hash as th, poseidon as tp
+from plonky2_verifier_tpu_torch import kernels, verifier_torch as vt
+from plonky2_verifier_tpu_torch.ops import field as tf, hash as th, poseidon as tp
 
 consts = tp.PoseidonConstants("cpu")
 
@@ -141,6 +143,9 @@ tp.permutation_scan = counted("permutation_scan", tp.permutation_scan)
 th.sponge_rows = counted("sponge_rows", th.sponge_rows)
 th.sponge_rows_grouped = counted("sponge_rows_grouped", th.sponge_rows_grouped)
 th.merkle_fold = counted("merkle_fold", th.merkle_fold)
+vt.horner_ext = counted("horner", vt.horner_ext)  # the field kernels' wrappers
+vt.horner_scaled = counted("horner", vt.horner_scaled)
+tf.inv = counted("inv", tf.inv)
 cs.DEVICE, cs.BATCH = "cpu", 6
 cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
 cs.ZOO = {"num_query_rounds": 2, "proof_of_work_bits": 2}
@@ -149,6 +154,7 @@ torch.cuda.synchronize = lambda: None
 v, dev, launches, fib = cs.main_path(lib, checks)
 assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
 assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
+assert (launches["horner"], launches["inv"]) == (7 + len(v.tpl.steps), 3 + len(v.tpl.steps)), launches
 prover = cs.start_prover("gate_zoo", cs.ZOO)
 zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
 assert prover.returncode == 0
@@ -196,6 +202,7 @@ assert snap["proofs"] == 10, snap
 assert launches["permutation_scan"] == 3 and launches["sponge_rows_grouped"] == 3, launches
 cli = cs.cli_path(lib, {"fibonacci": fib, "other": fixture(2)}, checks)
 assert cli["permutation_scan"] == 4 and cli["sponge_rows_grouped"] == 4, cli
+assert all(checks[k].cases > 0 and checks[k].max_abs_err == 0 for k in ("horner", "inv")), {k: c.cases for k, c in checks.items()}
 sc.GRID, sc.FUZZ_SEEDS = [(4, 2, 0)], [13]
 shapes = cs.shapes_path(lib, checks)
 assert shapes["permutation_scan"] == 4 and shapes["merkle_fold"] == 4, shapes
@@ -296,6 +303,14 @@ def test_cpu_wrappers_take_plain_path(no_library):
     states = tp.permutation_scan(data, ov_idx, ov_mask, consts)
     assert torch.equal(states, tp.permutation_scan_plain(data, ov_idx, ov_mask, consts))
     assert states.shape == (4, 3, 12)
+    values, point = tf.GExt(_rand(10, (3, 7)), _rand(11, (3, 7))), tf.GExt(_rand(12, (3,)), _rand(13, (3,)))
+    got, want = vt.horner_ext(values, point), vt.horner_ext_plain(values, point)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    scale = _rand(14, (3, 2))
+    got, want = vt.horner_scaled(values, scale), vt.horner_scaled_plain(values, scale)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    a = _rand(15, (3, 4))
+    assert torch.equal(tf.inv(a), tf.inv_plain(a))
 
 
 def _tiny_template():
@@ -355,6 +370,10 @@ def test_non_cpu_tensor_raises_instead_of_falling_back():
         th.sponge_rows(torch.empty((4, 9), dtype=torch.int64, device="meta"), 9, consts)
     with pytest.raises(RuntimeError, match="CUDA"):  # one matrix off the CPU is enough
         th.sponge_rows_grouped([_rand(9, (4, 9)), torch.empty((4, 9), dtype=torch.int64, device="meta")], consts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vt.horner_ext(torch.empty((4, 9), dtype=torch.int64, device="meta"), torch.empty((4,), dtype=torch.int64, device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.inv(torch.empty((4,), dtype=torch.int64, device="meta"))
 
 
 def test_kernel_input_checks_reject_cpu_tensors():

@@ -1,5 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions and the golden
-model, on the card. Bit-exact (integer arithmetic).
+model, on the card: the three Poseidon kernels and the two field kernels
+(the extension Horner sum and the Fermat inversion, their inputs drawn
+from the edge band and words x + p as well). Bit-exact (integer
+arithmetic).
 
 These tests need a CUDA device and nvcc; without them they skip. This file
 imports no JAX, so it also runs on a machine without JAX:
@@ -11,11 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from plonky2_verifier_tpu_torch import verifier_torch as vt
+from plonky2_verifier_tpu_torch.golden import field as gf
 from plonky2_verifier_tpu_torch.golden import hashing as gh
 from plonky2_verifier_tpu_torch.golden import poseidon as gp
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
+from plonky2_verifier_tpu_torch.ops.field import GExt
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import horner_rows_plain
 
 pytestmark = pytest.mark.cuda
 P = tf.P
@@ -155,6 +162,77 @@ def test_merkle_fold_grid_sizes(lib, consts, n):
     assert torch.equal(lib.merkle_fold(dig, idx, sibs), th.merkle_fold_plain(dig, idx, sibs, 2, consts))
 
 
+def _noncanonical(seed, shape):
+    """Words drawn from the edge band, x + p (x < 2^32 - 1) and random."""
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([EDGE, rng.integers(0, 2**32 - 1, size=64, dtype=np.uint64) + np.uint64(P), rng.integers(0, P, size=64, dtype=np.uint64)])
+    return tf.from_u64(pool[rng.integers(0, len(pool), size=shape)], "cuda")
+
+
+def test_inv_kernel(lib):
+    a = torch.cat([tf.from_u64(EDGE, "cuda"), _noncanonical(60, 4099), _rand(61, 70001)])
+    got = lib.inv(a)
+    assert torch.equal(got, tf.inv_plain(a))
+    host = tf.to_u64(a)
+    assert [int(x) for x in tf.to_u64(got[:300])] == [pow(int(x) % P, P - 2, P) for x in host[:300]]
+    assert int(tf.to_u64(lib.inv(tf.from_u64(np.array([0, P], dtype=np.uint64), "cuda"))).max()) == 0
+    grid = a[: 1024 * 28].reshape(1024, 28)
+    assert torch.equal(lib.inv(grid), tf.inv_plain(grid))
+    assert lib.inv(a[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("base_values,base_point", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("rows,k,v_rep,p_rep", [(97, 254, 1, 1), (33, 31, 3, 1), (28, 32, 1, 7), (5, 33, 4, 20), (37, 1, 1, 1), (37, 0, 1, 1), (0, 5, 1, 1)])
+def test_horner_kernel(lib, base_values, base_point, rows, k, v_rep, p_rep):
+    """Both flags, widths around the 32-column chunk, K = 0 (zeros), no rows
+    (no launch) and repeated rows (v_rep, p_rep), on non-canonical words:
+    the plain version, and golden/ on the first row."""
+    n = rows * v_rep
+    v_re, v_im = _noncanonical(rows + k, (rows, k)), None if base_values else _noncanonical(rows + k + 1, (rows, k))
+    p_re, p_im = _noncanonical(n + 2, (n // p_rep,)), None if base_point else _noncanonical(n + 3, (n // p_rep,))
+    before = lib.launches["horner"]
+    got = lib.horner(v_re, v_im, p_re, p_im, v_rep, p_rep)
+    assert lib.launches["horner"] == before + (1 if n else 0)
+    want = horner_rows_plain(v_re, v_im, p_re, p_im, v_rep, p_rep)
+    assert got[0].shape == got[1].shape == (n,)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if n:
+        u = lambda t, i: 0 if t is None else int(tf.to_u64(t)[i]) % P
+        acc, pt = (0, 0), (u(p_re, 0), u(p_im, 0))
+        for j in range(k - 1, -1, -1):
+            acc = gf.eadd((int(tf.to_u64(v_re)[0, j]) % P, 0 if v_im is None else int(tf.to_u64(v_im)[0, j]) % P), gf.emul(pt, acc))
+        assert (int(tf.to_u64(got[0])[0]), int(tf.to_u64(got[1])[0])) == acc
+
+
+def test_horner_wrappers_at_the_call_sites_layouts(lib):
+    """The wrappers on the views the verifier hands them, against the plain
+    versions: interleaved openings (column stride 2), a stride-0 point over
+    the query axis, base-field values and points, a (B, r) quotient reshape
+    that cannot be merged, final-polynomial values broadcast over queries,
+    horner_scaled's values broadcast over r scales, and the parts of one
+    GExt laid out unlike each other."""
+    B, Q, r = 6, 5, 2
+    op = _noncanonical(70, (B, 40, 2))
+    o1 = GExt(op[..., 0], op[..., 1])
+    alpha = GExt(_noncanonical(71, (B,)), _noncanonical(72, (B,)))
+    bq = GExt(alpha.re.unsqueeze(1).expand(B, Q), alpha.im.unsqueeze(1).expand(B, Q))
+    leaves = _noncanonical(73, (B, Q, 37))
+    x = _noncanonical(74, (B, Q))
+    quots = o1[:, 10:26].reshape(B, r, 8)
+    zeta = GExt(_noncanonical(75, (B, 1)).expand(B, r), _noncanonical(76, (B, 1)).expand(B, r))
+    fp = GExt(op[:, :8, 0].unsqueeze(1).expand(B, Q, 8), op[:, :8, 1].unsqueeze(1).expand(B, Q, 8))
+    unlike = GExt(_noncanonical(77, (B, 1, 9)).expand(B, Q, 9), _noncanonical(78, (B, Q, 9)))
+    before = lib.launches["horner"]
+    for values, point in [(o1, alpha), (leaves, bq), (quots, zeta), (fp, x), (unlike, bq), (o1[:, :0], alpha), (leaves[:0], bq[:0])]:
+        got = vt.horner_ext(values, point)
+        want = vt.horner_ext_plain(vt.as_ext(values), vt.as_ext(point))
+        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    scale = _noncanonical(79, (B, r))
+    got, want = vt.horner_scaled(o1, scale), vt.horner_scaled_plain(o1, scale)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert lib.launches["horner"] == before + 7  # K = 0 launches (zeros), no rows does not
+
+
 def test_wrappers_count_launches_and_dispatch(lib, consts):
     before = dict(lib.launches)
     x = _rand(30, (2, 3, 12))
@@ -170,8 +248,13 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     group = [_rand(36, (2, 3, 20)), _rand(37, (5, 9))]
     for g, w in zip(th.sponge_rows_grouped(group, consts), th.sponge_rows_grouped_plain(group, consts)):
         assert torch.equal(g, w)
+    values, point = GExt(_rand(38, (2, 3, 9)), _rand(39, (2, 3, 9))), GExt(_rand(40, (2, 3)), _rand(41, (2, 3)))
+    got, want = vt.horner_ext(values, point), vt.horner_ext_plain(values, point)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    a = _rand(42, (2, 3))
+    assert torch.equal(tf.inv(a), tf.inv_plain(a))
     assert {k: lib.launches[k] - before[k] for k in before} == {
-        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1
+        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1, "inv": 1
     }
 
 
@@ -192,6 +275,21 @@ def test_kernel_inputs_are_validated(lib):
         lib.permutation_scan(_rand(45, (4, 20)), ov_idx, ov_mask.to(torch.int64))
     with pytest.raises(KeyError):
         lib.permutation(x, "warp")
+    v, pt = _rand(48, (6, 5)), _rand(49, (6,))
+    with pytest.raises(ValueError, match="int64"):
+        lib.horner(v.to(torch.int32), None, pt, None)
+    with pytest.raises(ValueError, match="rows"):
+        lib.horner(v, None, pt[:5], None)
+    with pytest.raises(ValueError, match="rows"):
+        lib.horner(v, None, pt, None, v_rep=2)
+    with pytest.raises(ValueError, match="v_im"):
+        lib.horner(v, v.t().contiguous().t(), pt, None)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lib.horner(v, None, pt.cpu(), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        lib.inv(x.t())
+    with pytest.raises(ValueError, match="int64"):
+        lib.inv(x.to(torch.int32))
 
 
 def test_entry_points_default_to_the_card(lib):
@@ -216,6 +314,10 @@ def test_entry_points_default_to_the_card(lib):
     # the sponge twice: the public-input hash, and every leaf hash in one grouped launch
     assert lib.launches["sponge_rows"] == before["sponge_rows"] + 1
     assert lib.launches["sponge_rows_grouped"] == before["sponge_rows_grouped"] + 1
+    # the Horner sums: alpha combination, quotient, y0, y1, g0, g1, a fold each step, the final polynomial;
+    # the inversions: L0, the two combineInitial quotients, an offset each step
+    assert lib.launches["horner"] == before["horner"] + 7 + len(tpl.steps)
+    assert lib.launches["inv"] == before["inv"] + 3 + len(tpl.steps)
     cpu = verify_batch(tpl, arrays, debug=True, device="cpu")
     assert card["ok"].tolist() == cpu["ok"].tolist() == [True, False, True]
     np.testing.assert_array_equal(card["debug"]["zeta"][0], cpu["debug"]["zeta"][0])

@@ -97,7 +97,7 @@ def test_profile_verifier_stage_times_add_up(capsys):
     assert list(stages) == want  # the 6-query fibonacci template has no fold step
     assert all(ms >= 0 for ms in stages.values())
     assert 0.95 * res["staged_call_ms"] <= sum(stages.values()) <= res["staged_call_ms"]
-    assert sorted(res["inner_ms"]) == ["horner_ext", "inv", "pow_dynamic"]
+    assert sorted(res["inner_ms"]) == ["horner_ext", "horner_scaled", "inv", "pow_dynamic"]
     assert 0 < sum(res["inner_ms"].values()) < res["staged_call_ms"]
     assert all(res[k] > 0 for k in ("construct_s", "first_call_s", "warm_call_s"))
 
@@ -137,6 +137,18 @@ def test_check_hash_kernels_reports_a_word_that_differs(capsys, monkeypatch):
     assert check_hash_kernels.main(["--device", "cpu", "--random", "8", "--rows", "8"]) == 1
     res = _last_json(capsys)
     assert res["pass"] is False and res["error"].startswith("permutation KAT")
+
+
+@pytest.mark.parametrize("kernel", ["inv", "horner"])
+def test_check_field_kernels_reports_a_word_that_differs(capsys, monkeypatch, kernel):
+    """A stand-in that flips a bit of the field kernels' output is caught
+    against the plain version."""
+    plain = getattr(check_hash_kernels.PlainLibrary, kernel)
+    flip = lambda out: out ^ 1 if isinstance(out, torch.Tensor) else (out[0] ^ 1, out[1])
+    monkeypatch.setattr(check_hash_kernels.PlainLibrary, kernel, lambda self, *args: flip(plain(self, *args)))
+    assert check_hash_kernels.main(["--device", "cpu", "--random", "8", "--rows", "8"]) == 1
+    res = _last_json(capsys)
+    assert res["pass"] is False and res["error"].startswith(kernel)
 
 
 def test_bench_poseidon_on_the_cpu_names_the_host_clock(capsys):

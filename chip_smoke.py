@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card: build the kernels (the
-three Poseidon kernels and the two field kernels, the extension Horner sum
-and the Fermat inversion), hold each against its plain PyTorch version and
-the golden model, time both, then verify a batch of 1024 standard-shape fibonacci proofs
+three Poseidon kernels, the three field kernels -- the extension Horner
+sum, the Fermat inversion and the exponentiations -- and the levelized gate
+program), hold each against its plain PyTorch version and the golden model,
+time both, then verify a batch of 1024 standard-shape fibonacci proofs
 through TorchVerifier and check verdicts and transcripts, then batches
 of 512 and 1024 proofs of the gate-zoo circuit (all 16 gate kinds and the
 lookup argument) the same way, then the serving path: 10,000 proofs as raw
@@ -28,8 +29,13 @@ success):
    one-matrix entry point and against golden/; the transcript-scan entry
    point against the plain loop on a real schedule at batch 1, 5 and 1024,
    and lane 0 against golden/; the Fermat inversion on 2^20 random words,
-   the edge band and words x + p, and the Horner sum with both of its flags,
-   repeated rows, column stride 2, K = 0 and no rows
+   the edge band and words x + p, the Horner sum with both of its flags,
+   repeated rows, column stride 2, K = 0 and no rows, the exponentiations
+   on 2^20 words in every flag pair (exponents 0, 1, 2^n - 1 and random; a
+   scalar and a repeated base), and the gate program of the fibonacci,
+   poseidon_chain, gate-zoo and fuzz 13 / 23 circuits in both of its forms
+   (the tapes in shared memory, in device scratch), at batches whose lanes
+   a block do and do not divide them and at B = 0
    (tools/check_field_kernels.py);
 4. main path: the standard fixture (degree 12, 28 queries, PoW 16; proved
    by a child process that starts with phase 2 and is waited for here),
@@ -41,8 +47,11 @@ success):
    run the scan was launched at least once and the sponge and Merkle kernels
    more than zero times (the sponge twice: the public-input hash and one
    grouped launch for every leaf hash), the Horner sum exactly 7 times and
-   once a fold step and the inversion 3 times and once a fold step
-   (`_field_launches`; every path below checks these counts too);
+   once a fold step, the inversion 3 times and once a fold step, the
+   exponentiations 2 times and once a fold step plus once for each of
+   zeta^n and alpha^(n_zs + n_lookup) whose exponent is at least 2, and the
+   gate program once (`_field_launches`; every path below checks these
+   counts too);
 5. kernel times at the main path's shapes (batch 1024), kernel and plain,
    each pair also compared bit for bit, each beside its bound (the integer
    work W of csrc/poseidon.cuh over the card's int32 rate at its maximum SM
@@ -52,6 +61,9 @@ success):
    fibonacci path's widths and at the gate zoo's, beside the same matrices
    hashed one launch each; every Horner sum and inversion of one main-path
    call on its own arguments, each beside its plain version and its bound;
+   every exponentiation and the gate program of one main-path call and of
+   one gate-zoo call (batch 1024, random proof words), each beside its
+   plain version and its bound;
 6. timing: 5 verifier calls after warm-up -> proofs/s, step ms, and the
    transcript alone;
 7. second path: the gate-zoo fixture with lookups (degree 12, 28 queries,
@@ -148,6 +160,10 @@ PROFILE = [("fibonacci", 1024), ("gate_zoo", 1024)]  # tools/profile_verifier.py
 # the H100's 3.35 TB/s beside it.
 W_INSTRUCTIONS = 19180
 INV_PRODUCTS = 72  # csrc/field.cu's chain for a^(p - 2): 63 squarings and 9 products
+# int32 instructions of a Goldilocks product and add (W's reckoning), and of the
+# extension ops built from them: an emul is 5 products and 2 adds
+PRODUCT, ADD = 16, 4
+EMUL = 5 * PRODUCT + 2 * ADD
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 
@@ -228,14 +244,19 @@ def random_arrays(tpl, batch: int, queries: int, rng):
 
 def recorded_calls(targets, v, a, queries=None):
     """The arguments of every call of the functions `targets` names, each an
-    (owner, attribute) pair (a module's wrapper, or the kernel library's
-    launch method), during one call of `v` on the arrays `a`, in call
-    order: [(attribute, args)]. The call's launches count where they are made."""
+    (owner, attribute) pair (a module's wrapper, the kernel library's
+    launch method, or a class's method, whose args then begin with the
+    instance), during one call of `v` on the arrays `a`, in call order:
+    [(attribute, args, kwargs)]. The call's launches count where they are made."""
     import torch
 
     calls, originals = [], [(owner, name, getattr(owner, name)) for owner, name in targets]
     for owner, name, fn in originals:
-        setattr(owner, name, lambda *args, _name=name, _fn=fn: calls.append((_name, args)) or _fn(*args))
+        def record(*args, _name=name, _fn=fn, **kwargs):
+            calls.append((_name, args, kwargs))
+            return _fn(*args, **kwargs)
+
+        setattr(owner, name, record)
     try:
         with torch.no_grad():
             v(a, queries)
@@ -246,30 +267,52 @@ def recorded_calls(targets, v, a, queries=None):
 
 
 def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
-    """The field kernels' share of hold_against_plain: every Horner sum and
-    inversion of one call of `v` on random words over all the lanes,
-    recorded with its views (stride-0 rows among them); each wrapper then
-    runs on each batch size's lanes and the plain version once on all.
-    Returns the calls' shapes after the batch axis."""
+    """The field kernels' share of hold_against_plain: every Horner sum,
+    inversion, exponentiation and the gate program of one call of `v` on
+    random words over all the lanes, recorded with its views (stride-0 rows
+    and scalar bases among them); each wrapper then runs on each batch
+    size's lanes and the plain version once on all. Returns the calls'
+    shapes after the batch axis."""
     import torch
 
     from plonky2_verifier_tpu_torch import verifier_torch as vt
+    from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
     from plonky2_verifier_tpu_torch.ops import field as tf
 
     Q = queries or v.tpl.num_queries
     a = v.prepare(random_arrays(v.tpl, sum(batches), Q, rng))
-    calls = recorded_calls([(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv")], v, a, None if queries is None else slice(0, Q))
-    plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain, "inv": tf.inv_plain}
-    wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv": tf.inv}
+    targets = [(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv"), (tf, "pow_dynamic"), (tf, "ext_pow_const"), (GateProgram, "forward")]
+    calls = recorded_calls(targets, v, a, None if queries is None else slice(0, Q))
+    gate = lambda prog, inputs, batch_shape, **kw: GateProgram.forward(prog, inputs, batch_shape, **kw)
+    gate_plain = lambda prog, inputs, batch_shape, **kw: prog.forward_plain(inputs, batch_shape, **kw)
+    plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain,
+             "inv": tf.inv_plain, "pow_dynamic": tf.pow_dynamic_plain, "ext_pow_const": tf.ext_pow_const_plain, "forward": gate_plain}
+    wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv": tf.inv, "pow_dynamic": tf.pow_dynamic,
+               "ext_pow_const": tf.ext_pow_const, "forward": gate}
+    bucket = {"horner_ext": "horner", "horner_scaled": "horner", "inv": "inv", "pow_dynamic": "pow", "ext_pow_const": "pow", "forward": "gate_program"}
     stack = lambda x: torch.stack([x.re, x.im], dim=1) if isinstance(x, tf.GExt) else x  # the batch axis first
+
+    def cut(x, part, b):
+        """x's lanes `part`: a tensor's or GExt's first axis, a dict's values, the batch shape."""
+        if isinstance(x, dict):
+            return {k: cut(y, part, b) for k, y in x.items()}
+        if isinstance(x, tuple):  # GateProgram.forward's batch shape
+            return (b,)
+        return x[part] if isinstance(x, (torch.Tensor, tf.GExt)) else x
+
+    def shape(x):
+        if isinstance(x, dict):
+            return {k: tuple(y.shape)[1:] for k, y in x.items()}
+        return tuple(x.shape)[1:] if isinstance(x, (torch.Tensor, tf.GExt)) else x
+
     shapes = []
-    for name, args in calls:
-        want = stack(plain[name](*args))
-        c = checks["inv" if name == "inv" else "horner"]
+    for name, args, kwargs in calls:
+        want = stack(plain[name](*args, **kwargs))
+        described = [shape(x) for x in args if not isinstance(x, GateProgram)]
         for b, part in zip(batches, parts):
-            got = stack(wrapper[name](*(x[part] for x in args)))
-            c.compare(got, want[part], f"{what}: {name} at batch {b}, {[tuple(x.shape)[1:] for x in args]}")
-        shapes.append(f"{name} {[tuple(x.shape)[1:] for x in args]}")
+            got = stack(wrapper[name](*(cut(x, part, b) for x in args), **kwargs))
+            checks[bucket[name]].compare(got, want[part], f"{what}: {name} at batch {b}, {described}")
+        shapes.append(f"{'GateProgram.forward' if name == 'forward' else name} {described}")
     return shapes
 
 
@@ -278,8 +321,9 @@ def hold_against_plain(v, batch, checks, what: str, queries=None):
     inputs of the shapes that one call of the verifier `v` at `batch` gives
     it: the transcript scan on v's own schedule, the public-input hash (width
     0 where the circuit has none), every leaf hash in one grouped launch, the
-    stacked initial Merkle walk and each fold step's, and every Horner sum
-    and inversion of a call on random proof words (hold_field_kernels). A
+    stacked initial Merkle walk and each fold step's, and every Horner sum,
+    inversion, exponentiation and the gate program of a call on random proof
+    words (hold_field_kernels). A
     walk of length 0 is never launched (verifier_torch.merkle_batched) and
     is passed over here too. `batch` may be a list of batch sizes: each wrapper is then called
     once at each size, and the plain version (lane by lane the same work,
@@ -428,7 +472,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     # the field kernels on the arguments of every launch of one main-path call;
     # the row of each is its largest call (combineInitial's g0, a fold's off_inv)
     largest = {}
-    for name, args in recorded_calls([(lib, "horner"), (lib, "inv")], v, dev):
+    for name, args, _ in recorded_calls([(lib, "horner"), (lib, "inv")], v, dev):
         if name == "horner":
             v_re, v_im, p_re, p_im, v_rep, p_rep = args
             what = (f"({v_re.shape[0]} x {v_rep} rows, {v_re.shape[1]}) {'base' if v_im is None else 'ext'} values, "
@@ -446,7 +490,82 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
                     field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1)
         if size >= largest.get(name, -1):
             largest[name], out[name] = size, res
+
+    # the exponentiations and the gate program at every call of one verifier
+    # call on random proof words, the main path's and the gate zoo's at the
+    # same batch; a kernel's row is the main path's largest call, the zoo's
+    # largest beside it
+    from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+
+    zoo_v = TorchVerifier(zoo_tpl, device=DEVICE)
+    zoo_dev = zoo_v.prepare(random_arrays(zoo_tpl, B, zoo_tpl.num_queries, rng))
+    pair = lambda x: (x.re, x.im) if isinstance(x, tf.GExt) else x
+    targets = [(tf, "pow_dynamic"), (tf, "ext_pow_const"), (GateProgram, "forward")]
+    for path, verifier, arrays in [("main path", v, dev), ("gate zoo", zoo_v, zoo_dev)]:
+        largest = {}
+        for name, args, kwargs in recorded_calls(targets, verifier, arrays):
+            if name == "forward":
+                name, (prog, inputs, batch_shape) = "gate_program", args
+                instructions, n_bytes = gate_work(prog, inputs, kwargs.get("out_slots", prog.k_out_slots))
+                what = (f"{path}: {prog.n_levels} levels, {prog.n_tape} slots, {prog.k_adds.shape[0]} adds and "
+                        f"{prog.k_muls.shape[0]} multiplies a lane, {batch_shape[0]} lanes")
+                kernel = lambda prog=prog, args=args, kwargs=kwargs: pair(prog(*args[1:], **kwargs))
+                plain = lambda prog=prog, args=args, kwargs=kwargs: pair(prog.forward_plain(*args[1:], **kwargs))
+                size = instructions
+            elif name == "ext_pow_const" and args[1] < 2:
+                continue  # answered on the host, no launch
+            else:
+                instructions, n_bytes, what = pow_work(name, *args)
+                what, size = f"{path}: {what}", instructions
+                kernel = lambda fn=getattr(tf, name), args=args: pair(fn(*args))
+                plain = lambda fn=getattr(tf, f"{name}_plain"), args=args: pair(fn(*args))
+                name = "pow"
+            work = f"{instructions} int32 instructions, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
+            res = timed(name, what, kernel, plain, 20, field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1)
+            if size >= largest.get(name, -1):
+                largest[name] = size
+                if path == "main path":
+                    out[name] = res
+                else:
+                    out[name]["zoo"] = res
     return out
+
+
+def pow_work(name: str, *args):
+    """(int32 instructions, bytes, description) of one exponentiation, the
+    least that its inputs need: the n_bits - 1 squarings once a distinct
+    base row (a broadcast base once), then a product a set bit of each
+    element's exponent (ext_pow_const: of each distinct row's, its elements
+    being copies), a product an emul for an extension base; each distinct
+    base word read once, the exponents, each output written once."""
+    from plonky2_verifier_tpu_torch.ops import field as tf
+
+    if name == "pow_dynamic":
+        base, exponent, n_bits = args
+        n, bits = exponent.numel(), max(n_bits, 1)
+        ones = sum(int(((exponent >> k) & 1).sum()) for k in range(bits))
+        rows = tf.broadcast_rows(base.expand(exponent.shape), exponent.dim())[0].numel()
+        products = rows * (bits - 1) + ones
+        return products * PRODUCT, 8 * (rows + 2 * n), f"pow_dynamic {tuple(exponent.shape)}, {bits} bits, base words {rows}"
+    a, e = args
+    n, rows = a.re.numel(), tf.broadcast_rows(a.re, a.re.dim())[0].numel()
+    emuls = rows * (e.bit_length() - 1 + bin(e).count("1"))
+    return emuls * EMUL, 8 * (2 * rows + 2 * n), f"ext_pow_const {tuple(a.re.shape)}, e = {e}, base rows {rows}"
+
+
+def gate_work(prog, inputs, out_slots):
+    """(int32 instructions, bytes) of one gate-program launch: a real add is
+    a reduction, a negation and an add on each part (3 adds; the kernel's
+    product by the sign is one way to the same bits), a multiply an emul,
+    every lane; each input word, literal and op read once, each output word
+    written once."""
+    lanes = next(iter(inputs.values())).re.shape[0]
+    adds, muls = prog.k_adds.shape[0], prog.k_muls.shape[0]
+    instructions = lanes * (adds * 6 * ADD + muls * EMUL)
+    words = sum(2 * x.re.numel() for x in inputs.values()) + prog.lit_values.numel() + 2 * lanes * out_slots.numel()
+    program = 16 * (adds + muls) + 4 * (prog.k_add_off.numel() + prog.k_mul_off.numel() + out_slots.numel())
+    return instructions, 8 * words + program
 
 
 def _transcript_equals_golden(common, dbg, lane, vkey, pwp):
@@ -488,8 +607,15 @@ def _field_launches(tpl) -> dict:
     the alpha combination, the quotient, the two reduced openings,
     combineInitial's two sums, each fold step and the final polynomial; the
     inversion for L0, combineInitial's two quotients and each fold step's
-    coset offset."""
-    return {"horner": 7 + len(tpl.steps), "inv": 3 + len(tpl.steps)}
+    coset offset; the exponentiations for combineInitial's query points,
+    each fold step's coset offset and the final x (pow_dynamic), and zeta^n
+    and alpha^(n_zs + n_lookup) where the exponent is at least 2
+    (ext_pow_const answers 0 and 1 on the host); the gate program once."""
+    pow_const = int(tpl.n >= 2) + int(tpl.n_zs + tpl.n_lookup >= 2)
+    return {"horner": 7 + len(tpl.steps), "inv": 3 + len(tpl.steps), "pow": 2 + len(tpl.steps) + pow_const, "gate_program": 1}
+
+
+FIELD_KERNELS = ("horner", "inv", "pow", "gate_program")
 
 
 def _check_launches(launches, what: str, tpl):
@@ -801,7 +927,7 @@ def cli_path(lib, fixtures, checks):
         calls = -(-CLI_REPEAT // CLI_BATCH)  # batches a shape
         want = {"permutation": 0, "permutation_scan": calls * len(fixtures), "sponge_rows": calls * len(fixtures),
                 "sponge_rows_grouped": calls * len(fixtures), "merkle_fold": calls * sum(_merkle_launches(f[0]) for f in fixtures.values()),
-                **{k: calls * sum(_field_launches(f[0])[k] for f in fixtures.values()) for k in ("horner", "inv")}}
+                **{k: calls * sum(_field_launches(f[0])[k] for f in fixtures.values()) for k in FIELD_KERNELS}}
         if launches != want:
             raise AssertionError(f"cli stream: launches {launches}, expected {want}")
         rc = cli(["verify", os.path.join(folder, next(iter(fixtures))), "--batch", str(CLI_VERIFY_BATCH)] + device)
@@ -862,7 +988,7 @@ def shapes_path(lib, checks):
     print(f"shapes: {len(tpls)} circuits in {time.time() - t:.1f} s, launches {launches}")
     want = 2 * sum(_merkle_launches(tpl) for tpl in tpls)
     calls = 2 * len(tpls)
-    field = {k: 2 * sum(_field_launches(tpl)[k] for tpl in tpls) for k in ("horner", "inv")}
+    field = {k: 2 * sum(_field_launches(tpl)[k] for tpl in tpls) for k in FIELD_KERNELS}
     if (launches["permutation_scan"], launches["sponge_rows"], launches["sponge_rows_grouped"], launches["merkle_fold"]) != (calls, calls, calls, want):
         raise AssertionError(f"shapes: launches {launches}, expected {calls} of the scan and of each sponge entry and {want} Merkle walks")
     if {k: launches[k] for k in field} != field:
@@ -1141,7 +1267,8 @@ def main():
         print(f"launches on {what}: " + ", ".join(f"{k} {n[k]}" for k in kernels.COUNTERS))
     print(f"card: {smi}")
 
-    sources = {"permutation": "permutation.cu", "sponge_rows": "sponge.cu", "merkle_fold": "merkle.cu", "horner": "field.cu", "inv": "field.cu"}
+    sources = {"permutation": "permutation.cu", "sponge_rows": "sponge.cu", "merkle_fold": "merkle.cu", "horner": "field.cu", "inv": "field.cu",
+               "pow": "field.cu", "gate_program": "gates.cu"}
     replaces = {
         "permutation": "plonky2_verifier_tpu/ops/pallas_poseidon.py:122",
         "sponge_rows": "plonky2_verifier_tpu/ops/pallas_hash.py:112",
@@ -1149,6 +1276,8 @@ def main():
         # no Pallas kernel: functions that jax.jit compiles into loops on the device
         "horner": "plonky2_verifier_tpu/verifier_jax.py:45 horner_ext (and :62 horner_scaled)",
         "inv": "plonky2_verifier_tpu/ops/field.py:264 inv",
+        "pow": "plonky2_verifier_tpu/ops/field.py:413 pow_dynamic (and :399 ext_pow_const)",
+        "gate_program": "plonky2_verifier_tpu/compiler/gates_jax.py:225 run_levelized",
     }
     entry_points = {
         "permutation": ("permutation", "permutation_scan"),
@@ -1156,6 +1285,8 @@ def main():
         "merkle_fold": ("merkle_fold",),
         "horner": ("horner",),
         "inv": ("inv",),
+        "pow": ("pow",),
+        "gate_program": ("gate_program",),
     }
     rows = []
     for name in kernels.KERNELS:
@@ -1182,8 +1313,9 @@ def main():
         # every rank of the last mesh's first call, and of the mesh stream, together
         row["launches_mesh"] = sum(mesh_launches[k] + mesh_stream_launches[k] for k in entry_points[name])
         # beside the launch the main path makes: one (1024, 12) permutation
-        # step beside the scan, the widest single matrix beside the grouped sponge
-        for extra in ("step", "widest"):
+        # step beside the scan, the widest single matrix beside the grouped
+        # sponge, the gate zoo's largest call beside the main path's
+        for extra in ("step", "widest", "zoo"):
             if extra in tm:
                 row.update({f"{extra}_{k}": round(x, 6) if isinstance(x, float) else x for k, x in tm[extra].items()})
         rows.append(row)

@@ -1,14 +1,18 @@
-// The verifier's field glue as two kernels: the extension Horner sum and the
-// Fermat inversion.
+// The verifier's field glue as three kernels: the extension Horner sum, the
+// Fermat inversion and the exponentiations.
 //
-// Neither replaces a Pallas kernel: the JAX package compiles the same
+// None replaces a Pallas kernel: the JAX package compiles the same
 // functions with jax.jit into loops on the device --
 //   horner_ext / horner_scaled  plonky2_verifier_tpu/verifier_jax.py:45 / :62
 //                               (a lax.scan over the last axis),
 //   inv                         plonky2_verifier_tpu/ops/field.py:264
-//                               (an LSB-first square-and-multiply scan).
+//                               (an LSB-first square-and-multiply scan),
+//   pow_dynamic / ext_pow_const plonky2_verifier_tpu/ops/field.py:413 / :399
+//                               (a scan over the exponent's bits; an
+//                               unrolled square-and-multiply).
 // Run eagerly as plain PyTorch they were a chain of ~280 launches a Horner
-// column and 5,876 a Fermat inversion: most of a verifier call's launches.
+// column, 5,876 a Fermat inversion, ~1,500 a pow_dynamic of 15 bits and
+// ~3,000 an ext_pow_const(zeta, 4096): most of a verifier call's launches.
 //
 // p2v_horner: out[n] = sum_k point[n]^k values[n, k] in F_p[X]/(X^2 - 7),
 // Horner from zero in the plain version's order,
@@ -45,6 +49,23 @@
 // version's square-and-multiply spends 125). Elementwise and tiny at the
 // verifier's shapes (28,672 words): launch-bound; what it removes is the
 // plain chain's 5,876 launches.
+//
+// p2v_pow: base^e elementwise by LSB-first square-and-multiply from
+// acc = 1, as pow_dynamic_plain computes it. Two template flags: EXT (an
+// extension base, emul for every product; else base-field mul) and DYNAMIC
+// (an int64 exponent an element, below 2^n_bits: pow_dynamic; else one
+// exponent e from the host: ext_pow_const). Exponent bits at and above
+// n_bits are not read, as in the plain scan. Bits: acc starts canonical (1)
+// and every product is canonical, so e = 0 gives 1 and any other exponent
+// gives the canonical base^e, for a base word >= p too (its first product
+// reduces it). pow_dynamic_plain gives the same bits; ext_pow_const_plain
+// does for e >= 2 (its e = 1 returns the input's own bits and its e = 0 is
+// (1, 0): the wrapper, ops/field.ext_pow_const, answers both on the host
+// without a launch). Base row = i / b_rep at a stride of b_stride words: a
+// base broadcast by `expand` (a stride-0 axis, a scalar) is read where it
+// lies. Bound: integer ALU work, n_bits - 1 squarings and a product a set
+// bit (an emul is 5 products and 2 adds); elementwise, no reuse, so at the
+// verifier's (1024, 28) launch-bound.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -146,6 +167,46 @@ __global__ void inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict
     }
 }
 
+struct PowArgs {
+    const uint64_t* b_re;
+    const uint64_t* b_im;  // EXT only
+    const int64_t* exps;   // DYNAMIC only: (n,)
+    uint64_t* out_re;
+    uint64_t* out_im;  // EXT only
+    int64_t n, b_stride, b_rep;  // base row = i / b_rep, at b_stride words a row
+    uint64_t e;                  // !DYNAMIC
+    int n_bits;
+};
+
+template <bool EXT, bool DYNAMIC>
+__global__ void pow_kernel(const PowArgs a) {
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
+        const int64_t at = i / a.b_rep * a.b_stride;
+        Ext s = {a.b_re[at], EXT ? a.b_im[at] : 0};
+        const uint64_t e = DYNAMIC ? (uint64_t)a.exps[i] : a.e;
+        Ext acc = {1, 0};
+        for (int k = 0; k < a.n_bits; ++k) {
+            if ((e >> k) & 1) {
+                if constexpr (EXT) {
+                    acc = gl::emul(acc, s);
+                } else {
+                    acc.re = gl::mul(acc.re, s.re);
+                }
+            }
+            if (k + 1 < a.n_bits) {
+                if constexpr (EXT) {
+                    s = gl::emul(s, s);
+                } else {
+                    s.re = gl::mul(s.re, s.re);
+                }
+            }
+        }
+        a.out_re[i] = acc.re;
+        if constexpr (EXT) a.out_im[i] = acc.im;
+    }
+}
+
 }  // namespace
 
 extern "C" int p2v_horner(const void* v_re, const void* v_im, const void* p_re, const void* p_im, void* out_re,
@@ -176,6 +237,28 @@ extern "C" int p2v_inv(const void* in, void* out, int64_t n, void* stream) {
         const int64_t blocks = (n + INV_THREADS - 1) / INV_THREADS;
         inv_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), INV_THREADS, 0, (cudaStream_t)stream>>>(
             (const uint64_t*)in, (uint64_t*)out, n);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int p2v_pow(const void* b_re, const void* b_im, const void* exps, void* out_re, void* out_im, int64_t n,
+                       int64_t b_stride, int64_t b_rep, uint64_t e, int n_bits, void* stream) {
+    if (n > 0) {
+        const PowArgs a = {(const uint64_t*)b_re, (const uint64_t*)b_im, (const int64_t*)exps, (uint64_t*)out_re,
+                           (uint64_t*)out_im, n, b_stride, b_rep, e, n_bits};
+        const int64_t want = (n + INV_THREADS - 1) / INV_THREADS;
+        const unsigned blocks = (unsigned)(want < 65535 ? want : 65535);
+        cudaStream_t s = (cudaStream_t)stream;
+        const bool ext = b_im != nullptr, dynamic = exps != nullptr;
+        if (ext && dynamic) {
+            pow_kernel<true, true><<<blocks, INV_THREADS, 0, s>>>(a);
+        } else if (ext) {
+            pow_kernel<true, false><<<blocks, INV_THREADS, 0, s>>>(a);
+        } else if (dynamic) {
+            pow_kernel<false, true><<<blocks, INV_THREADS, 0, s>>>(a);
+        } else {
+            pow_kernel<false, false><<<blocks, INV_THREADS, 0, s>>>(a);
+        }
     }
     return (int)cudaGetLastError();
 }

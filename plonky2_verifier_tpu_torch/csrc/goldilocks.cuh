@@ -1,13 +1,15 @@
 // Goldilocks arithmetic (p = 2^64 - 2^32 + 1) with the exact semantics of
 // the plain PyTorch field, plonky2_verifier_tpu_torch/ops/field.py, for the
-// field kernels (field.cu). Every function takes any u64 words, canonical
-// or not, and returns the bits the plain version returns for them:
+// field kernels (field.cu) and the gate program (gates.cu). Every function
+// takes any u64 words, canonical or not, and returns the bits the plain
+// version returns for them:
 //
 // - `add` is ops/field.add: the wrapped sum, 2^32 - 1 (= 2^64 mod p) added
 //   back where the sum wrapped, then one conditional subtraction of p.
-//   With one canonical operand (every call in field.cu has one) the result
-//   is canonical and exact mod p; with two words >= p it need not be, and
-//   neither is the plain version's: the bits are the same either way.
+//   With one canonical operand (every call in field.cu and gates.cu has
+//   one) the result is canonical and exact mod p; with two words >= p it
+//   need not be, and neither is the plain version's: the bits are the same
+//   either way.
 // - `mul` forms the exact 128-bit product (Hopper's native __umul64hi) and
 //   reduces it as ops/field.reduce128 does: canonical for any (lo, hi).
 // - `emul` is ops/field.emul in F_p[X]/(X^2 - 7): re = add(rr, 7 ii) with

@@ -7,9 +7,10 @@ together; a library is named by a sha256 of its source, the headers
 them with ctypes once per process, uploads the Poseidon tables
 (`folded_round_constants`, the MDS) into each Poseidon kernel's constant
 memory, and returns the `KernelLibrary` whose methods launch the kernels:
-the three Poseidon kernels (permutation.cu, sponge.cu, merkle.cu) and the
-two field kernels (field.cu: the extension Horner sum and the Fermat
-inversion).
+the three Poseidon kernels (permutation.cu, sponge.cu, merkle.cu), the
+three field kernels (field.cu: the extension Horner sum, the Fermat
+inversion and the exponentiations) and the levelized gate program
+(gates.cu).
 
 Both raise on any failure (no CUDA device, no nvcc, a compile error, a
 refused launch); nothing here falls back to the plain PyTorch versions.
@@ -39,11 +40,11 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("permutation", "sponge", "merkle", "field")
+SOURCES = ("permutation", "sponge", "merkle", "field", "gates")
 POSEIDON_SOURCES = ("permutation", "sponge", "merkle")  # take the Poseidon tables at load
-KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv")
+KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program")
 # launch counters: the permutation and sponge kernels have two entry points each
-COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv")
+COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv", "pow", "gate_program")
 # also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
 SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
 FORMS = {"auto": 0, "thread": 1, "split": 2}
@@ -163,6 +164,27 @@ def sass_instruction_count() -> dict:
     return {op: n for op, n in counts.items() if n}
 
 
+class GateArgs(ctypes.Structure):
+    """csrc/gates.cu's GateArgs, field for field."""
+
+    _fields_ = [
+        ("in_re", ctypes.c_void_p * 5), ("in_im", ctypes.c_void_p * 5),
+        ("re_row", ctypes.c_int64 * 5), ("re_col", ctypes.c_int64 * 5),
+        ("im_row", ctypes.c_int64 * 5), ("im_col", ctypes.c_int64 * 5),
+        ("in_offset", ctypes.c_int32 * 5), ("in_width", ctypes.c_int32 * 5),
+        ("lits", ctypes.c_void_p), ("add_off", ctypes.c_void_p), ("mul_off", ctypes.c_void_p),
+        ("adds", ctypes.c_void_p), ("muls", ctypes.c_void_p), ("out_slots", ctypes.c_void_p),
+        ("out_re", ctypes.c_void_p), ("out_im", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
+        ("batch", ctypes.c_int64),
+        ("n_tape", ctypes.c_int32), ("n_init", ctypes.c_int32), ("n_lits", ctypes.c_int32),
+        ("n_levels", ctypes.c_int32), ("n_out", ctypes.c_int32), ("lanes", ctypes.c_int32),
+    ]
+
+
+GATE_MAX_LANES = 32  # lanes a block at most (csrc/gates.cu)
+GATE_SMALL_SMEM = 48 * 1024  # a block's shared memory without raising the limit
+
+
 def _check_cuda(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -208,7 +230,9 @@ class KernelLibrary:
             "field": {
                 "p2v_horner": [vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, vp],
                 "p2v_inv": [vp, vp, i64, vp],
+                "p2v_pow": [vp, vp, vp, vp, vp, i64, i64, i64, ctypes.c_uint64, i32, vp],
             },
+            "gates": {"p2v_gate_program": [vp, i32, vp], "p2v_gate_smem_limit": []},
         }
         if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
             raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
@@ -234,6 +258,10 @@ class KernelLibrary:
                 err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data, circ.ctypes.data, diag.ctypes.data)
                 _check_cuda(err, f"p2v_{source}_init")
         self.max_segments = self._fn["p2v_sponge_max_segments"]()
+        self.gate_smem_limit = self._fn["p2v_gate_smem_limit"]()  # bytes of shared memory a block may take
+        if self.gate_smem_limit <= 0:
+            raise RuntimeError("p2v_gate_smem_limit: the device's shared-memory limit could not be read")
+        self.sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
         self.launches = dict.fromkeys(COUNTERS, 0)
 
     def reset_launches(self):
@@ -376,6 +404,103 @@ class KernelLibrary:
             _check_cuda(err, "inv")
             self.launches["inv"] += 1
         return out
+
+    def pow(self, b_re, b_im, exponent, n_bits: int = 0, b_rep: int = 1):
+        """base^e elementwise, by square-and-multiply from 1 (csrc/field.cu):
+        b_re (rows,) at any stride, b_im likewise (None: a base-field
+        base); element i's base is row i // b_rep. `exponent` is an int64
+        (n,) tensor below 2^n_bits, n = rows x b_rep (pow_dynamic), or a
+        Python int of at least 2 (ext_pow_const, which answers 0 and 1
+        itself; n_bits is then its bit length). Returns (out_re, out_im),
+        each (n,), out_im None for a base-field base. e = 0 gives 1 and every
+        other exponent the canonical power: the bits of pow_dynamic_plain and
+        of ext_pow_const_plain on the repeated rows."""
+        _check_tensor(b_re, "b_re", (None,), contiguous=False)
+        if b_im is not None:
+            _check_tensor(b_im, "b_im", (b_re.shape[0],), contiguous=False)
+            if b_im.stride() != b_re.stride():
+                raise ValueError(f"b_im has strides {b_im.stride()}, unlike the real part's {b_re.stride()}")
+        n = b_re.shape[0] * b_rep
+        if isinstance(exponent, torch.Tensor):
+            _check_tensor(exponent, "exponent", (n,))
+            exps, e = exponent.data_ptr(), 0
+        else:
+            if not 2 <= exponent < 2**64:  # e = 0 and 1: ops/field.ext_pow_const answers them, with no launch
+                raise ValueError(f"exponent {exponent}: a host exponent is a u64 of at least 2")
+            exps, e, n_bits = None, exponent, exponent.bit_length()
+        if b_rep < 1 or not 0 <= n_bits <= 64:
+            raise ValueError(f"b_rep {b_rep}, n_bits {n_bits}")
+        out = torch.empty((1 if b_im is None else 2, n), dtype=torch.int64, device=b_re.device)
+        if n:
+            err = self._fn["p2v_pow"](
+                b_re.data_ptr(), None if b_im is None else b_im.data_ptr(), exps, out[0].data_ptr(),
+                None if b_im is None else out[1].data_ptr(), n, b_re.stride(0), b_rep, e, n_bits, _stream(),
+            )
+            _check_cuda(err, "pow")
+            self.launches["pow"] += 1
+        return out[0], None if b_im is None else out[1]
+
+    def gate_program(self, inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape: int, form: str = "auto"):
+        """The levelized gate program for a batch of lanes (csrc/gates.cu).
+        `inputs`: five (offset, re, im), the SEL, LKPSEL, CONST, WIRE and PI
+        values, each part (B, w) at any strides (re and im None where w is
+        0), written at tape slots offset ... offset + w - 1; `lits` (n_lits,)
+        at slots 1 ...; the compact op lists of compiler/gates_torch.
+        compact_ops (int32 `adds` / `muls` (n, 4), `add_off` / `mul_off`
+        (n_levels + 1,)); `out_slots` (n_out,) int32 slots to gather (0
+        reads zero). Returns (out_re, out_im), each (B, n_out). `form`:
+        "shared" (the tapes in shared memory), "global" (in scratch from
+        torch.empty) or "auto" (shared where it fits). Lanes a block, 1 to
+        32, follow from the tape's size and the batch; the last block may
+        hold fewer."""
+        batch = None
+        widths = []
+        for offset, re, im in inputs:
+            if re is None:
+                widths.append(0)
+                continue
+            _check_tensor(re, "input re", (batch, None), contiguous=False)
+            _check_tensor(im, "input im", tuple(re.shape), contiguous=False)
+            batch = re.shape[0]
+            widths.append(re.shape[1])
+        if len(inputs) != 5 or batch is None:
+            raise ValueError("gate_program takes the five input kinds, at least one of them non-empty")
+        n_levels = add_off.shape[0] - 1
+        _check_tensor(lits, "lits", (None,))
+        for t, name, shape in ((add_off, "add_off", (n_levels + 1,)), (mul_off, "mul_off", (n_levels + 1,)),
+                               (adds, "adds", (None, 4)), (muls, "muls", (None, 4)), (out_slots, "out_slots", (None,))):
+            _check_tensor(t, name, shape, torch.int32)
+        n_init = max([1 + lits.shape[0]] + [off + w for (off, _, _), w in zip(inputs, widths)])
+        if n_init > n_tape:
+            raise ValueError(f"the inputs end at slot {n_init}, beyond the tape's {n_tape}")
+        tape = 16 * n_tape
+        lanes = max(1, min(GATE_MAX_LANES, -(-batch // self.sms), GATE_SMALL_SMEM // tape))
+        if form == "auto":
+            form = "shared" if tape * lanes <= self.gate_smem_limit else "global"
+        if form not in ("shared", "global"):
+            raise ValueError(f"form {form!r}")
+        if form == "shared" and tape * lanes > self.gate_smem_limit:
+            raise ValueError(f"{lanes} tapes of {n_tape} slots need {tape * lanes} bytes of shared memory, above {self.gate_smem_limit}")
+        n_out = out_slots.shape[0]
+        out = torch.empty((2, batch, n_out), dtype=torch.int64, device=lits.device)
+        if batch:
+            blocks = -(-batch // lanes)
+            scratch = torch.empty(blocks * 2 * n_tape * lanes if form == "global" else 0, dtype=torch.int64, device=lits.device)
+            a = GateArgs()
+            for k, ((offset, re, im), w) in enumerate(zip(inputs, widths)):
+                a.in_offset[k], a.in_width[k] = offset, w
+                if w:
+                    a.in_re[k], a.in_im[k] = re.data_ptr(), im.data_ptr()
+                    (a.re_row[k], a.re_col[k]), (a.im_row[k], a.im_col[k]) = re.stride(), im.stride()
+            a.lits, a.add_off, a.mul_off = lits.data_ptr(), add_off.data_ptr(), mul_off.data_ptr()
+            a.adds, a.muls, a.out_slots = adds.data_ptr(), muls.data_ptr(), out_slots.data_ptr()
+            a.out_re, a.out_im, a.scratch = out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr()
+            a.batch, a.n_tape, a.n_init, a.n_lits = batch, n_tape, n_init, lits.shape[0]
+            a.n_levels, a.n_out, a.lanes = n_levels, n_out, lanes
+            err = self._fn["p2v_gate_program"](ctypes.addressof(a), form == "shared", _stream())
+            _check_cuda(err, "gate_program")
+            self.launches["gate_program"] += 1
+        return out[0], out[1]
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,13 +14,15 @@ as plonky2_verifier_tpu.ops.field._reduce128. Every result is canonical, so
 values are bit-exact against the golden model.
 
 The quadratic extension F_p[X]/(X^2 - 7) is a (re, im) pair of elements
-(`GExt`). `inv(0) = 0`, as in the JAX package. `inv` is the one op here
-with a CUDA kernel (csrc/field.cu); the others are plain PyTorch on any
-device.
+(`GExt`). `inv(0) = 0`, as in the JAX package. `inv`, `pow_dynamic` and
+`ext_pow_const` launch a CUDA kernel (csrc/field.cu) for CUDA tensors and
+take their `*_plain` versions for CPU tensors; the other ops are plain
+PyTorch on any device.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -173,7 +175,7 @@ def pow_const(a, e: int):
     return acc
 
 
-def pow_dynamic(base, exponent, n_bits: int):
+def pow_dynamic_plain(base, exponent, n_bits: int):
     """base^exponent for an int64 exponent tensor with exponent < 2^n_bits."""
     acc = torch.ones_like(base)
     s = base
@@ -182,6 +184,16 @@ def pow_dynamic(base, exponent, n_bits: int):
         acc = torch.where(bit, mul(acc, s), acc)
         s = square(s)
     return acc
+
+
+def pow_dynamic(base, exponent, n_bits: int):
+    """pow_dynamic_plain's power: one launch of the CUDA kernel
+    (csrc/field.cu) for CUDA tensors, the plain version for CPU tensors. A
+    base broadcast over the exponent's shape (a stride-0 `expand`, a scalar)
+    is read where it lies."""
+    if base.device.type == "cpu":
+        return pow_dynamic_plain(base, exponent, n_bits)
+    return _pow_kernel(base, None, exponent, max(n_bits, 1)).re
 
 
 def inv_plain(a):
@@ -287,7 +299,9 @@ def ext_div(a: GExt, b: GExt) -> GExt:
     return emul(a, ext_inv(b))
 
 
-def ext_pow_const(a: GExt, e: int) -> GExt:
+def ext_pow_const_plain(a: GExt, e: int) -> GExt:
+    """a^e by square-and-multiply, unrolled on the host: e = 0 gives (1, 0)
+    and e = 1 the input itself, with no product."""
     if e == 0:
         return GExt(torch.ones_like(a.re), torch.zeros_like(a.im))
     acc = None
@@ -299,3 +313,55 @@ def ext_pow_const(a: GExt, e: int) -> GExt:
         if e:
             s = ext_square(s)
     return acc
+
+
+def ext_pow_const(a: GExt, e: int) -> GExt:
+    """ext_pow_const_plain's power: for CUDA tensors and e >= 2 one launch of
+    the CUDA kernel (csrc/field.cu), whose every result is canonical as the
+    plain chain's is for e >= 2; e = 0 and e = 1 (the input's own bits, which
+    a kernel's product would reduce) and CPU tensors take the plain version,
+    with no launch."""
+    if a.re.device.type == "cpu" or e < 2:
+        return ext_pow_const_plain(a, e)
+    return _pow_kernel(a.re, a.im, e, e.bit_length())
+
+
+def broadcast_rows(t: torch.Tensor, lead: int):
+    """t (*lead axes, *tail) -> (rows, rep) with rows (m, *tail) such that row
+    i of the flattened lead axes is rows[i // rep]. The trailing lead axes
+    that t broadcasts (stride 0 or size 1, as `expand` and `unsqueeze` leave
+    them) make up rep and are never copied; `reshape` flattens the rest and
+    copies only the axes it cannot merge (the quotient's (B, r) rows of
+    openings1: B x r x maxdeg words), and such a copy repeats no row."""
+    keep, rep = lead, 1
+    while keep and (t.stride(keep - 1) == 0 or t.shape[keep - 1] == 1):
+        keep -= 1
+        rep *= t.shape[keep]
+    rows = t[(slice(None),) * keep + (0,) * (lead - keep)]
+    return rows.reshape(math.prod(t.shape[:keep]), *t.shape[lead:]), rep
+
+
+def _pow_kernel(re, im, exponent, n_bits: int) -> GExt:
+    """KernelLibrary.pow on a base (re, im) (im None: a base-field base, and
+    the result's im is None) and an exponent tensor broadcast with it, or a
+    Python int. Broadcast trailing axes of the base become the kernel's row
+    repeat; where the two parts are laid out unlike each other both are
+    copied, repeat 1."""
+    from .. import kernels
+
+    shape = re.shape
+    if isinstance(exponent, torch.Tensor):
+        # numpy's broadcast, not torch.broadcast_shapes: that one imports
+        # torch.fx's symbolic shapes (sympy) at its first call, seconds of a
+        # fresh process's first verifier call on the card
+        shape = np.broadcast_shapes(tuple(shape), tuple(exponent.shape))
+        re, exponent = re.expand(shape), exponent.expand(shape).reshape(-1)
+        im = None if im is None else im.expand(shape)
+    b_re, rep = broadcast_rows(re, len(shape))
+    b_im = None
+    if im is not None:
+        b_im, rep_im = broadcast_rows(im, len(shape))
+        if (rep_im, b_im.stride()) != (rep, b_re.stride()):
+            b_re, b_im, rep = re.reshape(-1).contiguous(), im.reshape(-1).contiguous(), 1
+    out_re, out_im = kernels.load().pow(b_re, b_im, exponent, n_bits, rep)
+    return GExt(out_re.reshape(shape), None if out_im is None else out_im.reshape(shape))

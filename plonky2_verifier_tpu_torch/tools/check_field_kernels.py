@@ -1,6 +1,8 @@
-"""Bit-exactness check of the two field kernels (csrc/field.cu) on the card:
-the extension Horner sum and the Fermat inversion, against their plain
-PyTorch versions (`verifier_torch.horner_ext_plain`, `ops/field.inv_plain`)
+"""Bit-exactness check of the field kernels on the card: the extension
+Horner sum, the Fermat inversion and the exponentiations (csrc/field.cu)
+and the levelized gate program (csrc/gates.cu), against their plain PyTorch
+versions (`verifier_torch.horner_ext_plain`, `ops/field.inv_plain`,
+`pow_dynamic_plain` / `ext_pow_const_plain`, `GateProgram.forward_plain`)
 and the golden (Python-int) model. `tools/check_hash_kernels.py` runs it
 after the Poseidon kernels, for its command line and chip_smoke.py's kernel
 phase.
@@ -14,12 +16,31 @@ kernels must give the plain bits for them too.
   four combinations, the interleaved openings' column stride of 2, rows
   repeated through v_rep and p_rep (the wrappers' stride-0 rows), widths
   around the 32-column chunk, K = 0 (zeros) and no rows at all (no launch),
-  combineInitial's width of 254 on about 2^20 words.
+  combineInitial's width of 254 on about 2^20 words;
+- pow: `n_random` words in both forms the verifier calls (a base-field base
+  with an exponent a word below 2^15, the base also one scalar read for
+  every word; an extension base with one exponent from the host, the base
+  also a row repeated 28 times), exponents 0, 1, 2^n - 1 and random (a
+  host exponent: 2, 3, 2^12, 2^64 - 1 and random), and on the card the
+  two other flag pairs against golden; e = 0 and 1 of ext_pow_const
+  launch nothing, and the library refuses them;
+- gate_program: the fibonacci, poseidon_chain, gate-zoo and fuzz-13 / 23
+  programs on random lanes, the inputs at the verifier's strides (column
+  stride 2), in both forms (the tape in shared memory, in device scratch)
+  and the one the library picks, at batches whose lanes a block do and do
+  not divide them, B = 0 (no launch), against GateProgram.forward_plain
+  and, on a few lanes, a Python-int interpreter of the compact op lists
+  (golden_gate_program, also the plain stand-in's gate program).
 """
+
+import functools
+import os
 
 import numpy as np
 import torch
 
+from ..compiler.gates_torch import INPUT_KINDS, GateProgram
+from ..compiler.levelize import levelize_gates
 from ..golden import field as gf
 from ..ops import field as tf
 from ..ops.field import GExt
@@ -77,10 +98,180 @@ def _golden_horner(v_re, v_im, p_re, p_im):
     return acc
 
 
+POW_BITS = 15  # lde_bits of the verifier's query points
+POW_CONST = [2, 3, 4096, 2**64 - 1]  # host exponents, beside random ones (0 and 1 never reach the library)
+GATE_BATCHES = [37, 300, 1030, 1, 0]  # on the H100 fibonacci's program runs 1, 3 and 8 lanes a block (the last block of 1030 holds 6)
+GOLDEN_LANES = 2
+ZOO_COMMON = os.path.join(os.path.dirname(__file__), "..", "..", "fixtures", "gate_zoo_3abb3dc54fe7_common.json")
+
+
+def pow_rows_plain(b_re, b_im, exponent, n_bits: int = 0, b_rep: int = 1):
+    """What `KernelLibrary.pow` computes for the two flag pairs the verifier
+    calls, by their plain versions on the repeated rows: pow_dynamic_plain
+    (a base-field base, an exponent an element) and ext_pow_const_plain (an
+    extension base, one exponent of at least 2)."""
+    rows = lambda t: t.repeat_interleave(b_rep, 0)
+    if b_im is None and isinstance(exponent, torch.Tensor):
+        return tf.pow_dynamic_plain(rows(b_re), exponent, n_bits), None
+    if b_im is not None and isinstance(exponent, int) and exponent >= 2:
+        out = tf.ext_pow_const_plain(GExt(rows(b_re), rows(b_im)), exponent)
+        return out.re, out.im
+    raise ValueError("no plain version: the verifier calls a base-field base with an exponent an element, or an extension base with e >= 2")
+
+
+def golden_gate_program(inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape: int = 0):
+    """What `KernelLibrary.gate_program` computes, lane by lane in Python
+    ints (golden/field.py) on the compact op lists (compact_ops): the
+    inputs and literals enter the tape as given, every op reduces its
+    operands mod p, slot 0 reads zero. Returns (out_re, out_im), each
+    (B, n_out), on the literals' device."""
+    batch = next(re.shape[0] for _, re, _ in inputs if re is not None)
+    add_off, mul_off, adds, muls = add_off.tolist(), mul_off.tolist(), adds.tolist(), muls.tolist()
+    lit_words = [(int(v), 0) for v in tf.to_u64(lits)]
+    given = [(offset, tf.to_u64(re), tf.to_u64(im)) for offset, re, im in inputs if re is not None]
+    canon = lambda v: (v[0] % gf.P, v[1] % gf.P)
+    out = np.zeros((batch, out_slots.shape[0], 2), dtype=np.uint64)
+    for lane in range(batch):
+        tape = dict(enumerate(lit_words, 1))
+        for offset, re, im in given:
+            tape.update((offset + j, (int(x), int(y))) for j, (x, y) in enumerate(zip(re[lane], im[lane])))
+        tape[0] = (0, 0)
+        for level in range(len(add_off) - 1):
+            for s1, s2, neg, dst in adds[add_off[level] : add_off[level + 1]]:
+                b = canon(tape[s2])
+                tape[dst] = gf.eadd(canon(tape[s1]), gf.eneg(b) if neg else b)
+            for s1, s2, dst, _ in muls[mul_off[level] : mul_off[level + 1]]:
+                tape[dst] = gf.emul(canon(tape[s1]), canon(tape[s2]))
+        out[lane] = [tape[s] for s in out_slots.tolist()]
+    return tf.from_u64(out[..., 0], lits.device), tf.from_u64(out[..., 1], lits.device)
+
+
+@functools.lru_cache(maxsize=None)
+def gate_programs():
+    """(name, LevelizedProgram) of the circuits whose programs the check
+    runs: fibonacci, poseidon_chain, the gate zoo (its common data as cached
+    by the 2-query fixture, or built from the model without proving: the
+    gates are the same) and fuzz seeds 13 and 23."""
+    from ..compiler import CircuitTemplate
+    from ..models.fibonacci import fibonacci_fixture
+    from ..models.gate_zoo import gate_zoo_fixture
+    from ..models.poseidon_chain import poseidon_chain_fixture
+    from ..types import load_common
+    from . import shape_circuits as sc
+
+    zoo = load_common(ZOO_COMMON) if os.path.exists(ZOO_COMMON) else gate_zoo_fixture(num_query_rounds=2, proof_of_work_bits=2).common
+    commons = [
+        ("fibonacci", fibonacci_fixture(num_query_rounds=2).common),
+        ("poseidon_chain", poseidon_chain_fixture(n_chain=2, num_query_rounds=2).common),
+        ("gate zoo", zoo),
+    ] + [(f"fuzz {seed}", sc.fuzz_fixture(seed).common) for seed in sc.FUZZ_SEEDS]
+    out = []
+    for name, common in commons:
+        tpl = CircuitTemplate(common)
+        out.append((name, levelize_gates(tuple(common.gates), tpl.n_gate_selectors, tpl.n_lookup_selectors,
+                                         tpl.n_gate_constants, tpl.num_wires)))
+    return tuple(out)
+
+
+def gate_inputs(rng, lp, batch: int, dev):
+    """Random inputs of each kind (the edge band and x + p among them), as
+    GExt views at the verifier's strides: every kind's (re, im) interleaved
+    in one (batch, count, 2) tensor, so column stride 2. Returns (inputs,
+    the same as KernelLibrary.gate_program takes them: (offset, re, im) a
+    kind, re and im None where it has no words)."""
+    inputs, views = {}, []
+    for kind in INPUT_KINDS:
+        offset, w = lp.input_slots[kind]
+        t = tf.from_u64(words(rng, (batch, w, 2)), dev)
+        inputs[kind] = GExt(t[..., 0], t[..., 1])
+        views.append((offset, inputs[kind].re, inputs[kind].im) if w else (offset, None, None))
+    return inputs, views
+
+
+def check_pow(lib, c, rng, dev, n_random: int, kernel: bool):
+    """checks["pow"]: both flag pairs the verifier calls against their plain
+    versions and golden, and (`kernel`: lib is the kernel library, not the
+    plain stand-in) the other two against golden; a host exponent below 2
+    refused, the wrapper answering e = 0 and 1 without a launch."""
+    n = n_random
+    b_np = words(rng, (n, 2))
+    b = tf.from_u64(b_np, dev)
+    b_re, b_im = b[:, 0], b[:, 1]  # stride 2, as the interleaved openings
+    golden_at = list(range(0, n, max(n // 4, 1)))[:4] + [n - 1]
+    for name, exps_np in [("0", np.zeros(n, np.int64)), ("1", np.ones(n, np.int64)),
+                          ("2^15 - 1", np.full(n, 2**POW_BITS - 1, np.int64)),
+                          ("random", rng.integers(0, 2**POW_BITS, size=n, dtype=np.int64))]:
+        exps = torch.from_numpy(exps_np).to(dev)
+        got, none = lib.pow(b_re, None, exps, POW_BITS)
+        if none is not None or got.shape != (n,):
+            raise AssertionError(f"pow base-field, exponents {name}: shapes {got.shape}, {none}")
+        c.compare(got, tf.pow_dynamic_plain(b_re, exps, POW_BITS), f"base-field base, exponents {name}")
+        c.compare(got[golden_at], np.array([gf.fpow(int(b_np[i, 0]) % gf.P, int(exps_np[i])) for i in golden_at], np.uint64), f"exponents {name} vs golden")
+        scalar = b_re[:1]  # one word for every element, as the verifier's generator
+        c.compare(lib.pow(scalar, None, exps, POW_BITS, b_rep=n)[0], tf.pow_dynamic_plain(scalar.expand(n), exps, POW_BITS), f"a scalar base, exponents {name}")
+        if kernel:  # extension base, exponents an element (no call site): golden
+            re, im = lib.pow(b_re, b_im, exps, POW_BITS)
+            c.compare(torch.stack([re[golden_at], im[golden_at]], 1), np.array(
+                [gf.epow((int(b_np[i, 0]) % gf.P, int(b_np[i, 1]) % gf.P), int(exps_np[i])) for i in golden_at], np.uint64), f"extension base, exponents {name} vs golden")
+    rows = b[: max(n // 28, 1)]
+    for e in POW_CONST + [int(x) for x in rng.integers(2, 2**63, size=2)]:
+        what = f"extension base, e = {e}"
+        for rep in (1, 28):
+            base = GExt(rows[:, 0], rows[:, 1]) if rep == 28 else GExt(b_re, b_im)
+            got = lib.pow(base.re, base.im, e, b_rep=rep)
+            m = got[0].shape[0]
+            full = GExt(base.re.repeat_interleave(rep), base.im.repeat_interleave(rep))
+            want = tf.ext_pow_const_plain(full, e)
+            c.compare(torch.stack(got), torch.stack([want.re, want.im]), f"{what}, rows x {rep}")
+            at = [0, m // 2, m - 1]
+            gold = [gf.epow((int(x) % gf.P, int(y) % gf.P), e) for x, y in zip(tf.to_u64(full.re[at]), tf.to_u64(full.im[at]))]
+            c.compare(torch.stack([got[0][at], got[1][at]], 1), np.array(gold, np.uint64), f"{what}, rows x {rep} vs golden")
+        if kernel:  # base-field base, one exponent (no call site): golden
+            got, _ = lib.pow(b_re, None, e)
+            c.compare(got[golden_at], np.array([gf.fpow(int(b_np[i, 0]) % gf.P, e) for i in golden_at], np.uint64), f"base-field base, e = {e} vs golden")
+    before = lib.launches.get("pow", 0)
+    for e in (0, 1):  # the wrapper answers both on the host, the input's own bits at e = 1; the library refuses them
+        got, want = tf.ext_pow_const(GExt(b_re, b_im), e), tf.ext_pow_const_plain(GExt(b_re, b_im), e)
+        c.compare(torch.stack([got.re, got.im]), torch.stack([want.re, want.im]), f"ext_pow_const e = {e}")
+        try:
+            lib.pow(b_re, b_im, e)
+        except ValueError:
+            continue
+        raise AssertionError(f"pow took a host exponent {e}, which ext_pow_const answers itself")
+    if lib.pow(b_re[:0], None, exps[:0], POW_BITS)[0].numel() or lib.launches.get("pow", 0) != before:
+        raise AssertionError("pow launched for e < 2 through ext_pow_const, or for no words")
+
+
+def check_gate_program(lib, c, rng, dev, max_lanes: int, kernel: bool):
+    """checks["gate_program"]: every program of gate_programs() at every
+    batch of GATE_BATCHES, cut to max_lanes, in both forms and the one the
+    library picks (`kernel`; the plain stand-in has no forms)."""
+    for name, lp in gate_programs():
+        gp = GateProgram(lp, dev)
+        args = (gp.lit_values, gp.k_add_off, gp.k_adds, gp.k_mul_off, gp.k_muls, gp.k_out_slots, lp.n_tape)
+        for batch in sorted({min(b, max_lanes) for b in GATE_BATCHES}):
+            inputs, views = gate_inputs(rng, lp, batch, dev)
+            want = gp.forward_plain(inputs, (batch,))
+            for form in ("shared", "global", "auto") if kernel else ("auto",):
+                what = f"{name} ({lp.n_levels} levels, {lp.n_tape} slots), {batch} lanes, form {form}"
+                before = lib.launches.get("gate_program", 0)
+                got = lib.gate_program(views, *args, form=form)
+                if lib.launches.get("gate_program", 0) != before + (1 if batch else 0):
+                    raise AssertionError(f"gate_program {what}: {lib.launches.get('gate_program', 0) - before} launches")
+                c.compare(torch.stack(got), torch.stack([want.re, want.im]), what)
+            if batch:
+                gold = golden_gate_program([(o, None if re is None else re[:GOLDEN_LANES], None if im is None else im[:GOLDEN_LANES])
+                                            for o, re, im in views], *args)
+                c.compare(torch.stack([got[0][:GOLDEN_LANES], got[1][:GOLDEN_LANES]]), torch.stack(gold), f"{what}, {GOLDEN_LANES} lanes vs golden")
+        per_prog = gp(inputs, (batch,), per_prog=True)
+        if sum(x.shape[-1] for x in per_prog) != len(lp.out_slots):
+            raise AssertionError(f"gate_program {name}: per_prog split {[x.shape for x in per_prog]}")
+
+
 def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
-    """Both field kernels of `lib` (kernels.KernelLibrary, or the CPU run's
-    PlainLibrary) into checks["inv"] and checks["horner"]; raises on the
-    first word that differs."""
+    """The field kernels of `lib` (kernels.KernelLibrary, or the CPU run's
+    PlainLibrary) into checks["inv"], checks["horner"], checks["pow"] and
+    checks["gate_program"]; raises on the first word that differs."""
     rng = np.random.default_rng(2026)
 
     c = checks["inv"]
@@ -132,6 +323,11 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
             vr, pr = row // v_rep, row // p_rep
             gold = _golden_horner(v_np[vr, :, 0], None if base_v else v_np[vr, :, 1], p_np[pr, 0], None if base_p else p_np[pr, 1])
             c.compare(torch.stack([got[0][row], got[1][row]]), np.array(gold, dtype=np.uint64), f"{what} row {row} vs golden")
-    for name in ("horner", "inv"):
+    from .check_hash_kernels import PlainLibrary  # here: that module imports this one
+
+    kernel = not isinstance(lib, PlainLibrary)
+    check_pow(lib, checks["pow"], rng, dev, n_random, kernel)
+    check_gate_program(lib, checks["gate_program"], rng, dev, n_random, kernel)
+    for name in ("horner", "inv", "pow", "gate_program"):
         print(f"check {name}: {checks[name].cases} words bit-exact against plain and golden")
     return checks

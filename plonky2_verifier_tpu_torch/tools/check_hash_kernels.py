@@ -1,6 +1,6 @@
 """Bit-exactness check of the port's CUDA kernels on the card: the three
-hash kernels, the counterpart of tools/check_hash_kernels.py, then the two
-field kernels (tools/check_field_kernels.py).
+hash kernels, the counterpart of tools/check_hash_kernels.py, then the
+field kernels and the gate program (tools/check_field_kernels.py).
 
 Run from the repository root:
   python3 -m plonky2_verifier_tpu_torch.tools.check_hash_kernels [--device cpu]
@@ -18,8 +18,8 @@ Holds, against the plain PyTorch versions and the golden (Python-int) model:
   matrices than one launch takes);
 - the Merkle path walk over every path length in use, sibling ordering by
   index bit, sizes on both sides of one wave of blocks;
-- the extension Horner sum and the Fermat inversion
-  (`check_field_kernels.check_field_kernels`).
+- the extension Horner sum, the Fermat inversion, the exponentiations and
+  the levelized gate program (`check_field_kernels.check_field_kernels`).
 
 Prints one JSON line; exit code 0 iff every word is bit-exact. chip_smoke.py
 calls `check_kernels` for its kernel phase. With --device cpu the plain
@@ -40,7 +40,7 @@ from ..golden import poseidon as gp
 from ..ops import field as tf
 from ..ops import hash as th
 from ..ops import poseidon as tp
-from .check_field_kernels import check_field_kernels, horner_rows_plain
+from .check_field_kernels import check_field_kernels, golden_gate_program, horner_rows_plain, pow_rows_plain
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -49,7 +49,7 @@ PATH_LENS = [0, 1, 3, 7, 11]
 N_RANDOM = (1 << 20) + 37  # random permutation states, not a multiple of the block
 N_ROWS = 4099
 SCAN_BATCHES = [1, 5, 1024]
-KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv")
+KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program")
 
 
 def rand_words(rng, shape) -> np.ndarray:
@@ -96,7 +96,7 @@ class PlainLibrary:
 
     def __init__(self, consts):
         self.consts = consts
-        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0}
+        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0, "pow": 0, "gate_program": 0}
 
     def permutation(self, state, form="auto"):
         return tp.permutation_plain(state, self.consts)
@@ -123,6 +123,16 @@ class PlainLibrary:
         if a.numel():
             self.launches["inv"] += 1
         return tf.inv_plain(a)
+
+    def pow(self, b_re, b_im, exponent, n_bits=0, b_rep=1):
+        out = pow_rows_plain(b_re, b_im, exponent, n_bits, b_rep)  # raises, uncounted, where the library refuses
+        self.launches["pow"] += bool(b_re.shape[0])
+        return out
+
+    def gate_program(self, inputs, *program, form="auto"):
+        if any(re is not None and re.shape[0] for _, re, _ in inputs):
+            self.launches["gate_program"] += 1
+        return golden_gate_program(inputs, *program)
 
 
 def golden_scan_lane(data_row, ov_idx, ov_mask):

@@ -16,8 +16,9 @@ fixture, for --device cpu) and a batch of copies of its cached proof:
     openings, leaf hashes, initial Merkle walks, combineInitial, each fold
     step's Merkle walk and its coset fold, the final polynomial). The stages
     add up to the staged call. Beside them, summed across stages, the time
-    inside `horner_ext`, `horner_scaled`, `inv` and `pow_dynamic` (each call
-    synchronised; on the card the first three are one kernel launch a call);
+    inside `horner_ext`, `horner_scaled`, `inv`, `pow_dynamic`,
+    `ext_pow_const` and `GateProgram.forward` (each call synchronised; on the
+    card each is one kernel launch a call, ext_pow_const's e = 0 and 1 none);
 (b) under torch.profiler, on the card: `cudaLaunchKernel` calls a forward,
     the launches and device time of each of the port's own kernels, the
     kernels launched most often, the kernels' time on the device,
@@ -41,6 +42,7 @@ import torch
 
 from .. import verifier_torch as vt
 from ..compiler import CircuitTemplate, flatten_proofs
+from ..compiler.gates_torch import GateProgram
 from ..models.cache import get_fixture_proof
 from ..ops import field as tf
 from .stream_verify import STANDARD
@@ -53,7 +55,11 @@ MODELS = {
 # csrc/*.cu's kernels: a function of an anonymous namespace at the name's start
 # (PyTorch's own kernels there are templates over its namespaces)
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+(?:<[^>:]*>)?)\(")
-INNER = ((vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv"), (tf, "pow_dynamic"))  # summed across the stages they run in
+# summed across the stages they run in: label -> (owner, attribute)
+INNER = {
+    "horner_ext": (vt, "horner_ext"), "horner_scaled": (vt, "horner_scaled"), "inv": (tf, "inv"), "pow_dynamic": (tf, "pow_dynamic"),
+    "ext_pow_const": (tf, "ext_pow_const"), "GateProgram.forward": (GateProgram, "forward"),
+}
 
 
 def _sync(device):
@@ -66,7 +72,7 @@ def stage_times(v, dev) -> dict:
     (TorchVerifier.on_stage) and around every call of the INNER functions.
     -> {"staged_call_ms", "stages_ms": {stage: ms}, "inner_ms": {function: ms}}."""
     device = v._ov_idx.device
-    stages, inner = {}, dict.fromkeys((name for _, name in INNER), 0.0)
+    stages, inner = {}, dict.fromkeys(INNER, 0.0)
     last = [0.0]
 
     def on_stage(name):
@@ -86,9 +92,9 @@ def stage_times(v, dev) -> dict:
 
         return run
 
-    originals = {name: (module, getattr(module, name)) for module, name in INNER}
-    for name, (module, fn) in originals.items():
-        setattr(module, name, timed(name, fn))
+    originals = {label: (owner, name, getattr(owner, name)) for label, (owner, name) in INNER.items()}
+    for label, (owner, name, fn) in originals.items():
+        setattr(owner, name, timed(label, fn))
     v.on_stage = on_stage
     try:
         _sync(device)
@@ -99,8 +105,8 @@ def stage_times(v, dev) -> dict:
         whole = (time.perf_counter() - t0) * 1e3
     finally:
         v.on_stage = None
-        for name, (module, fn) in originals.items():
-            setattr(module, name, fn)
+        for owner, name, fn in originals.values():
+            setattr(owner, name, fn)
     if not bool(out["ok"].all()):
         raise AssertionError("the profiled batch was not fully accepted")
     return {"staged_call_ms": whole, "stages_ms": stages, "inner_ms": inner}

@@ -17,8 +17,10 @@ proof batch B (and inside FRI over the Q query rounds):
 
 Field values are int64 tensors holding u64 bit patterns (ops/field.py). The
 Poseidon chains go through ops/poseidon.py and ops/hash.py, the Horner sums
-through `horner_ext` / `horner_scaled` here and the Fermat inversions through
-ops/field.inv; each launches its CUDA kernel for CUDA tensors.
+through `horner_ext` / `horner_scaled` here, the Fermat inversions and the
+exponentiations through ops/field's `inv`, `pow_dynamic` and
+`ext_pow_const`, and the gate constraints through compiler/gates_torch's
+`GateProgram`; each launches its CUDA kernel for CUDA tensors.
 
 Entry points: `verify_batch(tpl, arrays)` (numpy in, numpy out) and
 `TorchVerifier(tpl)`. Both run on the CUDA card unless the caller passes a
@@ -28,7 +30,6 @@ plain version.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -99,21 +100,6 @@ def horner_scaled(values: GExt, scale) -> GExt:
     return _horner_kernel(values.reshape(*shape).expand(*scale.shape, k), scale)
 
 
-def _rows(t: torch.Tensor, lead: int):
-    """t (*lead axes, *tail) -> (rows, rep) with rows (m, *tail) such that row
-    i of the flattened lead axes is rows[i // rep]. The trailing lead axes
-    that t broadcasts (stride 0 or size 1, as `expand` and `unsqueeze` leave
-    them) make up rep and are never copied; `reshape` flattens the rest and
-    copies only the axes it cannot merge (the quotient's (B, r) rows of
-    openings1: B x r x maxdeg words), and such a copy repeats no row."""
-    keep, rep = lead, 1
-    while keep and (t.stride(keep - 1) == 0 or t.shape[keep - 1] == 1):
-        keep -= 1
-        rep *= t.shape[keep]
-    rows = t[(slice(None),) * keep + (0,) * (lead - keep)]
-    return rows.reshape(math.prod(t.shape[:keep]), *t.shape[lead:]), rep
-
-
 def horner_rows(values, point):
     """The arguments of KernelLibrary.horner for horner_ext(values, point):
     (v_re, v_im, p_re, p_im, v_rep, p_rep), v_im / p_im None for a
@@ -125,13 +111,13 @@ def horner_rows(values, point):
         raise ValueError(f"values {tuple(v_re.shape)} do not end a point of shape {tuple(p_re.shape)} in a coefficient axis")
     if not p_re.numel():
         return None
-    (v_re, v_rep), (p_re, p_rep) = _rows(v_re, lead), _rows(p_re, lead)
+    (v_re, v_rep), (p_re, p_rep) = tf.broadcast_rows(v_re, lead), tf.broadcast_rows(p_re, lead)
     if v_im is not None:
-        v_im, rep = _rows(v_im, lead)
+        v_im, rep = tf.broadcast_rows(v_im, lead)
         if (rep, v_im.stride()) != (v_rep, v_re.stride()):  # the parts laid out unlike each other: one layout for both
             v_re, v_im, v_rep = v_re.repeat_interleave(v_rep, 0), v_im.repeat_interleave(rep, 0), 1
     if p_im is not None:
-        p_im, rep = _rows(p_im, lead)
+        p_im, rep = tf.broadcast_rows(p_im, lead)
         if (rep, p_im.stride()) != (p_rep, p_re.stride()):
             p_re, p_im, p_rep = p_re.repeat_interleave(p_rep, 0), p_im.repeat_interleave(rep, 0), 1
     return v_re, v_im, p_re, p_im, v_rep, p_rep
@@ -243,6 +229,17 @@ class TorchVerifier(nn.Module):
             device,
         )
         self.register_buffer("_k_is", tf.from_u64(np.array(common.k_is, dtype=np.uint64), device))
+        # the gate program's outputs in the padded (gates with constraints, n_gc)
+        # layout, slot 0 (zero) in the padding: one gather, no concatenation
+        n_gc = common.num_gate_constraints
+        self._live_gates = [gi for gi, s in enumerate(self.gates.out_slots_per_prog) if len(s)]
+        padded = np.zeros((len(self._live_gates), n_gc), dtype=np.int32)
+        for k, gi in enumerate(self._live_gates):
+            slots = self.gates.out_slots_per_prog[gi]
+            if len(slots) > n_gc:
+                raise ValueError(f"gate {gi} has {len(slots)} constraints, above num_gate_constraints {n_gc}")
+            padded[k, : len(slots)] = slots
+        self.register_buffer("_gate_out_slots", torch.from_numpy(padded.reshape(-1)).to(device))
 
         # selector factor matrices (Gate/Selector.hs:78-95): per gate,
         # (UNUSED if several groups) and every other index of its group
@@ -456,20 +453,11 @@ class TorchVerifier(nn.Module):
             PI: tf.ext_from_base(pi_hash),
         }
         n_gc = common.num_gate_constraints
-        cons_rows = []
-        live_gates = []
-        for gi, cons in enumerate(self.gates(inputs, (B,), per_prog=True)):
-            if cons.shape[-1] == 0:
-                continue
-            pad = n_gc - cons.shape[-1]
-            if pad:
-                cons = tf.ext_concat([cons, tf.ext_zeros((B, pad), dev)], dim=-1)
-            cons_rows.append(cons)
-            live_gates.append(gi)
+        live = self._live_gates
+        cons_all = self.gates(inputs, (B,), out_slots=self._gate_out_slots).reshape(B, len(live), n_gc)
         acc = tf.ext_zeros((B, n_gc), dev)
-        if cons_rows:
-            cons_all = tf.ext_stack(cons_rows, dim=1)  # (B, G, n_gc)
-            sel_live = sel_values[:, live_gates]
+        if live:
+            sel_live = sel_values[:, live]
             acc = ext_sum_axis(tf.emul(sel_live.unsqueeze(-1), cons_all), axis=1)
         self._stage("plonk: selectors and gate program")
 
@@ -624,6 +612,9 @@ class TorchVerifier(nn.Module):
         def const(v: int):
             return tf.constant(v, (B, Q), dev)
 
+        def scalar(v: int):  # one word read where it lies by the power's kernel
+            return tf.constant(v, (1, 1), dev).expand(B, Q)
+
         # proof of work: the top pow_bits bits of the response are zero
         if tpl.pow_bits:
             pow_ok = tf.shr(pow_response, 64 - tpl.pow_bits) == 0
@@ -668,7 +659,7 @@ class TorchVerifier(nn.Module):
         g1 = horner_ext(second_batch, bq(fri_alpha))
 
         rev_idx = _bit_reverse(qidx, tpl.lde_bits)
-        point_x = tf.ext_from_base(tf.mul(const(gf.MULT_GEN), tf.pow_dynamic(const(tpl.g_lde), rev_idx, tpl.lde_bits)))
+        point_x = tf.ext_from_base(tf.mul(const(gf.MULT_GEN), tf.pow_dynamic(scalar(tpl.g_lde), rev_idx, tpl.lde_bits)))
         zeta_bq = bq(zeta)
         omega_zeta = tf.escale(const(tpl.g_small), zeta_bq)
         one_div = tf.ext_div(g0 - bq(y0), point_x - zeta_bq)
@@ -702,7 +693,7 @@ class TorchVerifier(nn.Module):
             start = _bit_reverse((idx >> abits) << abits, bits_lvl)
             offset = tf.mul(
                 const(tpl.level_shifts[s]),
-                tf.pow_dynamic(const(gf.subgroup_generator(bits_lvl)), start, bits_lvl),
+                tf.pow_dynamic(scalar(gf.subgroup_generator(bits_lvl)), start, bits_lvl),
             )
             # y'_k = sum_j omega^{-jk} v_j
             wmat = getattr(self, f"_idft_{s}")  # (A, A)
@@ -727,7 +718,7 @@ class TorchVerifier(nn.Module):
         x_final = tf.mul(
             const(tpl.level_shifts[len(tpl.steps)]),
             tf.pow_dynamic(
-                const(gf.subgroup_generator(tpl.final_bits)),
+                scalar(gf.subgroup_generator(tpl.final_bits)),
                 _bit_reverse(idx, tpl.final_bits),
                 max(tpl.final_bits, 1),
             ),

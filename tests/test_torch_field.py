@@ -2,7 +2,10 @@
 field (plonky2_verifier_tpu.ops.field) and the golden model.
 
 Inputs are random values plus the p-edge band, made with numpy from a seed
-and fed to both. Tolerance: bit-exact (integer arithmetic)."""
+and fed to both; the exponentiations also on words x + p (proof words need
+not be canonical), at e = 0, 1, 2 and random, where the two plain functions'
+conventions differ (pow_dynamic multiplies from 1, ext_pow_const returns
+the input's own bits at e = 1). Tolerance: bit-exact (integer arithmetic)."""
 
 import numpy as np
 import pytest
@@ -143,3 +146,33 @@ def test_u64_round_trip_and_unsigned_compare():
     b = a[::-1].copy()
     np.testing.assert_array_equal(tf.ult(tf.from_u64(a, "cpu"), tf.from_u64(b, "cpu")).numpy(), a < b)
     np.testing.assert_array_equal(tf.to_u64(tf.shr(tf.from_u64(a, "cpu"), 13)), a >> np.uint64(13))
+
+
+def _noncanonical(seed: int, n: int = 256) -> np.ndarray:
+    """The edge band and words x + p (x < 2^32 - 1), shuffled."""
+    rng = np.random.default_rng(seed)
+    w = np.concatenate([EDGE, rng.integers(0, 2**32 - 1, size=n, dtype=np.uint64) + np.uint64(P)])
+    rng.shuffle(w)
+    return w
+
+
+@pytest.mark.parametrize("e", ["0", "1", "2", "random"])
+def test_pow_dynamic_on_noncanonical_bases(e):
+    a = _noncanonical(20)
+    exps = np.full(a.shape, int(e), dtype=np.uint64) if e != "random" else np.random.default_rng(21).integers(0, 1 << 15, size=a.shape, dtype=np.uint64)
+    got = tf.to_u64(tf.pow_dynamic(tf.from_u64(a, "cpu"), tf.from_u64(exps, "cpu"), 15))
+    np.testing.assert_array_equal(got, jf.to_u64(jf.pow_dynamic(jf.from_u64(a), jf.from_u64(exps).lo, 15)))
+    assert [int(x) for x in got] == [pow(int(x), int(k), P) for x, k in zip(a, exps)]  # canonical, 1 at e = 0
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, 3, 4096, 0x9E3779B97F4A7C15])
+def test_ext_pow_const_on_noncanonical_bases(e):
+    ar, ai = _noncanonical(22), _noncanonical(23)
+    got = tf.ext_pow_const(_t_ext(ar, ai), e)
+    want = jf.ext_pow_const(_j_ext(ar, ai), e)
+    np.testing.assert_array_equal(tf.to_u64(got.re), jf.to_u64(want.re))
+    np.testing.assert_array_equal(tf.to_u64(got.im), jf.to_u64(want.im))
+    if e == 1:  # the input's own bits
+        np.testing.assert_array_equal(tf.to_u64(got.re), ar)
+    golden = [gf.epow((int(a), int(b)), e) for a, b in zip(ar, ai)]
+    assert [(int(x) % P, int(y) % P) for x, y in zip(tf.to_u64(got.re), tf.to_u64(got.im))] == golden

@@ -13,7 +13,13 @@ part gives the same bits as a base-field point through both forms, which
 is what the kernel's BASE_POINT flag relies on. Last, the wrappers' card
 path (`_horner_kernel`: the verifier's views flattened to rows, stride-0
 rows passed as repeats) with the kernel library replaced by the plain
-version of its interface. Tolerance: bit-exact. No verifier forward."""
+version of its interface. The same for the exponentiations
+(`ops/field._pow_kernel`: a scalar base and a base broadcast over the query
+axis reach the kernel as one row and as repeated rows, never copied;
+`ext_pow_const` at e = 0 and 1 answers without the library) and the gate
+program (`GateProgram._forward_kernel`: the inputs' views at their strides,
+the compact op lists, the verifier's padded slots). Tolerance: bit-exact.
+No verifier forward."""
 
 import numpy as np
 import pytest
@@ -23,9 +29,15 @@ from plonky2_verifier_tpu import verifier_jax as vj
 from plonky2_verifier_tpu.ops import field as jf
 from plonky2_verifier_tpu_torch import kernels
 from plonky2_verifier_tpu_torch import verifier_torch as vt
+from plonky2_verifier_tpu_torch.compiler import gates_torch
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops.field import GExt
-from plonky2_verifier_tpu_torch.tools.check_field_kernels import horner_rows_plain
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
+    gate_programs,
+    golden_gate_program,
+    horner_rows_plain,
+    pow_rows_plain,
+)
 
 P = tf.P
 EDGE = np.array([0, 1, 2, P - 1, P - 2, 2**32 - 1, 2**32, 2**32 + 1, 2**63, P - 2**32], dtype=np.uint64)
@@ -172,3 +184,96 @@ def test_card_path_horner_scaled_broadcasts_values_over_scales(monkeypatch):
     want = vt.horner_scaled_plain(values, scale)
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     assert lib.calls == [{"v_rows": 6, "v_rep": 2, "p_rows": 12, "p_rep": 1, "v_strides": (11, 1), "base": (False, True)}]
+
+
+class _FieldLibrary:
+    """The kernel library's `pow` and `gate_program` by their plain versions,
+    recording what each call was given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def pow(self, b_re, b_im, exponent, n_bits=0, b_rep=1):
+        self.calls.append({"rows": b_re.shape[0], "stride": b_re.stride(0), "rep": b_rep, "ext": b_im is not None,
+                           "exponent": exponent if isinstance(exponent, int) else tuple(exponent.shape), "n_bits": n_bits})
+        return pow_rows_plain(b_re, b_im, exponent, n_bits, b_rep)
+
+    def gate_program(self, inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape):
+        self.calls.append({"strides": [None if re is None else (re.stride(), im.stride()) for _, re, im in inputs],
+                           "adds": adds.shape[0], "muls": muls.shape[0], "out": out_slots.shape[0], "n_tape": n_tape})
+        return golden_gate_program(inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape)
+
+
+def _pow_layouts():
+    """The bases the verifier hands the exponentiations (B = 6, Q = 5) and
+    the rows and repeats that must reach the kernel."""
+    B, Q = 6, 5
+    exps = torch.from_numpy(np.random.default_rng(30).integers(0, 1 << 15, size=(B, Q), dtype=np.int64))
+    scalar = tf.constant(7, (1, 1), "cpu").expand(B, Q)
+    own = tf.from_u64(_words(31, (B, Q)), "cpu")
+    alpha = _port(*_ext_np(32, (B,)))
+    bq = GExt(alpha.re.unsqueeze(1).expand(B, Q), alpha.im.unsqueeze(1).expand(B, Q))
+    return [
+        ("a scalar generator", scalar, None, exps, {"rows": 1, "rep": B * Q, "ext": False, "exponent": (B * Q,), "n_bits": 15}),
+        ("a base of its own an element", own, None, exps, {"rows": B * Q, "stride": 1, "rep": 1, "ext": False, "exponent": (B * Q,), "n_bits": 15}),
+        ("alpha over the queries", bq.re, bq.im, 6, {"rows": B, "stride": 1, "rep": Q, "ext": True, "exponent": 6, "n_bits": 3}),
+        ("zeta^n", alpha.re, alpha.im, 4096, {"rows": B, "stride": 1, "rep": 1, "ext": True, "exponent": 4096, "n_bits": 13}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4), ids=[c[0] for c in _pow_layouts()])
+def test_card_path_pow_rows_and_repeats(monkeypatch, case):
+    lib = _FieldLibrary()
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    _, re, im, exponent, want = _pow_layouts()[case]
+    got = tf._pow_kernel(re, im, exponent, exponent.bit_length() if isinstance(exponent, int) else 15)  # as the wrappers call it
+    if im is None:
+        assert got.im is None and torch.equal(got.re, tf.pow_dynamic_plain(re, exponent, 15))
+    else:
+        plain = tf.ext_pow_const_plain(GExt(re, im), exponent)
+        assert torch.equal(got.re, plain.re) and torch.equal(got.im, plain.im)
+    (call,) = lib.calls
+    if want["rows"] == 1:
+        call.pop("stride")  # one row: its stride is never used
+    assert call == want
+
+
+@pytest.mark.parametrize("e", [0, 1])
+def test_ext_pow_const_small_exponents_launch_nothing(monkeypatch, e):
+    """e = 0 and 1 are answered as the plain version answers them, on any
+    device: (1, 0), and the input itself (x + p stays x + p)."""
+    def refuse():
+        raise AssertionError("ext_pow_const reached the kernel library")
+
+    monkeypatch.setattr(kernels, "load", refuse)
+    meta = GExt(torch.empty((4, 3), dtype=torch.int64, device="meta"), torch.empty((4, 3), dtype=torch.int64, device="meta"))
+    out = tf.ext_pow_const(meta, e)
+    assert out.shape == (4, 3) and (out is meta) == (e == 1)
+
+
+def test_card_path_gate_program_views_and_slots(monkeypatch):
+    """`_forward_kernel` on inputs at the verifier's strides (column stride
+    2, never copied) gives the plain loop's constraints, whole, per program
+    and at padded slots (0 reads zero)."""
+    lib = _FieldLibrary()
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    (_, lp), = [p for p in gate_programs() if p[0] == "fuzz 13"]
+    prog = gates_torch.GateProgram(lp, "cpu")
+    B = 4
+    inputs = {}
+    for k, kind in enumerate(gates_torch.INPUT_KINDS):
+        t = tf.from_u64(_words(40 + k, (B, lp.input_slots[kind][1], 2)), "cpu")
+        inputs[kind] = GExt(t[..., 0], t[..., 1])
+    slots = torch.tensor([0, int(lp.out_slots[3]), 0, int(lp.out_slots[0])], dtype=torch.int32)
+    for kwargs in ({}, {"per_prog": True}, {"out_slots": slots}):
+        got = prog._forward_kernel(inputs, (B,), **kwargs)
+        want = prog.forward_plain(inputs, (B,), **kwargs)
+        for g, w in zip(got if isinstance(got, list) else [got], want if isinstance(want, list) else [want]):
+            assert torch.equal(g.re, w.re) and torch.equal(g.im, w.im)
+    assert not (got.re[:, 0].any() or got.im[:, 2].any())
+    ops = gates_torch.compact_ops(lp)
+    assert lib.calls[0] == {"strides": [None if not lp.input_slots[k][1] else ((2 * lp.input_slots[k][1], 2),) * 2 for k in gates_torch.INPUT_KINDS],
+                            "adds": len(ops["adds"]), "muls": len(ops["muls"]), "out": len(lp.out_slots), "n_tape": lp.n_tape}
+    assert [c["out"] for c in lib.calls] == [len(lp.out_slots)] * 2 + [4]
+    with pytest.raises(ValueError):
+        prog(inputs, (B,), per_prog=True, out_slots=slots)

@@ -134,10 +134,10 @@ class Lib:  # stands in for the kernel library: counts, then runs the plain vers
 lib = Lib(); lib.reset_launches()
 from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
 checks = new_checks()
-def counted(name, fn):
-    def run(*a):
-        lib.launches[name] += 1
-        return fn(*a)
+def counted(name, fn, launches=lambda *a, **kw: True):
+    def run(*a, **kw):
+        lib.launches[name] += launches(*a, **kw)
+        return fn(*a, **kw)
     return run
 tp.permutation_scan = counted("permutation_scan", tp.permutation_scan)
 th.sponge_rows = counted("sponge_rows", th.sponge_rows)
@@ -146,6 +146,10 @@ th.merkle_fold = counted("merkle_fold", th.merkle_fold)
 vt.horner_ext = counted("horner", vt.horner_ext)  # the field kernels' wrappers
 vt.horner_scaled = counted("horner", vt.horner_scaled)
 tf.inv = counted("inv", tf.inv)
+tf.pow_dynamic = counted("pow", tf.pow_dynamic)
+tf.ext_pow_const = counted("pow", tf.ext_pow_const, lambda a, e: e >= 2)  # e = 0, 1 launch nothing
+from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
+GateProgram.forward = counted("gate_program", GateProgram.forward)
 cs.DEVICE, cs.BATCH = "cpu", 6
 cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
 cs.ZOO = {"num_query_rounds": 2, "proof_of_work_bits": 2}
@@ -155,6 +159,7 @@ v, dev, launches, fib = cs.main_path(lib, checks)
 assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
 assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
 assert (launches["horner"], launches["inv"]) == (7 + len(v.tpl.steps), 3 + len(v.tpl.steps)), launches
+assert (launches["pow"], launches["gate_program"]) == (4 + len(v.tpl.steps), 1), launches
 prover = cs.start_prover("gate_zoo", cs.ZOO)
 zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
 assert prover.returncode == 0
@@ -202,7 +207,7 @@ assert snap["proofs"] == 10, snap
 assert launches["permutation_scan"] == 3 and launches["sponge_rows_grouped"] == 3, launches
 cli = cs.cli_path(lib, {"fibonacci": fib, "other": fixture(2)}, checks)
 assert cli["permutation_scan"] == 4 and cli["sponge_rows_grouped"] == 4, cli
-assert all(checks[k].cases > 0 and checks[k].max_abs_err == 0 for k in ("horner", "inv")), {k: c.cases for k, c in checks.items()}
+assert all(checks[k].cases > 0 and checks[k].max_abs_err == 0 for k in ("horner", "inv", "pow", "gate_program")), {k: c.cases for k, c in checks.items()}
 sc.GRID, sc.FUZZ_SEEDS = [(4, 2, 0)], [13]
 shapes = cs.shapes_path(lib, checks)
 assert shapes["permutation_scan"] == 4 and shapes["merkle_fold"] == 4, shapes
@@ -274,6 +279,41 @@ def test_chip_smoke_mesh_and_profile_rehearsal_loads_no_jax(tmp_path):
     assert "profile fibonacci6 batch 2" in res.stdout
 
 
+CARD_PATHS = """
+import sys, torch
+from plonky2_verifier_tpu_torch import kernels, verifier_torch as vt
+from plonky2_verifier_tpu_torch.compiler.gates_torch import INPUT_KINDS, GateProgram
+from plonky2_verifier_tpu_torch.ops import field as tf
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import gate_programs, golden_gate_program, horner_rows_plain, pow_rows_plain
+
+class Lib:  # the library's field entry points by their plain versions
+    horner = staticmethod(horner_rows_plain)
+    pow = staticmethod(pow_rows_plain)
+    gate_program = staticmethod(golden_gate_program)
+
+(_, lp), = [p for p in gate_programs() if p[0] == "fibonacci"]
+prog = GateProgram(lp, "cpu")
+before = set(sys.modules)
+kernels.load = lambda: Lib()
+x = tf.constant(5, (2, 3), "cpu")
+tf._pow_kernel(tf.constant(7, (1, 1), "cpu"), None, torch.arange(6).reshape(2, 3), 3)  # pow_dynamic's card path
+tf._pow_kernel(x, x, 4096, 13)  # ext_pow_const's
+vt._horner_kernel(tf.GExt(x, x), tf.GExt(x[:, 0], x[:, 0]))
+prog._forward_kernel({k: tf.ext_zeros((2, lp.input_slots[k][1]), "cpu") for k in INPUT_KINDS}, (2,))
+print(sorted(m for m in set(sys.modules) - before if m.split(".")[0] == "sympy" or "symbolic_shapes" in m))
+"""
+
+
+def test_card_paths_import_nothing_at_their_first_call():
+    """The wrappers' card paths (exponentiations, Horner sum, gate program),
+    with the library's plain stand-ins, load no sympy: torch.broadcast_shapes
+    imports torch.fx's symbolic shapes at its first call, which cost a fresh
+    process ~3 s of its first verifier call on the card."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", CARD_PATHS], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
 @pytest.fixture
 def no_library(monkeypatch):
     def refuse():
@@ -311,6 +351,10 @@ def test_cpu_wrappers_take_plain_path(no_library):
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     a = _rand(15, (3, 4))
     assert torch.equal(tf.inv(a), tf.inv_plain(a))
+    exps = torch.arange(12, dtype=torch.int64).reshape(3, 4) * 999
+    assert torch.equal(tf.pow_dynamic(a, exps, 15), tf.pow_dynamic_plain(a, exps, 15))
+    got, want = tf.ext_pow_const(point, 4096), tf.ext_pow_const_plain(point, 4096)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
 
 
 def _tiny_template():
@@ -374,6 +418,11 @@ def test_non_cpu_tensor_raises_instead_of_falling_back():
         vt.horner_ext(torch.empty((4, 9), dtype=torch.int64, device="meta"), torch.empty((4,), dtype=torch.int64, device="meta"))
     with pytest.raises(RuntimeError, match="CUDA"):
         tf.inv(torch.empty((4,), dtype=torch.int64, device="meta"))
+    meta = torch.empty((4,), dtype=torch.int64, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.pow_dynamic(meta, meta, 15)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.ext_pow_const(tf.GExt(meta, meta), 4096)
 
 
 def test_kernel_input_checks_reject_cpu_tensors():

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions and the golden
-model, on the card: the three Poseidon kernels and the two field kernels
-(the extension Horner sum and the Fermat inversion, their inputs drawn
-from the edge band and words x + p as well). Bit-exact (integer
-arithmetic).
+model, on the card: the three Poseidon kernels, the three field kernels
+(the extension Horner sum, the Fermat inversion and the exponentiations)
+and the levelized gate program (in both forms, the tapes in shared memory
+and in device scratch), their inputs drawn from the edge band and words
+x + p as well. Bit-exact (integer arithmetic).
 
 These tests need a CUDA device and nvcc; without them they skip. This file
 imports no JAX, so it also runs on a machine without JAX:
@@ -22,7 +23,8 @@ from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.ops.field import GExt
-from plonky2_verifier_tpu_torch.tools.check_field_kernels import horner_rows_plain
+from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import gate_inputs, gate_programs, golden_gate_program, horner_rows_plain
 
 pytestmark = pytest.mark.cuda
 P = tf.P
@@ -253,8 +255,19 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     a = _rand(42, (2, 3))
     assert torch.equal(tf.inv(a), tf.inv_plain(a))
+    exps = torch.arange(6, dtype=torch.int64, device="cuda").reshape(2, 3) * 1000
+    assert torch.equal(tf.pow_dynamic(a, exps, 15), tf.pow_dynamic_plain(a, exps, 15))
+    for e in (1, 4096):  # e = 1 answers on the host
+        got, want = tf.ext_pow_const(point, e), tf.ext_pow_const_plain(point, e)
+        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    (_, lp), = [p for p in gate_programs() if p[0] == "fibonacci"]
+    prog = GateProgram(lp, "cuda")
+    inputs, _ = gate_inputs(np.random.default_rng(43), lp, 3, "cuda")
+    got, want = prog(inputs, (3,)), prog.forward_plain(inputs, (3,))
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     assert {k: lib.launches[k] - before[k] for k in before} == {
-        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1, "inv": 1
+        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1, "inv": 1,
+        "pow": 2, "gate_program": 1,
     }
 
 
@@ -318,7 +331,84 @@ def test_entry_points_default_to_the_card(lib):
     # the inversions: L0, the two combineInitial quotients, an offset each step
     assert lib.launches["horner"] == before["horner"] + 7 + len(tpl.steps)
     assert lib.launches["inv"] == before["inv"] + 3 + len(tpl.steps)
+    # the exponentiations: the query points, an offset each step, the final x, zeta^n, alpha^(n_zs + n_lookup); the gate program once
+    assert lib.launches["pow"] == before["pow"] + 4 + len(tpl.steps)
+    assert lib.launches["gate_program"] == before["gate_program"] + 1
     cpu = verify_batch(tpl, arrays, debug=True, device="cpu")
     assert card["ok"].tolist() == cpu["ok"].tolist() == [True, False, True]
     np.testing.assert_array_equal(card["debug"]["zeta"][0], cpu["debug"]["zeta"][0])
     np.testing.assert_array_equal(card["debug"]["query_indices"], cpu["debug"]["query_indices"])
+
+
+@pytest.mark.parametrize("ext,dynamic", [(False, True), (True, False), (True, True), (False, False)])
+@pytest.mark.parametrize("rows,rep", [(4099, 1), (147, 28), (1, 1000), (0, 1)])
+def test_pow_kernel(lib, ext, dynamic, rows, rep):
+    """Every flag pair, a base of its own an element, repeated rows and one
+    scalar row, no rows (no launch), on non-canonical words: the plain
+    version where one exists (pow_dynamic's flags, ext_pow_const's) and
+    golden/ on a few elements; a host exponent below 2 is refused."""
+    n = rows * rep
+    b = _noncanonical(80 + rows, (rows, 2))
+    b_re, b_im = b[:, 0], (b[:, 1] if ext else None)
+    rng = np.random.default_rng(rows)
+    exponents = [torch.from_numpy(rng.integers(0, 1 << 15, size=n, dtype=np.int64)).cuda(), torch.zeros(n, dtype=torch.int64, device="cuda"),
+                 torch.full((n,), 2**15 - 1, dtype=torch.int64, device="cuda")] if dynamic else [2, 3, 4096, 2**64 - 1]
+    for e in exponents:
+        before = lib.launches["pow"]
+        got = lib.pow(b_re, b_im, e, 15, b_rep=rep)
+        assert lib.launches["pow"] == before + (1 if n else 0)
+        assert got[0].shape == (n,) and (got[1] is None) == (not ext)
+        full = b_re.repeat_interleave(rep)
+        if dynamic and not ext:
+            assert torch.equal(got[0], tf.pow_dynamic_plain(full, e, 15))
+        if ext and not dynamic:
+            want = tf.ext_pow_const_plain(GExt(full, b_im.repeat_interleave(rep)), e)
+            assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
+        for i in [0, n // 2, n - 1] if n else []:
+            k = int(e[i]) if dynamic else e
+            base = (int(tf.to_u64(b_re)[i // rep]) % P, int(tf.to_u64(b_im)[i // rep]) % P if ext else 0)
+            want = gf.epow(base, k)
+            assert (int(tf.to_u64(got[0])[i]), int(tf.to_u64(got[1])[i]) if ext else 0) == want
+    if not dynamic:
+        for e in (0, 1):  # ops/field.ext_pow_const answers them itself
+            with pytest.raises(ValueError, match="at least 2"):
+                lib.pow(b_re, b_im, e)
+
+
+@pytest.mark.parametrize("form", ["shared", "global"])
+@pytest.mark.parametrize("batch", [37, 300, 1030, 1, 0])
+@pytest.mark.parametrize("name", ["fibonacci", "gate zoo", "fuzz 13"])
+def test_gate_program_kernel(lib, name, batch, form):
+    """The fibonacci, gate-zoo and fuzz-13 programs in both forms, at
+    batches whose lanes a block do and do not divide them (fibonacci: 1, 3
+    and 8 lanes a block, the last block of 1030 holding 6), B = 0: the
+    padded plain loop, and golden/ on lane 0."""
+    (_, lp), = [p for p in gate_programs() if p[0] == name]
+    prog = GateProgram(lp, "cuda")
+    inputs, views = gate_inputs(np.random.default_rng(batch), lp, batch, "cuda")
+    args = (prog.lit_values, prog.k_add_off, prog.k_adds, prog.k_mul_off, prog.k_muls, prog.k_out_slots, lp.n_tape)
+    before = lib.launches["gate_program"]
+    got = lib.gate_program(views, *args, form=form)
+    assert lib.launches["gate_program"] == before + (1 if batch else 0)
+    want = prog.forward_plain(inputs, (batch,))
+    assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
+    if batch:
+        gold = golden_gate_program([(o, None if re is None else re[:1], None if im is None else im[:1]) for o, re, im in views], *args)
+        assert torch.equal(got[0][:1], gold[0]) and torch.equal(got[1][:1], gold[1])
+
+
+def test_gate_program_forms_agree_at_the_verifier_batch(lib):
+    """The zoo's program at 1024 lanes: the form the wrapper picks (shared,
+    a lane a block), the global form forced, and the plain loop agree; a
+    tape above a block's shared memory takes the global form, and forcing
+    the shared one on it raises."""
+    (_, lp), = [p for p in gate_programs() if p[0] == "gate zoo"]
+    prog = GateProgram(lp, "cuda")
+    inputs, views = gate_inputs(np.random.default_rng(1024), lp, 1024, "cuda")
+    args = (views, prog.lit_values, prog.k_add_off, prog.k_adds, prog.k_mul_off, prog.k_muls, prog.k_out_slots)
+    want = prog.forward_plain(inputs, (1024,))
+    big = lib.gate_smem_limit // 16 + 1  # slots; those past the program's are never written or read
+    for got in (lib.gate_program(*args, lp.n_tape), lib.gate_program(*args, lp.n_tape, form="global"), lib.gate_program(*args, big)):
+        assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
+    with pytest.raises(ValueError, match="shared memory"):
+        lib.gate_program(*args, big, form="shared")

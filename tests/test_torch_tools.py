@@ -97,7 +97,7 @@ def test_profile_verifier_stage_times_add_up(capsys):
     assert list(stages) == want  # the 6-query fibonacci template has no fold step
     assert all(ms >= 0 for ms in stages.values())
     assert 0.95 * res["staged_call_ms"] <= sum(stages.values()) <= res["staged_call_ms"]
-    assert sorted(res["inner_ms"]) == ["horner_ext", "horner_scaled", "inv", "pow_dynamic"]
+    assert sorted(res["inner_ms"]) == ["GateProgram.forward", "ext_pow_const", "horner_ext", "horner_scaled", "inv", "pow_dynamic"]
     assert 0 < sum(res["inner_ms"].values()) < res["staged_call_ms"]
     assert all(res[k] > 0 for k in ("construct_s", "first_call_s", "warm_call_s"))
 
@@ -150,6 +150,21 @@ def test_check_field_kernels_reports_a_word_that_differs(capsys, monkeypatch, ke
     res = _last_json(capsys)
     assert res["pass"] is False and res["error"].startswith(kernel)
 
+
+
+@pytest.mark.parametrize("kernel", ["pow", "gate_program"])
+def test_check_field_kernels_catches_a_flipped_word(monkeypatch, kernel):
+    """The exponentiations' and the gate program's checks catch a stand-in
+    that flips a bit of the real part (run without the Poseidon checks
+    before them)."""
+    from plonky2_verifier_tpu_torch.ops import poseidon as tp
+    from plonky2_verifier_tpu_torch.tools.check_field_kernels import check_field_kernels
+
+    plain = getattr(check_hash_kernels.PlainLibrary, kernel)
+    monkeypatch.setattr(check_hash_kernels.PlainLibrary, kernel, lambda self, *a, **kw: (lambda o: (o[0] ^ 1, o[1]))(plain(self, *a, **kw)))
+    lib = check_hash_kernels.PlainLibrary(tp.PoseidonConstants("cpu"))
+    with pytest.raises(AssertionError, match=f"^{kernel} "):
+        check_field_kernels(lib, check_hash_kernels.new_checks(), "cpu", 8)
 
 def test_bench_poseidon_on_the_cpu_names_the_host_clock(capsys):
     assert bench_poseidon.main(["8", "32", "--device", "cpu"]) == 0

@@ -208,17 +208,31 @@ def field_bound_ms(instructions: int, n_bytes: int, rate: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+# int32 instructions a value of a Horner sum, by (base-field values, base-field
+# point), the least that csrc/field.cu's steps need: with an extension point
+# a step's product by q is 4 products (7 q.im formed once) and 2 adds, then
+# 2 adds for the value; with base-field values two values a step,
+# v + q v' + q^2 acc, 6 products and 5 adds for the two; with a base-field
+# point 2 products and 2 adds a value, 1 and 1 where the values are
+# base-field too (the sum stays in the base field)
+HORNER_VALUE = {
+    (False, False): 4 * PRODUCT + 4 * ADD,
+    (True, False): (6 * PRODUCT + 5 * ADD) // 2,
+    (False, True): 2 * PRODUCT + 2 * ADD,
+    (True, True): PRODUCT + ADD,
+}
+
+
 def horner_work(args):
     """(int32 instructions, bytes) of one horner launch on `args`
-    (verifier_torch.horner_rows): a step is an emul (5 products, 2 adds) or
-    with a base-field point 2 products, then 1 add (base-field values) or 2;
-    each distinct value and point word is read once, each output written once."""
+    (verifier_torch.horner_rows): HORNER_VALUE a value of every row (the
+    segments' tree and point^S's squarings not counted: the plain chain
+    needs neither); each distinct value and point word is read once, each
+    output written once."""
     v_re, v_im, p_re, p_im, v_rep, p_rep = args
     n, k = v_re.shape[0] * v_rep, v_re.shape[1]
-    products, adds = (2, 0) if p_im is None else (5, 2)
-    adds += 1 if v_im is None else 2
     words = v_re.numel() * (1 if v_im is None else 2) + p_re.numel() * (1 if p_im is None else 2) + 2 * n
-    return n * k * (16 * products + 4 * adds), 8 * words
+    return n * k * HORNER_VALUE[v_im is None, p_im is None], 8 * words
 
 
 def random_arrays(tpl, batch: int, queries: int, rng):
@@ -284,7 +298,7 @@ def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
     targets = [(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv"), (tf, "pow_dynamic"), (tf, "ext_pow_const"), (GateProgram, "forward")]
     calls = recorded_calls(targets, v, a, None if queries is None else slice(0, Q))
     gate = lambda prog, inputs, batch_shape, **kw: GateProgram.forward(prog, inputs, batch_shape, **kw)
-    gate_plain = lambda prog, inputs, batch_shape, **kw: prog.forward_plain(inputs, batch_shape, **kw)
+    gate_plain = lambda prog, inputs, batch_shape, packed=None, **kw: prog.forward_plain(inputs, batch_shape, **kw)  # packed: the card's
     plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain,
              "inv": tf.inv_plain, "pow_dynamic": tf.pow_dynamic_plain, "ext_pow_const": tf.ext_pow_const_plain, "forward": gate_plain}
     wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv": tf.inv, "pow_dynamic": tf.pow_dynamic,
@@ -394,7 +408,8 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     from plonky2_verifier_tpu_torch.ops import field as tf
     from plonky2_verifier_tpu_torch.ops import hash as th
     from plonky2_verifier_tpu_torch.ops import poseidon as tp
-    from plonky2_verifier_tpu_torch.tools.bench_poseidon import event_ms
+    from plonky2_verifier_tpu_torch.kernels import horner_segments
+    from plonky2_verifier_tpu_torch.tools.bench_poseidon import device_ms, event_ms
     from plonky2_verifier_tpu_torch.tools.check_field_kernels import horner_rows_plain
     from plonky2_verifier_tpu_torch.tools.check_hash_kernels import rand_words
 
@@ -406,9 +421,11 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
         both = [kernel(), plain()]
         checks[name].compare(*(torch.stack(x) if isinstance(x, tuple) else x for x in both), what)
         ms, plain_ms = event_ms(kernel, iters, 2), event_ms(plain, plain_iters, plain_iters - 1)
+        dev_ms = device_ms(kernel, iters, 1)  # the launches back to back: without the host's time to make each
         b_ms, by = bound
-        print(f"time {name} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; {work}), share of bound {b_ms / ms:.3f}")
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+        print(f"time {name} {what}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; {work}), "
+              f"share of bound {b_ms / ms:.3f} (device {b_ms / dev_ms:.3f})")
+        return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
 
     def measure(name, what, kernel, plain, iters, permutations, n_bytes, plain_iters=2):
         work = f"{permutations} permutations, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
@@ -476,7 +493,8 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
         if name == "horner":
             v_re, v_im, p_re, p_im, v_rep, p_rep = args
             what = (f"({v_re.shape[0]} x {v_rep} rows, {v_re.shape[1]}) {'base' if v_im is None else 'ext'} values, "
-                    f"{'base' if p_im is None else 'ext'} point x {p_rep}")
+                    f"{'base' if p_im is None else 'ext'} point x {p_rep}, "
+                    f"{horner_segments(v_re.shape[0] * v_rep, v_re.shape[1], lib.sms)} segments a row")
             instructions, n_bytes = horner_work(args)
             size = v_re.shape[0] * v_rep * v_re.shape[1]
             plain = lambda args=args: horner_rows_plain(*args)
@@ -495,7 +513,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     # call on random proof words, the main path's and the gate zoo's at the
     # same batch; a kernel's row is the main path's largest call, the zoo's
     # largest beside it
-    from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
+    from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram, step_barriers
     from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 
     zoo_v = TorchVerifier(zoo_tpl, device=DEVICE)
@@ -507,11 +525,15 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
         for name, args, kwargs in recorded_calls(targets, verifier, arrays):
             if name == "forward":
                 name, (prog, inputs, batch_shape) = "gate_program", args
-                instructions, n_bytes = gate_work(prog, inputs, kwargs.get("out_slots", prog.k_out_slots))
-                what = (f"{path}: {prog.n_levels} levels, {prog.n_tape} slots, {prog.k_adds.shape[0]} adds and "
-                        f"{prog.k_muls.shape[0]} multiplies a lane, {batch_shape[0]} lanes")
+                packed = kwargs["packed"]  # the verifier's program packed for its gather
+                instructions, n_bytes = gate_work(packed, inputs)
+                plan = lib.gate_plan(batch_shape[0], packed)
+                what = (f"{path}: {prog.n_levels} levels, {prog.n_tape} slots; packed {packed.n_steps} steps, {packed.n_slots} slots, "
+                        f"{plan['lanes']} lanes and {plan['threads']} threads a block, {plan['form']} tapes, "
+                        f"{'staged' if plan['staged'] else 'unstaged'} program, {step_barriers(packed.step_off.cpu().numpy(), plan['lanes'])} block barriers; "
+                        f"{packed.n_adds} adds and {packed.n_muls} multiplies a lane, {batch_shape[0]} lanes")
                 kernel = lambda prog=prog, args=args, kwargs=kwargs: pair(prog(*args[1:], **kwargs))
-                plain = lambda prog=prog, args=args, kwargs=kwargs: pair(prog.forward_plain(*args[1:], **kwargs))
+                plain = lambda prog=prog, args=args, kwargs=kwargs: pair(prog.forward_plain(*args[1:], out_slots=kwargs.get("out_slots")))
                 size = instructions
             elif name == "ext_pow_const" and args[1] < 2:
                 continue  # answered on the host, no launch
@@ -554,17 +576,17 @@ def pow_work(name: str, *args):
     return emuls * EMUL, 8 * (2 * rows + 2 * n), f"ext_pow_const {tuple(a.re.shape)}, e = {e}, base rows {rows}"
 
 
-def gate_work(prog, inputs, out_slots):
-    """(int32 instructions, bytes) of one gate-program launch: a real add is
-    a reduction, a negation and an add on each part (3 adds; the kernel's
-    product by the sign is one way to the same bits), a multiply an emul,
-    every lane; each input word, literal and op read once, each output word
+def gate_work(packed, inputs):
+    """(int32 instructions, bytes) of one gate-program launch on the packed
+    program (the ops its gather needs): an add is a reduction, a negation
+    and an add on each part (3 adds; the kernel's product by the sign is
+    one way to the same bits), a multiply an emul, every lane; each input
+    word, literal and word of the program read once, each output word
     written once."""
     lanes = next(iter(inputs.values())).re.shape[0]
-    adds, muls = prog.k_adds.shape[0], prog.k_muls.shape[0]
-    instructions = lanes * (adds * 6 * ADD + muls * EMUL)
-    words = sum(2 * x.re.numel() for x in inputs.values()) + prog.lit_values.numel() + 2 * lanes * out_slots.numel()
-    program = 16 * (adds + muls) + 4 * (prog.k_add_off.numel() + prog.k_mul_off.numel() + out_slots.numel())
+    instructions = lanes * (packed.n_adds * 6 * ADD + packed.n_muls * EMUL)
+    words = sum(2 * x.re.numel() for x in inputs.values()) + packed.lits.numel() + 2 * lanes * packed.n_out
+    program = 4 * sum(t.numel() for t in (packed.loads, packed.step_off, packed.ops, packed.tail))
     return instructions, 8 * words + program
 
 
@@ -1300,6 +1322,7 @@ def main():
             "launches": sum(launches[k] for k in entry_points[name]),
             "max_abs_err": checks[name].max_abs_err,
             "ms": round(tm["ms"], 6),
+            "device_ms": round(tm["device_ms"], 6),
             "plain_ms": round(tm["plain_ms"], 6),
             "bound_ms": round(tm["bound_ms"], 6),
             "bound_by": tm["bound_by"],

@@ -15,10 +15,10 @@
 // ~3,000 an ext_pow_const(zeta, 4096): most of a verifier call's launches.
 //
 // p2v_horner: out[n] = sum_k point[n]^k values[n, k] in F_p[X]/(X^2 - 7),
-// Horner from zero in the plain version's order,
+// bit for bit what the plain version's Horner chain from zero gives,
 //   acc = add(values[n, k], emul(point[n], acc))   for k = K-1 ... 0,
-// so that words >= p among the values (proof words) give the plain bits
-// (goldilocks.cuh). Two template flags drop the imaginary part that is zero:
+// also where words >= p are among the values (proof words): see below and
+// goldilocks.cuh. Two template flags drop the imaginary part that is zero:
 // BASE_VALUES (one word a value, never a zero tensor; combineInitial's leaf
 // rows) and BASE_POINT (emul with im = 0 is escale: add(x, 0) = x for the
 // canonical products, so 2 products a step; horner_scaled and the final
@@ -28,18 +28,48 @@
 // real and imaginary parts at one stride pattern (the interleaved openings
 // have column stride 2).
 //
-// Bound: integer ALU work. A step is 5 products and up to 4 adds (2 and up
-// to 2 with a base-field point); a product is 16 int32 instructions and an
-// add 4, as W counts them in poseidon.cuh. At combineInitial's shape
-// (28,672 rows x 254 base-field values) that is 0.040 ms on the H100 against
-// 0.017 ms to read the 58 MB of values. Design: a row's chain is sequential,
-// so one thread a row, in the plain order. The loads are what is designed:
-// a block is one warp of 32 rows; it stages 32 columns of its 32 rows at a
-// time into shared memory, each load instruction of the warp reading 32
-// neighbouring columns of one row (256 contiguous bytes at column stride
-// 1), then each thread runs its row's chain over the chunk from shared
-// memory (row pitch 33 words: a warp's reads of one column fall in distinct
-// banks). 17 KB a block; 28,672 rows are 896 blocks, one wave.
+// Bound: integer ALU work, the least that the steps below need a value: 4
+// products and 4 adds with an extension point, 3 products and 2.5 adds with
+// base-field values (two values a step), 2 and 2 with a base-field point,
+// 1 and 1 with both base-field; a product is 16 int32 instructions and an
+// add 4, as W counts them in poseidon.cuh (chip_smoke.horner_work). At
+// combineInitial's shape (28,672 rows x 254 base-field values) that is
+// 0.025 ms on the H100 against 0.017 ms to read the 58 MB of values.
+//
+// Design: a row's chain is sequential, and one thread a row (the first
+// form of this kernel) left ~7 warps an SM at combineInitial and one warp
+// on each of 32 SMs at the reduced openings (1,024 rows): bound by the
+// latency of its chain. So a row is split into S segments (S a power of
+// two up to 32, picked by the wrapper from the rows and K: kernels.
+// horner_segments), a thread each, on neighbouring lanes of one warp.
+// Segment s takes the columns s, s + S, s + 2S, ..., so that the S threads
+// of a row read S neighbouring columns with one load instruction (256
+// contiguous bytes at S = 32 and column stride 1), and runs their Horner
+// sum in q = point^S from zero:
+//   H_s = sum_m q^m values[n, s + m S],   out[n] = sum_s point^s H_s.
+// The second sum is a tree over the segments by warp shuffles: at level j
+// a row's lane s (a multiple of 2^(j+1)) adds point^(2^j) times lane
+// s + 2^j's value; point^(2^j) comes by squaring (before the sums to make
+// q, again in the tree: fewer registers, so more threads an SM).
+// A segment's first step may lie past K: it adds 0 to 0.
+//
+// Why the bits are the plain version's: every product is canonical
+// (goldilocks.cuh), and `add` with one canonical operand is exact and
+// canonical for any u64 word. Every step of the plain chain is
+// add(value, product), so the plain output is the canonical representative
+// of sum_k point^k values[n, k], also for values and points x + p. Every add
+// here has a canonical product as one operand too (a segment's steps), or
+// two canonical operands (the tree), so the output is the same exact sum,
+// canonical: the same word. A step's product by q takes four products, not
+// emul's five: q's 7 q.im is formed once (goldilocks.cuh, Point); with
+// BASE_VALUES a step takes two values, acc = v[m - 1] + q v[m] + q^2 acc
+// (3 products a value: q v[m] is two, v being a base-field word). The adds
+// of that step have canonical operands but the last, add(v[m - 1], .):
+// the same exact sum, the same word. With BASE_VALUES the imaginary part of a step
+// is the product's, as add(0, e.im) gives it. tools/check_field_kernels.py
+// holds every segment count against the plain version and golden/, and
+// its horner_split_plain is this order in PyTorch (tests/test_torch_glue.py
+// holds it equal to the plain order on the CPU).
 //
 // p2v_inv: a^(p - 2) elementwise, inv(0) = 0 (the JAX convention). Any
 // addition chain gives the plain version's bits: every product is
@@ -74,8 +104,7 @@ using gl::Ext;
 
 namespace {
 
-constexpr int ROWS = 32;   // rows a block, one a thread
-constexpr int CHUNK = 32;  // columns staged at a time
+constexpr int HORNER_THREADS = 256;
 constexpr int INV_THREADS = 256;
 
 struct HornerArgs {
@@ -88,58 +117,79 @@ struct HornerArgs {
     int64_t n, k;
     int64_t v_row, v_col, v_rep;  // strides in words; values row = n / v_rep
     int64_t p_stride, p_rep;      // point row = n / p_rep
+    int seg_bits;                 // S = 2^seg_bits segments a row, S <= 32
 };
 
-template <bool BASE_VALUES, bool BASE_POINT>
-__global__ void __launch_bounds__(ROWS) horner_kernel(const HornerArgs a) {
-    __shared__ uint64_t s_re[ROWS][CHUNK + 1];
-    __shared__ uint64_t s_im[BASE_VALUES ? 1 : ROWS][CHUNK + 1];
-    __shared__ int64_t s_off[ROWS];  // each row's first value, in words
-    const int lane = threadIdx.x;
-    const int64_t row0 = (int64_t)blockIdx.x * ROWS;
-    const int64_t n = row0 + lane;
-    const bool live = n < a.n;
-    const int64_t left = a.n - row0;
-    const int rows = left < ROWS ? (int)left : ROWS;
+template <bool BASE_POINT>
+__device__ __forceinline__ Ext times(Ext x, Ext y) {  // x * y, x of the point's field
+    if constexpr (BASE_POINT) {
+        return {gl::mul(x.re, y.re), gl::mul(x.re, y.im)};
+    } else {
+        return gl::emul(x, y);
+    }
+}
 
-    Ext point = {0, 0};
-    if (live) {
-        const int64_t at = n / a.p_rep * a.p_stride;
-        point.re = a.p_re[at];
-        if constexpr (!BASE_POINT) point.im = a.p_im[at];
-        s_off[lane] = n / a.v_rep * a.v_row;
+template <bool BASE_POINT>
+__device__ __forceinline__ Ext times(gl::Point x, Ext y) {  // the same, x's 7 im formed once
+    if constexpr (BASE_POINT) {
+        return {gl::mul(x.re, y.re), gl::mul(x.re, y.im)};
+    } else {
+        return gl::emul(x, y);
     }
+}
+
+template <bool BASE_VALUES, bool BASE_POINT>
+__global__ void __launch_bounds__(HORNER_THREADS) horner_kernel(const HornerArgs a) {
+    const int64_t t = (int64_t)blockIdx.x * HORNER_THREADS + threadIdx.x;
+    const int S = 1 << a.seg_bits;
+    const int s = (int)(t & (S - 1));
+    int64_t n = t >> a.seg_bits;
+    const bool live = n < a.n;
+    if (!live) n = a.n - 1;  // a copy of the last row: the shuffles below take every lane of a warp
+
+    const int64_t p_at = n / a.p_rep * a.p_stride;
+    const Ext point = {a.p_re[p_at], BASE_POINT ? 0 : a.p_im[p_at]};
+    Ext q = point;  // point^S; the tree below squares its way up again rather than hold point^(2^j) in registers
+    for (int j = 0; j < a.seg_bits; ++j) q = times<BASE_POINT>(q, q);
+    const gl::Point qp = gl::point(q);
+    const int64_t row = n / a.v_rep * a.v_row;
+    const int64_t steps = (a.k + S - 1) >> a.seg_bits;
+    // the segment's m-th value (a first step past K reads 0) and where it lies
+    auto at = [&](int64_t m) { const int64_t col = s + (m << a.seg_bits); return col < a.k ? row + col * a.v_col : -1; };
     Ext acc = {0, 0};
-    for (int64_t end = a.k; end > 0; end -= CHUNK) {
-        const int64_t start = end > CHUNK ? end - CHUNK : 0;
-        const int width = (int)(end - start);
-        __syncwarp();  // the previous chunk is consumed, s_off is written
-        if (lane < width) {
-            const int64_t col = (start + lane) * a.v_col;
-            for (int r = 0; r < rows; ++r) {
-                s_re[r][lane] = a.v_re[s_off[r] + col];
-                if constexpr (!BASE_VALUES) s_im[r][lane] = a.v_im[s_off[r] + col];
-            }
+    int64_t m = steps - 1;
+    if constexpr (BASE_VALUES) {
+        // two values a step: acc = v[m - 1] + q v[m] + q^2 acc, with q v[m] two products (one with a
+        // base-field point) for a base-field value, so 3 products a value where a step of one takes 4
+        if (steps & 1) {
+            const int64_t i = at(m--);
+            acc.re = gl::add(i >= 0 ? a.v_re[i] : 0, 0);
         }
-        __syncwarp();
-        if (live) {
-            for (int j = width - 1; j >= 0; --j) {
-                Ext e;
-                if constexpr (BASE_POINT) {
-                    e = {gl::mul(point.re, acc.re), gl::mul(point.re, acc.im)};
-                } else {
-                    e = gl::emul(point, acc);
-                }
-                acc.re = gl::add(s_re[lane][j], e.re);
-                if constexpr (BASE_VALUES) {
-                    acc.im = e.im;  // add(0, e.im) for the canonical e.im
-                } else {
-                    acc.im = gl::add(s_im[lane][j], e.im);
-                }
-            }
+        const gl::Point q2 = gl::point(times<BASE_POINT>(q, q));
+        for (; m >= 1; m -= 2) {
+            const int64_t i = at(m), j = at(m - 1);
+            const uint64_t hi = i >= 0 ? a.v_re[i] : 0, lo = j >= 0 ? a.v_re[j] : 0;
+            const Ext e = times<BASE_POINT>(q2, acc);
+            acc.im = BASE_POINT ? e.im : gl::add(gl::mul(q.im, hi), e.im);
+            acc.re = gl::add(lo, gl::add(gl::mul(q.re, hi), e.re));
+        }
+    } else {
+        for (; m >= 0; --m) {
+            const int64_t i = at(m);
+            const Ext e = times<BASE_POINT>(qp, acc);
+            acc.re = gl::add(i >= 0 ? a.v_re[i] : 0, e.re);
+            acc.im = gl::add(i >= 0 ? a.v_im[i] : 0, e.im);
         }
     }
-    if (live) {
+    Ext pw = point;  // point^(2^j) at level j
+    for (int j = 0; j < a.seg_bits; ++j) {  // seg_bits is one value for the whole grid: every lane shuffles alike
+        const Ext o = {(uint64_t)__shfl_down_sync(0xffffffffu, (unsigned long long)acc.re, 1 << j, S),
+                       (uint64_t)__shfl_down_sync(0xffffffffu, (unsigned long long)acc.im, 1 << j, S)};
+        const Ext e = times<BASE_POINT>(pw, o);
+        acc = {gl::add(acc.re, e.re), gl::add(acc.im, e.im)};
+        pw = times<BASE_POINT>(pw, pw);
+    }
+    if (live && s == 0) {
         a.out_re[n] = acc.re;
         a.out_im[n] = acc.im;
     }
@@ -211,22 +261,23 @@ __global__ void pow_kernel(const PowArgs a) {
 
 extern "C" int p2v_horner(const void* v_re, const void* v_im, const void* p_re, const void* p_im, void* out_re,
                           void* out_im, int64_t n, int64_t k, int64_t v_row, int64_t v_col, int64_t v_rep,
-                          int64_t p_stride, int64_t p_rep, void* stream) {
+                          int64_t p_stride, int64_t p_rep, int seg_bits, void* stream) {
+    if (seg_bits < 0 || seg_bits > 5) return (int)cudaErrorInvalidValue;
     if (n > 0) {
         const HornerArgs a = {(const uint64_t*)v_re, (const uint64_t*)v_im, (const uint64_t*)p_re,
                               (const uint64_t*)p_im, (uint64_t*)out_re, (uint64_t*)out_im, n, k, v_row,
-                              v_col, v_rep, p_stride, p_rep};
-        const unsigned blocks = (unsigned)((n + ROWS - 1) / ROWS);
+                              v_col, v_rep, p_stride, p_rep, seg_bits};
+        const unsigned blocks = (unsigned)(((n << seg_bits) + HORNER_THREADS - 1) / HORNER_THREADS);
         cudaStream_t s = (cudaStream_t)stream;
         const bool base_values = v_im == nullptr, base_point = p_im == nullptr;
         if (base_values && base_point) {
-            horner_kernel<true, true><<<blocks, ROWS, 0, s>>>(a);
+            horner_kernel<true, true><<<blocks, HORNER_THREADS, 0, s>>>(a);
         } else if (base_values) {
-            horner_kernel<true, false><<<blocks, ROWS, 0, s>>>(a);
+            horner_kernel<true, false><<<blocks, HORNER_THREADS, 0, s>>>(a);
         } else if (base_point) {
-            horner_kernel<false, true><<<blocks, ROWS, 0, s>>>(a);
+            horner_kernel<false, true><<<blocks, HORNER_THREADS, 0, s>>>(a);
         } else {
-            horner_kernel<false, false><<<blocks, ROWS, 0, s>>>(a);
+            horner_kernel<false, false><<<blocks, HORNER_THREADS, 0, s>>>(a);
         }
     }
     return (int)cudaGetLastError();

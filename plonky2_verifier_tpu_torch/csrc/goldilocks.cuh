@@ -14,7 +14,8 @@
 //   reduces it as ops/field.reduce128 does: canonical for any (lo, hi).
 // - `emul` is ops/field.emul in F_p[X]/(X^2 - 7): re = add(rr, 7 ii) with
 //   7 ii as the canonical product mul(ii, 7) (ops/field.mul_small),
-//   im = add(ri, ir).
+//   im = add(ri, ir). Its form for a fixed point (`Point`) gives the same
+//   words by other means (below).
 //
 // poseidon.cuh keeps its own lazily reduced arithmetic for the permutation;
 // nothing here is shared with it.
@@ -56,6 +57,20 @@ __device__ __forceinline__ Ext emul(Ext a, Ext b) {
     const uint64_t rr = mul(a.re, b.re), ii = mul(a.im, b.im);
     const uint64_t ri = mul(a.re, b.im), ir = mul(a.im, b.re);
     return {add(rr, mul(ii, W)), add(ri, ir)};
+}
+
+// A point a that multiplies many values (a Horner chain) with its
+// 7 a.im formed once: emul(a, b) as add(a.re b.re, (7 a.im) b.im), four
+// products. mul(a.im7, b.im) and mul(mul(a.im, b.im), 7) are both the
+// canonical 7 a.im b.im mod p, so the words are emul's.
+struct Point {
+    uint64_t re, im, im7;  // im7 = mul(im, W)
+};
+
+__device__ __forceinline__ Point point(Ext a) { return {a.re, a.im, mul(a.im, W)}; }
+
+__device__ __forceinline__ Ext emul(Point a, Ext b) {
+    return {add(mul(a.re, b.re), mul(a.im7, b.im)), add(mul(a.re, b.im), mul(a.im, b.re))};
 }
 
 }  // namespace gl

@@ -172,17 +172,37 @@ class GateArgs(ctypes.Structure):
         ("re_row", ctypes.c_int64 * 5), ("re_col", ctypes.c_int64 * 5),
         ("im_row", ctypes.c_int64 * 5), ("im_col", ctypes.c_int64 * 5),
         ("in_offset", ctypes.c_int32 * 5), ("in_width", ctypes.c_int32 * 5),
-        ("lits", ctypes.c_void_p), ("add_off", ctypes.c_void_p), ("mul_off", ctypes.c_void_p),
-        ("adds", ctypes.c_void_p), ("muls", ctypes.c_void_p), ("out_slots", ctypes.c_void_p),
+        ("lits", ctypes.c_void_p), ("loads", ctypes.c_void_p), ("step_off", ctypes.c_void_p),
+        ("ops", ctypes.c_void_p), ("tail", ctypes.c_void_p),
         ("out_re", ctypes.c_void_p), ("out_im", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
         ("batch", ctypes.c_int64),
-        ("n_tape", ctypes.c_int32), ("n_init", ctypes.c_int32), ("n_lits", ctypes.c_int32),
-        ("n_levels", ctypes.c_int32), ("n_out", ctypes.c_int32), ("lanes", ctypes.c_int32),
+        ("n_slots", ctypes.c_int32), ("n_loads", ctypes.c_int32), ("n_lits", ctypes.c_int32), ("n_steps", ctypes.c_int32),
+        ("n_ops", ctypes.c_int32), ("n_out", ctypes.c_int32), ("n_tail", ctypes.c_int32), ("lanes", ctypes.c_int32),
+        ("staged", ctypes.c_int32),
     ]
 
 
+HORNER_MAX_SEGMENTS = 32  # a row's segments share a warp (csrc/field.cu)
+HORNER_MIN_CHAIN = 4  # values a segment at least
+HORNER_THREADS_AN_SM = 256  # enough to hide a chain's latency (tools/probe_kernels.py --field)
+
+
+@functools.lru_cache(maxsize=1024)
+def horner_segments(rows: int, k: int, sms: int) -> int:
+    """The segments a row that the Horner kernel splits a sum of `k`
+    values over (csrc/field.cu): doubled from 1 while the rows' threads are
+    fewer than HORNER_THREADS_AN_SM on each of `sms` SMs and every segment
+    keeps at least HORNER_MIN_CHAIN values, up to HORNER_MAX_SEGMENTS. Each
+    segment costs a tree level and point^S's squarings, so no more than
+    the card needs to hide the chain's latency."""
+    s = 1
+    while 2 * s <= HORNER_MAX_SEGMENTS and 2 * s * HORNER_MIN_CHAIN <= k and s * rows < sms * HORNER_THREADS_AN_SM:
+        s *= 2
+    return s
+
+
 GATE_MAX_LANES = 32  # lanes a block at most (csrc/gates.cu)
-GATE_SMALL_SMEM = 48 * 1024  # a block's shared memory without raising the limit
+GATE_THREADS_A_LANE = 64  # a block's threads: this many a lane, 64 to 1024; = gates_torch.STEP_OPS, so a step is one round
 
 
 def _check_cuda(err: int, what: str):
@@ -228,11 +248,11 @@ class KernelLibrary:
             },
             "merkle": {"p2v_merkle_fold": [vp, vp, vp, vp, i64, i32, vp]},
             "field": {
-                "p2v_horner": [vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, vp],
+                "p2v_horner": [vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, i32, vp],
                 "p2v_inv": [vp, vp, i64, vp],
                 "p2v_pow": [vp, vp, vp, vp, vp, i64, i64, i64, ctypes.c_uint64, i32, vp],
             },
-            "gates": {"p2v_gate_program": [vp, i32, vp], "p2v_gate_smem_limit": []},
+            "gates": {"p2v_gate_program": [vp, i32, i32, vp], "p2v_gate_smem_limit": []},
         }
         if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
             raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
@@ -372,7 +392,8 @@ class KernelLibrary:
         verifier_torch.horner_ext_plain computes it. v_re and v_im are
         (rows, K) at any strides, the same for both (v_im None: base-field
         values); p_re and p_im (rows,) at any stride (p_im None: a
-        base-field point). Returns (out_re, out_im), each (n,)."""
+        base-field point). A row is split into horner_segments(rows, K)
+        segments. Returns (out_re, out_im), each (n,)."""
         _check_tensor(v_re, "v_re", (None, None), contiguous=False)
         _check_tensor(p_re, "p_re", (None,), contiguous=False)
         n = v_re.shape[0] * v_rep
@@ -384,12 +405,14 @@ class KernelLibrary:
                 if t.shape != like.shape or t.stride() != like.stride():
                     raise ValueError(f"{name} has shape {tuple(t.shape)} and strides {t.stride()}, "
                                      f"unlike the real part's {tuple(like.shape)} and {like.stride()}")
+        k = v_re.shape[1]
+        segments = horner_segments(n, k, self.sms)
         out = torch.empty((2, n), dtype=torch.int64, device=v_re.device)
         if n:
             ptr = lambda t: None if t is None else t.data_ptr()
             err = self._fn["p2v_horner"](
                 v_re.data_ptr(), ptr(v_im), p_re.data_ptr(), ptr(p_im), out[0].data_ptr(), out[1].data_ptr(),
-                n, v_re.shape[1], v_re.stride(0), v_re.stride(1), v_rep, p_re.stride(0), p_rep, _stream(),
+                n, k, v_re.stride(0), v_re.stride(1), v_rep, p_re.stride(0), p_rep, segments.bit_length() - 1, _stream(),
             )
             _check_cuda(err, "horner")
             self.launches["horner"] += 1
@@ -440,64 +463,90 @@ class KernelLibrary:
             self.launches["pow"] += 1
         return out[0], None if b_im is None else out[1]
 
-    def gate_program(self, inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape: int, form: str = "auto"):
-        """The levelized gate program for a batch of lanes (csrc/gates.cu).
-        `inputs`: five (offset, re, im), the SEL, LKPSEL, CONST, WIRE and PI
-        values, each part (B, w) at any strides (re and im None where w is
-        0), written at tape slots offset ... offset + w - 1; `lits` (n_lits,)
-        at slots 1 ...; the compact op lists of compiler/gates_torch.
-        compact_ops (int32 `adds` / `muls` (n, 4), `add_off` / `mul_off`
-        (n_levels + 1,)); `out_slots` (n_out,) int32 slots to gather (0
-        reads zero). Returns (out_re, out_im), each (B, n_out). `form`:
-        "shared" (the tapes in shared memory), "global" (in scratch from
-        torch.empty) or "auto" (shared where it fits). Lanes a block, 1 to
-        32, follow from the tape's size and the batch; the last block may
-        hold fewer."""
-        batch = None
-        widths = []
-        for offset, re, im in inputs:
-            if re is None:
-                widths.append(0)
-                continue
-            _check_tensor(re, "input re", (batch, None), contiguous=False)
-            _check_tensor(im, "input im", tuple(re.shape), contiguous=False)
-            batch = re.shape[0]
-            widths.append(re.shape[1])
-        if len(inputs) != 5 or batch is None:
-            raise ValueError("gate_program takes the five input kinds, at least one of them non-empty")
-        n_levels = add_off.shape[0] - 1
-        _check_tensor(lits, "lits", (None,))
-        for t, name, shape in ((add_off, "add_off", (n_levels + 1,)), (mul_off, "mul_off", (n_levels + 1,)),
-                               (adds, "adds", (None, 4)), (muls, "muls", (None, 4)), (out_slots, "out_slots", (None,))):
-            _check_tensor(t, name, shape, torch.int32)
-        n_init = max([1 + lits.shape[0]] + [off + w for (off, _, _), w in zip(inputs, widths)])
-        if n_init > n_tape:
-            raise ValueError(f"the inputs end at slot {n_init}, beyond the tape's {n_tape}")
-        tape = 16 * n_tape
-        lanes = max(1, min(GATE_MAX_LANES, -(-batch // self.sms), GATE_SMALL_SMEM // tape))
+    def gate_plan(self, batch: int, packed, form: str = "auto") -> dict:
+        """How the gate program runs a batch: `lanes` a block (a power of two
+        up to GATE_MAX_LANES: the most that leave a block for every SM and
+        fit, with the program staged beside them, in a block's shared
+        memory), the `form` (the tapes in shared memory where they fit),
+        whether the program is `staged` into shared memory (where it fits
+        beside the tapes), and `threads` a block (GATE_THREADS_A_LANE a
+        lane). `form` as given where given."""
+        tape = 16 * max(packed.n_slots, 1)
+        program = 8 * packed.ops.shape[0] + 4 * packed.step_off.shape[0]
+        room = self.gate_smem_limit - program if self.gate_smem_limit - program >= tape else self.gate_smem_limit
+        most = max(1, min(GATE_MAX_LANES, -(-batch // self.sms), room // tape))
+        lanes = 1 << (most.bit_length() - 1)
         if form == "auto":
             form = "shared" if tape * lanes <= self.gate_smem_limit else "global"
+        tapes = tape * lanes if form == "shared" else 0
+        threads = min(1024, max(64, GATE_THREADS_A_LANE * lanes))
+        return {"form": form, "lanes": lanes, "staged": tapes + program <= self.gate_smem_limit, "threads": threads}
+
+    def _gate_args(self, packed) -> GateArgs:
+        """The packed program's fields of GateArgs, its tensors checked: once
+        a PackedProgram (kept on it), since a call pays the host's time."""
+        if packed.args is None:
+            n_steps = packed.step_off.shape[0] - 1
+            _check_tensor(packed.lits, "lits", (None,))
+            for t, name, shape in ((packed.loads, "loads", (None, 2)), (packed.step_off, "step_off", (n_steps + 1,)),
+                                   (packed.ops, "ops", (None, 2)), (packed.tail, "tail", (None, 2))):
+                _check_tensor(t, name, shape, torch.int32)
+            if packed.n_slots > 0xFFFF:
+                raise ValueError(f"{packed.n_slots} tape slots, above the 65,535 a packed op can name")
+            a = GateArgs()
+            a.lits, a.loads, a.step_off = packed.lits.data_ptr(), packed.loads.data_ptr(), packed.step_off.data_ptr()
+            a.ops, a.tail = packed.ops.data_ptr(), packed.tail.data_ptr()
+            a.n_slots, a.n_loads, a.n_lits, a.n_steps = packed.n_slots, packed.loads.shape[0], packed.lits.shape[0], n_steps
+            a.n_ops, a.n_out, a.n_tail = packed.ops.shape[0], packed.n_out, packed.tail.shape[0]
+            packed.args = a
+        return packed.args
+
+    def gate_program(self, inputs, packed, form: str = "auto"):
+        """The gate program for a batch of lanes (csrc/gates.cu). `inputs`:
+        five (offset, re, im), the SEL, LKPSEL, CONST, WIRE and PI values,
+        each part (B, w) at any strides (re and im None where w is 0), at
+        program slots offset ... offset + w - 1; `packed` the program packed
+        for its gather (compiler/gates_torch.PackedProgram), on the current
+        device. Returns (out_re, out_im), each (B, n_out). `form`: "shared"
+        (the tapes in shared memory), "global" (in scratch from torch.empty)
+        or "auto" (shared where it fits). Lanes a block, a power of two up to
+        32, and threads a block follow from the tape's size, the program's
+        and the batch (gate_plan; the last block may hold fewer lanes)."""
+        if len(inputs) != 5:
+            raise ValueError("gate_program takes the five input kinds")
+        template = self._gate_args(packed)
+        device = packed.lits.device
+        batch = next((re.shape[0] for _, re, _ in inputs if re is not None), None)
+        if batch is None:
+            raise ValueError("gate_program takes the five input kinds, at least one of them non-empty")
+        a = GateArgs.from_buffer_copy(template)
+        for k, (offset, re, im) in enumerate(inputs):
+            a.in_offset[k] = offset
+            if re is None:
+                a.in_width[k] = 0
+                continue
+            if not (re.device == device == im.device and re.dtype == im.dtype == torch.int64 and re.dim() == 2
+                    and re.shape[0] == batch and im.shape == re.shape):
+                _check_tensor(re, "input re", (batch, None), contiguous=False)  # raises with the reason
+                _check_tensor(im, "input im", tuple(re.shape), contiguous=False)
+                raise ValueError(f"input {k} is not a pair of int64 (B, w) tensors on {device}")
+            a.in_width[k] = re.shape[1]
+            a.in_re[k], a.in_im[k] = re.data_ptr(), im.data_ptr()
+            (a.re_row[k], a.re_col[k]), (a.im_row[k], a.im_col[k]) = re.stride(), im.stride()
+        plan = self.gate_plan(batch, packed, form)
+        form, lanes, threads = plan["form"], plan["lanes"], plan["threads"]
+        tape = 16 * max(packed.n_slots, 1)
         if form not in ("shared", "global"):
-            raise ValueError(f"form {form!r}")
+            raise ValueError(f"form {form!r}: 'shared', 'global' or 'auto'")
         if form == "shared" and tape * lanes > self.gate_smem_limit:
-            raise ValueError(f"{lanes} tapes of {n_tape} slots need {tape * lanes} bytes of shared memory, above {self.gate_smem_limit}")
-        n_out = out_slots.shape[0]
-        out = torch.empty((2, batch, n_out), dtype=torch.int64, device=lits.device)
+            raise ValueError(f"{lanes} tapes of {packed.n_slots} slots need {tape * lanes} bytes of shared memory, above {self.gate_smem_limit}")
+        out = torch.empty((2, batch, packed.n_out), dtype=torch.int64, device=device)
         if batch:
             blocks = -(-batch // lanes)
-            scratch = torch.empty(blocks * 2 * n_tape * lanes if form == "global" else 0, dtype=torch.int64, device=lits.device)
-            a = GateArgs()
-            for k, ((offset, re, im), w) in enumerate(zip(inputs, widths)):
-                a.in_offset[k], a.in_width[k] = offset, w
-                if w:
-                    a.in_re[k], a.in_im[k] = re.data_ptr(), im.data_ptr()
-                    (a.re_row[k], a.re_col[k]), (a.im_row[k], a.im_col[k]) = re.stride(), im.stride()
-            a.lits, a.add_off, a.mul_off = lits.data_ptr(), add_off.data_ptr(), mul_off.data_ptr()
-            a.adds, a.muls, a.out_slots = adds.data_ptr(), muls.data_ptr(), out_slots.data_ptr()
+            scratch = torch.empty(blocks * 2 * packed.n_slots * lanes if form == "global" else 0, dtype=torch.int64, device=device)
             a.out_re, a.out_im, a.scratch = out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr()
-            a.batch, a.n_tape, a.n_init, a.n_lits = batch, n_tape, n_init, lits.shape[0]
-            a.n_levels, a.n_out, a.lanes = n_levels, n_out, lanes
-            err = self._fn["p2v_gate_program"](ctypes.addressof(a), form == "shared", _stream())
+            a.batch, a.lanes, a.staged = batch, lanes, plan["staged"]
+            err = self._fn["p2v_gate_program"](ctypes.addressof(a), form == "shared", threads, _stream())
             _check_cuda(err, "gate_program")
             self.launches["gate_program"] += 1
         return out[0], out[1]

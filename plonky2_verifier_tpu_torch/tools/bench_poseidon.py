@@ -52,6 +52,26 @@ def event_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, warmup: int = 1, sleep_cycles: int = 4 * 10**7) -> float:
+    """Milliseconds of device time a call of `fn`: CUDA events around
+    `iters` calls that the host enqueued while the card slept
+    (torch.cuda._sleep, ~20 ms at 1980 MHz), so that the launches run back
+    to back and the host's time to make each (the wrapper in Python, the
+    launch) is not counted, as it is by event_ms where a launch takes
+    longer to make than to run. `fn` must not synchronise."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _host_ms(fn, iters: int) -> float:
     fn()
     t0 = time.perf_counter()

@@ -15,8 +15,10 @@ kernels must give the plain bits for them too.
 - horner: both template flags (base-field values, base-field point) in all
   four combinations, the interleaved openings' column stride of 2, rows
   repeated through v_rep and p_rep (the wrappers' stride-0 rows), widths
-  around the 32-column chunk, K = 0 (zeros) and no rows at all (no launch),
-  combineInitial's width of 254 on about 2^20 words;
+  around a warp's 32 lanes, K = 0 (zeros) and no rows at all (no launch),
+  combineInitial's width of 254 on about 2^20 words, and small rows whose
+  K makes kernels.horner_segments pick each segment count a row (1 to 32)
+  in every flag pair (the check raises if a count was never picked);
 - pow: `n_random` words in both forms the verifier calls (a base-field base
   with an exponent a word below 2^15, the base also one scalar read for
   every word; an extension base with one exponent from the host, the base
@@ -28,9 +30,13 @@ kernels must give the plain bits for them too.
   programs on random lanes, the inputs at the verifier's strides (column
   stride 2), in both forms (the tape in shared memory, in device scratch)
   and the one the library picks, at batches whose lanes a block do and do
-  not divide them, B = 0 (no launch), against GateProgram.forward_plain
-  and, on a few lanes, a Python-int interpreter of the compact op lists
-  (golden_gate_program, also the plain stand-in's gate program).
+  not divide them and that give fibonacci's program every lanes a block
+  from 1 to 32 on the H100, B = 0 (no launch), for the program's own outputs and
+  for a gather like the verifier's (zeros, a slot twice, an input, a
+  literal), against GateProgram.forward_plain and, on a few lanes, a
+  Python-int interpreter of the compact op lists (golden_gate_program);
+  the plain stand-in runs the packed program in Python ints
+  (golden_packed_program).
 """
 
 import functools
@@ -39,9 +45,10 @@ import os
 import numpy as np
 import torch
 
-from ..compiler.gates_torch import INPUT_KINDS, GateProgram
+from ..compiler.gates_torch import INPUT_KINDS, NO_SLOT, OP_MUL, OP_SUB, GateProgram, compact_ops, decode_ops
 from ..compiler.levelize import levelize_gates
 from ..golden import field as gf
+from ..kernels import horner_segments
 from ..ops import field as tf
 from ..ops.field import GExt
 from ..verifier_torch import horner_ext_plain
@@ -65,6 +72,11 @@ HORNER_CASES = [
     (37, 0, False, False, 1, 1, False),  # K = 0: zeros
     (0, 5, False, False, 1, 1, False),  # no rows: no launch
 ]
+HORNER_SEGMENTS = (1, 2, 4, 8, 16, 32)  # every segment count a row the Horner kernel takes
+# small rows (their threads far under the card's), K = 4 S + 3 (5 for S = 1):
+# horner_segments picks S, the last segment short, in every flag pair
+HORNER_CASES += [(24 + s, 4 * s + 3 if s > 1 else 5, base_v, base_p, 1, 1, False)
+                 for s in HORNER_SEGMENTS for base_v in (False, True) for base_p in (False, True)]
 
 
 def words(rng, shape) -> np.ndarray:
@@ -89,6 +101,32 @@ def horner_rows_plain(v_re, v_im, p_re, p_im, v_rep: int = 1, p_rep: int = 1):
     return out.re, out.im
 
 
+def horner_split_plain(v_re, v_im, p_re, p_im, v_rep: int = 1, p_rep: int = 1, segments: int = 1):
+    """What `KernelLibrary.horner` computes, in the kernel's own order
+    (csrc/field.cu) with `segments` (S) a row: segment s runs the Horner sum
+    of the columns s, s + S, ... in q = point^S from zero (a first step past
+    K adds 0 to 0), then the tree adds, level j, point^(2^j) times the
+    right neighbour's sum. Its words equal horner_rows_plain's for every S."""
+    g = lambda t, rep: None if t is None else t.repeat_interleave(rep, 0)
+    v_re, v_im, p_re, p_im = g(v_re, v_rep), g(v_im, v_rep), g(p_re, p_rep), g(p_im, p_rep)
+    n, k = v_re.shape
+    steps = -(-k // segments)
+    pad = lambda t: torch.cat([t, torch.zeros((n, steps * segments - k), dtype=t.dtype, device=t.device)], 1)
+    values = GExt(pad(v_re), pad(torch.zeros_like(v_re) if v_im is None else v_im)).reshape(n, steps, segments)
+    q = GExt(p_re, torch.zeros_like(p_re) if p_im is None else p_im)
+    powers = []
+    while len(powers) < segments.bit_length() - 1:
+        powers.append(q)
+        q = tf.emul(q, q)
+    acc = tf.ext_zeros((n, segments), v_re.device)
+    for m in range(steps - 1, -1, -1):
+        acc = values[:, m] + tf.emul(q.unsqueeze(1).expand(n, segments), acc)
+    for pw in powers:
+        right = acc[:, 1::2]
+        acc = acc[:, 0::2] + tf.emul(pw.unsqueeze(1).expand(*right.shape), right)
+    return acc.re[:, 0], acc.im[:, 0]
+
+
 def _golden_horner(v_re, v_im, p_re, p_im):
     """One row's sum in Python ints: values (K,), the point a word each."""
     pt = (int(p_re) % P, 0 if p_im is None else int(p_im) % P)
@@ -100,8 +138,11 @@ def _golden_horner(v_re, v_im, p_re, p_im):
 
 POW_BITS = 15  # lde_bits of the verifier's query points
 POW_CONST = [2, 3, 4096, 2**64 - 1]  # host exponents, beside random ones (0 and 1 never reach the library)
-GATE_BATCHES = [37, 300, 1030, 1, 0]  # on the H100 fibonacci's program runs 1, 3 and 8 lanes a block (the last block of 1030 holds 6)
+# on the H100 (132 SMs) fibonacci's program runs 1, 2, 4, 8, 16 and 32 lanes a
+# block at these (the last block of 1030 holds 6)
+GATE_BATCHES = [37, 300, 400, 1030, 2112, 4225, 1, 0]
 GOLDEN_LANES = 2
+PLAIN_GATE_LANES = 8  # the plain stand-in runs the packed program in Python ints: a few lanes
 ZOO_COMMON = os.path.join(os.path.dirname(__file__), "..", "..", "fixtures", "gate_zoo_3abb3dc54fe7_common.json")
 
 
@@ -120,11 +161,11 @@ def pow_rows_plain(b_re, b_im, exponent, n_bits: int = 0, b_rep: int = 1):
 
 
 def golden_gate_program(inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape: int = 0):
-    """What `KernelLibrary.gate_program` computes, lane by lane in Python
-    ints (golden/field.py) on the compact op lists (compact_ops): the
-    inputs and literals enter the tape as given, every op reduces its
-    operands mod p, slot 0 reads zero. Returns (out_re, out_im), each
-    (B, n_out), on the literals' device."""
+    """What the gate program computes, lane by lane in Python ints
+    (golden/field.py) on the compact op lists (compact_ops), level by
+    level: the inputs and literals enter the tape as given, every op
+    reduces its operands mod p, slot 0 reads zero. Returns (out_re,
+    out_im), each (B, n_out), on the literals' device."""
     batch = next(re.shape[0] for _, re, _ in inputs if re is not None)
     add_off, mul_off, adds, muls = add_off.tolist(), mul_off.tolist(), adds.tolist(), muls.tolist()
     lit_words = [(int(v), 0) for v in tf.to_u64(lits)]
@@ -144,6 +185,73 @@ def golden_gate_program(inputs, lits, add_off, adds, mul_off, muls, out_slots, n
                 tape[dst] = gf.emul(canon(tape[s1]), canon(tape[s2]))
         out[lane] = [tape[s] for s in out_slots.tolist()]
     return tf.from_u64(out[..., 0], lits.device), tf.from_u64(out[..., 1], lits.device)
+
+
+def golden_packed_program(inputs, packed):
+    """What `KernelLibrary.gate_program` computes on a packed program
+    (compiler/gates_torch.PackedProgram), lane by lane in Python ints:
+    the initial tape, the steps (every op of a step reads the tape as the
+    step found it), the output columns stored by ops and by the tail.
+    Raises where the packing breaks what the kernel assumes: a slot read
+    before it is written, a step that writes a slot it reads or one slot
+    twice, a column stored twice or never. Returns (out_re, out_im), each
+    (B, n_out), on the literals' device."""
+    batch = next(re.shape[0] for _, re, _ in inputs if re is not None)
+    lits = [int(v) for v in tf.to_u64(packed.lits)]
+    given = [(offset, tf.to_u64(re), tf.to_u64(im)) for offset, re, im in inputs if re is not None]
+    loads, tail, step_off = (x.tolist() for x in (packed.loads, packed.tail, packed.step_off))
+    ops = decode_ops(packed.ops.cpu().numpy()).tolist()
+    canon = lambda v: (v[0] % gf.P, v[1] % gf.P)
+
+    def source(slot, lane):
+        if 1 <= slot <= len(lits):
+            return lits[slot - 1], 0
+        for offset, re, im in given:
+            if 0 <= slot - offset < re.shape[1]:
+                return int(re[lane, slot - offset]), int(im[lane, slot - offset])
+        return 0, 0
+
+    out = np.zeros((batch, packed.n_out, 2), dtype=np.uint64)
+    for lane in range(batch):
+        tape, cols = [None] * packed.n_slots, [None] * packed.n_out
+        for slot, src in loads:
+            tape[slot] = source(src, lane)
+        for t in range(len(step_off) - 1):
+            step = ops[step_off[t] : step_off[t + 1]]
+            reads, writes = {x for o in step for x in o[:2]}, [o[2] for o in step if o[2] != NO_SLOT]
+            if reads & set(writes) or len(set(writes)) != len(writes):
+                raise AssertionError(f"step {t} writes a slot it reads, or one slot twice")
+            results = []
+            for x, y, dst, kind, col in step:
+                if tape[x] is None or tape[y] is None:
+                    raise AssertionError(f"step {t} reads slot {x if tape[x] is None else y} before it is written")
+                a, b = canon(tape[x]), canon(tape[y])
+                v = gf.emul(a, b) if kind == OP_MUL else gf.eadd(a, gf.eneg(b) if kind == OP_SUB else b)
+                results.append((dst, col, v))
+            for dst, col, v in results:
+                if dst != NO_SLOT:
+                    tape[dst] = v
+                if col >= 0:
+                    if cols[col] is not None:
+                        raise AssertionError(f"column {col} stored twice")
+                    cols[col] = v
+        for col, src in tail:
+            if cols[col] is not None or (src < 0 and cols[-src - 1] is None):
+                raise AssertionError(f"tail column {col}: stored twice, or a copy of a column not yet stored")
+            cols[col] = source(src, lane) if src >= 0 else cols[-src - 1]
+        if any(v is None for v in cols):
+            raise AssertionError("a column stored by no op and no tail entry")
+        out[lane] = cols
+    return tf.from_u64(out[..., 0], packed.lits.device), tf.from_u64(out[..., 1], packed.lits.device)
+
+
+def verifier_like_gather(lp) -> np.ndarray:
+    """Program slots gathered as the verifier's padded layout gathers them
+    and more: zeros, the outputs in another order, one output twice, an
+    input and a literal (where the program has them)."""
+    outs = [int(s) for s in lp.out_slots]
+    extra = [lp.input_slots[k][0] for k in INPUT_KINDS if lp.input_slots[k][1]][:1] + ([1] if len(lp.lit_values) else [])
+    return np.array([0] + outs[::-1] + [0, outs[0]] + extra, dtype=np.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,27 +353,37 @@ def check_pow(lib, c, rng, dev, n_random: int, kernel: bool):
 def check_gate_program(lib, c, rng, dev, max_lanes: int, kernel: bool):
     """checks["gate_program"]: every program of gate_programs() at every
     batch of GATE_BATCHES, cut to max_lanes, in both forms and the one the
-    library picks (`kernel`; the plain stand-in has no forms)."""
+    library picks (`kernel`; the plain stand-in has no forms), for its own
+    outputs and a verifier-like gather. Lanes are independent, so one plain
+    run a program and gather, on the most lanes, holds every batch."""
+    batches = sorted({min(b, max_lanes) for b in GATE_BATCHES})
     for name, lp in gate_programs():
         gp = GateProgram(lp, dev)
-        args = (gp.lit_values, gp.k_add_off, gp.k_adds, gp.k_mul_off, gp.k_muls, gp.k_out_slots, lp.n_tape)
-        for batch in sorted({min(b, max_lanes) for b in GATE_BATCHES}):
-            inputs, views = gate_inputs(rng, lp, batch, dev)
-            want = gp.forward_plain(inputs, (batch,))
-            for form in ("shared", "global", "auto") if kernel else ("auto",):
-                what = f"{name} ({lp.n_levels} levels, {lp.n_tape} slots), {batch} lanes, form {form}"
-                before = lib.launches.get("gate_program", 0)
-                got = lib.gate_program(views, *args, form=form)
-                if lib.launches.get("gate_program", 0) != before + (1 if batch else 0):
-                    raise AssertionError(f"gate_program {what}: {lib.launches.get('gate_program', 0) - before} launches")
-                c.compare(torch.stack(got), torch.stack([want.re, want.im]), what)
-            if batch:
-                gold = golden_gate_program([(o, None if re is None else re[:GOLDEN_LANES], None if im is None else im[:GOLDEN_LANES])
-                                            for o, re, im in views], *args)
-                c.compare(torch.stack([got[0][:GOLDEN_LANES], got[1][:GOLDEN_LANES]]), torch.stack(gold), f"{what}, {GOLDEN_LANES} lanes vs golden")
-        per_prog = gp(inputs, (batch,), per_prog=True)
-        if sum(x.shape[-1] for x in per_prog) != len(lp.out_slots):
+        compact = compact_ops(lp)
+        inputs, views = gate_inputs(rng, lp, batches[-1], dev)
+        per_prog = gp(inputs, (batches[-1],), per_prog=True) if dev == "cpu" else gp.forward_plain(inputs, (batches[-1],), per_prog=True)
+        if [x.shape[-1] for x in per_prog] != [len(s) for s in lp.out_slots_per_prog]:
             raise AssertionError(f"gate_program {name}: per_prog split {[x.shape for x in per_prog]}")
+        gathers = [("its outputs", None, tf.ext_concat(per_prog, dim=-1))]
+        slots = verifier_like_gather(lp)
+        gathers.append(("a verifier-like gather", slots, gp.forward_plain(inputs, (batches[-1],), out_slots=slots)))
+        for what_gather, slots, want in gathers:
+            packed = gp.pack(slots)
+            for batch in batches:
+                cut = [(o, None if re is None else re[:batch], None if im is None else im[:batch]) for o, re, im in views]
+                for form in ("shared", "global", "auto") if kernel else ("auto",):
+                    what = (f"{name} ({lp.n_levels} levels, {lp.n_tape} slots; packed: {packed.n_steps} steps, {packed.n_slots} slots), "
+                            f"{what_gather}, {batch} lanes, form {form}")
+                    before = lib.launches.get("gate_program", 0)
+                    got = lib.gate_program(cut, packed, form=form)
+                    if lib.launches.get("gate_program", 0) != before + (1 if batch else 0):
+                        raise AssertionError(f"gate_program {what}: {lib.launches.get('gate_program', 0) - before} launches")
+                    c.compare(torch.stack(got), torch.stack([want.re[:batch], want.im[:batch]]), what)
+                if batch:
+                    gold = golden_gate_program([(o, None if re is None else re[:GOLDEN_LANES], None if im is None else im[:GOLDEN_LANES])
+                                                for o, re, im in cut], gp.lit_values, compact["add_off"], compact["adds"], compact["mul_off"],
+                                               compact["muls"], lp.out_slots if slots is None else slots, lp.n_tape)
+                    c.compare(torch.stack([got[0][:GOLDEN_LANES], got[1][:GOLDEN_LANES]]), torch.stack(gold), f"{what}, {GOLDEN_LANES} lanes vs golden")
 
 
 def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
@@ -291,11 +409,17 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     if lib.inv(a[:0]).numel() or lib.launches.get("inv", 0) != before:
         raise AssertionError("inv of no words launched or returned words")
 
+    from .check_hash_kernels import PlainLibrary  # here: that module imports this one
+
+    kernel = not isinstance(lib, PlainLibrary)
     c = checks["horner"]
+    picked = set()
     for rows, k, base_v, base_p, v_rep, p_rep, interleaved in HORNER_CASES:
         n = rows * v_rep
+        segments = horner_segments(n, k, lib.sms)
+        picked.add(segments)
         what = (f"({rows} x {v_rep}, {k}) {'base' if base_v else 'ext'} values, {'base' if base_p else 'ext'} point "
-                f"x {p_rep}{', interleaved' if interleaved else ''}")
+                f"x {p_rep}{', interleaved' if interleaved else ''}, {segments} segments a row")
         v_np = words(rng, (rows, k, 2))
         p_np = words(rng, (n // p_rep, 2))
         if interleaved:
@@ -323,11 +447,10 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
             vr, pr = row // v_rep, row // p_rep
             gold = _golden_horner(v_np[vr, :, 0], None if base_v else v_np[vr, :, 1], p_np[pr, 0], None if base_p else p_np[pr, 1])
             c.compare(torch.stack([got[0][row], got[1][row]]), np.array(gold, dtype=np.uint64), f"{what} row {row} vs golden")
-    from .check_hash_kernels import PlainLibrary  # here: that module imports this one
-
-    kernel = not isinstance(lib, PlainLibrary)
+    if picked != set(HORNER_SEGMENTS):
+        raise AssertionError(f"horner: the cases reached the segment counts {sorted(picked)}, not every one of {HORNER_SEGMENTS}")
     check_pow(lib, checks["pow"], rng, dev, n_random, kernel)
-    check_gate_program(lib, checks["gate_program"], rng, dev, n_random, kernel)
+    check_gate_program(lib, checks["gate_program"], rng, dev, n_random if kernel else min(n_random, PLAIN_GATE_LANES), kernel)
     for name in ("horner", "inv", "pow", "gate_program"):
         print(f"check {name}: {checks[name].cases} words bit-exact against plain and golden")
     return checks

@@ -40,7 +40,8 @@ from ..golden import poseidon as gp
 from ..ops import field as tf
 from ..ops import hash as th
 from ..ops import poseidon as tp
-from .check_field_kernels import check_field_kernels, golden_gate_program, horner_rows_plain, pow_rows_plain
+from ..kernels import horner_segments
+from .check_field_kernels import check_field_kernels, golden_packed_program, horner_split_plain, pow_rows_plain
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -90,9 +91,12 @@ def new_checks():
 
 class PlainLibrary:
     """The plain versions behind the kernel library's interface, for a run
-    without a card: no forms, and a "launch" is a call."""
+    without a card: no forms, and a "launch" is a call. The Horner sum and
+    the gate program run in the kernels' own order (horner_split_plain, the
+    packed program in Python ints)."""
 
     max_segments = 16
+    sms = 132  # the H100's, for the Horner segment rule
 
     def __init__(self, consts):
         self.consts = consts
@@ -117,7 +121,8 @@ class PlainLibrary:
     def horner(self, v_re, v_im, p_re, p_im, v_rep=1, p_rep=1):
         if v_re.shape[0]:
             self.launches["horner"] += 1
-        return horner_rows_plain(v_re, v_im, p_re, p_im, v_rep, p_rep)
+        n, k = v_re.shape[0] * v_rep, v_re.shape[1]
+        return horner_split_plain(v_re, v_im, p_re, p_im, v_rep, p_rep, horner_segments(n, k, self.sms))
 
     def inv(self, a):
         if a.numel():
@@ -129,10 +134,10 @@ class PlainLibrary:
         self.launches["pow"] += bool(b_re.shape[0])
         return out
 
-    def gate_program(self, inputs, *program, form="auto"):
+    def gate_program(self, inputs, packed, form="auto"):
         if any(re is not None and re.shape[0] for _, re, _ in inputs):
             self.launches["gate_program"] += 1
-        return golden_gate_program(inputs, *program)
+        return golden_packed_program(inputs, packed)
 
 
 def golden_scan_lane(data_row, ov_idx, ov_mask):
@@ -199,10 +204,11 @@ def check_kernels(lib, consts, n_random: int = N_RANDOM, n_rows: int = N_ROWS, s
         c.compare(got[:4], golden, f"width {width} vs golden")
 
     # sponge, grouped: every width mixed in one launch, row counts that are
-    # no multiple of the block, an empty segment, and the edge band
-    sizes = [n_rows, 31, 1, 33, 0, 64, 1000, 32, 7, 2049, 513]
+    # no multiple of the block, an empty segment, and the edge band; no
+    # matrix above n_rows rows (--rows cuts the CPU run)
+    sizes = [min(n, n_rows) for n in [n_rows, 31, 1, 33, 0, 64, 1000, 32, 7, 2049, 513]]
     group_np = [rand_words(rng, (n, w)) for n, w in zip(sizes, SPONGE_WIDTHS)]
-    group_np += [edge[rng.integers(0, len(EDGE), size=(777, w))] for w in (135, 20, 9)]
+    group_np += [edge[rng.integers(0, len(EDGE), size=(min(777, n_rows), w))] for w in (135, 20, 9)]
     group = [tf.from_u64(x, dev) for x in group_np]
     if len(group) > lib.max_segments:
         raise AssertionError(f"{len(group)} segments do not fit one launch of {lib.max_segments}")
@@ -247,7 +253,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python3 -m plonky2_verifier_tpu_torch.tools.check_hash_kernels")
     p.add_argument("--device", default=None, help="without it the CUDA card, and an error where there is none")
     p.add_argument("--random", type=int, default=N_RANDOM, help="random permutation states, and words to invert")
-    p.add_argument("--rows", type=int, default=N_ROWS, help="rows of each sponge matrix and Merkle batch")
+    p.add_argument("--rows", type=int, default=N_ROWS, help="rows of each sponge matrix and Merkle batch, at most")
     args = p.parse_args(argv)
 
     t0 = time.time()

@@ -2,7 +2,13 @@
 what chip_smoke.py measures about the kernels, without the fixture and the
 verifier.
 
-Run from the repository root:  python3 -m plonky2_verifier_tpu_torch.tools.probe_kernels
+Run from the repository root:  python3 -m plonky2_verifier_tpu_torch.tools.probe_kernels [--field]
+
+With --field it builds, runs the whole check (step 2) and then only the
+field probe: the Horner sum at the main path's shapes (batch 1024, 28
+queries) and the gate program of the fibonacci and gate-zoo circuits at
+1024 lanes, each as the library launches it (segments a row; lanes and
+threads a block), beside its bound.
 
 1. builds the kernels and prints nvcc's registers and spills;
 2. runs tools/check_hash_kernels.py's check at a reduced random size (every kernel,
@@ -41,7 +47,7 @@ import chip_smoke as cs
 from .. import kernels
 from ..ops import field as tf
 from ..ops import poseidon as tp
-from .bench_poseidon import event_ms
+from .bench_poseidon import _host_ms, device_ms, event_ms
 from .check_hash_kernels import check_kernels, rand_words
 
 PERM_SIZES = [64, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 1 << 20]
@@ -91,6 +97,52 @@ def probe_sponge_groups(lib, rng, rate):
                   f"{ms:.4f} ms, share {bound / ms:.3f}; {tuple(group[0].shape)} alone {one:.4f} ms")
 
 
+# the main path's Horner sums at batch 1024, 28 queries: (what, rows of
+# values, K, base-field values, base-field point, v_rep, p_rep, column stride 2)
+HORNER_SHAPES = [
+    ("combineInitial's g0", 28672, 254, True, False, 1, 28, False),
+    ("the reduced opening y0", 1024, 254, False, False, 1, 1, True),
+    ("a coset fold", 28672, 16, False, False, 1, 28, False),
+    ("the final polynomial", 1024, 16, False, True, 28, 1, False),
+    ("horner_scaled", 1024, 42, False, True, 2, 1, False),
+]
+
+
+def probe_field(lib, rng, rate):
+    """The Horner sum at HORNER_SHAPES and the gate program at 1024 lanes,
+    each timed beside its bound: by events, on the device
+    (bench_poseidon.device_ms) and the host's time to enqueue a call."""
+    from ..compiler.gates_torch import GateProgram, step_barriers
+    from .check_field_kernels import gate_inputs, gate_programs
+
+    for what, rows, k, base_v, base_p, v_rep, p_rep, strided in HORNER_SHAPES:
+        n = rows * v_rep
+        v = tf.from_u64(rand_words(rng, (rows, k, 2)), "cuda")
+        v_re, v_im = (v[..., 0], v[..., 1]) if strided else (v[..., 0].contiguous(), v[..., 1].contiguous())
+        v_im = None if base_v else v_im
+        p = tf.from_u64(rand_words(rng, (n // p_rep, 2)), "cuda")
+        p_re, p_im = p[:, 0], None if base_p else p[:, 1]
+        args = (v_re, v_im, p_re, p_im, v_rep, p_rep)
+        bound = cs.field_bound_ms(*cs.horner_work(args), rate)[0]
+        run = lambda: lib.horner(*args)
+        dev = device_ms(run, 20, 3)
+        print(f"horner {what} ({rows} x {v_rep}, {k}), S = {kernels.horner_segments(n, k, lib.sms)}, bound {bound:.4f} ms: "
+              f"by events {event_ms(run, 20, 3):.4f} ms, device {dev:.4f} ms (share {bound / dev:.3f}), the host's enqueue {_host_ms(run, 20):.4f} ms")
+    for name, lp in gate_programs():
+        if name not in ("fibonacci", "gate zoo"):
+            continue
+        prog = GateProgram(lp, "cuda")
+        packed = prog.pack()
+        inputs, views = gate_inputs(rng, lp, 1024, "cuda")
+        bound = cs.field_bound_ms(*cs.gate_work(packed, inputs), rate)[0]
+        plan = lib.gate_plan(1024, packed)
+        run = lambda: lib.gate_program(views, packed)
+        dev = device_ms(run, 20, 3)
+        print(f"gate_program {name}: {packed.n_steps} steps, {packed.n_slots} slots, the library's plan {plan}, "
+              f"{step_barriers(packed.step_off.cpu().numpy(), plan['lanes'])} block barriers, bound {bound:.4f} ms: "
+              f"by events {event_ms(run, 20, 3):.4f} ms, device {dev:.4f} ms (share {bound / dev:.3f}), the host's enqueue {_host_ms(run, 20):.4f} ms")
+
+
 def cycles_probe() -> str:
     """Build csrc/probe_cycles.cu into csrc/_build/ and return its output."""
     nvcc = kernels._nvcc()
@@ -115,6 +167,10 @@ def main():
     check_kernels(lib, consts, n_random=5000)
 
     rng = np.random.default_rng(3)
+    if "--field" in sys.argv[1:]:
+        probe_field(lib, rng, rate)
+        print(f"card: {smi}")
+        return
     for n in PERM_SIZES:
         x = tf.from_u64(rand_words(rng, (n, 12)), "cuda")
         ms = {f: event_ms(lambda: lib.permutation(x, f), 50, 5) for f in ("thread", "split")}
@@ -140,6 +196,7 @@ def main():
         ms, bound = event_ms(lambda: lib.sponge_rows(rows, width), 20, 3), cs.bound_ms(n * -(-width // 8), 0, rate)[0]
         print(f"sponge_rows ({n}, {width}): {ms:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f}")
     probe_sponge_groups(lib, rng, rate)
+    probe_field(lib, rng, rate)
 
     print(cycles_probe())
     counts = kernels.sass_instruction_count()

@@ -239,7 +239,9 @@ class TorchVerifier(nn.Module):
             if len(slots) > n_gc:
                 raise ValueError(f"gate {gi} has {len(slots)} constraints, above num_gate_constraints {n_gc}")
             padded[k, : len(slots)] = slots
-        self.register_buffer("_gate_out_slots", torch.from_numpy(padded.reshape(-1)).to(device))
+        self._gate_out_slots = padded.reshape(-1)
+        # the kernel's program for this gather, packed once (the CPU path runs the padded arrays)
+        self._gate_packed = self.gates.pack(self._gate_out_slots) if self._k_is.device.type == "cuda" else None
 
         # selector factor matrices (Gate/Selector.hs:78-95): per gate,
         # (UNUSED if several groups) and every other index of its group
@@ -454,7 +456,7 @@ class TorchVerifier(nn.Module):
         }
         n_gc = common.num_gate_constraints
         live = self._live_gates
-        cons_all = self.gates(inputs, (B,), out_slots=self._gate_out_slots).reshape(B, len(live), n_gc)
+        cons_all = self.gates(inputs, (B,), out_slots=self._gate_out_slots, packed=self._gate_packed).reshape(B, len(live), n_gc)
         acc = tf.ext_zeros((B, n_gc), dev)
         if live:
             sel_live = sel_values[:, live]

@@ -19,6 +19,7 @@ import torch
 
 from plonky2_verifier_tpu.__main__ import main as ref_main
 from plonky2_verifier_tpu_torch.__main__ import main
+from torch_threads import child_env, one_torch_thread  # noqa: F401  (one_torch_thread: autouse)
 
 CPU = ["--device", "cpu"]
 
@@ -152,8 +153,7 @@ def test_cli_stream_as_two_processes(prefix, tmp_path, capsys, corrupt):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = []
     for rank in range(2):
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        env.update(P2V_DISTRIBUTED="1", MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank), OMP_NUM_THREADS="1")
+        env = child_env(P2V_DISTRIBUTED="1", MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank))
         cmd = [sys.executable, "-m", "plonky2_verifier_tpu_torch"] + args
         procs.append(subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:

@@ -13,6 +13,7 @@ import pytest
 from plonky2_verifier_tpu.golden import field as gf
 from plonky2_verifier_tpu.ops import field as jf
 from plonky2_verifier_tpu_torch.ops import field as tf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 P = gf.P
 EDGE = np.array([0, 1, 2, P - 1, P - 2, 2**32 - 1, 2**32, 2**32 + 1, 2**63, P - 2**32], dtype=np.uint64)

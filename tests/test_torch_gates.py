@@ -12,7 +12,11 @@ must read only slots written before it (the kernel runs a level's adds and
 multiplies as one pass), every node slot must be written exactly once; and
 a Python-int interpreter of the compact lists on golden/field
 (`tools/check_field_kernels.golden_gate_program`) must equal
-`GateProgram.forward_plain` on random lanes with words x + p among them."""
+`GateProgram.forward_plain` on random lanes with words x + p among them.
+The program as the kernel runs it (`gates_torch.pack_program`: its own
+schedule, a tape packed by liveness, outputs stored as they are made) must
+give those words too, read each operand from a slot that holds it, store
+every column once, and fit its stated tape."""
 
 import os
 
@@ -32,7 +36,15 @@ from plonky2_verifier_tpu.types import CommonCircuitData, load_common
 from plonky2_verifier_tpu_torch.compiler import gates_torch, levelize
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.tools import shape_circuits
-from plonky2_verifier_tpu_torch.tools.check_field_kernels import golden_gate_program, words
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
+    gate_inputs,
+    gate_programs,
+    golden_gate_program,
+    golden_packed_program,
+    verifier_like_gather,
+    words,
+)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARRAYS = ("lit_values", "add_src1", "add_src2", "add_sign", "add_dst", "mul_src1", "mul_src2", "mul_dst", "out_slots")
 FIXTURES = {
@@ -174,8 +186,118 @@ def test_compact_interpreter_equals_forward_plain(all_programs):
     got = prog.forward_plain(inputs, (B,))
     views = [(lp.input_slots[k][0], inputs[k].re, inputs[k].im) if lp.input_slots[k][1] else (lp.input_slots[k][0], None, None)
              for k in gates_torch.INPUT_KINDS]
-    want = golden_gate_program(views, prog.lit_values, prog.k_add_off, prog.k_adds, prog.k_mul_off, prog.k_muls, prog.k_out_slots, lp.n_tape)
+    ops = gates_torch.compact_ops(lp)
+    want = golden_gate_program(views, prog.lit_values, ops["add_off"], ops["adds"], ops["mul_off"], ops["muls"], lp.out_slots, lp.n_tape)
     assert torch.equal(got.re, want[0]) and torch.equal(got.im, want[1])
     again = prog(inputs, (B,))  # forward takes the plain loop for CPU tensors
     assert (again.re == got.re).all() and (again.im == got.im).all()
 
+
+
+# The packed programs' shape, as pack_program gives it today: (steps, tape
+# slots a lane, block barriers a block of the lanes the library gives 1024
+# lanes on 132 SMs: 8 for every program, its ops staged beside the tapes).
+# Steps of at most 64 ops spread the zoo's wide levels over its narrow
+# chain: 15 of its 125 steps fit a warp, where 70 did under a cap of 128. Under the levels the zoo's tape needed 7,849 slots, or
+# 3,134 with every slot freed after its last read; packed it fits 8 lanes
+# and more in a block's 227 KB.
+PACKED = {
+    "fibonacci": (4, 126, 5),
+    "poseidon_chain": (68, 980, 69),
+    "gate zoo": (125, 1019, 112),
+    "fuzz 13": (68, 1008, 69),
+    "fuzz 23": (16, 250, 17),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(PACKED))
+def gate_program(request):
+    (lp,) = [lp for name, lp in gate_programs() if name == request.param]
+    return request.param, lp
+
+
+def _gathers(lp):
+    return [("own", lp.out_slots), ("verifier-like", verifier_like_gather(lp))]
+
+
+def test_packed_program_equals_golden_and_forward_plain(gate_program):
+    """The packed program run in Python ints (golden_packed_program, which
+    also raises where a step reads a slot it writes, or a column is stored
+    twice or never) equals golden_gate_program on the compact lists and
+    forward_plain, on lanes with the edge band and words x + p, for the
+    program's outputs and for a verifier-like gather (zeros, a slot twice,
+    an input, a literal)."""
+    name, lp = gate_program
+    B = 2
+    prog = gates_torch.GateProgram(lp, "cpu")
+    inputs, views = gate_inputs(np.random.default_rng(len(name)), lp, B, "cpu")
+    ops = gates_torch.compact_ops(lp)
+    for what, slots in _gathers(lp):
+        got = golden_packed_program(views, prog.pack(slots))
+        gold = golden_gate_program(views, prog.lit_values, ops["add_off"], ops["adds"], ops["mul_off"], ops["muls"], slots, lp.n_tape)
+        plain = prog.forward_plain(inputs, (B,), out_slots=slots)
+        assert torch.equal(got[0], gold[0]) and torch.equal(got[1], gold[1]), what
+        assert torch.equal(got[0], plain.re) and torch.equal(got[1], plain.im), what
+
+
+def test_packed_tape_holds_each_operand_when_read(gate_program):
+    """Symbolically, slot by slot: every op reads the tape slots that hold
+    its own operands at that step (so no slot is read before it is written
+    or after it is reused), no step writes a slot that it reads, every
+    column is stored exactly once with the slot it gathers, and the tape
+    has exactly as many slots as values are live at once."""
+    name, lp = gate_program
+    init = gates_torch.n_init(lp)
+    ops = gates_torch.compact_ops(lp)
+    compact = {int(d): (gates_torch.OP_SUB if neg else gates_torch.OP_ADD, int(s1), int(s2)) for s1, s2, neg, d in ops["adds"]}
+    compact.update({int(d): (gates_torch.OP_MUL, int(s1), int(s2)) for s1, s2, d, _ in ops["muls"]})
+    for what, slots in _gathers(lp):
+        p = gates_torch.pack_program(lp, slots)
+        tape = [None] * p["n_slots"]
+        for slot, src in p["loads"].tolist():
+            assert 0 < src < init and tape[slot] is None
+            tape[slot] = src
+        stored = [None] * len(slots)
+        live, peak = sum(1 for s in tape if s is not None), 0
+        last_read = {}  # program slot -> the last step that reads it
+        for t in range(len(p["step_off"]) - 1):
+            for d in p["origin"][p["step_off"][t] : p["step_off"][t + 1]].tolist():
+                last_read.update(dict.fromkeys(compact[d][1:], t))
+        decoded = gates_torch.decode_ops(p["ops"])
+        assert (gates_torch.encode_ops(decoded) == p["ops"]).all()
+        for t in range(len(p["step_off"]) - 1):
+            rows = decoded[p["step_off"][t] : p["step_off"][t + 1]].tolist()
+            origin = p["origin"][p["step_off"][t] : p["step_off"][t + 1]].tolist()
+            written = [r[2] for r in rows if r[2] != gates_torch.NO_SLOT]
+            assert not {x for r in rows for x in r[:2]} & set(written) and len(set(written)) == len(written), (what, t)
+            for (x, y, dst, kind, col), d in zip(rows, origin):
+                assert (kind, tape[x], tape[y]) == compact[d], (what, t, d)
+                if col >= 0:
+                    assert stored[col] is None and int(slots[col]) == d
+                    stored[col] = d
+            for (_, _, dst, _, _), d in zip(rows, origin):
+                if dst != gates_torch.NO_SLOT:
+                    tape[dst] = d
+            peak = max(peak, live + len(written))
+            live = sum(1 for s in set(tape) if s is not None and last_read.get(s, -1) > t)
+        for col, src in p["tail"].tolist():
+            assert stored[col] is None
+            stored[col] = src if src >= 0 else stored[-src - 1]
+        assert stored == [int(s) for s in slots], what
+        assert p["n_slots"] == peak, (what, p["n_slots"], peak)
+
+
+def test_packed_programs_fit_several_lanes_a_block(gate_program):
+    """The stated steps, tape slots and block barriers of each program:
+    every step within STEP_OPS ops, no more steps than levels or ops over
+    STEP_OPS allow twice over, and every tape within 28 KB a lane (8 lanes
+    in a block's 227 KB)."""
+    name, lp = gate_program
+    p = gates_torch.pack_program(lp, lp.out_slots)
+    program = 8 * len(p["ops"]) + 4 * len(p["step_off"])  # staged beside the tapes in 227 KB
+    most = max(1, min(32, -(-1024 // 132), (232448 - program) // (16 * p["n_slots"])))
+    lanes = 1 << (most.bit_length() - 1)  # kernels.KernelLibrary.gate_plan
+    got = (len(p["step_off"]) - 1, p["n_slots"], gates_torch.step_barriers(p["step_off"], lanes))
+    assert got == PACKED[name]
+    assert np.diff(p["step_off"]).max() <= gates_torch.STEP_OPS
+    assert got[0] <= 2 * max(lp.n_levels, -(-len(p["ops"]) // gates_torch.STEP_OPS)) and 16 * got[1] <= 28 * 1024

@@ -18,8 +18,10 @@ version of its interface. The same for the exponentiations
 axis reach the kernel as one row and as repeated rows, never copied;
 `ext_pow_const` at e = 0 and 1 answers without the library) and the gate
 program (`GateProgram._forward_kernel`: the inputs' views at their strides,
-the compact op lists, the verifier's padded slots). Tolerance: bit-exact.
-No verifier forward."""
+the program packed for the verifier's padded slots). The Horner kernel's
+own order of products and adds (`horner_split_plain`, every segment count)
+against the plain chain, and the rule that picks the segments. Tolerance:
+bit-exact. No verifier forward."""
 
 import numpy as np
 import pytest
@@ -34,10 +36,12 @@ from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops.field import GExt
 from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
     gate_programs,
-    golden_gate_program,
+    golden_packed_program,
+    horner_split_plain,
     horner_rows_plain,
     pow_rows_plain,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 P = tf.P
 EDGE = np.array([0, 1, 2, P - 1, P - 2, 2**32 - 1, 2**32, 2**32 + 1, 2**63, P - 2**32], dtype=np.uint64)
@@ -126,6 +130,39 @@ def test_inv_of_zero_is_zero():
     assert jf.to_u64(jf.inv(jf.from_u64(zero))).tolist() == [0, 0]
 
 
+@pytest.mark.parametrize("segments", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 33, 254])
+def test_horner_split_order_equals_the_plain_order(k, segments):
+    """The Horner kernel's order (check_field_kernels.horner_split_plain: a
+    row's columns s, s + S, ... a segment in point^S, then a tree over the
+    segments) gives the plain chain's words, every flag pair, on the edge
+    band and words x + p, the point x + p too."""
+    v, pt = _ext_np(50 + k, (3, k)), _ext_np(60 + segments, (3,))
+    for base_v in (False, True):
+        for base_p in (False, True):
+            args = (tf.from_u64(v[0], "cpu"), None if base_v else tf.from_u64(v[1], "cpu"),
+                    tf.from_u64(pt[0], "cpu"), None if base_p else tf.from_u64(pt[1], "cpu"))
+            got = horner_split_plain(*args, segments=segments)
+            want = vt.horner_ext_plain(vt.as_ext(args[0] if base_v else GExt(args[0], args[1])),
+                                       vt.as_ext(args[2] if base_p else GExt(args[2], args[3])))
+            assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im), (base_v, base_p)
+
+
+def test_horner_segments_at_the_verifier_shapes():
+    """The rule that picks a row's segments (kernels.horner_segments) at the
+    main path's sums, batch 1024 on 132 SMs: combineInitial's g0 2, the
+    reduced opening y0 32, horner_scaled 8, a coset fold, the final
+    polynomial and the quotient 2, g1 and y1 1; always a power of two up to
+    32, every segment at least 4 values, and no doubling once the rows'
+    threads reach 256 an SM."""
+    picks = {(28672, 254): 2, (1024, 254): 32, (28672, 16): 2, (2048, 8): 2, (28672, 2): 1, (1024, 2): 1, (2048, 42): 8}
+    assert {shape: kernels.horner_segments(*shape, 132) for shape in picks} == picks
+    for rows in (0, 1, 7, 1024, 10**6):
+        for k in (0, 1, 8, 15, 16, 255, 256, 10**4):
+            s = kernels.horner_segments(rows, k, 132)
+            assert s in (1, 2, 4, 8, 16, 32) and (s == 1 or (s * 4 <= k and s // 2 * rows < 132 * 256))
+
+
 class _RowsLibrary:
     """The kernel library's `horner` by the plain version, recording what
     each call was given."""
@@ -198,10 +235,10 @@ class _FieldLibrary:
                            "exponent": exponent if isinstance(exponent, int) else tuple(exponent.shape), "n_bits": n_bits})
         return pow_rows_plain(b_re, b_im, exponent, n_bits, b_rep)
 
-    def gate_program(self, inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape):
+    def gate_program(self, inputs, packed):
         self.calls.append({"strides": [None if re is None else (re.stride(), im.stride()) for _, re, im in inputs],
-                           "adds": adds.shape[0], "muls": muls.shape[0], "out": out_slots.shape[0], "n_tape": n_tape})
-        return golden_gate_program(inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape)
+                           "ops": packed.ops.shape[0], "out": packed.n_out, "n_slots": packed.n_slots})
+        return golden_packed_program(inputs, packed)
 
 
 def _pow_layouts():
@@ -266,14 +303,17 @@ def test_card_path_gate_program_views_and_slots(monkeypatch):
         inputs[kind] = GExt(t[..., 0], t[..., 1])
     slots = torch.tensor([0, int(lp.out_slots[3]), 0, int(lp.out_slots[0])], dtype=torch.int32)
     for kwargs in ({}, {"per_prog": True}, {"out_slots": slots}):
-        got = prog._forward_kernel(inputs, (B,), **kwargs)
+        packed = {"packed": prog.pack(slots)} if "out_slots" in kwargs else {}  # as the verifier passes its own
+        got = prog._forward_kernel(inputs, (B,), **kwargs, **packed)
         want = prog.forward_plain(inputs, (B,), **kwargs)
         for g, w in zip(got if isinstance(got, list) else [got], want if isinstance(want, list) else [want]):
             assert torch.equal(g.re, w.re) and torch.equal(g.im, w.im)
     assert not (got.re[:, 0].any() or got.im[:, 2].any())
     ops = gates_torch.compact_ops(lp)
     assert lib.calls[0] == {"strides": [None if not lp.input_slots[k][1] else ((2 * lp.input_slots[k][1], 2),) * 2 for k in gates_torch.INPUT_KINDS],
-                            "adds": len(ops["adds"]), "muls": len(ops["muls"]), "out": len(lp.out_slots), "n_tape": lp.n_tape}
+                            "ops": len(ops["adds"]) + len(ops["muls"]), "out": len(lp.out_slots), "n_slots": prog.pack().n_slots}
     assert [c["out"] for c in lib.calls] == [len(lp.out_slots)] * 2 + [4]
     with pytest.raises(ValueError):
         prog(inputs, (B,), per_prog=True, out_slots=slots)
+    with pytest.raises(ValueError, match="packed"):
+        prog._forward_kernel(inputs, (B,), out_slots=slots)

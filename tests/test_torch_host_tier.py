@@ -29,6 +29,7 @@ from plonky2_verifier_tpu_torch.golden.verifier import verify_proof
 from plonky2_verifier_tpu_torch.models import cache
 from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
 from plonky2_verifier_tpu_torch.prover.prove import prove
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 COPIED = (
     ["types.py", "gate_parser.py", "gates.py", "compiler/template.py", "compiler/flatten.py", "metrics.py"]

@@ -29,6 +29,7 @@ from plonky2_verifier_tpu_torch import verifier_torch as vt
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
+from torch_threads import child_env, one_torch_thread  # noqa: F401  (one_torch_thread: autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
@@ -87,7 +88,7 @@ def test_import_loads_no_jax(module):
         f"bad = {_LOADED_FORBIDDEN}\n"
         "assert not bad, bad\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = child_env()
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 
@@ -175,7 +176,7 @@ def test_chip_smoke_main_path_rehearsal_loads_no_jax():
     replaced by counters around the plain versions: every phase passes, the
     launch checks hold, and no forbidden module was loaded."""
     code = REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = child_env()
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "rejected lanes [0, 1, 2, 3, 4, 5]\n" in res.stdout
@@ -223,7 +224,7 @@ def test_chip_smoke_serving_phases_rehearsal_loads_no_jax():
     the plain versions: every phase passes, the launch checks hold, the native
     ingest built in the port's own folder ran, no forbidden module was loaded."""
     code = SERVING_REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = child_env()
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
     assert res.returncode == 0, res.stdout + res.stderr
     final = json.loads(next(l for l in res.stdout.splitlines() if l.startswith("stream: final ")).removeprefix("stream: final "))
@@ -269,7 +270,7 @@ def test_chip_smoke_mesh_and_profile_rehearsal_loads_no_jax(tmp_path):
     file: spawned children import their parent's main module by its path."""
     script = tmp_path / "rehearse_mesh.py"
     script.write_text(MESH_REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN))
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = child_env()
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -284,12 +285,12 @@ import sys, torch
 from plonky2_verifier_tpu_torch import kernels, verifier_torch as vt
 from plonky2_verifier_tpu_torch.compiler.gates_torch import INPUT_KINDS, GateProgram
 from plonky2_verifier_tpu_torch.ops import field as tf
-from plonky2_verifier_tpu_torch.tools.check_field_kernels import gate_programs, golden_gate_program, horner_rows_plain, pow_rows_plain
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import gate_programs, golden_packed_program, horner_rows_plain, pow_rows_plain
 
 class Lib:  # the library's field entry points by their plain versions
     horner = staticmethod(horner_rows_plain)
     pow = staticmethod(pow_rows_plain)
-    gate_program = staticmethod(golden_gate_program)
+    gate_program = staticmethod(golden_packed_program)
 
 (_, lp), = [p for p in gate_programs() if p[0] == "fibonacci"]
 prog = GateProgram(lp, "cpu")
@@ -309,7 +310,7 @@ def test_card_paths_import_nothing_at_their_first_call():
     with the library's plain stand-ins, load no sympy: torch.broadcast_shapes
     imports torch.fx's symbolic shapes at its first call, which cost a fresh
     process ~3 s of its first verifier call on the card."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = child_env()
     res = subprocess.run([sys.executable, "-c", CARD_PATHS], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from plonky2_verifier_tpu_torch import verifier_torch as vt
+from plonky2_verifier_tpu_torch.kernels import horner_segments
 from plonky2_verifier_tpu_torch.golden import field as gf
 from plonky2_verifier_tpu_torch.golden import hashing as gh
 from plonky2_verifier_tpu_torch.golden import poseidon as gp
@@ -23,8 +24,15 @@ from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.ops.field import GExt
-from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
-from plonky2_verifier_tpu_torch.tools.check_field_kernels import gate_inputs, gate_programs, golden_gate_program, horner_rows_plain
+from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram, compact_ops
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
+    gate_inputs,
+    gate_programs,
+    golden_gate_program,
+    horner_rows_plain,
+    verifier_like_gather,
+)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 P = tf.P
@@ -183,13 +191,24 @@ def test_inv_kernel(lib):
     assert lib.inv(a[:0]).shape == (0,)
 
 
+# (rows, K, v_rep, p_rep, the segments a row kernels.horner_segments picks on
+# the H100's 132 SMs): every count from 1 to 32 by K on few rows, and by the
+# rows' threads at 4,116 and 28,672 rows
+HORNER_KERNEL_SHAPES = [
+    (97, 254, 1, 1, 32), (33, 31, 3, 1, 4), (28, 32, 1, 7, 8), (5, 33, 4, 20, 8), (37, 1, 1, 1, 1), (37, 0, 1, 1, 1),
+    (0, 5, 1, 1, 1), (40, 11, 1, 1, 2), (40, 67, 1, 1, 16), (147, 254, 28, 1, 16), (28672, 40, 1, 28, 2),
+]
+
+
 @pytest.mark.parametrize("base_values,base_point", [(False, False), (True, False), (False, True), (True, True)])
-@pytest.mark.parametrize("rows,k,v_rep,p_rep", [(97, 254, 1, 1), (33, 31, 3, 1), (28, 32, 1, 7), (5, 33, 4, 20), (37, 1, 1, 1), (37, 0, 1, 1), (0, 5, 1, 1)])
-def test_horner_kernel(lib, base_values, base_point, rows, k, v_rep, p_rep):
-    """Both flags, widths around the 32-column chunk, K = 0 (zeros), no rows
-    (no launch) and repeated rows (v_rep, p_rep), on non-canonical words:
-    the plain version, and golden/ on the first row."""
+@pytest.mark.parametrize("rows,k,v_rep,p_rep,segments", HORNER_KERNEL_SHAPES)
+def test_horner_kernel(lib, base_values, base_point, rows, k, v_rep, p_rep, segments):
+    """Both flags, widths around a warp's 32 lanes, K = 0 (zeros), no rows
+    (no launch) and repeated rows (v_rep, p_rep), on non-canonical words, at
+    shapes where the library picks each segment count a row: the plain
+    version, and golden/ on the first row."""
     n = rows * v_rep
+    assert horner_segments(n, k, lib.sms) == segments
     v_re, v_im = _noncanonical(rows + k, (rows, k)), None if base_values else _noncanonical(rows + k + 1, (rows, k))
     p_re, p_im = _noncanonical(n + 2, (n // p_rep,)), None if base_point else _noncanonical(n + 3, (n // p_rep,))
     before = lib.launches["horner"]
@@ -375,40 +394,66 @@ def test_pow_kernel(lib, ext, dynamic, rows, rep):
                 lib.pow(b_re, b_im, e)
 
 
+@pytest.mark.parametrize("gather", ["own", "verifier-like"])
 @pytest.mark.parametrize("form", ["shared", "global"])
-@pytest.mark.parametrize("batch", [37, 300, 1030, 1, 0])
+@pytest.mark.parametrize("batch", [37, 300, 400, 1030, 2112, 4225, 1, 0])
 @pytest.mark.parametrize("name", ["fibonacci", "gate zoo", "fuzz 13"])
-def test_gate_program_kernel(lib, name, batch, form):
-    """The fibonacci, gate-zoo and fuzz-13 programs in both forms, at
-    batches whose lanes a block do and do not divide them (fibonacci: 1, 3
-    and 8 lanes a block, the last block of 1030 holding 6), B = 0: the
-    padded plain loop, and golden/ on lane 0."""
+def test_gate_program_kernel(lib, name, batch, form, gather):
+    """The fibonacci, gate-zoo and fuzz-13 programs, packed for their own
+    outputs and for a verifier-like gather (zeros, a slot twice, an input,
+    a literal), in both forms, at batches whose lanes a block do and do not
+    divide them (fibonacci's 1 to 32 lanes a block), B = 0: the padded
+    plain loop, and golden/ on lane 0."""
     (_, lp), = [p for p in gate_programs() if p[0] == name]
     prog = GateProgram(lp, "cuda")
+    slots = lp.out_slots if gather == "own" else verifier_like_gather(lp)
     inputs, views = gate_inputs(np.random.default_rng(batch), lp, batch, "cuda")
-    args = (prog.lit_values, prog.k_add_off, prog.k_adds, prog.k_mul_off, prog.k_muls, prog.k_out_slots, lp.n_tape)
     before = lib.launches["gate_program"]
-    got = lib.gate_program(views, *args, form=form)
+    got = lib.gate_program(views, prog.pack(slots), form=form)
     assert lib.launches["gate_program"] == before + (1 if batch else 0)
-    want = prog.forward_plain(inputs, (batch,))
+    want = prog.forward_plain(inputs, (batch,), out_slots=slots)
     assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
     if batch:
-        gold = golden_gate_program([(o, None if re is None else re[:1], None if im is None else im[:1]) for o, re, im in views], *args)
+        ops = compact_ops(lp)
+        gold = golden_gate_program([(o, None if re is None else re[:1], None if im is None else im[:1]) for o, re, im in views],
+                                   prog.lit_values, ops["add_off"], ops["adds"], ops["mul_off"], ops["muls"], slots)
         assert torch.equal(got[0][:1], gold[0]) and torch.equal(got[1][:1], gold[1])
 
 
+@pytest.mark.parametrize("name,batch,lanes,threads", [
+    ("gate zoo", 100, 1, 64), ("gate zoo", 200, 2, 128), ("gate zoo", 400, 4, 256), ("gate zoo", 1024, 8, 512), ("gate zoo", 4225, 8, 512),
+    ("fibonacci", 2112, 16, 1024), ("fibonacci", 4225, 32, 1024),
+])
+def test_gate_program_lanes_and_threads(lib, name, batch, lanes, threads):
+    """The lanes and threads a block that the library's rule gives a batch
+    on the H100's 132 SMs (the zoo's tape allows 8 lanes a block, the
+    fibonacci program's 32): the same words as the plain loop; narrow steps
+    do and do not fit one warp."""
+    (_, lp), = [p for p in gate_programs() if p[0] == name]
+    prog = GateProgram(lp, "cuda")
+    packed = prog.pack()
+    plan = lib.gate_plan(batch, packed)
+    assert (plan["lanes"], plan["threads"]) == (lanes, threads)
+    inputs, views = gate_inputs(np.random.default_rng(batch), lp, batch, "cuda")
+    got = lib.gate_program(views, packed)
+    want = prog.forward_plain(inputs, (batch,))
+    assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
+
+
 def test_gate_program_forms_agree_at_the_verifier_batch(lib):
-    """The zoo's program at 1024 lanes: the form the wrapper picks (shared,
-    a lane a block), the global form forced, and the plain loop agree; a
-    tape above a block's shared memory takes the global form, and forcing
-    the shared one on it raises."""
+    """The zoo's program at 1024 lanes: the form the wrapper picks (shared),
+    the global form forced, and the plain loop agree; a tape above a
+    block's shared memory takes the global form, and forcing the shared one
+    on it raises."""
+    import dataclasses
+
     (_, lp), = [p for p in gate_programs() if p[0] == "gate zoo"]
     prog = GateProgram(lp, "cuda")
     inputs, views = gate_inputs(np.random.default_rng(1024), lp, 1024, "cuda")
-    args = (views, prog.lit_values, prog.k_add_off, prog.k_adds, prog.k_mul_off, prog.k_muls, prog.k_out_slots)
     want = prog.forward_plain(inputs, (1024,))
-    big = lib.gate_smem_limit // 16 + 1  # slots; those past the program's are never written or read
-    for got in (lib.gate_program(*args, lp.n_tape), lib.gate_program(*args, lp.n_tape, form="global"), lib.gate_program(*args, big)):
+    packed = prog.pack()
+    big = dataclasses.replace(packed, n_slots=lib.gate_smem_limit // 16 + 1, args=None)  # slots past the packed ones are never written or read
+    for got in (lib.gate_program(views, packed), lib.gate_program(views, packed, form="global"), lib.gate_program(views, big)):
         assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
     with pytest.raises(ValueError, match="shared memory"):
-        lib.gate_program(*args, big, form="shared")
+        lib.gate_program(views, big, form="shared")

@@ -40,6 +40,7 @@ from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops.field import GExt, to_u64
 from plonky2_verifier_tpu_torch.prover.prove import prove
 from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier, verify_batch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = {"num_query_rounds": 4, "proof_of_work_bits": 4}
 FIXTURES = {"lookup": lookup_fixture, "multi_lookup": multi_lookup_fixture}

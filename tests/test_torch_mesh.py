@@ -21,6 +21,7 @@ from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
 from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
 from plonky2_verifier_tpu_torch.parallel import Mesh, ShardedVerifier, init_distributed, make_mesh, run_ranks
 from plonky2_verifier_tpu_torch.verifier_torch import QUERY_AXIS_ARRAYS, TorchVerifier, is_query_axis_array
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KEYS = ("ok", "eqs_ok", "fri_ok")
 

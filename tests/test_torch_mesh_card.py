@@ -17,6 +17,7 @@ from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
 from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
 from plonky2_verifier_tpu_torch.parallel import run_ranks, verify_sharded
 from plonky2_verifier_tpu_torch.prover.prove import prove
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 

@@ -21,6 +21,7 @@ from plonky2_verifier_tpu_torch import types as pt
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
 from plonky2_verifier_tpu_torch.native import flatten_proof_jsons, get_fastload
 from plonky2_verifier_tpu_torch.parallel.stream import BucketedStreamVerifier, StreamVerifier, template_key
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.verifier_torch import merkle_batched
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 P = gf.P
 EDGE = np.array([0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1], dtype=np.uint64)

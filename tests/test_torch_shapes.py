@@ -33,6 +33,7 @@ from shape_grid_check import tiny_fixture
 from test_fuzz_circuits import _random_circuit
 from test_shape_grid import GRID
 from test_torch_verifier import _debug_pairs
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CIRCUITS = [("grid", pt_) for pt_ in GRID] + [("fuzz", seed) for seed in (13, 23)]
 

@@ -30,6 +30,7 @@ from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
 from plonky2_verifier_tpu_torch.metrics import perms_per_proof
 from plonky2_verifier_tpu_torch.parallel import BucketedStreamVerifier, StreamVerifier, make_mesh, run_ranks, template_key
 from plonky2_verifier_tpu_torch.tools.stream_verify import stream_rank
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 COUNTS = ("proofs", "accepted", "rejected", "batches")
 MESH_TIMEOUT_S = 240  # a spawned group that takes longer is killed and fails its test alone

@@ -20,6 +20,7 @@ from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
 from plonky2_verifier_tpu_torch.models.fibonacci import fibonacci_fixture
 from plonky2_verifier_tpu_torch.parallel.stream import BucketedStreamVerifier, StreamVerifier, template_key
 from plonky2_verifier_tpu_torch.prover.prove import prove
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 CORRUPT_AT = (1, 6, 7, 12, 17)  # of 18 proofs at batch 4: 1, 2, 0, 1 and (2 live, the pad source corrupt) 1

@@ -17,6 +17,7 @@ import torch
 
 from plonky2_verifier_tpu_torch import graft_entry
 from plonky2_verifier_tpu_torch.tools import bench_poseidon, check_hash_kernels, lookup_device_check, profile_verifier
+from torch_threads import child_env, one_torch_thread  # noqa: F401  (one_torch_thread: autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,7 +62,7 @@ def test_dryrun_multichip_four_processes(capsys):
 def test_distributed_dryrun_two_processes_on_the_cpu(tmp_path):
     out = tmp_path / "report.json"
     cmd = [sys.executable, "-m", "plonky2_verifier_tpu_torch.tools.distributed_dryrun", "--nproc", "2", "--device", "cpu", "--out", str(out)]
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = child_env()
     res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
     assert res.returncode == 0, res.stdout + res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
@@ -80,7 +81,7 @@ def test_distributed_dryrun_needs_a_card_of_its_own_for_every_rank():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
     cmd = [sys.executable, "-m", "plonky2_verifier_tpu_torch.tools.distributed_dryrun", "--nproc", "2"]
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = child_env()
     res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
     assert res.returncode != 0 and res.stdout.strip() == ""
     assert "2 ranks need a CUDA card each and this host has 0" in res.stderr

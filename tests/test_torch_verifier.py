@@ -55,6 +55,7 @@ from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.ops.field import to_u64
 from plonky2_verifier_tpu_torch.parallel import run_ranks, verify_sharded
 from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier, verify_batch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HETERO = [(1, 2), (3, 5), (10, 11), (7, 1)]
 MUTATED = ["openings1", "pow_witness", "leaves_1", "final_poly", "public_inputs", "circuit_digest"]

@@ -29,10 +29,15 @@ success):
    one-matrix entry point and against golden/; the transcript-scan entry
    point against the plain loop on a real schedule at batch 1, 5 and 1024,
    and lane 0 against golden/; the Fermat inversion on 2^20 random words,
-   the edge band and words x + p, the Horner sum with both of its flags,
+   the edge band and words x + p, and its grouped form (the batch trick)
+   on the same words and on lengths around its group with a zero and a p in
+   every position of a group, the Horner sum with both of its flags,
    repeated rows, column stride 2, K = 0 and no rows, the exponentiations
    on 2^20 words in every flag pair (exponents 0, 1, 2^n - 1 and random; a
-   scalar and a repeated base), and the gate program of the fibonacci,
+   scalar and a repeated base) and in their grouped form (fixed-generator
+   segments as the verifier makes them, from a table of 2^k powers, beside
+   extension bases at host exponents, in one launch and apart), and the
+   gate program of the fibonacci,
    poseidon_chain, gate-zoo and fuzz 13 / 23 circuits in both of its forms
    (the tapes in shared memory, in device scratch), at batches whose lanes
    a block do and do not divide them and at B = 0
@@ -47,11 +52,10 @@ success):
    run the scan was launched at least once and the sponge and Merkle kernels
    more than zero times (the sponge twice: the public-input hash and one
    grouped launch for every leaf hash), the Horner sum exactly 7 times and
-   once a fold step, the inversion 3 times and once a fold step, the
-   exponentiations 2 times and once a fold step plus once for each of
-   zeta^n and alpha^(n_zs + n_lookup) whose exponent is at least 2, and the
-   gate program once (`_field_launches`; every path below checks these
-   counts too);
+   once a fold step, every inversion of a call in one grouped launch and
+   every exponentiation in another (the one-call inversion and
+   exponentiation never), and the gate program once (`_field_launches`;
+   every path below checks these counts too);
 5. kernel times at the main path's shapes (batch 1024), kernel and plain,
    each pair also compared bit for bit, each beside its bound (the integer
    work W of csrc/poseidon.cuh over the card's int32 rate at its maximum SM
@@ -59,11 +63,13 @@ success):
    permutation's step time in both forms at n = 64 ... 16384; the grouped
    sponge launch over the six row matrices of one verifier call, at the
    fibonacci path's widths and at the gate zoo's, beside the same matrices
-   hashed one launch each; every Horner sum and inversion of one main-path
-   call on its own arguments, each beside its plain version and its bound;
-   every exponentiation and the gate program of one main-path call and of
-   one gate-zoo call (batch 1024, random proof words), each beside its
-   plain version and its bound;
+   hashed one launch each; every Horner sum and the grouped inversion of
+   one main-path call on its own arguments, each beside its plain version
+   and its bound, the inversion also beside the same words inverted one
+   call a denominator as before it was grouped; the grouped exponentiation
+   and the gate program of one main-path call and of one gate-zoo call
+   (batch 1024, random proof words), each beside its plain version and its
+   bound, the exponentiation also beside one call a power;
 6. timing: 5 verifier calls after warm-up -> proofs/s, step ms, and the
    transcript alone;
 7. second path: the gate-zoo fixture with lookups (degree 12, 28 queries,
@@ -160,6 +166,7 @@ PROFILE = [("fibonacci", 1024), ("gate_zoo", 1024)]  # tools/profile_verifier.py
 # the H100's 3.35 TB/s beside it.
 W_INSTRUCTIONS = 19180
 INV_PRODUCTS = 72  # csrc/field.cu's chain for a^(p - 2): 63 squarings and 9 products
+POW_WINDOW = 8  # bits a table of the least work of a fixed-generator power (pow_grouped_work)
 # int32 instructions of a Goldilocks product and add (W's reckoning), and of the
 # extension ops built from them: an emul is 5 products and 2 adds
 PRODUCT, ADD = 16, 4
@@ -295,37 +302,45 @@ def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
 
     Q = queries or v.tpl.num_queries
     a = v.prepare(random_arrays(v.tpl, sum(batches), Q, rng))
-    targets = [(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv"), (tf, "pow_dynamic"), (tf, "ext_pow_const"), (GateProgram, "forward")]
+    targets = [(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv_grouped"), (tf, "pow_grouped"), (GateProgram, "forward")]
     calls = recorded_calls(targets, v, a, None if queries is None else slice(0, Q))
     gate = lambda prog, inputs, batch_shape, **kw: GateProgram.forward(prog, inputs, batch_shape, **kw)
     gate_plain = lambda prog, inputs, batch_shape, packed=None, **kw: prog.forward_plain(inputs, batch_shape, **kw)  # packed: the card's
     plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain,
-             "inv": tf.inv_plain, "pow_dynamic": tf.pow_dynamic_plain, "ext_pow_const": tf.ext_pow_const_plain, "forward": gate_plain}
-    wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv": tf.inv, "pow_dynamic": tf.pow_dynamic,
-               "ext_pow_const": tf.ext_pow_const, "forward": gate}
-    bucket = {"horner_ext": "horner", "horner_scaled": "horner", "inv": "inv", "pow_dynamic": "pow", "ext_pow_const": "pow", "forward": "gate_program"}
-    stack = lambda x: torch.stack([x.re, x.im], dim=1) if isinstance(x, tf.GExt) else x  # the batch axis first
+             "inv_grouped": tf.inv_grouped_plain, "pow_grouped": tf.pow_grouped_plain, "forward": gate_plain}
+    wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv_grouped": tf.inv_grouped, "pow_grouped": tf.pow_grouped,
+               "forward": gate}
+    bucket = {"horner_ext": "horner", "horner_scaled": "horner", "inv_grouped": "inv", "pow_grouped": "pow", "forward": "gate_program"}
 
     def cut(x, part, b):
-        """x's lanes `part`: a tensor's or GExt's first axis, a dict's values, the batch shape."""
+        """x's lanes `part`: a tensor's or GExt's first axis, a dict's, a list's or a segment's items, the batch shape."""
         if isinstance(x, dict):
             return {k: cut(y, part, b) for k, y in x.items()}
-        if isinstance(x, tuple):  # GateProgram.forward's batch shape
+        if isinstance(x, tuple) and all(isinstance(y, int) for y in x):  # GateProgram.forward's batch shape
             return (b,)
+        if isinstance(x, (list, tuple)):  # inv_grouped's parts, pow_grouped's (base, e) segments
+            return type(x)(cut(y, part, b) for y in x)
         return x[part] if isinstance(x, (torch.Tensor, tf.GExt)) else x
 
     def shape(x):
         if isinstance(x, dict):
             return {k: tuple(y.shape)[1:] for k, y in x.items()}
+        if isinstance(x, tf.GeneratorPower):
+            return f"g^({x.bits} bits)"
+        if isinstance(x, (list, tuple)) and not all(isinstance(y, int) for y in x):
+            return [shape(y) for y in x]
         return tuple(x.shape)[1:] if isinstance(x, (torch.Tensor, tf.GExt)) else x
 
     shapes = []
     for name, args, kwargs in calls:
-        want = stack(plain[name](*args, **kwargs))
+        want = output_tensors(plain[name](*args, **kwargs))
         described = [shape(x) for x in args if not isinstance(x, GateProgram)]
         for b, part in zip(batches, parts):
-            got = stack(wrapper[name](*(cut(x, part, b) for x in args), **kwargs))
-            checks[bucket[name]].compare(got, want[part], f"{what}: {name} at batch {b}, {described}")
+            got = output_tensors(wrapper[name](*(cut(x, part, b) for x in args), **kwargs))
+            if len(got) != len(want):
+                raise AssertionError(f"{what}: {name} at batch {b} gave {len(got)} outputs, the plain version {len(want)}")
+            for k, (g, w) in enumerate(zip(got, want)):
+                checks[bucket[name]].compare(g, w[part], f"{what}: {name} at batch {b}, {described}, output {k}")
         shapes.append(f"{'GateProgram.forward' if name == 'forward' else name} {described}")
     return shapes
 
@@ -408,7 +423,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     from plonky2_verifier_tpu_torch.ops import field as tf
     from plonky2_verifier_tpu_torch.ops import hash as th
     from plonky2_verifier_tpu_torch.ops import poseidon as tp
-    from plonky2_verifier_tpu_torch.kernels import horner_segments
+    from plonky2_verifier_tpu_torch.kernels import INV_GROUP, horner_segments
     from plonky2_verifier_tpu_torch.tools.bench_poseidon import device_ms, event_ms
     from plonky2_verifier_tpu_torch.tools.check_field_kernels import horner_rows_plain
     from plonky2_verifier_tpu_torch.tools.check_hash_kernels import rand_words
@@ -417,8 +432,11 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     tpl = v.tpl
     B, Q = BATCH, tpl.num_queries
 
-    def timed(name, what, kernel, plain, iters, bound, work: str, plain_iters=2):
+    def timed(name, what, kernel, plain, iters, bound, work: str, plain_iters=2, words=None):
+        """`words` turns an output into the tensor compared (the kernel's call is timed as it is)."""
         both = [kernel(), plain()]
+        if words is not None:
+            both = [words(x) for x in both]
         checks[name].compare(*(torch.stack(x) if isinstance(x, tuple) else x for x in both), what)
         ms, plain_ms = event_ms(kernel, iters, 2), event_ms(plain, plain_iters, plain_iters - 1)
         dev_ms = device_ms(kernel, iters, 1)  # the launches back to back: without the host's time to make each
@@ -486,28 +504,40 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
         if L == tpl.initial_path_len:
             out["merkle_fold"] = res
 
-    # the field kernels on the arguments of every launch of one main-path call;
-    # the row of each is its largest call (combineInitial's g0, a fold's off_inv)
-    largest = {}
-    for name, args, _ in recorded_calls([(lib, "horner"), (lib, "inv")], v, dev):
-        if name == "horner":
-            v_re, v_im, p_re, p_im, v_rep, p_rep = args
-            what = (f"({v_re.shape[0]} x {v_rep} rows, {v_re.shape[1]}) {'base' if v_im is None else 'ext'} values, "
-                    f"{'base' if p_im is None else 'ext'} point x {p_rep}, "
-                    f"{horner_segments(v_re.shape[0] * v_rep, v_re.shape[1], lib.sms)} segments a row")
-            instructions, n_bytes = horner_work(args)
-            size = v_re.shape[0] * v_rep * v_re.shape[1]
-            plain = lambda args=args: horner_rows_plain(*args)
-        else:
-            (a,) = args
-            what, size = f"{tuple(a.shape)}", a.numel()
-            instructions, n_bytes = size * INV_PRODUCTS * 16, size * 16
-            plain = lambda a=a: tf.inv_plain(a)
+    # the Horner sum on the arguments of every launch of one main-path call;
+    # its row is its largest call (combineInitial's g0)
+    largest = -1
+    for name, args, _ in recorded_calls([(lib, "horner")], v, dev):
+        v_re, v_im, p_re, p_im, v_rep, p_rep = args
+        what = (f"({v_re.shape[0]} x {v_rep} rows, {v_re.shape[1]}) {'base' if v_im is None else 'ext'} values, "
+                f"{'base' if p_im is None else 'ext'} point x {p_rep}, "
+                f"{horner_segments(v_re.shape[0] * v_rep, v_re.shape[1], lib.sms)} segments a row")
+        instructions, n_bytes = horner_work(args)
+        size = v_re.shape[0] * v_rep * v_re.shape[1]
         work = f"{instructions} int32 instructions, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
-        res = timed(name, what, lambda args=args, fn=getattr(lib, name): fn(*args), plain, 20,
+        res = timed(name, what, lambda args=args: lib.horner(*args), lambda args=args: horner_rows_plain(*args), 20,
                     field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1)
-        if size >= largest.get(name, -1):
-            largest[name], out[name] = size, res
+        if size >= largest:
+            largest, out[name] = size, res
+
+    # the grouped inversion: every denominator of one main-path call in its one
+    # launch, beside the same words one launch a denominator (the form before
+    # it was grouped) and the wrapper's call (concatenation, launch, split)
+    ((_, (parts,), _),) = recorded_calls([(tf, "inv_grouped")], v, dev)
+    flat = torch.cat([x.reshape(-1) for x in parts])
+    instructions, n_bytes, kernel_instructions = inv_grouped_work(flat.numel())
+    work = (f"{instructions} int32 instructions (3 (n - 1) + {INV_PRODUCTS} products; the kernel's {INV_PRODUCTS} a group of "
+            f"{INV_GROUP} and 3 a word past its first {kernel_instructions}, the one-call kernel's {INV_PRODUCTS} a word "
+            f"{flat.numel() * INV_PRODUCTS * PRODUCT}), {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    out["inv"] = timed("inv", f"grouped: {flat.numel()} words, the denominators {[tuple(x.shape) for x in parts]}", lambda: lib.inv_grouped(flat),
+                       lambda: tf.inv_plain(flat), 20, field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1)
+    contiguous = [x.contiguous() for x in parts]
+    apart = lambda: [lib.inv(x) for x in contiguous]
+    out["inv"]["apart"] = {"ms": event_ms(apart, 20, 2), "device_ms": device_ms(apart, 20, 1), "launches": len(parts)}
+    out["inv"]["wrapper_ms"] = event_ms(lambda: tf.inv_grouped(parts), 20, 2)
+    print(f"time inv grouped: the same denominators one launch each (the one-call kernel) {out['inv']['apart']['ms']:.4f} ms "
+          f"(device {out['inv']['apart']['device_ms']:.4f} ms) in {len(parts)} launches; ops/field.inv_grouped's call "
+          f"(concatenation, launch, split) {out['inv']['wrapper_ms']:.4f} ms")
 
     # the exponentiations and the gate program at every call of one verifier
     # call on random proof words, the main path's and the gate zoo's at the
@@ -519,7 +549,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     zoo_v = TorchVerifier(zoo_tpl, device=DEVICE)
     zoo_dev = zoo_v.prepare(random_arrays(zoo_tpl, B, zoo_tpl.num_queries, rng))
     pair = lambda x: (x.re, x.im) if isinstance(x, tf.GExt) else x
-    targets = [(tf, "pow_dynamic"), (tf, "ext_pow_const"), (GateProgram, "forward")]
+    targets = [(tf, "pow_grouped"), (GateProgram, "forward")]
     for path, verifier, arrays in [("main path", v, dev), ("gate zoo", zoo_v, zoo_dev)]:
         largest = {}
         for name, args, kwargs in recorded_calls(targets, verifier, arrays):
@@ -535,16 +565,22 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
                 kernel = lambda prog=prog, args=args, kwargs=kwargs: pair(prog(*args[1:], **kwargs))
                 plain = lambda prog=prog, args=args, kwargs=kwargs: pair(prog.forward_plain(*args[1:], out_slots=kwargs.get("out_slots")))
                 size = instructions
-            elif name == "ext_pow_const" and args[1] < 2:
-                continue  # answered on the host, no launch
             else:
-                instructions, n_bytes, what = pow_work(name, *args)
+                instructions, n_bytes, what, before = pow_grouped_work(*args)
                 what, size = f"{path}: {what}", instructions
-                kernel = lambda fn=getattr(tf, name), args=args: pair(fn(*args))
-                plain = lambda fn=getattr(tf, f"{name}_plain"), args=args: pair(fn(*args))
+                kernel = lambda args=args: tf.pow_grouped(*args)
+                plain = lambda args=args: tf.pow_grouped_plain(*args)
                 name = "pow"
             work = f"{instructions} int32 instructions, {n_bytes} bytes = {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms"
-            res = timed(name, what, kernel, plain, 20, field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1)
+            if name == "pow":
+                work += f"; {before} instructions before the table (n_bits - 1 squarings a generator)"
+            res = timed(name, what, kernel, plain, 20, field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1,
+                        words=words_of if name == "pow" else None)
+            if name == "pow":  # beside one launch of the one-call kernel a power, as before they were grouped
+                apart = powers_apart(*args)
+                res["apart"] = {"ms": event_ms(apart, 20, 2), "device_ms": device_ms(apart, 20, 1), "launches": len(apart())}
+                print(f"time pow grouped, {path}: the same powers one launch each (the one-call kernel) {res['apart']['ms']:.4f} ms "
+                      f"(device {res['apart']['device_ms']:.4f} ms) in {res['apart']['launches']} launches")
             if size >= largest.get(name, -1):
                 largest[name] = size
                 if path == "main path":
@@ -554,26 +590,72 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     return out
 
 
-def pow_work(name: str, *args):
-    """(int32 instructions, bytes, description) of one exponentiation, the
-    least that its inputs need: the n_bits - 1 squarings once a distinct
-    base row (a broadcast base once), then a product a set bit of each
-    element's exponent (ext_pow_const: of each distinct row's, its elements
-    being copies), a product an emul for an extension base; each distinct
-    base word read once, the exponents, each output written once."""
+def output_tensors(x):
+    """An output (a tensor, a GExt, lists and tuples of them) as a list of
+    tensors, each with the batch axis first (a GExt's parts stacked after it)."""
+    import torch
+
     from plonky2_verifier_tpu_torch.ops import field as tf
 
-    if name == "pow_dynamic":
-        base, exponent, n_bits = args
-        n, bits = exponent.numel(), max(n_bits, 1)
-        ones = sum(int(((exponent >> k) & 1).sum()) for k in range(bits))
-        rows = tf.broadcast_rows(base.expand(exponent.shape), exponent.dim())[0].numel()
-        products = rows * (bits - 1) + ones
-        return products * PRODUCT, 8 * (rows + 2 * n), f"pow_dynamic {tuple(exponent.shape)}, {bits} bits, base words {rows}"
-    a, e = args
-    n, rows = a.re.numel(), tf.broadcast_rows(a.re, a.re.dim())[0].numel()
-    emuls = rows * (e.bit_length() - 1 + bin(e).count("1"))
-    return emuls * EMUL, 8 * (2 * rows + 2 * n), f"ext_pow_const {tuple(a.re.shape)}, e = {e}, base rows {rows}"
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in output_tensors(y)]
+    return [torch.stack([x.re, x.im], dim=1)] if isinstance(x, tf.GExt) else [x]
+
+
+def words_of(x):
+    """Every word of an output as one flat tensor."""
+    import torch
+
+    return torch.cat([t.reshape(-1) for t in output_tensors(x)])
+
+
+def powers_apart(qidx, gens, exts):
+    """pow_grouped's powers as the one-call kernel made them before they were
+    grouped: a launch of ops/field.pow_dynamic a generator (its exponents
+    made here, outside the timed call) and of ext_pow_const a base."""
+    from plonky2_verifier_tpu_torch.ops import field as tf
+
+    exps = [(tf.constant(g.generator, (1, 1), qidx.device).expand(qidx.shape), g.exponent(qidx), max(g.bits, 1)) for g in gens]
+    return lambda: [tf.pow_dynamic(*x) for x in exps] + [tf.ext_pow_const(base, e) for base, e in exts if e >= 2]
+
+
+def pow_grouped_work(qidx, gens, exts):
+    """(int32 instructions, bytes, description, the instructions that the
+    one-call kernel's square-and-multiply needed) of one grouped
+    exponentiation, the least that the function needs: a fixed-generator
+    element is the factor times a product of table entries g^(d 2^(w k)),
+    one a POW_WINDOW-bit window of its exponent (tables of 2^POW_WINDOW
+    words a window, read once; wider windows need fewer products still, and
+    the bytes set the bound from 4-bit windows up), and an extension row's
+    square-and-multiply, an emul a product, where its exponent is at least 2
+    (0 and 1 launch nothing); the query indices and every base word read
+    once, each output written once. The kernel reads g^(2^k) and makes a
+    product a set bit."""
+    windows = sum(-(-g.bits // POW_WINDOW) for g in gens)
+    launched = [(base.re.numel(), e) for base, e in exts if e >= 2]
+    emuls = sum(rows * (e.bit_length() - 1 + bin(e).count("1")) for rows, e in launched)
+    n = qidx.numel()
+    words = n + windows * (1 << POW_WINDOW) + len(gens) * n + sum(4 * rows for rows, _ in launched)
+    ones = sum(sum(int(((g.exponent(qidx) >> k) & 1).sum()) for k in range(g.bits)) for g in gens)
+    squarings = sum(max(g.bits, 1) - 1 for g in gens)  # a broadcast generator's, once each
+    what = (f"pow_grouped {tuple(qidx.shape)}: {len(gens)} generators of {[g.bits for g in gens]} bits, "
+            f"{len(launched)} extension bases at e = {[e for _, e in launched]}; the kernel's table products "
+            f"{ones * PRODUCT + emuls * EMUL} instructions")
+    return (windows * n * PRODUCT + emuls * EMUL, 8 * words, what, (ones + squarings) * PRODUCT + emuls * EMUL)
+
+
+def inv_grouped_work(n: int):
+    """(int32 instructions, bytes, the kernel's own instructions) of one
+    grouped inversion of n words. The least work is Montgomery's batch trick
+    over all n words: 3 (n - 1) products (a prefix product, two in the sweep
+    back) and one Fermat chain of INV_PRODUCTS; each word read once and
+    written once. The kernel runs a chain a group of INV_GROUP words, its
+    own choice: INV_PRODUCTS a group and 3 a word past a group's first."""
+    from plonky2_verifier_tpu_torch.kernels import INV_GROUP
+
+    groups = -(-n // INV_GROUP)
+    least = (3 * max(n - 1, 0) + INV_PRODUCTS) * PRODUCT if n else 0
+    return least, 16 * n, (INV_PRODUCTS * groups + 3 * (n - groups)) * PRODUCT
 
 
 def gate_work(packed, inputs):
@@ -627,17 +709,16 @@ def _transcript_equals_golden(common, dbg, lane, vkey, pwp):
 def _field_launches(tpl) -> dict:
     """Field-kernel launches a verifier call of `tpl`: the Horner sum for
     the alpha combination, the quotient, the two reduced openings,
-    combineInitial's two sums, each fold step and the final polynomial; the
-    inversion for L0, combineInitial's two quotients and each fold step's
-    coset offset; the exponentiations for combineInitial's query points,
-    each fold step's coset offset and the final x (pow_dynamic), and zeta^n
-    and alpha^(n_zs + n_lookup) where the exponent is at least 2
-    (ext_pow_const answers 0 and 1 on the host); the gate program once."""
-    pow_const = int(tpl.n >= 2) + int(tpl.n_zs + tpl.n_lookup >= 2)
-    return {"horner": 7 + len(tpl.steps), "inv": 3 + len(tpl.steps), "pow": 2 + len(tpl.steps) + pow_const, "gate_program": 1}
+    combineInitial's two sums, each fold step and the final polynomial; one
+    grouped launch for every inversion (L0, combineInitial's two quotients,
+    each fold step's coset offset) and one for every exponentiation
+    (combineInitial's query points, each fold step's coset offset, the final
+    x, zeta^n and alpha^(n_zs + n_lookup)); the one-call inversion and
+    exponentiation never; the gate program once."""
+    return {"horner": 7 + len(tpl.steps), "inv": 0, "inv_grouped": 1, "pow": 0, "pow_grouped": 1, "gate_program": 1}
 
 
-FIELD_KERNELS = ("horner", "inv", "pow", "gate_program")
+FIELD_KERNELS = ("horner", "inv", "inv_grouped", "pow", "pow_grouped", "gate_program")
 
 
 def _check_launches(launches, what: str, tpl):
@@ -1306,8 +1387,8 @@ def main():
         "sponge_rows": ("sponge_rows", "sponge_rows_grouped"),
         "merkle_fold": ("merkle_fold",),
         "horner": ("horner",),
-        "inv": ("inv",),
-        "pow": ("pow",),
+        "inv": ("inv", "inv_grouped"),
+        "pow": ("pow", "pow_grouped"),
         "gate_program": ("gate_program",),
     }
     rows = []
@@ -1337,10 +1418,13 @@ def main():
         row["launches_mesh"] = sum(mesh_launches[k] + mesh_stream_launches[k] for k in entry_points[name])
         # beside the launch the main path makes: one (1024, 12) permutation
         # step beside the scan, the widest single matrix beside the grouped
-        # sponge, the gate zoo's largest call beside the main path's
-        for extra in ("step", "widest", "zoo"):
+        # sponge, the gate zoo's largest call beside the main path's, the
+        # grouped inversion's and exponentiation's work one launch a call
+        for extra in ("step", "widest", "zoo", "apart"):
             if extra in tm:
                 row.update({f"{extra}_{k}": round(x, 6) if isinstance(x, float) else x for k, x in tm[extra].items()})
+        if "wrapper_ms" in tm:  # the grouped inversion's call through ops/field: concatenation, launch, split
+            row["wrapper_ms"] = round(tm["wrapper_ms"], 6)
         rows.append(row)
     print(f"total_s {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))

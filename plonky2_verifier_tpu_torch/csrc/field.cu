@@ -1,5 +1,7 @@
 // The verifier's field glue as three kernels: the extension Horner sum, the
-// Fermat inversion and the exponentiations.
+// inversion and the exponentiations, the last two also in the grouped form
+// that a verifier's forward launches once each (p2v_inv_grouped,
+// p2v_pow_grouped; below).
 //
 // None replaces a Pallas kernel: the JAX package compiles the same
 // functions with jax.jit into loops on the device --
@@ -96,6 +98,55 @@
 // lies. Bound: integer ALU work, n_bits - 1 squarings and a product a set
 // bit (an emul is 5 products and 2 adds); elementwise, no reuse, so at the
 // verifier's (1024, 28) launch-bound.
+//
+// p2v_inv and p2v_pow stay the entry points of ops/field.inv, pow_dynamic and
+// ext_pow_const for tools and tests. The verifier's forward makes one call of
+// each of the two grouped kernels below instead (verifier_torch.
+// TorchVerifier._powers_and_inverses): every exponent of a forward is a
+// function of the transcript's output (zeta, alpha and the query indices),
+// and every denominator one of zeta and those powers, so both gather at one
+// place right after the transcript. One call each was five inversions and
+// six exponentiations a forward: 11 calls of the host's wrapper (0.03-0.10 ms
+// each) for ~0.05 ms of device work.
+//
+// p2v_pow_grouped: the powers of a forward from a segment table passed by
+// value (PowGroup, as p2v_sponge_rows_grouped passes its table), a thread an
+// element. Two kinds of segment:
+// - GEN, factor * g^e for a fixed generator g and an exponent an element,
+//   e = bit_reverse over `bits` bits of (idx >> shift) with its `clear` low
+//   bits cleared, idx the query index of the element's (row, column): the
+//   exponent is derived here as the call site derives it, no exponent tensor
+//   is made. The product runs over a table of g^(2^k), k < bits (canonical,
+//   built on the host from golden/field.py's ints and placed on the card when
+//   the verifier is built): popcount(e) products from acc = factor, no
+//   squaring (the table's 2^k powers are what square-and-multiply squares its
+//   way to, in every thread).
+// - EXT, base^e for an extension base a row and one exponent e >= 2 from the
+//   host: p2v_pow's square-and-multiply (zeta^n, alpha^(n_zs + n_lookup)).
+// Bits: a canonical power is unique, so the order of the products cannot
+// change a word: acc starts canonical (factor, 1) and every product is
+// canonical, for a base word >= p too (its first product reduces it). GEN
+// gives mul(factor, pow_dynamic_plain(g, e)) (e = 0: the factor), EXT gives
+// ext_pow_const_plain for e >= 2 (e = 0 and 1 are the host's, no launch).
+// Bound: integer ALU work, popcount(e) products a GEN element and
+// p2v_pow's emuls an EXT row; the query indices read once, each output
+// written once (chip_smoke.pow_grouped_work).
+//
+// p2v_inv_grouped: a^(p - 2) elementwise with inv(0) = 0 by Montgomery's
+// batch trick. A thread takes a group of INV_GROUP words, i, i + T, i + 2T,
+// ... (T = the threads, so a warp reads neighbouring words at each step),
+// forms their prefix products, inverts the group's product by the Fermat
+// chain of p2v_inv (72 products), and sweeps back: a word's inverse is the
+// running inverse times the prefix before it, and the running inverse then
+// takes the word in (2 products). 3 products a word and 72 a group, not 72
+// a word. A word that is 0 mod p (0, or p itself: the only word x + p that
+// is) enters the products as 1 and is written as 0; the padding past n
+// enters as 1. Bits: an inverse is unique and every product canonical (a
+// first prefix word >= p is reduced by the product that reads it, or by the
+// chain's first product), so each word is inv_plain's. Bound: integer ALU
+// work, 72 products a group and 3 a word past the group's first (the
+// least that these steps need; chip_smoke.inv_grouped_work), against p2v_inv's
+// 72 a word.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -106,6 +157,11 @@ namespace {
 
 constexpr int HORNER_THREADS = 256;
 constexpr int INV_THREADS = 256;
+constexpr int INV_GROUP = 8;  // words a thread of p2v_inv_grouped (kernels.INV_GROUP)
+// p2v_inv_grouped's block: a forward's 14,464 threads make 226 blocks, one or two on each of the 132
+// SMs (blocks of 256 left 75 SMs without one)
+constexpr int INV_GROUPED_THREADS = 64;
+constexpr int POW_MAX_SEGMENTS = 16;  // segments a launch of p2v_pow_grouped (kernels.POW_MAX_SEGMENTS)
 
 struct HornerArgs {
     const uint64_t* v_re;
@@ -200,21 +256,56 @@ __device__ __forceinline__ uint64_t squarings(uint64_t x, int count) {
     return x;
 }
 
+// a^(p - 2) by 63 squarings and 9 products, the input multiplied in first
+__device__ __forceinline__ uint64_t fermat_inverse(uint64_t a) {
+    // t_k = a^(2^k - 1)
+    const uint64_t t2 = gl::mul(gl::mul(a, a), a);
+    const uint64_t t3 = gl::mul(gl::mul(t2, t2), a);
+    const uint64_t t6 = gl::mul(squarings(t3, 3), t3);
+    const uint64_t t12 = gl::mul(squarings(t6, 6), t6);
+    const uint64_t t24 = gl::mul(squarings(t12, 12), t12);
+    const uint64_t t30 = gl::mul(squarings(t24, 6), t6);
+    const uint64_t t31 = gl::mul(gl::mul(t30, t30), a);
+    const uint64_t t63 = gl::mul(squarings(t31, 32), t31);  // a^(2^63 - 2^31 - 1)
+    return gl::mul(gl::mul(t63, t63), a);                    // a^(2^64 - 2^32 - 1) = a^(p - 2)
+}
+
 __global__ void inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-        const uint64_t a = in[i];
-        // t_k = a^(2^k - 1)
-        const uint64_t t2 = gl::mul(gl::mul(a, a), a);
-        const uint64_t t3 = gl::mul(gl::mul(t2, t2), a);
-        const uint64_t t6 = gl::mul(squarings(t3, 3), t3);
-        const uint64_t t12 = gl::mul(squarings(t6, 6), t6);
-        const uint64_t t24 = gl::mul(squarings(t12, 12), t12);
-        const uint64_t t30 = gl::mul(squarings(t24, 6), t6);
-        const uint64_t t31 = gl::mul(gl::mul(t30, t30), a);
-        const uint64_t t63 = gl::mul(squarings(t31, 32), t31);  // a^(2^63 - 2^31 - 1)
-        out[i] = gl::mul(gl::mul(t63, t63), a);                  // a^(2^64 - 2^32 - 1) = a^(p - 2)
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) out[i] = fermat_inverse(in[i]);
+}
+
+// groups = ceil(n / INV_GROUP) threads; thread t takes the words t + j groups
+__global__ void __launch_bounds__(INV_GROUPED_THREADS) inv_grouped_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                                                                          int64_t n, int64_t groups) {
+    const int64_t t = (int64_t)blockIdx.x * INV_GROUPED_THREADS + threadIdx.x;
+    if (t >= groups) return;
+    uint64_t a[INV_GROUP], c[INV_GROUP];  // the words (0 mod p and padding as 1), their prefix products
+    unsigned zero = 0;
+#pragma unroll
+    for (int j = 0; j < INV_GROUP; ++j) {
+        const int64_t i = t + j * groups;
+        uint64_t x = i < n ? in[i] : 1;
+        if (x == 0 || x == gl::P) {
+            zero |= 1u << j;
+            x = 1;
+        }
+        a[j] = x;
+        if (j == 0) {
+            c[0] = x;
+        } else {
+            c[j] = gl::mul(c[j - 1], x);
+        }
     }
+    uint64_t u = fermat_inverse(c[INV_GROUP - 1]);  // (a_0 ... a_j)^-1 at step j below
+#pragma unroll
+    for (int j = INV_GROUP - 1; j >= 1; --j) {
+        const int64_t i = t + j * groups;
+        const uint64_t r = gl::mul(u, c[j - 1]);
+        u = gl::mul(u, a[j]);
+        if (i < n) out[i] = (zero >> j) & 1 ? 0 : r;
+    }
+    out[t] = zero & 1 ? 0 : u;  // t < groups <= n
 }
 
 struct PowArgs {
@@ -254,6 +345,67 @@ __global__ void pow_kernel(const PowArgs a) {
         }
         a.out_re[i] = acc.re;
         if constexpr (EXT) a.out_im[i] = acc.im;
+    }
+}
+
+// One segment of p2v_pow_grouped; kernels.PowSegment field for field.
+struct PowSegment {
+    uint64_t* out;          // GEN: n words; EXT: n real parts, then n imaginary parts
+    const uint64_t* b_re;   // EXT: row i of the base at i * b_stride words
+    const uint64_t* b_im;
+    const uint64_t* table;  // GEN: g^(2^k) for k < bits, canonical
+    uint64_t e;             // EXT: the exponent, >= 2
+    uint64_t factor;        // GEN: canonical
+    int64_t n;              // elements
+    int64_t b_stride;       // EXT
+    int32_t ext;            // 1: EXT, 0: GEN
+    int32_t bits;           // GEN: e = bit_reverse over `bits` bits of ((idx >> shift) >> clear << clear)
+    int32_t shift;
+    int32_t clear;
+};
+
+struct PowGroup {
+    PowSegment seg[POW_MAX_SEGMENTS];
+    int64_t first[POW_MAX_SEGMENTS];  // a segment's first thread; INT64_MAX for an unused slot
+    const int64_t* idx;               // GEN: element i reads idx[(i / q) * idx_row + i % q] (idx[i] where idx_row == q)
+    int64_t idx_row, q, total;        // total < 2^31
+};
+
+__global__ void __launch_bounds__(INV_THREADS) pow_grouped_kernel(const __grid_constant__ PowGroup g) {
+    const int64_t t = (int64_t)blockIdx.x * INV_THREADS + threadIdx.x;
+    if (t >= g.total) return;
+    // the segment of thread t: the segments that start at or before it, less one
+    // (they start in order); read where it lies in the grid-constant table, no copy
+    int s = 0;
+#pragma unroll
+    for (int k = 1; k < POW_MAX_SEGMENTS; ++k) s += t >= g.first[k];
+    const PowSegment& a = g.seg[s];
+    const int64_t i = t - g.first[s];
+    if (a.ext) {
+        Ext s = {a.b_re[i * a.b_stride], a.b_im[i * a.b_stride]};
+        Ext acc = {1, 0};
+        for (uint64_t e = a.e;;) {  // LSB first, as p2v_pow
+            if (e & 1) acc = gl::emul(acc, s);
+            e >>= 1;
+            if (!e) break;
+            s = gl::emul(s, s);
+        }
+        a.out[i] = acc.re;
+        a.out[a.n + i] = acc.im;
+    } else {
+        int64_t at = i;  // contiguous indices: no division
+        if (g.idx_row != g.q) {
+            const uint32_t row = (uint32_t)i / (uint32_t)g.q;
+            at = (int64_t)row * g.idx_row + ((uint32_t)i - row * (uint32_t)g.q);
+        }
+        const uint64_t x = (uint64_t)g.idx[at] >> a.shift >> a.clear << a.clear;
+        uint64_t e = a.bits ? __brevll(x) >> (64 - a.bits) : 0;
+        uint64_t acc = a.factor;
+        while (e) {
+            acc = gl::mul(acc, a.table[__ffsll((long long)e) - 1]);
+            e &= e - 1;
+        }
+        a.out[i] = acc;
     }
 }
 
@@ -310,6 +462,43 @@ extern "C" int p2v_pow(const void* b_re, const void* b_im, const void* exps, voi
         } else {
             pow_kernel<false, false><<<blocks, INV_THREADS, 0, s>>>(a);
         }
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int p2v_inv_grouped(const void* in, void* out, int64_t n, void* stream) {
+    if (n > 0) {
+        const int64_t groups = (n + INV_GROUP - 1) / INV_GROUP;
+        const unsigned blocks = (unsigned)((groups + INV_GROUPED_THREADS - 1) / INV_GROUPED_THREADS);
+        inv_grouped_kernel<<<blocks, INV_GROUPED_THREADS, 0, (cudaStream_t)stream>>>((const uint64_t*)in, (uint64_t*)out, n, groups);
+    }
+    return (int)cudaGetLastError();
+}
+
+// `count` segments (a host array) in one launch; idx the query indices of
+// the GEN segments, (rows, q) at idx_row words a row.
+extern "C" int p2v_pow_grouped(const void* segments, int count, const void* idx, int64_t idx_row, int64_t q, void* stream) {
+    if (count < 0 || count > POW_MAX_SEGMENTS || q < 0) return (int)cudaErrorInvalidValue;
+    PowGroup g = {};
+    const PowSegment* seg = (const PowSegment*)segments;
+    int64_t total = 0;
+    for (int k = 0; k < POW_MAX_SEGMENTS; ++k) {
+        g.first[k] = k < count ? total : INT64_MAX;
+        if (k < count) {
+            g.seg[k] = seg[k];
+            if (seg[k].n < 0 || seg[k].bits < 0 || seg[k].bits > 64 || (!seg[k].ext && q == 0 && seg[k].n > 0))
+                return (int)cudaErrorInvalidValue;
+            total += seg[k].n;
+        }
+    }
+    if (total >= INT32_MAX) return (int)cudaErrorInvalidValue;  // 32-bit index arithmetic
+    g.idx = (const int64_t*)idx;
+    g.idx_row = idx_row;
+    g.q = q > 0 ? q : 1;
+    g.total = total;
+    if (total > 0) {
+        const unsigned blocks = (unsigned)((total + INV_THREADS - 1) / INV_THREADS);
+        pow_grouped_kernel<<<blocks, INV_THREADS, 0, (cudaStream_t)stream>>>(g);
     }
     return (int)cudaGetLastError();
 }

@@ -8,9 +8,9 @@ them with ctypes once per process, uploads the Poseidon tables
 (`folded_round_constants`, the MDS) into each Poseidon kernel's constant
 memory, and returns the `KernelLibrary` whose methods launch the kernels:
 the three Poseidon kernels (permutation.cu, sponge.cu, merkle.cu), the
-three field kernels (field.cu: the extension Horner sum, the Fermat
-inversion and the exponentiations) and the levelized gate program
-(gates.cu).
+three field kernels (field.cu: the extension Horner sum, the inversion and
+the exponentiations, the last two also in the grouped form a verifier's
+forward launches once each) and the levelized gate program (gates.cu).
 
 Both raise on any failure (no CUDA device, no nvcc, a compile error, a
 refused launch); nothing here falls back to the plain PyTorch versions.
@@ -43,8 +43,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("permutation", "sponge", "merkle", "field", "gates")
 POSEIDON_SOURCES = ("permutation", "sponge", "merkle")  # take the Poseidon tables at load
 KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program")
-# launch counters: the permutation and sponge kernels have two entry points each
-COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv", "pow", "gate_program")
+# launch counters: the permutation, sponge, inversion and exponentiation kernels have two entry points each
+COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv", "inv_grouped",
+            "pow", "pow_grouped", "gate_program")
 # also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
 SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
 FORMS = {"auto": 0, "thread": 1, "split": 2}
@@ -182,6 +183,18 @@ class GateArgs(ctypes.Structure):
     ]
 
 
+class PowSegment(ctypes.Structure):
+    """csrc/field.cu's PowSegment, field for field."""
+
+    _fields_ = [
+        ("out", ctypes.c_void_p), ("b_re", ctypes.c_void_p), ("b_im", ctypes.c_void_p), ("table", ctypes.c_void_p),
+        ("e", ctypes.c_uint64), ("factor", ctypes.c_uint64), ("n", ctypes.c_int64), ("b_stride", ctypes.c_int64),
+        ("ext", ctypes.c_int32), ("bits", ctypes.c_int32), ("shift", ctypes.c_int32), ("clear", ctypes.c_int32),
+    ]
+
+
+POW_MAX_SEGMENTS = 16  # segments a launch of p2v_pow_grouped (csrc/field.cu)
+INV_GROUP = 8  # words a thread of p2v_inv_grouped: one Fermat chain a group (csrc/field.cu)
 HORNER_MAX_SEGMENTS = 32  # a row's segments share a warp (csrc/field.cu)
 HORNER_MIN_CHAIN = 4  # values a segment at least
 HORNER_THREADS_AN_SM = 256  # enough to hide a chain's latency (tools/probe_kernels.py --field)
@@ -251,6 +264,8 @@ class KernelLibrary:
                 "p2v_horner": [vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, i32, vp],
                 "p2v_inv": [vp, vp, i64, vp],
                 "p2v_pow": [vp, vp, vp, vp, vp, i64, i64, i64, ctypes.c_uint64, i32, vp],
+                "p2v_inv_grouped": [vp, vp, i64, vp],
+                "p2v_pow_grouped": [vp, i32, vp, i64, i64, vp],
             },
             "gates": {"p2v_gate_program": [vp, i32, i32, vp], "p2v_gate_smem_limit": []},
         }
@@ -462,6 +477,70 @@ class KernelLibrary:
             _check_cuda(err, "pow")
             self.launches["pow"] += 1
         return out[0], None if b_im is None else out[1]
+
+    def inv_grouped(self, a: torch.Tensor) -> torch.Tensor:
+        """a^(p - 2) elementwise, inv(0) = 0, by the batch trick: a thread
+        a group of INV_GROUP words (word i in group i mod ceil(n / INV_GROUP)),
+        one Fermat chain a group (csrc/field.cu). a contiguous, any shape;
+        the bits of inv_plain."""
+        _check_tensor(a, "a", (None,) * a.dim())
+        out = torch.empty_like(a)
+        if a.numel():
+            err = self._fn["p2v_inv_grouped"](a.data_ptr(), out.data_ptr(), a.numel(), _stream())
+            _check_cuda(err, "inv_grouped")
+            self.launches["inv_grouped"] += 1
+        return out
+
+    def pow_grouped(self, idx, gens, exts):
+        """Every power of one forward in one launch (csrc/field.cu
+        p2v_pow_grouped; more than POW_MAX_SEGMENTS segments take several).
+        `idx` (rows, q) int64, the query indices at any row stride (None where
+        `gens` is empty). `gens`: (table, shift, clear, factor) a segment, the
+        table the (bits,) int64 words g^(2^k), contiguous: element (r, c)
+        gives factor * g^e with e the bit reversal over `bits` bits of
+        ((idx[r, c] >> shift) >> clear << clear). `exts`: (re, im, e) a
+        segment, the base's two parts (rows,) at one stride and a host
+        exponent 2 <= e < 2^64: base^e. Returns ([(rows, q) a gen segment],
+        [(re, im), each (rows,), an ext segment]), views of one allocation."""
+        n_idx, idx_row, q = 0, 0, 0
+        if gens:
+            _check_tensor(idx, "idx", (None, None), contiguous=False)
+            if idx.shape[1] > 1 and idx.stride(1) != 1:
+                raise ValueError(f"idx must have column stride 1, got strides {idx.stride()}")
+            n_idx, idx_row, q = idx.numel(), idx.stride(0), idx.shape[1]
+        for k, (table, shift, clear, factor) in enumerate(gens):
+            bits = table.shape[0] if table.dim() == 1 else -1
+            _check_tensor(table, f"gens[{k}] table", (bits,))
+            if not (0 <= bits <= 64 and 0 <= shift and 0 <= clear and shift + clear < 64 and 0 <= factor < P):
+                raise ValueError(f"gens[{k}]: {bits} bits, shift {shift}, clear {clear}, factor {factor}")
+        for k, (re, im, e) in enumerate(exts):
+            _check_tensor(re, f"exts[{k}] re", (None,), contiguous=False)
+            _check_tensor(im, f"exts[{k}] im", (re.shape[0],), contiguous=False)
+            if im.stride() != re.stride():
+                raise ValueError(f"exts[{k}] im has strides {im.stride()}, unlike the real part's {re.stride()}")
+            if not 2 <= e < 2**64:  # e = 0 and 1: ops/field.pow_grouped answers them, with no launch
+                raise ValueError(f"exts[{k}]: exponent {e}, a host exponent is a u64 of at least 2")
+        n_gen = len(gens) * n_idx
+        out = torch.empty(n_gen + 2 * sum(re.shape[0] for re, _, _ in exts), dtype=torch.int64,
+                          device=torch.device("cuda", torch.cuda.current_device()))
+        base = out.data_ptr()
+        segs = [PowSegment(base + 8 * k * n_idx, None, None, table.data_ptr(), 0, factor, n_idx, 0, 0, table.shape[0], shift, clear)
+                for k, (table, shift, clear, factor) in enumerate(gens)]
+        ext_out, at = [], n_gen
+        for re, im, e in exts:
+            rows = re.shape[0]
+            segs.append(PowSegment(base + 8 * at, re.data_ptr(), im.data_ptr(), None, e, 0, rows, re.stride(0), 1, 0, 0, 0))
+            ext_out.append(out[at : at + 2 * rows].view(2, rows).unbind(0))
+            at += 2 * rows
+        live = [s for s in segs if s.n]
+        for at in range(0, len(live), POW_MAX_SEGMENTS):
+            chunk = live[at : at + POW_MAX_SEGMENTS]
+            table = (PowSegment * len(chunk))(*chunk)  # held here until the call has copied it
+            err = self._fn["p2v_pow_grouped"](ctypes.addressof(table), len(chunk), idx.data_ptr() if gens else None, idx_row, q, _stream())
+            _check_cuda(err, "pow_grouped")
+            self.launches["pow_grouped"] += 1
+        gen_out = list(out[:n_gen].view(len(gens), *idx.shape).unbind(0)) if gens else []
+        return gen_out, ext_out
 
     def gate_plan(self, batch: int, packed, form: str = "auto") -> dict:
         """How the gate program runs a batch: `lanes` a block (a power of two

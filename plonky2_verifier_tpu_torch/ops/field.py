@@ -16,8 +16,12 @@ values are bit-exact against the golden model.
 The quadratic extension F_p[X]/(X^2 - 7) is a (re, im) pair of elements
 (`GExt`). `inv(0) = 0`, as in the JAX package. `inv`, `pow_dynamic` and
 `ext_pow_const` launch a CUDA kernel (csrc/field.cu) for CUDA tensors and
-take their `*_plain` versions for CPU tensors; the other ops are plain
-PyTorch on any device.
+take their `*_plain` versions for CPU tensors, as do their grouped forms,
+`inv_grouped` (several tensors inverted in one launch, by the batch trick)
+and `pow_grouped` (a forward's powers of fixed generators at exponents
+derived from the query indices, and of extension bases at host exponents,
+in one launch), which the verifier's forward calls once each; the other ops
+are plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..golden.field import P, W
+from ..golden.field import P, W, fpow
 
 I64 = torch.int64
 M32 = 0xFFFFFFFF
@@ -196,6 +200,14 @@ def pow_dynamic(base, exponent, n_bits: int):
     return _pow_kernel(base, None, exponent, max(n_bits, 1)).re
 
 
+def bit_reverse(idx, bits: int):
+    """The low `bits` bits of each int64 index in reverse order."""
+    out = torch.zeros_like(idx)
+    for k in range(bits):
+        out = out | (((idx >> k) & 1) << (bits - 1 - k))
+    return out
+
+
 def inv_plain(a):
     """a^(p-2) by Fermat; inv(0) = 0, as in the JAX package."""
     return pow_const(a, P - 2)
@@ -210,6 +222,27 @@ def inv(a):
     from .. import kernels
 
     return kernels.load().inv(a.contiguous())  # the verifier's inputs are (B, Q) at most
+
+
+def inv_grouped_plain(parts):
+    """[inv_plain(a) for a in parts]."""
+    return [inv_plain(a) for a in parts]
+
+
+def inv_grouped(parts):
+    """inv of every tensor of `parts` (any shapes): for CUDA tensors one
+    launch of the batch inversion (csrc/field.cu p2v_inv_grouped) over all
+    their words, the bits of inv_plain; for CPU tensors inv_grouped_plain."""
+    if parts[0].device.type == "cpu":
+        return inv_grouped_plain(parts)
+    return _inv_grouped_kernel(parts)
+
+
+def _inv_grouped_kernel(parts):
+    from .. import kernels
+
+    flat = kernels.load().inv_grouped(torch.cat([a.reshape(-1) for a in parts]))
+    return [x.reshape(a.shape) for x, a in zip(flat.split([a.numel() for a in parts]), parts)]
 
 
 # ---------------------------------------------------------------------------
@@ -290,9 +323,18 @@ def ext_square(a: GExt) -> GExt:
     return emul(a, a)
 
 
+def ext_norm(a: GExt):
+    """re^2 - 7 im^2: a's inverse is its conjugate over this (ext_inv_with)."""
+    return sub(mul(a.re, a.re), mul_small(mul(a.im, a.im), W))
+
+
+def ext_inv_with(a: GExt, norm_inv) -> GExt:
+    """a^-1 given inv(ext_norm(a))."""
+    return GExt(mul(a.re, norm_inv), neg(mul(a.im, norm_inv)))
+
+
 def ext_inv(a: GExt) -> GExt:
-    denom = inv(sub(mul(a.re, a.re), mul_small(mul(a.im, a.im), W)))
-    return GExt(mul(a.re, denom), neg(mul(a.im, denom)))
+    return ext_inv_with(a, inv(ext_norm(a)))
 
 
 def ext_div(a: GExt, b: GExt) -> GExt:
@@ -365,3 +407,72 @@ def _pow_kernel(re, im, exponent, n_bits: int) -> GExt:
             b_re, b_im, rep = re.reshape(-1).contiguous(), im.reshape(-1).contiguous(), 1
     out_re, out_im = kernels.load().pow(b_re, b_im, exponent, n_bits, rep)
     return GExt(out_re.reshape(shape), None if out_im is None else out_im.reshape(shape))
+
+
+# ---------------------------------------------------------------------------
+# a forward's powers in one launch
+
+
+@dataclass(frozen=True, eq=False)
+class GeneratorPower:
+    """One segment of pow_grouped: factor * generator^e for every query
+    index, e the bit reversal over `bits` bits of the index shifted right by
+    `shift` with its `clear` low bits then cleared. `table` holds
+    generator^(2^k) for k < bits (power_table) on the device the kernel
+    reads it from."""
+
+    generator: int
+    bits: int
+    factor: int
+    shift: int
+    clear: int
+    table: torch.Tensor
+
+    def exponent(self, qidx):
+        return bit_reverse((qidx >> (self.shift + self.clear)) << self.clear, self.bits)
+
+
+def power_table(generator: int, bits: int) -> np.ndarray:
+    """generator^(2^k) for k < bits, canonical, as uint64 (golden/field.py)."""
+    return np.array([fpow(generator, 1 << k) for k in range(bits)], dtype=np.uint64)
+
+
+def pow_grouped_plain(qidx, gens: Sequence[GeneratorPower], exts):
+    """pow_dynamic_plain times the factor for each of `gens` over the query
+    indices qidx (an int64 tensor), ext_pow_const_plain for each (base, e) of
+    `exts`. Returns ([qidx.shape a gen], [GExt of the base's shape an ext])."""
+    out = []
+    for g in gens:
+        base = constant(g.generator, qidx.shape, qidx.device)
+        out.append(mul(constant(g.factor, qidx.shape, qidx.device), pow_dynamic_plain(base, g.exponent(qidx), max(g.bits, 1))))
+    return out, [ext_pow_const_plain(base, e) for base, e in exts]
+
+
+def pow_grouped(qidx, gens: Sequence[GeneratorPower], exts):
+    """pow_grouped_plain's powers: for CUDA tensors one launch of the
+    grouped exponentiation (csrc/field.cu p2v_pow_grouped; each generator's
+    `table` on the card), every power canonical; an ext exponent of 0 or 1
+    (the input's own bits at 1) is answered on the host with no launch, as
+    ext_pow_const answers it. CPU tensors take the plain version."""
+    if qidx.device.type == "cpu":
+        return pow_grouped_plain(qidx, gens, exts)
+    return _pow_grouped_kernel(qidx, gens, exts)
+
+
+def _pow_grouped_kernel(qidx, gens: Sequence[GeneratorPower], exts):
+    from .. import kernels
+
+    launched, ext_args = [], []
+    for k, (base, e) in enumerate(exts):
+        if e >= 2:
+            re, im = (base.re, base.im) if base.re.dim() == 1 else (base.re.reshape(-1), base.im.reshape(-1))  # (B,): the transcript's
+            if re.stride() != im.stride():
+                re, im = re.contiguous(), im.contiguous()
+            launched.append(k)
+            ext_args.append((re, im, e))
+    gen_out, ext_out = kernels.load().pow_grouped(qidx if gens else None, [(g.table, g.shift, g.clear, g.factor) for g in gens], ext_args)
+    powers = [None if e >= 2 else ext_pow_const_plain(base, e) for base, e in exts]  # e = 0 and 1 on the host
+    for k, (re, im) in zip(launched, ext_out):
+        shape = exts[k][0].shape
+        powers[k] = GExt(re, im) if len(shape) == 1 else GExt(re.reshape(shape), im.reshape(shape))
+    return gen_out, powers

@@ -24,7 +24,7 @@ A world of one process needs no process group and makes no collective call.
 `verify_sharded` is the whole of it in one call. `join_group` brings a
 process into a group under an address, a world size and a rank that the
 caller gives; `run_ranks` starts a group of processes on this host and
-collects what each returns.
+collects what each returns (or every failed rank's own error).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import multiprocessing.connection
 import os
 import tempfile
 import time
+import traceback
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,6 +47,7 @@ from ..ops.field import resolve_device
 from ..verifier_torch import TorchVerifier, is_query_axis_array
 
 COLLECTIVE_TIMEOUT_S = 120  # a rank that died fails the others' next collective instead of hanging them
+FAILED_RANKS_GRACE_S = 15  # run_ranks: after a rank fails, how long the others have to report what they raised
 
 
 class Mesh:
@@ -227,19 +229,28 @@ def join_group(backend: str, init_method: str, rank: int, world_size: int) -> No
 
 
 def _rank_main(target, args, backend, init_method, rank, world_size, threads, conn):
-    if threads:
-        torch.set_num_threads(threads)
-    os.environ["LOCAL_WORLD_SIZE"] = str(world_size)
-    if backend == "nccl":  # every rank a card of its own: rank r takes card r
-        if rank >= torch.cuda.device_count():
-            raise RuntimeError(f"rank {rank} needs CUDA device {rank}; this host has {torch.cuda.device_count()}")
-        torch.cuda.set_device(rank)
-    join_group(backend, init_method, rank, world_size)
+    """A rank of run_ranks: joins the group, runs the target, and sends
+    ("ok", its result) or ("error", what it raised, with the traceback)
+    through `conn`, then re-raises, so the exit code says so too."""
     try:
-        conn.send(target(*args))
-    finally:
-        dist.destroy_process_group()
+        if threads:
+            torch.set_num_threads(threads)
+        os.environ["LOCAL_WORLD_SIZE"] = str(world_size)
+        if backend == "nccl":  # every rank a card of its own: rank r takes card r
+            if rank >= torch.cuda.device_count():
+                raise RuntimeError(f"rank {rank} needs CUDA device {rank}; this host has {torch.cuda.device_count()}")
+            torch.cuda.set_device(rank)
+        join_group(backend, init_method, rank, world_size)
+        try:
+            result = target(*args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException as e:
+        conn.send(("error", f"{type(e).__name__}: {e}\n{traceback.format_exc()}"))
         conn.close()
+        raise
+    conn.send(("ok", result))
+    conn.close()
 
 
 def run_ranks(target, world_size: int, args=(), *, backend: str = "gloo", timeout_s: float = 300.0, threads: int = 0) -> list:
@@ -248,8 +259,11 @@ def run_ranks(target, world_size: int, args=(), *, backend: str = "gloo", timeou
     rendezvous file of its own, and return what each rank returned, in rank
     order. `target` must be importable by the children. Raises if a rank
     fails or the group takes longer than `timeout_s`, and leaves no process
-    behind either way. Under "nccl" rank r takes CUDA card r, and fails where
-    there is none. `threads` bounds each child's intra-op threads."""
+    behind either way; the error names every rank that failed with what it
+    raised (the other ranks are given FAILED_RANKS_GRACE_S to report theirs:
+    the first to fail is often not the cause). Under "nccl" rank r takes
+    CUDA card r, and fails where there is none. `threads` bounds each
+    child's intra-op threads."""
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as folder:
         init_method = f"file://{os.path.join(folder, 'rendezvous')}"
@@ -261,33 +275,42 @@ def run_ranks(target, world_size: int, args=(), *, backend: str = "gloo", timeou
             send.close()
             procs.append(proc)
             conns.append(recv)
-        results, failed = [None] * world_size, []
+        results, failed = [None] * world_size, {}
         deadline = time.time() + timeout_s
         try:
             pending = dict(zip(conns, range(world_size)))
-            while pending and not failed:  # the first rank that fails ends the wait for the others
+            while pending:
                 ready = multiprocessing.connection.wait(list(pending), max(0.0, deadline - time.time()))
                 if not ready:
-                    failed.append(f"ranks {sorted(pending.values())} gave no result within {timeout_s} s")
+                    if not failed:
+                        failed[world_size] = f"ranks {sorted(pending.values())} gave no result within {timeout_s} s"
+                    break
                 for conn in ready:
                     rank = pending.pop(conn)
                     try:
-                        results[rank] = conn.recv()
+                        kind, value = conn.recv()
                     except EOFError:
                         procs[rank].join(10)
-                        failed.append(f"rank {rank} ended without a result (exit code {procs[rank].exitcode})")
+                        failed[rank] = f"rank {rank} ended without a result (exit code {procs[rank].exitcode})"
+                        continue
+                    if kind == "ok":
+                        results[rank] = value
+                    else:
+                        failed[rank] = f"rank {rank} failed: {value}"
+                if failed:  # the others report what they raised, or are cut off after the grace
+                    deadline = min(deadline, time.time() + FAILED_RANKS_GRACE_S)
             for rank, proc in enumerate(procs):
                 if not failed:
                     proc.join(max(0.0, deadline - time.time()))
                     if proc.is_alive():
-                        failed.append(f"rank {rank} did not exit within {timeout_s} s")
+                        failed[rank] = f"rank {rank} did not exit within {timeout_s} s"
                     elif proc.exitcode != 0:
-                        failed.append(f"rank {rank} exited with code {proc.exitcode}")
+                        failed[rank] = f"rank {rank} exited with code {proc.exitcode}"
         finally:
             for proc in procs:
                 if proc.is_alive():
                     proc.kill()
                 proc.join()
         if failed:
-            raise RuntimeError("; ".join(failed))
+            raise RuntimeError("; ".join(failed[k] for k in sorted(failed)))
         return results

@@ -11,7 +11,12 @@ Every input mixes random canonical words with the p-edge band and random
 words x + p (x < 2^32 - 1): proof words need not be canonical, and the
 kernels must give the plain bits for them too.
 - inv: `n_random` random words, the band and 4,096 words x + p, flat and as
-  (rows, 28); zero words give zero; an empty tensor launches nothing.
+  (rows, 28); zero words give zero; an empty tensor launches nothing;
+- inv_grouped (the batch inversion a forward launches once): the same words,
+  then lengths 1-1,001 around the group of kernels.INV_GROUP words, each
+  with a zero and a word p (0 mod p) in every position of a group, and all
+  zeros; against inv_plain, golden and the kernel's own order in PyTorch
+  (inv_grouped_split_plain); no words launch nothing;
 - horner: both template flags (base-field values, base-field point) in all
   four combinations, the interleaved openings' column stride of 2, rows
   repeated through v_rep and p_rep (the wrappers' stride-0 rows), widths
@@ -26,6 +31,15 @@ kernels must give the plain bits for them too.
   host exponent: 2, 3, 2^12, 2^64 - 1 and random), and on the card the
   two other flag pairs against golden; e = 0 and 1 of ext_pow_const
   launch nothing, and the library refuses them;
+- pow_grouped (a forward's powers in one launch): fixed-generator segments
+  as the verifier makes them (query points over 15 bits, fold offsets with
+  the index shifted and its low bits cleared, a final x of 0 bits, the
+  factor 1 and a level shift) on indices with 0 and 2^15 - 1 among them, a
+  row-strided index view (a mesh rank's query slice), beside extension
+  bases at host exponents 2, 3, 2^12, 2^64 - 1 and random, all in one
+  launch and apart; against pow_grouped_plain, golden and the table
+  products in PyTorch (pow_grouped_rows_plain); e = 0 and 1 answered by
+  ops/field.pow_grouped with no launch, refused by the library;
 - gate_program: the fibonacci, poseidon_chain, gate-zoo and fuzz-13 / 23
   programs on random lanes, the inputs at the verifier's strides (column
   stride 2), in both forms (the tape in shared memory, in device scratch)
@@ -48,7 +62,7 @@ import torch
 from ..compiler.gates_torch import INPUT_KINDS, NO_SLOT, OP_MUL, OP_SUB, GateProgram, compact_ops, decode_ops
 from ..compiler.levelize import levelize_gates
 from ..golden import field as gf
-from ..kernels import horner_segments
+from ..kernels import INV_GROUP, horner_segments
 from ..ops import field as tf
 from ..ops.field import GExt
 from ..verifier_torch import horner_ext_plain
@@ -158,6 +172,54 @@ def pow_rows_plain(b_re, b_im, exponent, n_bits: int = 0, b_rep: int = 1):
         out = tf.ext_pow_const_plain(GExt(rows(b_re), rows(b_im)), exponent)
         return out.re, out.im
     raise ValueError("no plain version: the verifier calls a base-field base with an exponent an element, or an extension base with e >= 2")
+
+
+def inv_grouped_split_plain(a):
+    """What `KernelLibrary.inv_grouped` computes, in the kernel's own order
+    (csrc/field.cu): word i in group i mod T, T = ceil(n / INV_GROUP), a
+    group's prefix products, one inversion of their product, the sweep back;
+    a word 0 or p enters as 1 and leaves as 0, the padding enters as 1. Its
+    words equal inv_plain's."""
+    flat = a.reshape(-1)
+    n = flat.numel()
+    if n == 0:
+        return torch.empty_like(a)
+    groups = -(-n // INV_GROUP)
+    x = torch.cat([flat, torch.ones(groups * INV_GROUP - n, dtype=flat.dtype, device=flat.device)]).reshape(INV_GROUP, groups)
+    zero = (x == 0) | (x == tf.P_I64)
+    x = torch.where(zero, torch.ones_like(x), x)
+    prefix = [x[0]]
+    for j in range(1, INV_GROUP):
+        prefix.append(tf.mul(prefix[-1], x[j]))
+    u = tf.inv_plain(prefix[-1])
+    out = [None] * INV_GROUP
+    for j in range(INV_GROUP - 1, 0, -1):
+        out[j] = tf.mul(u, prefix[j - 1])
+        u = tf.mul(u, x[j])
+    out[0] = u
+    out = torch.where(zero, torch.zeros_like(x), torch.stack(out))
+    return out.reshape(-1)[:n].reshape(a.shape)
+
+
+def pow_grouped_rows_plain(idx, gens, exts):
+    """What `KernelLibrary.pow_grouped` computes from its own arguments, in
+    the kernel's way: a fixed-generator element is its factor times the
+    table's g^(2^k) at the set bits of its exponent, derived from the index
+    as the kernel derives it; an extension row is ext_pow_const_plain's."""
+    gen_out = []
+    for table, shift, clear, factor in gens:
+        e = tf.bit_reverse((idx >> (shift + clear)) << clear, table.shape[0])  # (rows, q), as the library returns
+        acc = tf.constant(factor, e.shape, table.device)
+        for k in range(table.shape[0]):
+            acc = torch.where(((e >> k) & 1) == 1, tf.mul(acc, table[k].expand(e.shape)), acc)
+        gen_out.append(acc)
+    ext_out = []
+    for re, im, e in exts:
+        if not 2 <= e < 2**64:
+            raise ValueError(f"exponent {e}: a host exponent is a u64 of at least 2")
+        out = tf.ext_pow_const_plain(GExt(re, im), e)
+        ext_out.append((out.re, out.im))
+    return gen_out, ext_out
 
 
 def golden_gate_program(inputs, lits, add_off, adds, mul_off, muls, out_slots, n_tape: int = 0):
@@ -350,6 +412,119 @@ def check_pow(lib, c, rng, dev, n_random: int, kernel: bool):
         raise AssertionError("pow launched for e < 2 through ext_pow_const, or for no words")
 
 
+INV_GROUPED_LENGTHS = [1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 1000, 1001]
+
+
+def check_inv_grouped(lib, c, rng, dev, words_np):
+    """checks["inv"], the grouped entry point: `words_np` (random, the band,
+    words x + p) flat and as (rows, 28), then every length of
+    INV_GROUPED_LENGTHS with a zero and a p in every position of a group
+    (the first group's and the last's), and all zeros; against inv_plain and
+    the kernel's order (inv_grouped_split_plain), the head against golden;
+    no words, no launch."""
+    a = tf.from_u64(words_np, dev)
+    got = lib.inv_grouped(a)
+    c.compare(got, tf.inv_plain(a), f"grouped: {words_np.size} words")
+    c.compare(got, inv_grouped_split_plain(a), f"grouped: {words_np.size} words, the kernel's order")
+    head = words_np[: len(EDGE) + 4096 + 64]
+    c.compare(got[: head.size], np.array([pow(int(x) % P, P - 2, P) for x in head], dtype=np.uint64), "grouped: vs golden")
+    grid = a[: min(a.numel() // 28, 1024) * 28].reshape(-1, 28)
+    c.compare(lib.inv_grouped(grid), tf.inv_plain(grid), f"grouped: {tuple(grid.shape)}")
+    for n in INV_GROUPED_LENGTHS:
+        groups = -(-n // INV_GROUP)
+        x = words(rng, (n,))
+        for j in range(INV_GROUP):  # a zero in position j of the first group, a p in position j of the last
+            if j * groups < n:
+                x[j * groups] = 0
+            if groups - 1 + j * groups < n and groups > 1:
+                x[groups - 1 + j * groups] = P
+        for what, v in [("zero and p in every position", x), ("all zero", np.zeros(n, np.uint64))]:
+            t = tf.from_u64(v, dev)
+            got = lib.inv_grouped(t)
+            c.compare(got, tf.inv_plain(t), f"grouped: {n} words, {what}")
+            c.compare(got, inv_grouped_split_plain(t), f"grouped: {n} words, {what}, the kernel's order")
+            c.compare(got, np.array([pow(int(w) % P, P - 2, P) for w in v], dtype=np.uint64), f"grouped: {n} words, {what} vs golden")
+    before = lib.launches.get("inv_grouped", 0)
+    if lib.inv_grouped(a[:0]).numel() or lib.launches.get("inv_grouped", 0) != before:
+        raise AssertionError("inv_grouped of no words launched or returned words")
+    parts = [a[:5], grid, a[:0], a[7:40].reshape(3, 11)]  # ops/field.inv_grouped: several tensors, one launch on the card
+    before = lib.launches.get("inv_grouped", 0)
+    got = tf.inv_grouped(parts)  # on the card through kernels.load(), which is `lib` there
+    if torch.device(dev).type != "cpu" and lib.launches.get("inv_grouped", 0) != before + 1:
+        raise AssertionError(f"ops/field.inv_grouped of {len(parts)} tensors made {lib.launches.get('inv_grouped', 0) - before} launches")
+    for g, w in zip(got, tf.inv_grouped_plain(parts)):
+        c.compare(g, w, f"ops/field.inv_grouped part {tuple(w.shape)}")
+
+
+def pow_grouped_cases(dev):
+    """Fixed-generator segments as the verifier makes them (kernels'
+    argument form and ops/field.GeneratorPower form): the query points over
+    15 bits, two fold steps (the index shifted, its low bits cleared), a final
+    x of 0 bits, and the factor 1 beside a level shift."""
+    g15, g11, g7 = (gf.subgroup_generator(b) for b in (15, 11, 7))
+    specs = [(gf.subgroup_generator(POW_BITS), POW_BITS, gf.MULT_GEN, 0, 0), (g15, 15, gf.fpow(gf.MULT_GEN, 16), 0, 4),
+             (g11, 11, gf.fpow(gf.MULT_GEN, 256), 4, 4), (g7, 7, gf.fpow(gf.MULT_GEN, 4096), 8, 0), (1, 0, 7, 15, 0),
+             (g15, 15, 1, 0, 0), (g11, 11, 1, 3, 2)]
+    return [tf.GeneratorPower(g, bits, factor, shift, clear, tf.from_u64(tf.power_table(g, bits), dev))
+            for g, bits, factor, shift, clear in specs]
+
+
+def check_pow_grouped(lib, c, rng, dev, n_random: int):
+    """checks["pow"], the grouped entry point: pow_grouped_cases' segments
+    on query indices (rows, 28) (0 and 2^15 - 1 among them, and a
+    row-strided view of 14 of 28 columns) with extension segments at host
+    exponents beside them, in one launch and each apart; against
+    pow_grouped_plain, the table products (pow_grouped_rows_plain) and golden
+    on a few elements; ops/field.pow_grouped answers e = 0 and 1 on the host."""
+    rows = max(n_random // 28, 2)
+    idx_np = rng.integers(0, 2**POW_BITS, size=(rows, 28), dtype=np.int64)
+    idx_np[0, :4] = [0, 2**POW_BITS - 1, 1, 2 ** (POW_BITS - 1)]
+    idx_full = torch.from_numpy(idx_np).to(dev)
+    gens = pow_grouped_cases(dev)
+    b_np = words(rng, (rows, 2))
+    b = tf.from_u64(b_np, dev)
+    base = GExt(b[:, 0], b[:, 1])  # stride 2, as the transcript's states are read
+    host_e = POW_CONST + [int(x) for x in rng.integers(2, 2**63, size=2)]
+    for what_idx, idx in [("(rows, 28)", idx_full), ("a strided (rows, 14) view", idx_full[:, 7:21])]:
+        gen_args = [(g.table, g.shift, g.clear, g.factor) for g in gens]
+        ext_args = [(base.re, base.im, e) for e in host_e]
+        before = lib.launches.get("pow_grouped", 0)
+        got_g, got_e = lib.pow_grouped(idx, gen_args, ext_args)
+        if lib.launches.get("pow_grouped", 0) != before + 1:
+            raise AssertionError(f"pow_grouped of {len(gens) + len(host_e)} segments made {lib.launches.get('pow_grouped', 0) - before} launches")
+        want_g, want_e = tf.pow_grouped_plain(idx, gens, [(base, e) for e in host_e])
+        split_g, split_e = pow_grouped_rows_plain(idx, gen_args, ext_args)
+        at = [0, 1, 2, 3, idx.numel() // 2, idx.numel() - 1]
+        flat_idx = idx.reshape(-1).cpu().numpy()
+        for g, x, w, s in zip(gens, got_g, want_g, split_g):
+            what = f"grouped {what_idx}: generator of {g.bits} bits, shift {g.shift}, clear {g.clear}, factor {g.factor}"
+            c.compare(x, w, what)
+            c.compare(x, s, f"{what}, the table products")
+            gold = [gf.fmul(g.factor, gf.fpow(g.generator, gf.reverse_bits(g.bits, ((int(flat_idx[i]) >> (g.shift + g.clear)) << g.clear) % (1 << g.bits)) if g.bits else 0))
+                    for i in at]
+            c.compare(x.reshape(-1)[at], np.array(gold, np.uint64), f"{what} vs golden")
+        for e, (re, im), w, s in zip(host_e, got_e, want_e, split_e):
+            c.compare(torch.stack([re, im]), torch.stack([w.re, w.im]), f"grouped {what_idx}: extension base, e = {e}")
+            c.compare(torch.stack([re, im]), torch.stack(s), f"grouped {what_idx}: extension base, e = {e}, apart")
+            gold = [gf.epow((int(b_np[i, 0]) % P, int(b_np[i, 1]) % P), e) for i in (0, rows - 1)]
+            c.compare(torch.stack([re[[0, rows - 1]], im[[0, rows - 1]]], 1), np.array(gold, np.uint64), f"grouped: e = {e} vs golden")
+        for k, g in enumerate(gens):  # each segment in a launch of its own gives the same words
+            alone, _ = lib.pow_grouped(idx, gen_args[k : k + 1], [])
+            c.compare(alone[0], got_g[k], f"grouped {what_idx}: generator {k} alone")
+    for e in (0, 1):  # ops/field.pow_grouped answers both on the host; the library refuses them
+        got = tf.pow_grouped_plain(idx_full, [], [(base, e)])[1][0]
+        want = tf.ext_pow_const_plain(base, e)
+        c.compare(torch.stack([got.re, got.im]), torch.stack([want.re, want.im]), f"grouped: ext_pow_const e = {e}")
+        try:
+            lib.pow_grouped(None, [], [(base.re, base.im, e)])
+        except ValueError:
+            continue
+        raise AssertionError(f"pow_grouped took a host exponent {e}, which ops/field.pow_grouped answers itself")
+    before = lib.launches.get("pow_grouped", 0)
+    if lib.pow_grouped(idx_full[:0], [(gens[0].table, 0, 0, 1)], [])[0][0].numel() or lib.launches.get("pow_grouped", 0) != before:
+        raise AssertionError("pow_grouped launched for no elements")
+
+
 def check_gate_program(lib, c, rng, dev, max_lanes: int, kernel: bool):
     """checks["gate_program"]: every program of gate_programs() at every
     batch of GATE_BATCHES, cut to max_lanes, in both forms and the one the
@@ -408,6 +583,7 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     before = lib.launches.get("inv", 0)
     if lib.inv(a[:0]).numel() or lib.launches.get("inv", 0) != before:
         raise AssertionError("inv of no words launched or returned words")
+    check_inv_grouped(lib, c, rng, dev, a_np)
 
     from .check_hash_kernels import PlainLibrary  # here: that module imports this one
 
@@ -450,6 +626,7 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     if picked != set(HORNER_SEGMENTS):
         raise AssertionError(f"horner: the cases reached the segment counts {sorted(picked)}, not every one of {HORNER_SEGMENTS}")
     check_pow(lib, checks["pow"], rng, dev, n_random, kernel)
+    check_pow_grouped(lib, checks["pow"], rng, dev, n_random)
     check_gate_program(lib, checks["gate_program"], rng, dev, n_random if kernel else min(n_random, PLAIN_GATE_LANES), kernel)
     for name in ("horner", "inv", "pow", "gate_program"):
         print(f"check {name}: {checks[name].cases} words bit-exact against plain and golden")

@@ -41,7 +41,8 @@ from ..ops import field as tf
 from ..ops import hash as th
 from ..ops import poseidon as tp
 from ..kernels import horner_segments
-from .check_field_kernels import check_field_kernels, golden_packed_program, horner_split_plain, pow_rows_plain
+from .check_field_kernels import (check_field_kernels, golden_packed_program, horner_split_plain, inv_grouped_split_plain,
+                                  pow_grouped_rows_plain, pow_rows_plain)
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -93,14 +94,15 @@ class PlainLibrary:
     """The plain versions behind the kernel library's interface, for a run
     without a card: no forms, and a "launch" is a call. The Horner sum and
     the gate program run in the kernels' own order (horner_split_plain, the
-    packed program in Python ints)."""
+    packed program in Python ints), as do the grouped inversion and
+    exponentiation (inv_grouped_split_plain, pow_grouped_rows_plain)."""
 
     max_segments = 16
     sms = 132  # the H100's, for the Horner segment rule
 
     def __init__(self, consts):
         self.consts = consts
-        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0, "pow": 0, "gate_program": 0}
+        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0, "inv_grouped": 0, "pow": 0, "pow_grouped": 0, "gate_program": 0}
 
     def permutation(self, state, form="auto"):
         return tp.permutation_plain(state, self.consts)
@@ -128,6 +130,16 @@ class PlainLibrary:
         if a.numel():
             self.launches["inv"] += 1
         return tf.inv_plain(a)
+
+    def inv_grouped(self, a):
+        if a.numel():
+            self.launches["inv_grouped"] += 1
+        return inv_grouped_split_plain(a)
+
+    def pow_grouped(self, idx, gens, exts):
+        out = pow_grouped_rows_plain(idx, gens, exts)  # raises, uncounted, where the library refuses
+        self.launches["pow_grouped"] += any(x.numel() for x in out[0]) or any(re.numel() for re, _ in out[1])
+        return out
 
     def pow(self, b_re, b_im, exponent, n_bits=0, b_rep=1):
         out = pow_rows_plain(b_re, b_im, exponent, n_bits, b_rep)  # raises, uncounted, where the library refuses

@@ -11,14 +11,15 @@ with lookups at the same degree, queries and PoW; fibonacci6: the 6-query
 fixture, for --device cpu) and a batch of copies of its cached proof:
 
 (a) stage times, a synchronise around each stage: the public-input hash, the
-    transcript, the Plonk checks in four parts (the lookup argument and the
+    transcript, the powers and inverses, the Plonk checks in four parts (the lookup argument and the
     gate program apart), FRI in its parts (proof of work and reduced
     openings, leaf hashes, initial Merkle walks, combineInitial, each fold
     step's Merkle walk and its coset fold, the final polynomial). The stages
     add up to the staged call. Beside them, summed across stages, the time
-    inside `horner_ext`, `horner_scaled`, `inv`, `pow_dynamic`,
-    `ext_pow_const` and `GateProgram.forward` (each call synchronised; on the
-    card each is one kernel launch a call, ext_pow_const's e = 0 and 1 none);
+    inside `horner_ext`, `horner_scaled`, `inv_grouped`, `pow_grouped` and
+    `GateProgram.forward` (each call synchronised; on the card each is one
+    kernel launch a call; the last two are called once a forward, in the
+    stage "powers and inverses" after the transcript);
 (b) under torch.profiler, on the card: `cudaLaunchKernel` calls a forward,
     the launches and device time of each of the port's own kernels, the
     kernels launched most often, the kernels' time on the device,
@@ -57,8 +58,8 @@ MODELS = {
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+(?:<[^>:]*>)?)\(")
 # summed across the stages they run in: label -> (owner, attribute)
 INNER = {
-    "horner_ext": (vt, "horner_ext"), "horner_scaled": (vt, "horner_scaled"), "inv": (tf, "inv"), "pow_dynamic": (tf, "pow_dynamic"),
-    "ext_pow_const": (tf, "ext_pow_const"), "GateProgram.forward": (GateProgram, "forward"),
+    "horner_ext": (vt, "horner_ext"), "horner_scaled": (vt, "horner_scaled"), "inv_grouped": (tf, "inv_grouped"),
+    "pow_grouped": (tf, "pow_grouped"), "GateProgram.forward": (GateProgram, "forward"),
 }
 
 

@@ -17,10 +17,13 @@ proof batch B (and inside FRI over the Q query rounds):
 
 Field values are int64 tensors holding u64 bit patterns (ops/field.py). The
 Poseidon chains go through ops/poseidon.py and ops/hash.py, the Horner sums
-through `horner_ext` / `horner_scaled` here, the Fermat inversions and the
-exponentiations through ops/field's `inv`, `pow_dynamic` and
-`ext_pow_const`, and the gate constraints through compiler/gates_torch's
-`GateProgram`; each launches its CUDA kernel for CUDA tensors.
+through `horner_ext` / `horner_scaled` here, every exponentiation and
+inversion of a forward through one call each of ops/field's `pow_grouped`
+and `inv_grouped` right after the transcript (`_powers_and_inverses`: every
+exponent is a function of zeta, alpha and the query indices, every
+denominator one of zeta and those powers), and the gate constraints
+through compiler/gates_torch's `GateProgram`; each launches its CUDA kernel
+for CUDA tensors.
 
 Entry points: `verify_batch(tpl, arrays)` (numpy in, numpy out) and
 `TorchVerifier(tpl)`. Both run on the CUDA card unless the caller passes a
@@ -180,13 +183,6 @@ def is_query_axis_array(name: str) -> bool:
     return name.startswith(QUERY_AXIS_ARRAYS)
 
 
-def _bit_reverse(idx, bits: int):
-    out = torch.zeros_like(idx)
-    for k in range(bits):
-        out = out | (((idx >> k) & 1) << (bits - 1 - k))
-    return out
-
-
 class TorchVerifier(nn.Module):
     """Batched verifier for one circuit template. The template's constants
     (Poseidon tables, transcript schedule, gate program, selector matrices,
@@ -259,6 +255,22 @@ class TorchVerifier(nn.Module):
         self.register_buffer("_sel_consts", tf.from_u64(tmat, device))
         self.register_buffer("_sel_mask", torch.from_numpy(mask).to(device))
         self.register_buffer("_sel_cols", torch.tensor(si.selector_indices, dtype=torch.int64, device=device))
+
+        # the forward's fixed-generator powers (pow_grouped): combineInitial's
+        # query points MULT_GEN g_lde^rev(idx), each fold step's coset offset
+        # shift_s w_s^rev((idx_s >> a_s) << a_s) and the final x, idx_s the
+        # query index shifted by the arity bits before step s; each
+        # generator's table of 2^k powers a buffer on this device
+        shift, gens = 0, [(tpl.g_lde, tpl.lde_bits, gf.MULT_GEN, 0, 0)]
+        for s, st in enumerate(tpl.steps):
+            bits_lvl = st["codeword_bits"]
+            gens.append((gf.subgroup_generator(bits_lvl), bits_lvl, tpl.level_shifts[s], shift, st["arity_bits"]))
+            shift += st["arity_bits"]
+        gens.append((gf.subgroup_generator(tpl.final_bits), tpl.final_bits, tpl.level_shifts[len(tpl.steps)], shift, 0))
+        self._gen_powers = []
+        for k, (g, bits, factor, shift, clear) in enumerate(gens):
+            self.register_buffer(f"_pow_table_{k}", tf.from_u64(tf.power_table(g, bits), device))
+            self._gen_powers.append(tf.GeneratorPower(g, bits, factor, shift, clear, getattr(self, f"_pow_table_{k}")))
 
         # per fold step: bit-reversal to subgroup order and the IDFT weights
         # wmat[k, j] = omega^{-jk}
@@ -356,6 +368,8 @@ class TorchVerifier(nn.Module):
         # lde_n <= 2^32, so the index is a low-bit mask of the canonical u64
         qidx = torch.stack([q & (tpl.lde_n - 1) for q in ch["query_indices"]], dim=1)  # (B, Q)
         fri_qidx = qidx if queries is None else qidx[:, q0:q1]
+        pw = self._powers_and_inverses(zeta, fri_alpha, fri_qidx)
+        self._stage("powers and inverses")
 
         def ext_view(x):
             return GExt(x[..., 0], x[..., 1])
@@ -383,9 +397,9 @@ class TorchVerifier(nn.Module):
 
         eqs_ok = self._plonk_checks(
             pi_hash, constants, sigmas, wires, zs, zs_next, pps, lookup_zs, lookup_zs_next, quots,
-            betas, gammas, alphas, deltas, zeta,
+            betas, gammas, alphas, deltas, zeta, pw,
         )
-        fri_ok = self._fri_checks(a, o1, o2, zeta, fri_alpha, fri_betas, pow_response, fri_qidx, final_poly)
+        fri_ok = self._fri_checks(a, o1, o2, fri_alpha, fri_betas, pow_response, fri_qidx, final_poly, pw)
 
         out = {"ok": eqs_ok & fri_ok, "eqs_ok": eqs_ok, "fri_ok": fri_ok}
         if self.debug:
@@ -402,10 +416,33 @@ class TorchVerifier(nn.Module):
             }
         return out
 
+    # -- powers and inverses ------------------------------------------------------
+    def _powers_and_inverses(self, zeta: GExt, fri_alpha: GExt, qidx):
+        """Every exponentiation and inversion of a forward, one pow_grouped
+        and one inv_grouped call: zeta^n, alpha^(n_zs + n_lookup), the query
+        points x, each fold step's coset offset and the final x; then the
+        inverses of L0's denominator n (zeta - 1), of x - zeta and x - omega
+        zeta (combineInitial's, through their norms) and of each offset.
+        qidx (B, Q) are the query indices FRI checks."""
+        tpl = self.tpl
+        B, Q = qidx.shape
+        dev = qidx.device
+        (x, *offsets, x_final), (zeta_n, alpha_m) = tf.pow_grouped(
+            qidx, self._gen_powers, [(zeta, tpl.n), (fri_alpha, tpl.n_zs + tpl.n_lookup)]
+        )
+        l0_den = tf.escale(tf.constant(tpl.n % gf.P, (B,), dev), zeta - tf.ext_constant(1, shape=(B,), device=dev))
+        point = tf.ext_from_base(x)
+        zeta_bq = GExt(zeta.re.unsqueeze(1).expand(B, Q), zeta.im.unsqueeze(1).expand(B, Q))
+        dens = [l0_den, point - zeta_bq, point - tf.escale(tf.constant(tpl.g_small, (B, Q), dev), zeta_bq)]
+        inverses = tf.inv_grouped([tf.ext_norm(d) for d in dens] + offsets)
+        l0_inv, one_inv, two_inv = (tf.ext_inv_with(d, i) for d, i in zip(dens, inverses))
+        return {"zeta_n": zeta_n, "alpha_m": alpha_m, "l0_den_inv": l0_inv, "one_den_inv": one_inv, "two_den_inv": two_inv,
+                "offset_invs": inverses[len(dens):], "x_final": x_final}
+
     # -- plonk ----------------------------------------------------------------------
     def _plonk_checks(
         self, pi_hash, constants, sigmas, wires, zs, zs_next, pps, lookup_zs, lookup_zs_next, quots,
-        betas, gammas, alphas, deltas, zeta,
+        betas, gammas, alphas, deltas, zeta, pw,
     ):
         tpl = self.tpl
         common = tpl.common
@@ -419,10 +456,9 @@ class TorchVerifier(nn.Module):
         gate_consts = constants[:, tpl.n_gate_selectors + tpl.n_lookup_selectors :]
 
         # L0(zeta)(z - 1)
-        zeta_n = tf.ext_pow_const(zeta, tpl.n)
+        zeta_n = pw["zeta_n"]
         one = tf.ext_constant(1, shape=(B,), device=dev)
-        nval = tf.constant(tpl.n % gf.P, (B,), dev)
-        lag0 = tf.ext_div(zeta_n - one, tf.escale(nval, zeta - one))
+        lag0 = tf.emul(zeta_n - one, pw["l0_den_inv"])
         zs1 = tf.emul(lag0.unsqueeze(1), zs - tf.ext_constant(1, shape=(B, 1), device=dev))  # (B, r)
 
         # partial products: all rounds, numerator and denominator in one tensor
@@ -601,7 +637,7 @@ class TorchVerifier(nn.Module):
         return per_round.reshape(B, r * per_round.shape[-1])
 
     # -- FRI ------------------------------------------------------------------------
-    def _fri_checks(self, a, o1, o2, zeta, fri_alpha, fri_betas, pow_response, qidx, final_poly):
+    def _fri_checks(self, a, o1, o2, fri_alpha, fri_betas, pow_response, qidx, final_poly, pw):
         tpl = self.tpl
         common = tpl.common
         B, Q = qidx.shape
@@ -613,9 +649,6 @@ class TorchVerifier(nn.Module):
 
         def const(v: int):
             return tf.constant(v, (B, Q), dev)
-
-        def scalar(v: int):  # one word read where it lies by the power's kernel
-            return tf.constant(v, (1, 1), dev).expand(B, Q)
 
         # proof of work: the top pow_bits bits of the response are zero
         if tpl.pow_bits:
@@ -660,14 +693,10 @@ class TorchVerifier(nn.Module):
         g0 = horner_ext(first_batch, bq(fri_alpha))  # base-field values
         g1 = horner_ext(second_batch, bq(fri_alpha))
 
-        rev_idx = _bit_reverse(qidx, tpl.lde_bits)
-        point_x = tf.ext_from_base(tf.mul(const(gf.MULT_GEN), tf.pow_dynamic(scalar(tpl.g_lde), rev_idx, tpl.lde_bits)))
-        zeta_bq = bq(zeta)
-        omega_zeta = tf.escale(const(tpl.g_small), zeta_bq)
-        one_div = tf.ext_div(g0 - bq(y0), point_x - zeta_bq)
-        two_div = tf.ext_div(g1 - bq(y1), point_x - omega_zeta)
-        alpha_m2 = tf.ext_pow_const(bq(fri_alpha), tpl.n_zs + tpl.n_lookup)
-        eval_cur = tf.emul(alpha_m2, one_div) + two_div  # (B, Q)
+        # (g0 - y0) / (x - zeta) and (g1 - y1) / (x - omega zeta), the inverses from _powers_and_inverses
+        one_div = tf.emul(g0 - bq(y0), pw["one_den_inv"])
+        two_div = tf.emul(g1 - bq(y1), pw["two_den_inv"])
+        eval_cur = tf.emul(bq(pw["alpha_m"]), one_div) + two_div  # (B, Q)
         self._stage("fri: combineInitial")
 
         # folding
@@ -691,19 +720,13 @@ class TorchVerifier(nn.Module):
 
             # coset fold: values to subgroup order, offset, IDFT, beta-Horner
             vals = evals_ext[..., getattr(self, f"_coset_perm_{s}")]
-            bits_lvl = st["codeword_bits"]
-            start = _bit_reverse((idx >> abits) << abits, bits_lvl)
-            offset = tf.mul(
-                const(tpl.level_shifts[s]),
-                tf.pow_dynamic(scalar(gf.subgroup_generator(bits_lvl)), start, bits_lvl),
-            )
             # y'_k = sum_j omega^{-jk} v_j
             wmat = getattr(self, f"_idft_{s}")  # (A, A)
             yprime = tf.ext_zeros((B, Q, arity), dev)
             for j in range(arity):
                 yprime = yprime + tf.escale(wmat[:, j], vals[..., j].unsqueeze(-1))
             # y_k = (1/A) offset^{-k} y'_k; powers of offset^{-1} by doubling
-            off_inv = tf.inv(offset)
+            off_inv = pw["offset_invs"][s]
             pows = tf.constant(1, (B, Q, 1), dev)
             cur = off_inv
             while pows.shape[-1] < arity:
@@ -716,15 +739,8 @@ class TorchVerifier(nn.Module):
             idx = new_idx
             self._stage(f"fri: step {s} coset fold")
 
-        # final polynomial
-        x_final = tf.mul(
-            const(tpl.level_shifts[len(tpl.steps)]),
-            tf.pow_dynamic(
-                scalar(gf.subgroup_generator(tpl.final_bits)),
-                _bit_reverse(idx, tpl.final_bits),
-                max(tpl.final_bits, 1),
-            ),
-        )
+        # final polynomial at x_final = shift_F w_F^rev(idx_F)
+        x_final = pw["x_final"]
         F = tpl.final_poly_len
         fp_b = GExt(final_poly.re.unsqueeze(1).expand(B, Q, F), final_poly.im.unsqueeze(1).expand(B, Q, F))
         final_ok = tf.ext_equal(horner_ext(fp_b, x_final), eval_cur)  # a base-field point

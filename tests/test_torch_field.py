@@ -177,3 +177,108 @@ def test_ext_pow_const_on_noncanonical_bases(e):
         np.testing.assert_array_equal(tf.to_u64(got.re), ar)
     golden = [gf.epow((int(a), int(b)), e) for a, b in zip(ar, ai)]
     assert [(int(x) % P, int(y) % P) for x, y in zip(tf.to_u64(got.re), tf.to_u64(got.im))] == golden
+
+
+# -- the grouped forms the verifier's forward calls once each ------------------
+# (ops/field.pow_grouped, inv_grouped; on the CPU their plain versions, beside
+# the kernels' own order in PyTorch from tools/check_field_kernels.py)
+
+import torch  # noqa: E402
+
+from plonky2_verifier_tpu.verifier_jax import _bit_reverse as j_bit_reverse  # noqa: E402
+from plonky2_verifier_tpu_torch.kernels import INV_GROUP  # noqa: E402
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import (  # noqa: E402
+    inv_grouped_split_plain,
+    pow_grouped_cases,
+    pow_grouped_rows_plain,
+)
+
+GEN_CASES = pow_grouped_cases("cpu")  # query points (15 bits), two fold steps, a final x of 0 bits, factor 1 and a shift
+
+
+def _query_indices(seed, rows=16, q=28):
+    idx = np.random.default_rng(seed).integers(0, 1 << 15, size=(rows, q), dtype=np.int64)
+    idx[0, :4] = [0, (1 << 15) - 1, 1, 1 << 14]  # exponents 0 and all bits set among them
+    return idx
+
+
+def _jax_generator_power(g, idx):
+    """The JAX call site's form: factor * pow_dynamic(g, bit_reverse(...), max(bits, 1))."""
+    import jax.numpy as jnp
+
+    shape = idx.shape
+    e = j_bit_reverse((jnp.asarray(idx) >> (g.shift + g.clear)) << g.clear, g.bits)
+    power = jf.pow_dynamic(jf.constant(g.generator, shape), e.astype(jnp.uint32), max(g.bits, 1))
+    return jf.to_u64(jf.mul(jf.constant(g.factor, shape), power))
+
+
+@pytest.mark.parametrize("k", range(len(GEN_CASES)), ids=[f"g{g.bits}b-shift{g.shift}-clear{g.clear}-f{'1' if g.factor == 1 else 'x'}" for g in GEN_CASES])
+@pytest.mark.parametrize("view", ["whole", "strided"])
+def test_pow_grouped_generator_segments_against_the_jax_call_sites(k, view):
+    g = GEN_CASES[k]
+    idx_np = _query_indices(30 + k)
+    idx = torch.from_numpy(idx_np)
+    if view == "strided":  # a mesh rank's query slice: row stride 28, 14 columns
+        idx, idx_np = idx[:, 7:21], idx_np[:, 7:21]
+    (got,), _ = tf.pow_grouped(idx, [g], [])
+    want = _jax_generator_power(g, idx_np)
+    np.testing.assert_array_equal(tf.to_u64(got), want)
+    (split,), _ = pow_grouped_rows_plain(idx, [(g.table, g.shift, g.clear, g.factor)], [])  # the table products
+    np.testing.assert_array_equal(tf.to_u64(split).reshape(want.shape), want)
+    e = gf.reverse_bits(g.bits, (int(idx_np[0, 0]) >> (g.shift + g.clear)) << g.clear) if g.bits else 0
+    assert int(tf.to_u64(got)[0, 0]) == gf.fmul(g.factor, gf.fpow(g.generator, e))
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, 3, 4096, 2**64 - 1, 0x9E3779B97F4A7C15])
+def test_pow_grouped_extension_segments_against_ext_pow_const(e):
+    ar, ai = _noncanonical(40), _noncanonical(41)
+    idx = torch.from_numpy(_query_indices(42))
+    gens, exts = tf.pow_grouped(idx, GEN_CASES[:1], [(_t_ext(ar, ai), e), (_t_ext(ai, ar), 5)])
+    want = jf.ext_pow_const(_j_ext(ar, ai), e)
+    np.testing.assert_array_equal(tf.to_u64(exts[0].re), jf.to_u64(want.re))
+    np.testing.assert_array_equal(tf.to_u64(exts[0].im), jf.to_u64(want.im))
+    want5 = jf.ext_pow_const(_j_ext(ai, ar), 5)
+    np.testing.assert_array_equal(tf.to_u64(exts[1].re), jf.to_u64(want5.re))
+    np.testing.assert_array_equal(tf.to_u64(gens[0]), _jax_generator_power(GEN_CASES[0], idx.numpy()))
+    if e >= 2:  # what the launch computes on its arguments (0 and 1 never reach it)
+        _, ((re, im),) = pow_grouped_rows_plain(None, [], [(tf.from_u64(ar, "cpu"), tf.from_u64(ai, "cpu"), e)])
+        np.testing.assert_array_equal(tf.to_u64(re), jf.to_u64(want.re))
+        np.testing.assert_array_equal(tf.to_u64(im), jf.to_u64(want.im))
+
+
+def _grouped_words(n: int, seed: int) -> np.ndarray:
+    """n words (random, the band, x + p) with a zero in every position of
+    the first group and a p in every position of the last."""
+    rng = np.random.default_rng(seed)
+    w = np.concatenate([rng.integers(0, P, size=n, dtype=np.uint64), _noncanonical(seed, n)])[rng.permutation(2 * n)][:n]
+    groups = -(-n // INV_GROUP)
+    for j in range(INV_GROUP):
+        if j * groups < n:
+            w[j * groups] = 0
+        if groups > 1 and groups - 1 + j * groups < n:
+            w[groups - 1 + j * groups] = P
+    return w
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 7, 8, 9, 17, 64, 1001])
+def test_inv_grouped_against_jax_inv(n):
+    w = _grouped_words(n, 50 + n)
+    a = tf.from_u64(w, "cpu")
+    (got,) = tf.inv_grouped([a])
+    assert got.shape == (n,)
+    if n:
+        want = _jax(jf.inv, w)
+        np.testing.assert_array_equal(tf.to_u64(got), want)
+        np.testing.assert_array_equal(tf.to_u64(inv_grouped_split_plain(a)), want)  # the kernel's order
+        assert [int(x) for x in want] == [gf.finv(int(x) % P) if int(x) % P else 0 for x in w]
+
+
+def test_inv_grouped_keeps_each_part_and_its_shape():
+    parts_np = [_grouped_words(3, 60), _grouped_words(10, 61).reshape(2, 5), np.zeros(0, np.uint64), _grouped_words(28 * 4, 62).reshape(4, 28)]
+    got = tf.inv_grouped([tf.from_u64(p, "cpu") for p in parts_np])
+    for g, p in zip(got, parts_np):
+        assert tuple(g.shape) == p.shape
+        if p.size:
+            np.testing.assert_array_equal(tf.to_u64(g).reshape(-1), _jax(jf.inv, p.reshape(-1)))
+    flat = torch.cat([tf.from_u64(p.reshape(-1), "cpu") for p in parts_np])
+    np.testing.assert_array_equal(tf.to_u64(inv_grouped_split_plain(flat)), tf.to_u64(torch.cat([g.reshape(-1) for g in got])))

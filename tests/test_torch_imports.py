@@ -149,6 +149,8 @@ vt.horner_scaled = counted("horner", vt.horner_scaled)
 tf.inv = counted("inv", tf.inv)
 tf.pow_dynamic = counted("pow", tf.pow_dynamic)
 tf.ext_pow_const = counted("pow", tf.ext_pow_const, lambda a, e: e >= 2)  # e = 0, 1 launch nothing
+tf.inv_grouped = counted("inv_grouped", tf.inv_grouped)
+tf.pow_grouped = counted("pow_grouped", tf.pow_grouped)
 from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
 GateProgram.forward = counted("gate_program", GateProgram.forward)
 cs.DEVICE, cs.BATCH = "cpu", 6
@@ -159,8 +161,8 @@ torch.cuda.synchronize = lambda: None
 v, dev, launches, fib = cs.main_path(lib, checks)
 assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
 assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
-assert (launches["horner"], launches["inv"]) == (7 + len(v.tpl.steps), 3 + len(v.tpl.steps)), launches
-assert (launches["pow"], launches["gate_program"]) == (4 + len(v.tpl.steps), 1), launches
+assert (launches["horner"], launches["inv"], launches["inv_grouped"]) == (7 + len(v.tpl.steps), 0, 1), launches
+assert (launches["pow"], launches["pow_grouped"], launches["gate_program"]) == (0, 1, 1), launches
 prover = cs.start_prover("gate_zoo", cs.ZOO)
 zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
 assert prover.returncode == 0
@@ -314,6 +316,55 @@ def test_card_paths_import_nothing_at_their_first_call():
     res = subprocess.run([sys.executable, "-c", CARD_PATHS], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
+
+CARD_FORWARD = """
+import json, sys, torch
+from plonky2_verifier_tpu_torch import kernels
+from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
+from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+from plonky2_verifier_tpu_torch.ops import field as tf, poseidon as tp
+from plonky2_verifier_tpu_torch.tools.check_hash_kernels import PlainLibrary
+from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+
+common, vkey, pwp = get_fixture_proof("fibonacci", n_arith_rows=13, num_query_rounds=2, proof_of_work_bits=2)
+tpl = CircuitTemplate(common)
+arrays = flatten_proofs(tpl, [(vkey, pwp)] * 2)
+arrays["openings1"][1, 0, 0] ^= 1
+v = TorchVerifier(tpl, device="cpu")
+plain = v(v.prepare(arrays))
+lib = PlainLibrary(tp.PoseidonConstants("cpu"))  # the kernels' own order on the CPU, its launches counted
+before = set(sys.modules)
+kernels.load = lambda: lib
+tf.pow_grouped, tf.inv_grouped = tf._pow_grouped_kernel, tf._inv_grouped_kernel  # their card paths, on CPU tensors
+
+def refuse(*a, **kw):
+    raise AssertionError("a forward reached a one-call inversion or exponentiation")
+
+tf.inv = tf.pow_dynamic = tf.ext_pow_const = refuse
+out = v(v.prepare(arrays))
+print(json.dumps({"ok": out["ok"].tolist(), "plain_ok": plain["ok"].tolist(), "eqs": out["eqs_ok"].tolist(), "fri": out["fri_ok"].tolist(),
+                  "plain_eqs": plain["eqs_ok"].tolist(), "plain_fri": plain["fri_ok"].tolist(), "launches": lib.launches,
+                  "loaded": sorted(m for m in set(sys.modules) - before if m.split(".")[0] == "sympy" or "symbolic_shapes" in m)}))
+"""
+
+
+def test_a_forward_through_the_grouped_card_paths_with_a_stand_in_library():
+    """A fibonacci forward whose exponentiations and inversions take their
+    card paths (ops/field._pow_grouped_kernel, _inv_grouped_kernel), the
+    library replaced by the kernels' own order in PyTorch (PlainLibrary):
+    pow and inv at most 2 launches a forward each (one each here), the
+    one-call forms never reached, the verdicts of the plain path, no sympy
+    loaded at the first call."""
+    res = subprocess.run([sys.executable, "-c", CARD_FORWARD], cwd=ROOT, env=child_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["ok"] == out["plain_ok"] == [True, False]
+    assert (out["eqs"], out["fri"]) == (out["plain_eqs"], out["plain_fri"])
+    launches = out["launches"]
+    assert launches["pow_grouped"] <= 2 and launches["inv_grouped"] <= 2, launches
+    assert (launches["pow_grouped"], launches["inv_grouped"], launches["pow"], launches["inv"]) == (1, 1, 0, 0), launches
+    assert out["loaded"] == []
+
 
 @pytest.fixture
 def no_library(monkeypatch):

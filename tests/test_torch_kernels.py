@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions and the golden
 model, on the card: the three Poseidon kernels, the three field kernels
-(the extension Horner sum, the Fermat inversion and the exponentiations)
-and the levelized gate program (in both forms, the tapes in shared memory
+(the extension Horner sum, the Fermat inversion and the exponentiations,
+the last two also in their grouped forms) and the levelized gate program (in both forms, the tapes in shared memory
 and in device scratch), their inputs drawn from the edge band and words
 x + p as well. Bit-exact (integer arithmetic).
 
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from plonky2_verifier_tpu_torch import verifier_torch as vt
-from plonky2_verifier_tpu_torch.kernels import horner_segments
+from plonky2_verifier_tpu_torch.kernels import INV_GROUP, horner_segments
 from plonky2_verifier_tpu_torch.golden import field as gf
 from plonky2_verifier_tpu_torch.golden import hashing as gh
 from plonky2_verifier_tpu_torch.golden import poseidon as gp
@@ -30,6 +30,9 @@ from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
     gate_programs,
     golden_gate_program,
     horner_rows_plain,
+    inv_grouped_split_plain,
+    pow_grouped_cases,
+    pow_grouped_rows_plain,
     verifier_like_gather,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -284,9 +287,15 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     inputs, _ = gate_inputs(np.random.default_rng(43), lp, 3, "cuda")
     got, want = prog(inputs, (3,)), prog.forward_plain(inputs, (3,))
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    for g, w in zip(tf.inv_grouped([a, a[:, :1]]), tf.inv_grouped_plain([a, a[:, :1]])):
+        assert torch.equal(g, w)
+    gens = pow_grouped_cases("cuda")
+    got, want = tf.pow_grouped(exps % 2**15, gens, [(point, 4096), (point, 1)]), tf.pow_grouped_plain(exps % 2**15, gens, [(point, 4096), (point, 1)])
+    assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+    assert all(torch.equal(g.re, w.re) and torch.equal(g.im, w.im) for g, w in zip(got[1], want[1]))
     assert {k: lib.launches[k] - before[k] for k in before} == {
         "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1, "inv": 1,
-        "pow": 2, "gate_program": 1,
+        "inv_grouped": 1, "pow": 2, "pow_grouped": 1, "gate_program": 1,
     }
 
 
@@ -347,11 +356,12 @@ def test_entry_points_default_to_the_card(lib):
     assert lib.launches["sponge_rows"] == before["sponge_rows"] + 1
     assert lib.launches["sponge_rows_grouped"] == before["sponge_rows_grouped"] + 1
     # the Horner sums: alpha combination, quotient, y0, y1, g0, g1, a fold each step, the final polynomial;
-    # the inversions: L0, the two combineInitial quotients, an offset each step
+    # every inversion (L0, the two combineInitial quotients, an offset each step) in one grouped launch, every
+    # exponentiation (the query points, an offset each step, the final x, zeta^n, alpha^(n_zs + n_lookup)) in
+    # another, the one-call forms never; the gate program once
     assert lib.launches["horner"] == before["horner"] + 7 + len(tpl.steps)
-    assert lib.launches["inv"] == before["inv"] + 3 + len(tpl.steps)
-    # the exponentiations: the query points, an offset each step, the final x, zeta^n, alpha^(n_zs + n_lookup); the gate program once
-    assert lib.launches["pow"] == before["pow"] + 4 + len(tpl.steps)
+    assert (lib.launches["inv"], lib.launches["inv_grouped"]) == (before["inv"], before["inv_grouped"] + 1)
+    assert (lib.launches["pow"], lib.launches["pow_grouped"]) == (before["pow"], before["pow_grouped"] + 1)
     assert lib.launches["gate_program"] == before["gate_program"] + 1
     cpu = verify_batch(tpl, arrays, debug=True, device="cpu")
     assert card["ok"].tolist() == cpu["ok"].tolist() == [True, False, True]
@@ -392,6 +402,50 @@ def test_pow_kernel(lib, ext, dynamic, rows, rep):
         for e in (0, 1):  # ops/field.ext_pow_const answers them itself
             with pytest.raises(ValueError, match="at least 2"):
                 lib.pow(b_re, b_im, e)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 17, 1001, 143361, 0])
+def test_inv_grouped_kernel(lib, n):
+    """The batch inversion at lengths around its group and at a forward's
+    size, a zero and a word p in every position of a group, on
+    non-canonical words: inv_plain's and the kernel order's bits; no words,
+    no launch."""
+    groups = -(-n // INV_GROUP)
+    x = tf.to_u64(_noncanonical(90 + n % 50, (n,))).copy()
+    for j in range(INV_GROUP):
+        if j * groups < n:
+            x[j * groups] = 0
+        if groups > 1 and groups - 1 + j * groups < n:
+            x[groups - 1 + j * groups] = P
+    a = tf.from_u64(x, "cuda")
+    before = lib.launches["inv_grouped"]
+    got = lib.inv_grouped(a)
+    assert lib.launches["inv_grouped"] == before + (1 if n else 0)
+    assert torch.equal(got, tf.inv_plain(a)) and torch.equal(got, inv_grouped_split_plain(a))
+    assert tf.to_u64(got)[[i for i in range(n) if x[i] in (0, P)]].tolist() == [0] * sum(1 for v in x if v in (0, P))
+
+
+@pytest.mark.parametrize("queries", [28, 14, 1])
+def test_pow_grouped_kernel(lib, queries):
+    """Every fixed-generator segment as the verifier makes them and
+    extension bases at host exponents in one launch, on indices of a
+    strided (rows, queries) view: pow_grouped_plain's bits and the table
+    products'."""
+    rng = np.random.default_rng(queries)
+    idx = torch.from_numpy(rng.integers(0, 1 << 15, size=(1024, 28), dtype=np.int64)).cuda()[:, :queries]
+    gens = pow_grouped_cases("cuda")
+    b = _noncanonical(99, (1024, 2))
+    base = GExt(b[:, 0], b[:, 1])
+    exts = [(base, 4096), (base, 2), (base, 2**64 - 1)]
+    before = lib.launches["pow_grouped"]
+    got_g, got_e = tf.pow_grouped(idx, gens, exts + [(base, 0)])
+    assert lib.launches["pow_grouped"] == before + 1
+    want_g, want_e = tf.pow_grouped_plain(idx, gens, exts + [(base, 0)])
+    split_g, _ = pow_grouped_rows_plain(idx, [(g.table, g.shift, g.clear, g.factor) for g in gens], [])
+    for g, w, s in zip(got_g, want_g, split_g):
+        assert torch.equal(g, w) and torch.equal(g, s)
+    for g, w in zip(got_e, want_e):
+        assert torch.equal(g.re, w.re) and torch.equal(g.im, w.im)
 
 
 @pytest.mark.parametrize("gather", ["own", "verifier-like"])

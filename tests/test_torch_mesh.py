@@ -302,3 +302,39 @@ def test_run_ranks_fails_and_leaves_no_process_when_a_rank_dies():
     with pytest.raises(RuntimeError, match="rank 1 ended without a result"):
         run_ranks(_fail_in_rank_one, 2, threads=1, timeout_s=120)
     assert not multiprocessing.active_children()
+
+
+def _raise_in_rank_one():
+    if dist.get_rank() == 1:
+        raise ValueError("rank one's own fault, 0x5eed")
+    dist.barrier()  # fails once rank 1 is gone
+    return "unreachable"
+
+
+def test_run_ranks_names_a_failed_rank_and_its_own_error():
+    """A rank that raises inside its target is named with what it raised
+    (type, message, traceback), not only with its exit code, and no process
+    is left behind."""
+    import multiprocessing
+
+    with pytest.raises(RuntimeError) as err:
+        run_ranks(_raise_in_rank_one, 2, threads=1, timeout_s=120)
+    text = str(err.value)
+    assert "rank 1 failed: ValueError: rank one's own fault, 0x5eed" in text, text
+    assert "in _raise_in_rank_one" in text, text  # the rank's traceback
+    assert not multiprocessing.active_children()
+
+
+def test_run_ranks_names_every_rank_whose_join_raised():
+    """A rank whose join_group raises (here an unknown backend) is named
+    with its own exception text, every rank of them, and no process is left
+    behind."""
+    import multiprocessing
+
+    with pytest.raises(RuntimeError) as err:
+        run_ranks(_report_rank, 2, backend="no such backend", threads=1, timeout_s=120)
+    text = str(err.value)
+    for rank in range(2):
+        assert f"rank {rank} failed: ValueError: backend must be \"gloo\" or \"nccl\", got 'no such backend'" in text, text
+    assert "in join_group" in text, text  # the rank's traceback
+    assert not multiprocessing.active_children()

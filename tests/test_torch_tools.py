@@ -92,13 +92,13 @@ def test_profile_verifier_stage_times_add_up(capsys):
     res = _last_json(capsys)
     assert res["device"].startswith("cpu") and res["device_profile"] is None and "kernel_library_s" not in res
     stages = res["stages_ms"]
-    want = ["pi hash", "transcript", "plonk: L0 and partial products", "plonk: selectors and gate program", "plonk: lookup argument",
+    want = ["pi hash", "transcript", "powers and inverses", "plonk: L0 and partial products", "plonk: selectors and gate program", "plonk: lookup argument",
             "plonk: alpha combination and quotient", "fri: proof of work and reduced openings", "fri: leaf hashes",
             "fri: initial Merkle walks", "fri: combineInitial", "fri: final polynomial"]
     assert list(stages) == want  # the 6-query fibonacci template has no fold step
     assert all(ms >= 0 for ms in stages.values())
     assert 0.95 * res["staged_call_ms"] <= sum(stages.values()) <= res["staged_call_ms"]
-    assert sorted(res["inner_ms"]) == ["GateProgram.forward", "ext_pow_const", "horner_ext", "horner_scaled", "inv", "pow_dynamic"]
+    assert sorted(res["inner_ms"]) == ["GateProgram.forward", "horner_ext", "horner_scaled", "inv_grouped", "pow_grouped"]
     assert 0 < sum(res["inner_ms"].values()) < res["staged_call_ms"]
     assert all(res[k] > 0 for k in ("construct_s", "first_call_s", "warm_call_s"))
 
@@ -166,6 +166,29 @@ def test_check_field_kernels_catches_a_flipped_word(monkeypatch, kernel):
     lib = check_hash_kernels.PlainLibrary(tp.PoseidonConstants("cpu"))
     with pytest.raises(AssertionError, match=f"^{kernel} "):
         check_field_kernels(lib, check_hash_kernels.new_checks(), "cpu", 8)
+
+@pytest.mark.parametrize("kernel", ["inv_grouped", "pow_grouped"])
+def test_check_field_kernels_catches_a_flipped_word_of_a_grouped_launch(monkeypatch, kernel):
+    """The grouped inversion's and exponentiation's checks catch a stand-in
+    that flips a bit of one output (the first fixed-generator segment's, for
+    the exponentiation)."""
+    from plonky2_verifier_tpu_torch.ops import poseidon as tp
+    from plonky2_verifier_tpu_torch.tools.check_field_kernels import check_field_kernels
+
+    plain = getattr(check_hash_kernels.PlainLibrary, kernel)
+
+    def flipped(self, *a, **kw):
+        out = plain(self, *a, **kw)
+        if kernel == "inv_grouped":
+            return out ^ 1
+        gens, exts = out
+        return ([gens[0] ^ 1] + gens[1:] if gens else gens), exts
+
+    monkeypatch.setattr(check_hash_kernels.PlainLibrary, kernel, flipped)
+    lib = check_hash_kernels.PlainLibrary(tp.PoseidonConstants("cpu"))
+    with pytest.raises(AssertionError, match=f"^{kernel.split('_')[0]} grouped"):
+        check_field_kernels(lib, check_hash_kernels.new_checks(), "cpu", 8)
+
 
 def test_bench_poseidon_on_the_cpu_names_the_host_clock(capsys):
     assert bench_poseidon.main(["8", "32", "--device", "cpu"]) == 0

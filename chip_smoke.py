@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card: build the kernels (the
 three Poseidon kernels, the three field kernels -- the extension Horner
-sum, the Fermat inversion and the exponentiations -- and the levelized gate
-program), hold each against its plain PyTorch version and the golden model,
+sum, the Fermat inversion and the exponentiations -- the levelized gate
+program, the FRI coset folds, and L0 with the partial products and the
+lookup argument), hold each against its plain PyTorch version and the golden model,
 time both, then verify a batch of 1024 standard-shape fibonacci proofs
 through TorchVerifier and check verdicts and transcripts, then batches
 of 512 and 1024 proofs of the gate-zoo circuit (all 16 gate kinds and the
@@ -40,8 +41,10 @@ success):
    gate program of the fibonacci,
    poseidon_chain, gate-zoo and fuzz 13 / 23 circuits in both of its forms
    (the tapes in shared memory, in device scratch), at batches whose lanes
-   a block do and do not divide them and at B = 0
-   (tools/check_field_kernels.py);
+   a block do and do not divide them and at B = 0, the coset folds (arity
+   2 to 32 in one launch, a query slice, B = 0), L0 with the partial
+   products (r, maxdeg and chunk counts) and the lookup argument (SLDC
+   chunks, table counts and lengths) (tools/check_field_kernels.py);
 4. main path: the standard fixture (degree 12, 28 queries, PoW 16; proved
    by a child process that starts with phase 2 and is waited for here),
    batch 1024, all accepted; lane 0's transcript equal to golden; six single-array
@@ -51,11 +54,13 @@ success):
    (hold_against_plain; phase 5 does so at batch 1024); over the main-path
    run the scan was launched at least once and the sponge and Merkle kernels
    more than zero times (the sponge twice: the public-input hash and one
-   grouped launch for every leaf hash), the Horner sum exactly 7 times and
-   once a fold step, every inversion of a call in one grouped launch and
-   every exponentiation in another (the one-call inversion and
-   exponentiation never), and the gate program once (`_field_launches`;
-   every path below checks these counts too);
+   grouped launch for every leaf hash), the Horner sum exactly 7 times,
+   every inversion of a call in one grouped launch and every
+   exponentiation in another (the one-call inversion and exponentiation
+   never), the gate program once, every fold step's coset fold in one
+   launch, L0 with the partial products once and the lookup argument once
+   where the template has lookups (`_field_launches`; every path below
+   checks these counts too);
 5. kernel times at the main path's shapes (batch 1024), kernel and plain,
    each pair also compared bit for bit, each beside its bound (the integer
    work W of csrc/poseidon.cuh over the card's int32 rate at its maximum SM
@@ -69,7 +74,9 @@ success):
    call a denominator as before it was grouped; the grouped exponentiation
    and the gate program of one main-path call and of one gate-zoo call
    (batch 1024, random proof words), each beside its plain version and its
-   bound, the exponentiation also beside one call a power;
+   bound, the exponentiation also beside one call a power; the coset
+   folds, L0 with the partial products and the lookup argument (the gate
+   zoo's alone) likewise;
 6. timing: 5 verifier calls after warm-up -> proofs/s, step ms, and the
    transcript alone;
 7. second path: the gate-zoo fixture with lookups (degree 12, 28 queries,
@@ -289,11 +296,14 @@ def recorded_calls(targets, v, a, queries=None):
 
 def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
     """The field kernels' share of hold_against_plain: every Horner sum,
-    inversion, exponentiation and the gate program of one call of `v` on
-    random words over all the lanes, recorded with its views (stride-0 rows
-    and scalar bases among them); each wrapper then runs on each batch
-    size's lanes and the plain version once on all. Returns the calls'
-    shapes after the batch axis."""
+    inversion, exponentiation, the gate program, the coset folds, L0 with
+    the partial products and the lookup argument (where the template has
+    lookups) of one call of `v` on random words over all the lanes,
+    recorded with its views (stride-0 rows, scalar bases and views of the
+    openings among them); each wrapper then runs on each batch size's lanes
+    and the plain version once on all. A buffer of `v` (a constant of the
+    template) is passed whole. Returns the calls' shapes after the batch
+    axis."""
     import torch
 
     from plonky2_verifier_tpu_torch import verifier_torch as vt
@@ -303,14 +313,18 @@ def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
     Q = queries or v.tpl.num_queries
     a = v.prepare(random_arrays(v.tpl, sum(batches), Q, rng))
     targets = [(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv_grouped"), (tf, "pow_grouped"), (GateProgram, "forward")]
+    targets += [(vt, "coset_folds"), (vt, "partial_products"), (vt, "lookup_checks")]
     calls = recorded_calls(targets, v, a, None if queries is None else slice(0, Q))
+    constants = {id(b) for b in v.buffers()}
     gate = lambda prog, inputs, batch_shape, **kw: GateProgram.forward(prog, inputs, batch_shape, **kw)
     gate_plain = lambda prog, inputs, batch_shape, packed=None, **kw: prog.forward_plain(inputs, batch_shape, **kw)  # packed: the card's
     plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain,
-             "inv_grouped": tf.inv_grouped_plain, "pow_grouped": tf.pow_grouped_plain, "forward": gate_plain}
+             "inv_grouped": tf.inv_grouped_plain, "pow_grouped": tf.pow_grouped_plain, "forward": gate_plain, "coset_folds": vt.coset_folds_plain,
+             "partial_products": vt.partial_products_plain, "lookup_checks": vt.lookup_checks_plain}
     wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv_grouped": tf.inv_grouped, "pow_grouped": tf.pow_grouped,
-               "forward": gate}
-    bucket = {"horner_ext": "horner", "horner_scaled": "horner", "inv_grouped": "inv", "pow_grouped": "pow", "forward": "gate_program"}
+               "forward": gate, "coset_folds": vt.coset_folds, "partial_products": vt.partial_products, "lookup_checks": vt.lookup_checks}
+    bucket = {"horner_ext": "horner", "horner_scaled": "horner", "inv_grouped": "inv", "pow_grouped": "pow", "forward": "gate_program",
+              "coset_folds": "coset_fold", "partial_products": "partial_products", "lookup_checks": "lookup_checks"}
 
     def cut(x, part, b):
         """x's lanes `part`: a tensor's or GExt's first axis, a dict's, a list's or a segment's items, the batch shape."""
@@ -318,6 +332,8 @@ def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
             return {k: cut(y, part, b) for k, y in x.items()}
         if isinstance(x, tuple) and all(isinstance(y, int) for y in x):  # GateProgram.forward's batch shape
             return (b,)
+        if id(x) in constants:
+            return x
         if isinstance(x, (list, tuple)):  # inv_grouped's parts, pow_grouped's (base, e) segments
             return type(x)(cut(y, part, b) for y in x)
         return x[part] if isinstance(x, (torch.Tensor, tf.GExt)) else x
@@ -351,7 +367,8 @@ def hold_against_plain(v, batch, checks, what: str, queries=None):
     it: the transcript scan on v's own schedule, the public-input hash (width
     0 where the circuit has none), every leaf hash in one grouped launch, the
     stacked initial Merkle walk and each fold step's, and every Horner sum,
-    inversion, exponentiation and the gate program of a call on random proof
+    inversion, exponentiation, the gate program, the coset folds, L0 with
+    the partial products and the lookup argument of a call on random proof
     words (hold_field_kernels). A
     walk of length 0 is never launched (verifier_torch.merkle_batched) and
     is passed over here too. `batch` may be a list of batch sizes: each wrapper is then called
@@ -543,13 +560,18 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     # call on random proof words, the main path's and the gate zoo's at the
     # same batch; a kernel's row is the main path's largest call, the zoo's
     # largest beside it
+    from plonky2_verifier_tpu_torch import verifier_torch as vt
     from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram, step_barriers
     from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 
     zoo_v = TorchVerifier(zoo_tpl, device=DEVICE)
     zoo_dev = zoo_v.prepare(random_arrays(zoo_tpl, B, zoo_tpl.num_queries, rng))
     pair = lambda x: (x.re, x.im) if isinstance(x, tf.GExt) else x
-    targets = [(tf, "pow_grouped"), (GateProgram, "forward")]
+    targets = [(tf, "pow_grouped"), (GateProgram, "forward"), (vt, "coset_folds"), (vt, "partial_products"), (vt, "lookup_checks")]
+    # the three stages' kernels: their wrapper's call beside their plain version
+    stages = {"coset_folds": ("coset_fold", fold_work, vt.coset_folds_plain),
+              "partial_products": ("partial_products", partial_products_work, vt.partial_products_plain),
+              "lookup_checks": ("lookup_checks", lookup_work, vt.lookup_checks_plain)}
     for path, verifier, arrays in [("main path", v, dev), ("gate zoo", zoo_v, zoo_dev)]:
         largest = {}
         for name, args, kwargs in recorded_calls(targets, verifier, arrays):
@@ -565,6 +587,12 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
                 kernel = lambda prog=prog, args=args, kwargs=kwargs: pair(prog(*args[1:], **kwargs))
                 plain = lambda prog=prog, args=args, kwargs=kwargs: pair(prog.forward_plain(*args[1:], out_slots=kwargs.get("out_slots")))
                 size = instructions
+            elif name in stages:
+                kernel = lambda fn=getattr(vt, name), args=args: fn(*args)
+                name, work_of, plain_fn = stages[name]
+                instructions, n_bytes, what, *_ = work_of(*args)
+                what, size = f"{path}: {what}", instructions
+                plain = lambda fn=plain_fn, args=args: fn(*args)
             else:
                 instructions, n_bytes, what, before = pow_grouped_work(*args)
                 what, size = f"{path}: {what}", instructions
@@ -575,7 +603,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
             if name == "pow":
                 work += f"; {before} instructions before the table (n_bits - 1 squarings a generator)"
             res = timed(name, what, kernel, plain, 20, field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1,
-                        words=words_of if name == "pow" else None)
+                        words=words_of if name in ("pow", "coset_fold", "partial_products", "lookup_checks") else None)
             if name == "pow":  # beside one launch of the one-call kernel a power, as before they were grouped
                 apart = powers_apart(*args)
                 res["apart"] = {"ms": event_ms(apart, 20, 2), "device_ms": device_ms(apart, 20, 1), "launches": len(apart())}
@@ -583,8 +611,8 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
                       f"(device {res['apart']['device_ms']:.4f} ms) in {res['apart']['launches']} launches")
             if size >= largest.get(name, -1):
                 largest[name] = size
-                if path == "main path":
-                    out[name] = res
+                if path == "main path" or name not in out:  # the lookup argument: the gate zoo's alone (fibonacci has none)
+                    out[name] = dict(res, timed_on=path)
                 else:
                     out[name]["zoo"] = res
     return out
@@ -658,6 +686,71 @@ def inv_grouped_work(n: int):
     return least, 16 * n, (INV_PRODUCTS * groups + 3 * (n - groups)) * PRODUCT
 
 
+def fold_work(evals, off_invs, betas, perms, idfts):
+    """(int32 instructions, bytes, description, the kernel's instructions)
+    of one coset_fold launch, the least the function needs, counted in the
+    FFT form: a (b, q) of a step of arity A takes A log2(A) / 2 butterflies
+    (a base-field twiddle times an extension value, 2 products, and an
+    extension add and subtract, 4 adds), the Horner chain in c = beta
+    off_inv (4 products and 4 adds a value; c itself 2 products) and the
+    scaling by 1/A (2 products); each opened value, offset inverse and beta
+    word read once, the (A, A) weights once, each folded pair written once.
+    The kernel forms the IDFT as A^2 scalings and adds (2 products, 2 adds)
+    in place of the butterflies."""
+    least = kernel = n_words = 0
+    for e, w in zip(evals, idfts):
+        B, Q, arity = e.shape[:3]
+        lanes, bits = B * Q, arity.bit_length() - 1
+        chain = arity * (4 * PRODUCT + 4 * ADD) + 4 * PRODUCT
+        least += lanes * (arity * bits // 2 * (2 * PRODUCT + 4 * ADD) + chain)
+        kernel += lanes * (arity * arity * (2 * PRODUCT + 2 * ADD) + chain)
+        n_words += lanes * (2 * arity + 3) + 2 * B + w.numel()
+    what = f"coset_fold: {len(evals)} steps of arity {[e.shape[2] for e in evals]} at {tuple(evals[0].shape[:2])}; the kernel's {kernel} instructions"
+    return least, 8 * n_words, what, kernel
+
+
+def partial_products_work(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg):
+    """(int32 instructions, bytes, description) of one partial_products
+    launch, the least the function needs: a wire's numerator term beta k_i
+    (a product), its escale of zeta (2) and 3 adds, its denominator term an
+    escale of sigma (2) and 3 adds, a round; a chunk's two products maxdeg -
+    1 emuls each, two emuls by the current values and a subtraction; L0 an
+    emul a lane and one a round, with their subtractions; each opening and
+    challenge word read once, each output written once."""
+    B, r = zs.shape
+    ns = sigmas.shape[1]
+    n_chunks = ns // maxdeg
+    instructions = (B * r * ns * (5 * PRODUCT + 6 * ADD) + B * r * n_chunks * (2 * maxdeg * EMUL + 2 * ADD)
+                    + B * (EMUL + 2 * ADD) + B * r * (EMUL + 2 * ADD))
+    n_words = 6 * B + 4 * B * r + 2 * pps.re.numel() + 4 * B * ns + 2 * B * r + ns + 2 * B * (r + r * n_chunks)
+    return instructions, 8 * n_words, f"partial_products: (B, r) ({B}, {r}), {ns} routed wires in {n_chunks} chunks of {maxdeg}"
+
+
+def lookup_work(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg):
+    """(int32 instructions, bytes, description) of one lookup_checks launch,
+    counted in the running pair's form (the least this code knows), a (b,
+    round): a lookup slot's combo (2 products, 2 adds), its term (2 adds)
+    and the pair's 2 emuls and 2 adds; a table slot the same with a third
+    emul (its multiplicity); a chunk's difference, 2 emuls by it, an add,
+    2 emuls by the selectors; an RE step a combo and an escale (4 products,
+    4 adds), then a subtraction and an emul; a padded table row 2 products
+    and 2 adds, a table's final a product, 3 adds and an emul; the three
+    single equations 3 emuls. The openings, challenges and padded tables
+    read once, each output written once."""
+    B, r = wires.shape[0], len(deltas)
+    n_polys = lookup_zs.shape[1] // r
+    n_sldc, num_lu, num_lut = n_polys - 1, num_routed_wires // 2, num_routed_wires // 3
+    rows, luts = coeffs.shape[0], offsets.numel() - 1
+    slot = 2 * PRODUCT + 4 * ADD
+    per_round = (num_lu * (slot + 2 * EMUL + 2 * ADD) + num_lut * (slot + 3 * EMUL + 2 * ADD) + n_sldc * (4 * EMUL + 6 * ADD)
+                 + num_lut * (4 * PRODUCT + 4 * ADD) + 2 * ADD + EMUL + rows * 2 * (PRODUCT + ADD) + luts * (PRODUCT + 3 * ADD + EMUL)
+                 + 3 * EMUL)
+    width = 4 + luts + 2 * n_sldc
+    n_words = 2 * B * (4 + luts) + 2 * B * max(2 * num_lu, 3 * num_lut) + 4 * B * r * n_polys + 4 * B * r + 2 * rows + luts + 1 + 2 * B * r * width
+    what = f"lookup_checks: (B, r) ({B}, {r}), {n_sldc} SLDC chunks, {num_lu} lookup and {num_lut} table slots, {luts} tables of {rows} padded rows"
+    return B * r * per_round, 8 * n_words, what
+
+
 def gate_work(packed, inputs):
     """(int32 instructions, bytes) of one gate-program launch on the packed
     program (the ops its gather needs): an add is a reduction, a negation
@@ -709,16 +802,19 @@ def _transcript_equals_golden(common, dbg, lane, vkey, pwp):
 def _field_launches(tpl) -> dict:
     """Field-kernel launches a verifier call of `tpl`: the Horner sum for
     the alpha combination, the quotient, the two reduced openings,
-    combineInitial's two sums, each fold step and the final polynomial; one
-    grouped launch for every inversion (L0, combineInitial's two quotients,
-    each fold step's coset offset) and one for every exponentiation
-    (combineInitial's query points, each fold step's coset offset, the final
-    x, zeta^n and alpha^(n_zs + n_lookup)); the one-call inversion and
-    exponentiation never; the gate program once."""
-    return {"horner": 7 + len(tpl.steps), "inv": 0, "inv_grouped": 1, "pow": 0, "pow_grouped": 1, "gate_program": 1}
+    combineInitial's two sums and the final polynomial; one grouped launch
+    for every inversion (L0, combineInitial's two quotients, each fold
+    step's coset offset) and one for every exponentiation (combineInitial's
+    query points, each fold step's coset offset, the final x, zeta^n and
+    alpha^(n_zs + n_lookup)); the one-call inversion and exponentiation
+    never; the gate program once; every fold step's coset fold in one
+    launch (none without fold steps); L0 with the partial products once;
+    the lookup argument once where the template has lookups, else never."""
+    return {"horner": 7, "inv": 0, "inv_grouped": 1, "pow": 0, "pow_grouped": 1, "gate_program": 1, "coset_fold": 1 if tpl.steps else 0,
+            "partial_products": 1, "lookup_checks": 1 if tpl.common.num_lookup_polys > 0 else 0}
 
 
-FIELD_KERNELS = ("horner", "inv", "inv_grouped", "pow", "pow_grouped", "gate_program")
+FIELD_KERNELS = ("horner", "inv", "inv_grouped", "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks")
 
 
 def _check_launches(launches, what: str, tpl):
@@ -1371,7 +1467,7 @@ def main():
     print(f"card: {smi}")
 
     sources = {"permutation": "permutation.cu", "sponge_rows": "sponge.cu", "merkle_fold": "merkle.cu", "horner": "field.cu", "inv": "field.cu",
-               "pow": "field.cu", "gate_program": "gates.cu"}
+               "pow": "field.cu", "gate_program": "gates.cu", "coset_fold": "fold.cu", "partial_products": "plonk.cu", "lookup_checks": "plonk.cu"}
     replaces = {
         "permutation": "plonky2_verifier_tpu/ops/pallas_poseidon.py:122",
         "sponge_rows": "plonky2_verifier_tpu/ops/pallas_hash.py:112",
@@ -1381,6 +1477,9 @@ def main():
         "inv": "plonky2_verifier_tpu/ops/field.py:264 inv",
         "pow": "plonky2_verifier_tpu/ops/field.py:413 pow_dynamic (and :399 ext_pow_const)",
         "gate_program": "plonky2_verifier_tpu/compiler/gates_jax.py:225 run_levelized",
+        "coset_fold": "plonky2_verifier_tpu/verifier_jax.py:749-810 (_fri_checks' coset fold)",
+        "partial_products": "plonky2_verifier_tpu/verifier_jax.py:345-385 (_plonk_checks' L0 and partial products)",
+        "lookup_checks": "plonky2_verifier_tpu/verifier_jax.py:468-642 _lookup_checks",
     }
     entry_points = {
         "permutation": ("permutation", "permutation_scan"),
@@ -1390,6 +1489,9 @@ def main():
         "inv": ("inv", "inv_grouped"),
         "pow": ("pow", "pow_grouped"),
         "gate_program": ("gate_program",),
+        "coset_fold": ("coset_fold",),
+        "partial_products": ("partial_products",),
+        "lookup_checks": ("lookup_checks",),
     }
     rows = []
     for name in kernels.KERNELS:
@@ -1411,6 +1513,9 @@ def main():
         }
         for b, n in zoo_launches.items():
             row[f"launches_zoo_{b}"] = sum(n[k] for k in entry_points[name])
+        if not row["launches"]:  # a kernel the main path's template never reaches (the lookup argument): its own path's run
+            b = max(zoo_launches)
+            row["launches"], row["launches_path"] = row[f"launches_zoo_{b}"], f"the gate-zoo path at batch {b}"
         row["launches_stream"] = sum(stream_launches[k] for k in entry_points[name])
         row["launches_cli"] = sum(cli_launches[k] for k in entry_points[name])
         row["launches_shapes"] = sum(shape_launches[k] for k in entry_points[name])
@@ -1425,6 +1530,8 @@ def main():
                 row.update({f"{extra}_{k}": round(x, 6) if isinstance(x, float) else x for k, x in tm[extra].items()})
         if "wrapper_ms" in tm:  # the grouped inversion's call through ops/field: concatenation, launch, split
             row["wrapper_ms"] = round(tm["wrapper_ms"], 6)
+        if "timed_on" in tm:  # the path whose largest call the times are of
+            row["timed_on"] = tm["timed_on"]
         rows.append(row)
     print(f"total_s {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))

@@ -12,6 +12,9 @@
 //   either way.
 // - `mul` forms the exact 128-bit product (Hopper's native __umul64hi) and
 //   reduces it as ops/field.reduce128 does: canonical for any (lo, hi).
+// - `sub` is ops/field.sub: the wrapped difference, 2^32 - 1 taken off
+//   where it borrowed (that adds p). Exact mod p for any words; canonical
+//   where both operands are.
 // - `emul` is ops/field.emul in F_p[X]/(X^2 - 7): re = add(rr, 7 ii) with
 //   7 ii as the canonical product mul(ii, 7) (ops/field.mul_small),
 //   im = add(ri, ir). Its form for a fixed point (`Point`) gives the same
@@ -36,6 +39,11 @@ __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
     return s;
 }
 
+__device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
+    const uint64_t d = a - b;
+    return a < b ? d - EPSILON : d;
+}
+
 __device__ __forceinline__ uint64_t reduce128(uint64_t lo, uint64_t hi) {
     const uint64_t hi_hi = hi >> 32, hi_lo = hi & EPSILON;
     uint64_t t0 = lo - hi_hi;
@@ -57,6 +65,26 @@ __device__ __forceinline__ Ext emul(Ext a, Ext b) {
     const uint64_t rr = mul(a.re, b.re), ii = mul(a.im, b.im);
     const uint64_t ri = mul(a.re, b.im), ir = mul(a.im, b.re);
     return {add(rr, mul(ii, W)), add(ri, ir)};
+}
+
+// GExt's + and - (ops/field.py): part by part
+__device__ __forceinline__ Ext eadd(Ext a, Ext b) { return {add(a.re, b.re), add(a.im, b.im)}; }
+__device__ __forceinline__ Ext esub(Ext a, Ext b) { return {sub(a.re, b.re), sub(a.im, b.im)}; }
+// ops/field.escale: a base-field word times an extension element
+__device__ __forceinline__ Ext escale(uint64_t s, Ext a) { return {mul(s, a.re), mul(s, a.im)}; }
+
+// An extension matrix at any strides in words, both parts alike: element
+// (row, col) at re[row * row_stride + col * col_stride] (im likewise). A
+// vector is a matrix of one column. kernels.ExtView field for field.
+struct ExtView {
+    const uint64_t* re;
+    const uint64_t* im;
+    int64_t row, col;
+};
+
+__device__ __forceinline__ Ext at(const ExtView& m, int64_t row, int64_t col = 0) {
+    const int64_t i = row * m.row + col * m.col;
+    return {m.re[i], m.im[i]};
 }
 
 // A point a that multiplies many values (a Horner chain) with its

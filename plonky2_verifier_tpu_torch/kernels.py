@@ -10,7 +10,9 @@ memory, and returns the `KernelLibrary` whose methods launch the kernels:
 the three Poseidon kernels (permutation.cu, sponge.cu, merkle.cu), the
 three field kernels (field.cu: the extension Horner sum, the inversion and
 the exponentiations, the last two also in the grouped form a verifier's
-forward launches once each) and the levelized gate program (gates.cu).
+forward launches once each), the levelized gate program (gates.cu), every
+FRI coset fold of a forward (fold.cu), and L0 with the partial products and
+the lookup argument (plonk.cu).
 
 Both raise on any failure (no CUDA device, no nvcc, a compile error, a
 refused launch); nothing here falls back to the plain PyTorch versions.
@@ -40,12 +42,13 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("permutation", "sponge", "merkle", "field", "gates")
+SOURCES = ("permutation", "sponge", "merkle", "field", "gates", "fold", "plonk")
 POSEIDON_SOURCES = ("permutation", "sponge", "merkle")  # take the Poseidon tables at load
-KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program")
+KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program", "coset_fold", "partial_products",
+           "lookup_checks")
 # launch counters: the permutation, sponge, inversion and exponentiation kernels have two entry points each
 COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv", "inv_grouped",
-            "pow", "pow_grouped", "gate_program")
+            "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks")
 # also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
 SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
 FORMS = {"auto": 0, "thread": 1, "split": 2}
@@ -193,6 +196,46 @@ class PowSegment(ctypes.Structure):
     ]
 
 
+class ExtView(ctypes.Structure):
+    """csrc/goldilocks.cuh's ExtView: an extension matrix, both parts at
+    one stride pattern in words (a vector: one column)."""
+
+    _fields_ = [("re", ctypes.c_void_p), ("im", ctypes.c_void_p), ("row", ctypes.c_int64), ("col", ctypes.c_int64)]
+
+
+class FoldStep(ctypes.Structure):
+    """csrc/fold.cu's FoldStep, field for field."""
+
+    _fields_ = [
+        ("evals", ctypes.c_void_p), ("off_inv", ctypes.c_void_p), ("beta_re", ctypes.c_void_p), ("beta_im", ctypes.c_void_p),
+        ("idft", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("e_row", ctypes.c_int64), ("e_query", ctypes.c_int64), ("o_row", ctypes.c_int64), ("o_query", ctypes.c_int64),
+        ("beta_stride", ctypes.c_int64), ("inv_arity", ctypes.c_uint64), ("arity_bits", ctypes.c_int32), ("unused", ctypes.c_int32),
+    ]
+
+
+class PartialProductArgs(ctypes.Structure):
+    """csrc/plonk.cu's PartialProductArgs, field for field."""
+
+    _fields_ = [(k, ExtView) for k in ("zeta_n", "l0_den_inv", "zeta", "zs", "zs_next", "pps", "wires", "sigmas")] + [
+        ("betas", ctypes.c_void_p), ("gammas", ctypes.c_void_p), ("k_is", ctypes.c_void_p), ("out_re", ctypes.c_void_p),
+        ("out_im", ctypes.c_void_p), ("batch", ctypes.c_int64),
+        ("r", ctypes.c_int32), ("maxdeg", ctypes.c_int32), ("n_chunks", ctypes.c_int32), ("npp", ctypes.c_int32),
+    ]
+
+
+class LookupArgs(ctypes.Structure):
+    """csrc/plonk.cu's LookupArgs, field for field."""
+
+    _fields_ = [(k, ExtView) for k in ("sels", "wires", "zs", "zs_next")] + [
+        ("deltas", ctypes.c_void_p), ("coeffs", ctypes.c_void_p), ("table_off", ctypes.c_void_p), ("out_re", ctypes.c_void_p),
+        ("out_im", ctypes.c_void_p), ("batch", ctypes.c_int64),
+        ("r", ctypes.c_int32), ("luts", ctypes.c_int32), ("n_polys", ctypes.c_int32), ("num_lu", ctypes.c_int32),
+        ("num_lut", ctypes.c_int32), ("lu_deg", ctypes.c_int32), ("lut_deg", ctypes.c_int32),
+    ]
+
+
+FOLD_MAX_STEPS = 32  # fold steps a launch of p2v_coset_fold (csrc/fold.cu): lde_bits <= 32, a step takes at least 1 bit
 POW_MAX_SEGMENTS = 16  # segments a launch of p2v_pow_grouped (csrc/field.cu)
 INV_GROUP = 8  # words a thread of p2v_inv_grouped: one Fermat chain a group (csrc/field.cu)
 HORNER_MAX_SEGMENTS = 32  # a row's segments share a warp (csrc/field.cu)
@@ -239,6 +282,18 @@ def _check_tensor(t: torch.Tensor, name: str, shape, dtype=torch.int64, contiguo
         raise ValueError(f"{name} must be contiguous")
 
 
+def _ext_view(pair, name: str, shape) -> ExtView:
+    """An (re, im) pair of int64 CUDA tensors of `shape` (None: any size),
+    1-D or 2-D, at any strides, the two parts at the same ones."""
+    re, im = pair
+    _check_tensor(re, f"{name} re", shape, contiguous=False)
+    _check_tensor(im, f"{name} im", tuple(re.shape), contiguous=False)
+    if im.stride() != re.stride():
+        raise ValueError(f"{name} im has strides {im.stride()}, unlike the real part's {re.stride()}")
+    row, col = (re.stride() + (0,))[:2]
+    return ExtView(re.data_ptr(), im.data_ptr(), row, col)
+
+
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -268,6 +323,8 @@ class KernelLibrary:
                 "p2v_pow_grouped": [vp, i32, vp, i64, i64, vp],
             },
             "gates": {"p2v_gate_program": [vp, i32, i32, vp], "p2v_gate_smem_limit": []},
+            "fold": {"p2v_coset_fold": [vp, i32, i64, i64, vp]},
+            "plonk": {"p2v_partial_products": [vp, vp], "p2v_lookup_checks": [vp, vp]},
         }
         if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
             raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
@@ -628,6 +685,110 @@ class KernelLibrary:
             err = self._fn["p2v_gate_program"](ctypes.addressof(a), form == "shared", threads, _stream())
             _check_cuda(err, "gate_program")
             self.launches["gate_program"] += 1
+        return out[0], out[1]
+
+    def coset_fold(self, steps):
+        """Every FRI step's coset fold in one launch (csrc/fold.cu), as
+        verifier_torch.coset_fold_plain computes each. `steps`: (evals,
+        off_inv, beta_re, beta_im, idft) a step, evals (B, Q, A, 2) with its
+        (A, 2) values contiguous, off_inv (B, Q) at any strides, beta_re and
+        beta_im (B,) at one stride, idft the (A, A) weights omega^(-jk),
+        contiguous; every step over the same (B, Q). Returns (steps, 2, B, Q):
+        a step's folded (re, im)."""
+        if len(steps) > FOLD_MAX_STEPS:
+            raise ValueError(f"{len(steps)} fold steps, above the {FOLD_MAX_STEPS} a launch takes")
+        batch, queries = steps[0][1].shape if steps else (0, 0)
+        device = torch.device("cuda", torch.cuda.current_device())
+        out = torch.empty((len(steps), 2, batch, queries), dtype=torch.int64, device=device)
+        table = (FoldStep * max(len(steps), 1))()
+        for k, (evals, off_inv, beta_re, beta_im, idft) in enumerate(steps):
+            arity = idft.shape[0] if idft.dim() == 2 else -1
+            if arity < 1 or arity & (arity - 1):
+                raise ValueError(f"step {k}: idft has shape {tuple(idft.shape)}, not (A, A) with A a power of two")
+            _check_tensor(idft, f"step {k} idft", (arity, arity))
+            _check_tensor(evals, f"step {k} evals", (batch, queries, arity, 2), contiguous=False)
+            if evals.numel() and evals.stride()[2:] != (2, 1):
+                raise ValueError(f"step {k}: evals' (A, 2) values must be contiguous, got strides {evals.stride()}")
+            _check_tensor(off_inv, f"step {k} off_inv", (batch, queries), contiguous=False)
+            beta = _ext_view((beta_re, beta_im), f"step {k} beta", (batch,))
+            table[k] = FoldStep(evals.data_ptr(), off_inv.data_ptr(), beta.re, beta.im, idft.data_ptr(), out[k].data_ptr(),
+                                evals.stride(0), evals.stride(1), off_inv.stride(0), off_inv.stride(1), beta.row,
+                                pow(arity, P - 2, P), arity.bit_length() - 1, 0)
+        if out.numel():
+            err = self._fn["p2v_coset_fold"](ctypes.addressof(table), len(steps), batch, queries, _stream())
+            _check_cuda(err, "coset_fold")
+            self.launches["coset_fold"] += 1
+        return out
+
+    def partial_products(self, zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int):
+        """L0(zeta)(z - 1) a round and the partial-product checks
+        (csrc/plonk.cu), as verifier_torch.partial_products_plain computes
+        them: every extension operand an (re, im) pair at any strides,
+        zeta_n, l0_den_inv and zeta (B,), zs and zs_next (B, r), pps (B, r
+        npp), wires and sigmas (B, ns) with ns = n_chunks maxdeg and npp =
+        n_chunks - 1; betas and gammas (B, r) and k_is (ns,), contiguous.
+        Returns (out_re, out_im), each (B, r + r n_chunks)."""
+        z = _ext_view(zs, "zs", (None, None))
+        batch, r = zs[0].shape
+        ns = sigmas[0].shape[1] if sigmas[0].dim() == 2 else -1
+        if maxdeg < 1 or ns < maxdeg or ns % maxdeg:
+            raise ValueError(f"{ns} sigmas do not make chunks of {maxdeg}")
+        n_chunks = ns // maxdeg
+        a = PartialProductArgs()
+        a.zs = z
+        for name, pair, shape in (("zeta_n", zeta_n, (batch,)), ("l0_den_inv", l0_den_inv, (batch,)), ("zeta", zeta, (batch,)),
+                                  ("zs_next", zs_next, (batch, r)), ("pps", pps, (batch, r * (n_chunks - 1))),
+                                  ("wires", wires, (batch, ns)), ("sigmas", sigmas, (batch, ns))):
+            setattr(a, name, _ext_view(pair, name, shape))
+        _check_tensor(betas, "betas", (batch, r))
+        _check_tensor(gammas, "gammas", (batch, r))
+        _check_tensor(k_is, "k_is", (ns,))
+        out = torch.empty((2, batch, r + r * n_chunks), dtype=torch.int64, device=betas.device)
+        a.betas, a.gammas, a.k_is, a.out_re, a.out_im = betas.data_ptr(), gammas.data_ptr(), k_is.data_ptr(), out[0].data_ptr(), out[1].data_ptr()
+        a.batch, a.r, a.maxdeg, a.n_chunks, a.npp = batch, r, maxdeg, n_chunks, n_chunks - 1
+        if batch and r:
+            err = self._fn["p2v_partial_products"](ctypes.addressof(a), _stream())
+            _check_cuda(err, "partial_products")
+            self.launches["partial_products"] += 1
+        return out[0], out[1]
+
+    def lookup_checks(self, sels, wires, zs, zs_next, deltas, coeffs, table_off, num_routed_wires: int, maxdeg: int):
+        """The lookup equations of every round (csrc/plonk.cu), as
+        verifier_torch.lookup_checks_plain computes them: sels (B, 4 + luts),
+        wires (B, num_wires), zs and zs_next (B, r n_polys), each an (re, im)
+        pair at any strides; deltas (B, r, 4) contiguous, (a, b, alpha,
+        delta) a round; coeffs (rows, 2) the padded tables one after the
+        other and table_off (luts + 1,) their first rows, contiguous. Returns
+        (out_re, out_im), each (B, r (4 + luts + 2 n_sldc))."""
+        _check_tensor(deltas, "deltas", (None, None, 4))
+        batch, r = deltas.shape[:2]
+        luts = table_off.shape[0] - 1 if table_off.dim() == 1 else -1
+        if luts < 0:
+            raise ValueError(f"table_off has shape {tuple(table_off.shape)}, expected (luts + 1,)")
+        _check_tensor(table_off, "table_off", (luts + 1,))
+        _check_tensor(coeffs, "coeffs", (None, 2))
+        a = LookupArgs()
+        a.zs = _ext_view(zs, "zs", (batch, None))
+        n_polys = zs[0].shape[1] // r if r else 0
+        if n_polys < 2 or zs[0].shape[1] != r * n_polys:
+            raise ValueError(f"lookup_zs of {zs[0].shape[1]} columns is not {r} rounds of at least 2 polynomials")
+        num_lu, num_lut = num_routed_wires // 2, num_routed_wires // 3
+        a.zs_next = _ext_view(zs_next, "zs_next", (batch, r * n_polys))
+        a.sels = _ext_view(sels, "sels", (batch, 4 + luts))
+        a.wires = _ext_view(wires, "wires", (batch, None))
+        if wires[0].shape[1] < max(2 * num_lu, 3 * num_lut):
+            raise ValueError(f"{wires[0].shape[1]} wires, fewer than {num_routed_wires} routed ones")
+        n_sldc = n_polys - 1
+        if maxdeg < 2 or num_lu > n_sldc * (maxdeg - 1):
+            raise ValueError(f"{num_lu} lookup slots do not fit {n_sldc} chunks of {maxdeg - 1}")
+        out = torch.empty((2, batch, r * (4 + luts + 2 * n_sldc)), dtype=torch.int64, device=deltas.device)
+        a.deltas, a.coeffs, a.table_off = deltas.data_ptr(), coeffs.data_ptr(), table_off.data_ptr()
+        a.out_re, a.out_im, a.batch, a.r, a.luts, a.n_polys = out[0].data_ptr(), out[1].data_ptr(), batch, r, luts, n_polys
+        a.num_lu, a.num_lut, a.lu_deg, a.lut_deg = num_lu, num_lut, maxdeg - 1, -(-num_lut // n_sldc)
+        if batch and r:
+            err = self._fn["p2v_lookup_checks"](ctypes.addressof(a), _stream())
+            _check_cuda(err, "lookup_checks")
+            self.launches["lookup_checks"] += 1
         return out[0], out[1]
 
 

@@ -1,9 +1,12 @@
 """Bit-exactness check of the field kernels on the card: the extension
-Horner sum, the Fermat inversion and the exponentiations (csrc/field.cu)
-and the levelized gate program (csrc/gates.cu), against their plain PyTorch
-versions (`verifier_torch.horner_ext_plain`, `ops/field.inv_plain`,
-`pow_dynamic_plain` / `ext_pow_const_plain`, `GateProgram.forward_plain`)
-and the golden (Python-int) model. `tools/check_hash_kernels.py` runs it
+Horner sum, the Fermat inversion and the exponentiations (csrc/field.cu),
+the levelized gate program (csrc/gates.cu), the FRI coset folds
+(csrc/fold.cu), and L0 with the partial products and the lookup argument
+(csrc/plonk.cu), against their plain PyTorch versions
+(`verifier_torch.horner_ext_plain`, `ops/field.inv_plain`,
+`pow_dynamic_plain` / `ext_pow_const_plain`, `GateProgram.forward_plain`,
+`verifier_torch.coset_fold_plain`, `partial_products_plain`,
+`lookup_checks_plain`) and the golden (Python-int) model. `tools/check_hash_kernels.py` runs it
 after the Poseidon kernels, for its command line and chip_smoke.py's kernel
 phase.
 
@@ -50,11 +53,25 @@ kernels must give the plain bits for them too.
   literal), against GateProgram.forward_plain and, on a few lanes, a
   Python-int interpreter of the compact op lists (golden_gate_program);
   the plain stand-in runs the packed program in Python ints
-  (golden_packed_program).
+  (golden_packed_program);
+- coset_fold: steps of arity 2 to 32 in one launch over (B, Q) lanes, the
+  offsets' inverses 0, 1 and random, on every Q and on a strided query
+  slice (a mesh rank's), B = 0 (no launch); against coset_fold_plain, the
+  kernel's order in PyTorch (coset_fold_rows_plain) and golden/fri.py
+  fold_coset on a few lanes;
+- partial_products: r of 1 to 3, maxdeg 2 to 8 and n_chunks 1 to 10, the
+  openings as the verifier's interleaved views (column stride 2), B = 0;
+  against partial_products_plain, partial_products_rows_plain and the
+  golden formula (golden_partial_products) on a few lanes;
+- lookup_checks: routed wires, SLDC chunks (1 to 6, the last one short),
+  table counts and lengths (shorter than a row, whole rows, and more),
+  B = 0; against lookup_checks_plain, lookup_checks_rows_plain and
+  golden/plonk.py eval_lookup_equations on a few lanes.
 """
 
 import functools
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -62,10 +79,12 @@ import torch
 from ..compiler.gates_torch import INPUT_KINDS, NO_SLOT, OP_MUL, OP_SUB, GateProgram, compact_ops, decode_ops
 from ..compiler.levelize import levelize_gates
 from ..golden import field as gf
-from ..kernels import INV_GROUP, horner_segments
+from ..golden.fri import fold_coset
+from ..golden.plonk import eval_lookup_equations
+from ..kernels import INV_GROUP, KernelLibrary, horner_segments
 from ..ops import field as tf
 from ..ops.field import GExt
-from ..verifier_torch import horner_ext_plain
+from ..verifier_torch import coset_fold_plain, horner_ext_plain, lookup_checks_plain, lookup_tables, partial_products_plain
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -561,10 +580,276 @@ def check_gate_program(lib, c, rng, dev, max_lanes: int, kernel: bool):
                     c.compare(torch.stack([got[0][:GOLDEN_LANES], got[1][:GOLDEN_LANES]]), torch.stack(gold), f"{what}, {GOLDEN_LANES} lanes vs golden")
 
 
+def coset_fold_rows_plain(steps):
+    """What `KernelLibrary.coset_fold` computes, in the kernel's own order
+    (csrc/fold.cu): with c = beta off_inv, the Horner chain in c from
+    k = A - 1 down over y'_k = sum_j omega^(-jk) v_(rev j), then 1/A.
+    Returns (steps, 2, B, Q); its words equal coset_fold_plain's."""
+    outs = []
+    for evals, off_inv, beta_re, beta_im, idft in steps:
+        B, Q, arity = evals.shape[:3]
+        bits = arity.bit_length() - 1
+        v = GExt(evals[..., 0], evals[..., 1])
+        c = tf.escale(off_inv, GExt(beta_re.unsqueeze(1).expand(B, Q), beta_im.unsqueeze(1).expand(B, Q)))
+        acc = tf.ext_zeros((B, Q), evals.device)
+        for k in range(arity - 1, -1, -1):
+            y = tf.ext_zeros((B, Q), evals.device)
+            for j in range(arity):
+                y = y + tf.escale(idft[k, j].expand(B, Q), v[..., gf.reverse_bits(bits, j)])
+            acc = y + tf.emul(c, acc)
+        out = tf.escale(tf.constant(gf.finv(arity % P), (B, Q), evals.device), acc)
+        outs.append(torch.stack([out.re, out.im]))
+    return torch.stack(outs)
+
+
+def partial_products_rows_plain(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int):
+    """What `KernelLibrary.partial_products` computes from its arguments
+    ((re, im) pairs), in the kernel's own order (csrc/plonk.cu): a chunk's
+    products one term after the other. Returns (re, im), each (B, r + r
+    n_chunks); its words equal partial_products_plain's."""
+    e = lambda pair: GExt(*pair)
+    zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, zeta = map(e, (zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, zeta))
+    B, r = zs.shape
+    n_chunks = sigmas.shape[1] // maxdeg
+    one = tf.ext_constant(1, shape=(B,), device=zs.re.device)
+    lag0 = tf.emul(zeta_n - one, l0_den_inv)
+    cols = [tf.emul(lag0, zs[:, i] - one) for i in range(r)]
+    for rnd in range(r):
+        beta, gamma = betas[:, rnd], gammas[:, rnd]
+        for c in range(n_chunks):
+            num = den = one
+            for i in range(c * maxdeg, (c + 1) * maxdeg):
+                w = wires[:, i]
+                bz, bs = tf.escale(tf.mul(beta, k_is[i].expand(B)), zeta), tf.escale(beta, sigmas[:, i])
+                num = tf.emul(num, GExt(tf.add(tf.add(w.re, bz.re), gamma), tf.add(w.im, bz.im)))
+                den = tf.emul(den, GExt(tf.add(tf.add(w.re, bs.re), gamma), tf.add(w.im, bs.im)))
+            npp = n_chunks - 1
+            prev = zs[:, rnd] if c == 0 else pps[:, rnd * npp + c - 1]
+            nxt = zs_next[:, rnd] if c == n_chunks - 1 else pps[:, rnd * npp + c]
+            cols.append(tf.emul(prev, num) - tf.emul(nxt, den))
+    out = tf.ext_stack(cols, dim=1) if cols else tf.ext_zeros((B, 0), zs.re.device)
+    return out.re, out.im
+
+
+def lookup_checks_rows_plain(sels, wires, zs, zs_next, deltas, coeffs, table_off, num_routed_wires: int, maxdeg: int):
+    """What `KernelLibrary.lookup_checks` computes from its arguments, in
+    the kernel's own order (csrc/plonk.cu): a chunk's leave-one-out sums by
+    the running pair P' = P t, S' = S t + m P. Returns (re, im), each (B,
+    r (4 + luts + 2 n_sldc)); its words equal lookup_checks_plain's."""
+    sels, wires, zs, zs_next = (GExt(*x) for x in (sels, wires, zs, zs_next))
+    B, r = deltas.shape[:2]
+    dev = deltas.device
+    n_polys = zs.shape[1] // r
+    n_sldc, num_lu, num_lut = n_polys - 1, num_routed_wires // 2, num_routed_wires // 3
+    lu_deg, lut_deg = maxdeg - 1, -(-num_lut // n_sldc)
+    bounds = table_off.tolist()
+    one, zero = tf.ext_constant(1, shape=(B,), device=dev), tf.ext_zeros((B,), dev)
+    combo = lambda i, c: wires[:, i] + tf.escale(c, wires[:, i + 1])
+    term = lambda i, c, alpha: GExt(tf.sub(alpha, combo(i, c).re), tf.sub(torch.zeros_like(alpha), combo(i, c).im))
+    rounds = []
+    for rnd in range(r):
+        ca, cb, alpha, delta = (deltas[:, rnd, k] for k in range(4))
+        z0 = rnd * n_polys
+        re = zs[:, z0]
+        cols = {0: tf.emul(sels[:, 3], zs[:, z0 + n_sldc]), 1: tf.emul(sels[:, 2], zs[:, z0 + 1]), 2: tf.emul(sels[:, 2], re)}
+        for k in range(len(bounds) - 1):
+            acc_in = acc_out = torch.zeros_like(delta)
+            for row in coeffs[bounds[k] : bounds[k + 1]]:
+                acc_in, acc_out = tf.add(tf.mul(delta, acc_in), row[0].expand(B)), tf.add(tf.mul(delta, acc_out), row[1].expand(B))
+            cols[3 + k] = tf.emul(sels[:, 4 + k], re - tf.ext_from_base(tf.add(acc_in, tf.mul(cb, acc_out))))
+        cur = zs_next[:, z0]
+        for k in range(num_lut):
+            cur = tf.escale(delta, cur) + combo(3 * k, cb)
+        luts = len(bounds) - 1
+        cols[3 + luts] = tf.emul(sels[:, 0], re - cur)
+        for j in range(n_sldc):
+            prev = zs_next[:, z0 + n_sldc] if j == 0 else zs[:, z0 + j]
+            dmin = zs[:, z0 + 1 + j] - prev
+            lu_p, lu_s = one, zero
+            for i in range(j * lu_deg, min((j + 1) * lu_deg, num_lu)):
+                t = term(2 * i, ca, alpha)
+                lu_s, lu_p = tf.emul(lu_s, t) + lu_p, tf.emul(lu_p, t)
+            lut_p, lut_s = one, zero
+            for i in range(j * lut_deg, min((j + 1) * lut_deg, num_lut)):
+                t = term(3 * i, ca, alpha)
+                lut_s, lut_p = tf.emul(lut_s, t) + tf.emul(wires[:, 3 * i + 2], lut_p), tf.emul(lut_p, t)
+            cols[4 + luts + 2 * j] = tf.emul(sels[:, 0], tf.emul(lut_p, dmin) - lut_s)
+            cols[5 + luts + 2 * j] = tf.emul(sels[:, 1], tf.emul(lu_p, dmin) + lu_s)
+        rounds += [cols[k] for k in range(len(cols))]
+    out = tf.ext_stack(rounds, dim=1) if rounds else tf.ext_zeros((B, 0), dev)
+    return out.re, out.im
+
+
+def _ext_ints(re, im, lane, *index):
+    """One extension word of lane `lane` as a pair of canonical Python ints."""
+    return int(tf.to_u64(re[(lane,) + index])) % P, int(tf.to_u64(im[(lane,) + index])) % P
+
+
+FOLD_ARITY_BITS = [1, 2, 3, 4, 5]  # the steps of one launch, arity 2 to 32
+FOLD_SHAPES = [(37, 28), (5, 3), (1030, 2), (0, 28)]  # (B, Q)
+
+
+def check_coset_fold(lib, c, rng, dev, max_lanes: int):
+    """checks["coset_fold"]: FOLD_ARITY_BITS as the steps of one launch at
+    each of FOLD_SHAPES (B cut to max_lanes), then on a strided query slice
+    of the first; the inverses of the offsets random with 0 and 1 among
+    them; against coset_fold_plain, coset_fold_rows_plain and golden/'s
+    fold_coset (the offset the inverse's inverse) on a few lanes."""
+    cases = []
+    for B, Q in FOLD_SHAPES:
+        B = min(B, max_lanes)
+        evals = [tf.from_u64(words(rng, (B, Q, 1 << bits, 2)), dev) for bits in FOLD_ARITY_BITS]
+        off = rng.integers(0, P, size=(len(FOLD_ARITY_BITS), B, Q), dtype=np.uint64)
+        off.reshape(len(FOLD_ARITY_BITS), B * Q)[:, : min(2, B * Q)] = [0, 1][: min(2, B * Q)]
+        betas = [tf.from_u64(words(rng, (B, 2)), dev) for _ in FOLD_ARITY_BITS]
+        cases.append((f"({B}, {Q})", evals, [tf.from_u64(o, dev) for o in off], betas))
+        if (B, Q) == FOLD_SHAPES[0]:
+            cut = lambda t: t[:, 7:21]
+            cases.append((f"({B}, {Q}) at queries 7:21", [cut(e) for e in evals], [cut(o) for o in tf.from_u64(off, dev)], betas))
+    for what, evals, offs, betas in cases:
+        perms = [torch.tensor([gf.reverse_bits(bits, i) for i in range(1 << bits)], dtype=torch.int64, device=dev) for bits in FOLD_ARITY_BITS]
+        omegas = [gf.finv(gf.subgroup_generator(bits)) for bits in FOLD_ARITY_BITS]
+        idfts = [tf.from_u64(np.array([[gf.fpow(w, j * k) for j in range(1 << b)] for k in range(1 << b)], dtype=np.uint64), dev)
+                 for w, b in zip(omegas, FOLD_ARITY_BITS)]
+        steps = [(e, o, b[:, 0], b[:, 1], w) for e, o, b, w in zip(evals, offs, betas, idfts)]
+        before = lib.launches.get("coset_fold", 0)
+        got = lib.coset_fold(steps)
+        B, Q = offs[0].shape
+        if lib.launches.get("coset_fold", 0) != before + (1 if B * Q else 0) or got.shape != (len(steps), 2, B, Q):
+            raise AssertionError(f"coset_fold {what}: {lib.launches.get('coset_fold', 0) - before} launches, shape {tuple(got.shape)}")
+        c.compare(got, coset_fold_rows_plain(steps), f"{what}, arity bits {FOLD_ARITY_BITS}, the kernel's order")
+        for k, (e, o, b, perm, w) in enumerate(zip(evals, offs, betas, perms, idfts)):
+            want = coset_fold_plain(e, o, GExt(b[:, 0], b[:, 1]), perm, w)
+            name = f"{what}, arity {1 << FOLD_ARITY_BITS[k]}"
+            c.compare(got[k], torch.stack([want.re, want.im]), name)
+            for lane in range(min(B, 2)):
+                for q in (0, Q - 1):
+                    oi = int(tf.to_u64(o[lane, q]))
+                    if oi == 0:
+                        continue
+                    vals = [_ext_ints(e[..., 0], e[..., 1], lane, q, gf.reverse_bits(FOLD_ARITY_BITS[k], j)) for j in range(e.shape[2])]
+                    gold = fold_coset(_ext_ints(b[:, 0], b[:, 1], lane), FOLD_ARITY_BITS[k], gf.finv(oi), vals)
+                    c.compare(got[k, :, lane, q], np.array(gold, np.uint64), f"{name}, lane {lane} query {q} vs golden")
+
+
+PP_SHAPES = [(37, 2, 8, 10), (5, 1, 2, 3), (1030, 3, 4, 1), (0, 2, 8, 10)]  # (B, r, maxdeg, n_chunks)
+
+
+def golden_partial_products(n, zeta, zs, zs_next, pps, wires, sigmas, betas, gammas, k_is, maxdeg):
+    """L0(zeta)(z - 1) a round and the partial-product checks of one lane,
+    as golden/plonk.py eval_all_plonk_constraints forms its terms (1) and
+    (2): every argument canonical Python ints, extension values as pairs."""
+    lag0 = gf.ediv(gf.esub(gf.epow(zeta, n), gf.EXT_ONE), gf.escale(n % P, gf.esub(zeta, gf.EXT_ONE)))
+    out = [gf.emul(lag0, gf.esub(z, gf.EXT_ONE)) for z in zs]
+    npp = len(pps) // len(zs)
+    for rnd, (z, z_next, beta, gamma) in enumerate(zip(zs, zs_next, betas, gammas)):
+        numers = [gf.eadd(w, gf.eadd(gf.escale(gf.fmul(beta, k), zeta), (gamma, 0))) for k, w in zip(k_is, wires)]
+        denoms = [gf.eadd(w, gf.eadd(gf.escale(beta, s), (gamma, 0))) for s, w in zip(sigmas, wires)]
+        current = [z] + list(pps[rnd * npp : (rnd + 1) * npp]) + [z_next]
+        for c in range(len(current) - 1):
+            num, den = gf.EXT_ONE, gf.EXT_ONE
+            for t in numers[c * maxdeg : (c + 1) * maxdeg]:
+                num = gf.emul(num, t)
+            for t in denoms[c * maxdeg : (c + 1) * maxdeg]:
+                den = gf.emul(den, t)
+            out.append(gf.esub(gf.emul(current[c], num), gf.emul(current[c + 1], den)))
+    return out
+
+
+def check_partial_products(lib, c, rng, dev, max_lanes: int):
+    """checks["partial_products"]: PP_SHAPES (B cut to max_lanes), the
+    openings interleaved in one (B, M, 2) tensor as the verifier's views of
+    openings1 are, zeta^n and the inverse of n (zeta - 1) from a zeta and an
+    n of golden/'s on the lanes held against it."""
+    for B, r, maxdeg, n_chunks in PP_SHAPES:
+        B = min(B, max_lanes)
+        ns = maxdeg * n_chunks
+        widths = [r, r, r * (n_chunks - 1), ns + 3, ns]  # zs, zs_next, pps, wires (more than the routed ones), sigmas
+        at = np.concatenate([[0], np.cumsum(widths)])
+        op = tf.from_u64(words(rng, (B, int(at[-1]), 2)), dev)
+        zs, zs_next, pps, wires, sigmas = (GExt(op[:, at[i] : at[i + 1], 0], op[:, at[i] : at[i + 1], 1]) for i in range(5))
+        wires = wires[:, :ns]
+        n = 1 << int(rng.integers(3, 13))
+        zeta_np = rng.integers(2, P, size=(B, 2), dtype=np.uint64)
+        zn_np = np.array([gf.epow((int(x), int(y)), n) for x, y in zeta_np], np.uint64).reshape(B, 2)
+        inv_np = np.array([gf.einv(gf.escale(n, gf.esub((int(x), int(y)), gf.EXT_ONE))) for x, y in zeta_np], np.uint64).reshape(B, 2)
+        zeta, zeta_n, l0_inv = (tf.from_u64(x, dev) for x in (zeta_np, zn_np, inv_np))
+        zeta, zeta_n, l0_inv = (GExt(x[:, 0], x[:, 1]) for x in (zeta, zeta_n, l0_inv))
+        betas, gammas = tf.from_u64(rng.integers(0, P, size=(B, r), dtype=np.uint64), dev), tf.from_u64(words(rng, (B, r)), dev)
+        k_is = tf.from_u64(rng.integers(0, P, size=ns, dtype=np.uint64), dev)
+        args = (zeta_n, l0_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg)
+        pairs = [(x.re, x.im) if isinstance(x, GExt) else x for x in args]
+        what = f"B {B}, r {r}, maxdeg {maxdeg}, {n_chunks} chunks"
+        before = lib.launches.get("partial_products", 0)
+        got = torch.stack(lib.partial_products(*pairs))
+        if lib.launches.get("partial_products", 0) != before + (1 if B else 0) or got.shape != (2, B, r + r * n_chunks):
+            raise AssertionError(f"partial_products {what}: {lib.launches.get('partial_products', 0) - before} launches, shape {tuple(got.shape)}")
+        want = partial_products_plain(*args)
+        c.compare(got, torch.stack([want.re, want.im]), what)
+        c.compare(got, torch.stack(partial_products_rows_plain(*pairs)), f"{what}, the kernel's order")
+        ints = lambda x, lane: [_ext_ints(x.re, x.im, lane, i) for i in range(x.shape[1])]
+        for lane in range(min(B, 2)):
+            gold = golden_partial_products(n, _ext_ints(zeta.re, zeta.im, lane), ints(zs, lane), ints(zs_next, lane), ints(pps, lane),
+                                           ints(wires, lane), ints(sigmas, lane), [int(x) for x in tf.to_u64(betas[lane])],
+                                           [int(x) % P for x in tf.to_u64(gammas[lane])], [int(x) for x in tf.to_u64(k_is)], maxdeg)
+            c.compare(got[:, lane].t(), np.array(gold, np.uint64), f"{what}, lane {lane} vs golden")
+
+
+# (B, r, num_routed_wires, lookup polys a round, maxdeg, table lengths)
+# (every shape golden/ takes: ceil(slots / chunk size) = the SLDC chunks, for both kinds of slot)
+LOOKUP_SHAPES = [(37, 2, 80, 7, 8, [5, 26, 27, 53]), (9, 1, 12, 3, 4, [1, 4, 9]), (5, 3, 6, 2, 4, [2]), (1030, 2, 80, 7, 8, [17]),
+                 (0, 2, 80, 7, 8, [5])]
+
+
+def check_lookup_checks(lib, c, rng, dev, max_lanes: int):
+    """checks["lookup_checks"]: LOOKUP_SHAPES (B cut to max_lanes), the
+    openings interleaved as the verifier's views are, tables of random
+    words padded as lookup_tables pads them; against lookup_checks_plain,
+    lookup_checks_rows_plain and golden/plonk.py eval_lookup_equations (on
+    stand-ins of the common data, openings and challenges) on the first
+    GOLDEN_LANES lanes, whose words are canonical: the SLDC transition's
+    sldc - prev subtracts two proof words, and ops/field.sub (as the JAX
+    package's) is not exact mod p where the subtrahend is a word x + p above
+    the minuend + p, which golden/ reduces first."""
+    for B, r, routed, n_polys, maxdeg, lengths in LOOKUP_SHAPES:
+        B = min(B, max_lanes)
+        luts = len(lengths)
+        tables = [[tuple(int(x) for x in row) for row in rng.integers(0, 1 << 16, size=(n, 2))] for n in lengths]
+        common = SimpleNamespace(config=SimpleNamespace(num_routed_wires=routed), luts=tables, num_luts=luts,
+                                 num_lookup_polys=n_polys, quotient_degree_factor=maxdeg)
+        coeffs, offsets = lookup_tables(common, dev)
+        widths = [4 + luts, routed + 5, r * n_polys, r * n_polys]  # selectors, wires (more than the routed ones), zs, zs_next
+        at = np.concatenate([[0], np.cumsum(widths)])
+        op_np = words(rng, (B, int(at[-1]), 2))
+        op_np[:GOLDEN_LANES] %= np.uint64(P)  # golden/'s lanes (see check_lookup_checks)
+        op = tf.from_u64(op_np, dev)
+        sels, wires, zs, zs_next = (GExt(op[:, at[i] : at[i + 1], 0], op[:, at[i] : at[i + 1], 1]) for i in range(4))
+        d_np = rng.integers(0, P, size=(B, r, 4), dtype=np.uint64)
+        deltas_t = tf.from_u64(d_np, dev)
+        deltas = [tuple(deltas_t[:, k, j] for j in range(4)) for k in range(r)]
+        what = f"B {B}, r {r}, {routed} routed wires, {n_polys - 1} SLDC chunks, maxdeg {maxdeg}, tables of {lengths} rows"
+        pairs = [(x.re, x.im) for x in (sels, wires, zs, zs_next)]
+        before = lib.launches.get("lookup_checks", 0)
+        got = torch.stack(lib.lookup_checks(*pairs, deltas_t, coeffs, offsets, routed, maxdeg))
+        width = r * (4 + luts + 2 * (n_polys - 1))
+        if lib.launches.get("lookup_checks", 0) != before + (1 if B else 0) or got.shape != (2, B, width):
+            raise AssertionError(f"lookup_checks {what}: {lib.launches.get('lookup_checks', 0) - before} launches, shape {tuple(got.shape)}")
+        want = lookup_checks_plain(sels, wires, zs, zs_next, deltas, coeffs, offsets, routed, maxdeg)
+        c.compare(got, torch.stack([want.re, want.im]), what)
+        c.compare(got, torch.stack(lookup_checks_rows_plain(*pairs, deltas_t, coeffs, offsets, routed, maxdeg)), f"{what}, the kernel's order")
+        for lane in range(min(B, GOLDEN_LANES)):
+            ints = lambda x: [_ext_ints(x.re, x.im, lane, i) for i in range(x.shape[1])]
+            openings = SimpleNamespace(wires=ints(wires), lookup_zs=ints(zs), lookup_zs_next=ints(zs_next))
+            ch = SimpleNamespace(deltas=[SimpleNamespace(a=int(a), b=int(b), alpha=int(al), delta=int(dl)) for a, b, al, dl in d_np[lane]])
+            gold = eval_lookup_equations(common, ints(sels), openings, ch)
+            c.compare(got[:, lane].t(), np.array(gold, np.uint64), f"{what}, lane {lane} vs golden")
+
+
 def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     """The field kernels of `lib` (kernels.KernelLibrary, or the CPU run's
-    PlainLibrary) into checks["inv"], checks["horner"], checks["pow"] and
-    checks["gate_program"]; raises on the first word that differs."""
+    PlainLibrary) into checks["inv"], checks["horner"], checks["pow"],
+    checks["gate_program"], checks["coset_fold"], checks["partial_products"]
+    and checks["lookup_checks"]; raises on the first word that differs."""
     rng = np.random.default_rng(2026)
 
     c = checks["inv"]
@@ -585,9 +870,7 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
         raise AssertionError("inv of no words launched or returned words")
     check_inv_grouped(lib, c, rng, dev, a_np)
 
-    from .check_hash_kernels import PlainLibrary  # here: that module imports this one
-
-    kernel = not isinstance(lib, PlainLibrary)
+    kernel = isinstance(lib, KernelLibrary)  # not the plain stand-in (also when its module runs as __main__)
     c = checks["horner"]
     picked = set()
     for rows, k, base_v, base_p, v_rep, p_rep, interleaved in HORNER_CASES:
@@ -628,6 +911,9 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     check_pow(lib, checks["pow"], rng, dev, n_random, kernel)
     check_pow_grouped(lib, checks["pow"], rng, dev, n_random)
     check_gate_program(lib, checks["gate_program"], rng, dev, n_random if kernel else min(n_random, PLAIN_GATE_LANES), kernel)
-    for name in ("horner", "inv", "pow", "gate_program"):
+    check_coset_fold(lib, checks["coset_fold"], rng, dev, n_random)
+    check_partial_products(lib, checks["partial_products"], rng, dev, n_random)
+    check_lookup_checks(lib, checks["lookup_checks"], rng, dev, n_random)
+    for name in ("horner", "inv", "pow", "gate_program", "coset_fold", "partial_products", "lookup_checks"):
         print(f"check {name}: {checks[name].cases} words bit-exact against plain and golden")
     return checks

@@ -18,8 +18,9 @@ Holds, against the plain PyTorch versions and the golden (Python-int) model:
   matrices than one launch takes);
 - the Merkle path walk over every path length in use, sibling ordering by
   index bit, sizes on both sides of one wave of blocks;
-- the extension Horner sum, the Fermat inversion, the exponentiations and
-  the levelized gate program (`check_field_kernels.check_field_kernels`).
+- the extension Horner sum, the Fermat inversion, the exponentiations, the
+  levelized gate program, the FRI coset folds, L0 with the partial products
+  and the lookup argument (`check_field_kernels.check_field_kernels`).
 
 Prints one JSON line; exit code 0 iff every word is bit-exact. chip_smoke.py
 calls `check_kernels` for its kernel phase. With --device cpu the plain
@@ -41,8 +42,9 @@ from ..ops import field as tf
 from ..ops import hash as th
 from ..ops import poseidon as tp
 from ..kernels import horner_segments
-from .check_field_kernels import (check_field_kernels, golden_packed_program, horner_split_plain, inv_grouped_split_plain,
-                                  pow_grouped_rows_plain, pow_rows_plain)
+from .check_field_kernels import (check_field_kernels, coset_fold_rows_plain, golden_packed_program, horner_split_plain,
+                                  inv_grouped_split_plain, lookup_checks_rows_plain, partial_products_rows_plain, pow_grouped_rows_plain,
+                                  pow_rows_plain)
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -51,7 +53,8 @@ PATH_LENS = [0, 1, 3, 7, 11]
 N_RANDOM = (1 << 20) + 37  # random permutation states, not a multiple of the block
 N_ROWS = 4099
 SCAN_BATCHES = [1, 5, 1024]
-KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program")
+KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program", "coset_fold", "partial_products",
+           "lookup_checks")
 
 
 def rand_words(rng, shape) -> np.ndarray:
@@ -95,14 +98,18 @@ class PlainLibrary:
     without a card: no forms, and a "launch" is a call. The Horner sum and
     the gate program run in the kernels' own order (horner_split_plain, the
     packed program in Python ints), as do the grouped inversion and
-    exponentiation (inv_grouped_split_plain, pow_grouped_rows_plain)."""
+    exponentiation (inv_grouped_split_plain, pow_grouped_rows_plain), the
+    coset folds, the partial products and the lookup argument
+    (coset_fold_rows_plain, partial_products_rows_plain,
+    lookup_checks_rows_plain)."""
 
     max_segments = 16
     sms = 132  # the H100's, for the Horner segment rule
 
     def __init__(self, consts):
         self.consts = consts
-        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0, "inv_grouped": 0, "pow": 0, "pow_grouped": 0, "gate_program": 0}
+        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0, "inv_grouped": 0, "pow": 0, "pow_grouped": 0, "gate_program": 0,
+                         "coset_fold": 0, "partial_products": 0, "lookup_checks": 0}
 
     def permutation(self, state, form="auto"):
         return tp.permutation_plain(state, self.consts)
@@ -150,6 +157,21 @@ class PlainLibrary:
         if any(re is not None and re.shape[0] for _, re, _ in inputs):
             self.launches["gate_program"] += 1
         return golden_packed_program(inputs, packed)
+
+    def coset_fold(self, steps):
+        out = coset_fold_rows_plain(steps)
+        self.launches["coset_fold"] += bool(out.numel())
+        return out
+
+    def partial_products(self, *args):
+        out = partial_products_rows_plain(*args)
+        self.launches["partial_products"] += bool(out[0].numel())
+        return out
+
+    def lookup_checks(self, *args):
+        out = lookup_checks_rows_plain(*args)
+        self.launches["lookup_checks"] += bool(out[0].numel())
+        return out
 
 
 def golden_scan_lane(data_row, ov_idx, ov_mask):

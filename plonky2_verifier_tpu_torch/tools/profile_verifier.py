@@ -11,11 +11,13 @@ with lookups at the same degree, queries and PoW; fibonacci6: the 6-query
 fixture, for --device cpu) and a batch of copies of its cached proof:
 
 (a) stage times, a synchronise around each stage: the public-input hash, the
-    transcript, the powers and inverses, the Plonk checks in four parts (the lookup argument and the
-    gate program apart), FRI in its parts (proof of work and reduced
-    openings, leaf hashes, initial Merkle walks, combineInitial, each fold
-    step's Merkle walk and its coset fold, the final polynomial). The stages
-    add up to the staged call. Beside them, summed across stages, the time
+    transcript, the powers and inverses, the Plonk checks in four parts (L0
+    and the partial products, the gate program, the lookup argument, the
+    alpha combination with the quotient), FRI in its parts (proof of work
+    and reduced openings, leaf hashes, initial Merkle walks, combineInitial,
+    the coset folds of every step in one stage -- one kernel launch on the
+    card -- then each fold step's Merkle walk and opened slot, the final
+    polynomial). The stages add up to the staged call. Beside them, summed across stages, the time
     inside `horner_ext`, `horner_scaled`, `inv_grouped`, `pow_grouped` and
     `GateProgram.forward` (each call synchronised; on the card each is one
     kernel launch a call; the last two are called once a forward, in the

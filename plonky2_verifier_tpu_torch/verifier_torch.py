@@ -12,8 +12,9 @@ proof batch B (and inside FRI over the Q query rounds):
    (levelized gate program), alpha-combination, quotient equation;
 3. FRI: proof of work, the leaf hashes of the four oracles and of every fold
    step's coset (one grouped sponge launch on the card), the Merkle
-   openings, combineInitial, the coset folds (IDFT as a multiply-add loop
-   over the arity), the final poly.
+   openings, combineInitial, the coset folds (every step's in one kernel
+   launch on the card: a step's fold needs none of the step before), the
+   opened-slot checks, the final poly.
 
 Field values are int64 tensors holding u64 bit patterns (ops/field.py). The
 Poseidon chains go through ops/poseidon.py and ops/hash.py, the Horner sums
@@ -21,9 +22,11 @@ through `horner_ext` / `horner_scaled` here, every exponentiation and
 inversion of a forward through one call each of ops/field's `pow_grouped`
 and `inv_grouped` right after the transcript (`_powers_and_inverses`: every
 exponent is a function of zeta, alpha and the query indices, every
-denominator one of zeta and those powers), and the gate constraints
-through compiler/gates_torch's `GateProgram`; each launches its CUDA kernel
-for CUDA tensors.
+denominator one of zeta and those powers), the gate constraints through
+compiler/gates_torch's `GateProgram`, L0 with the partial products through
+`partial_products`, the lookup argument through `lookup_checks` and every
+fold step's coset fold through one call of `coset_folds`; each launches its
+CUDA kernel for CUDA tensors and runs its `*_plain` version for CPU tensors.
 
 Entry points: `verify_batch(tpl, arrays)` (numpy in, numpy out) and
 `TorchVerifier(tpl)`. Both run on the CUDA card unless the caller passes a
@@ -167,6 +170,259 @@ def ext_sum_axis(v: GExt, axis: int) -> GExt:
     return v[0]
 
 
+def coset_fold_plain(evals, off_inv, beta: GExt, perm, wmat) -> GExt:
+    """One FRI step's coset fold, the counterpart of verifier_jax.py:749-810:
+    the opened coset values evals (B, Q, A, 2) to subgroup order (perm, the
+    bit reversal), the IDFT (wmat[k, j] = omega^(-jk)), y_k scaled by
+    off_inv^k (off_inv (B, Q) the inverse of the coset's offset), the Horner
+    sum in beta (B,) and 1/A -> (B, Q)."""
+    B, Q, arity = evals.shape[:3]
+    dev = evals.device
+    vals = GExt(evals[..., 0], evals[..., 1])[..., perm]
+    # y'_k = sum_j omega^{-jk} v_j
+    yprime = tf.ext_zeros((B, Q, arity), dev)
+    for j in range(arity):
+        yprime = yprime + tf.escale(wmat[:, j], vals[..., j].unsqueeze(-1))
+    # y_k = (1/A) offset^{-k} y'_k; powers of offset^{-1} by doubling
+    pows = tf.constant(1, (B, Q, 1), dev)
+    cur = off_inv
+    while pows.shape[-1] < arity:
+        pows = torch.cat([pows, tf.mul(pows, cur.unsqueeze(-1))], dim=-1)
+        if pows.shape[-1] < arity:
+            cur = tf.square(cur)
+    ys = tf.escale(pows[..., :arity], yprime)
+    folded = horner_ext_plain(ys, GExt(beta.re.unsqueeze(1).expand(B, Q), beta.im.unsqueeze(1).expand(B, Q)))
+    return tf.escale(tf.constant(gf.finv(arity % gf.P), (B, Q), dev), folded)
+
+
+def coset_folds_plain(evals, off_invs, betas, perms, idfts) -> list:
+    """coset_fold_plain of every fold step (lists, a step an item)."""
+    return [coset_fold_plain(*step) for step in zip(evals, off_invs, betas, perms, idfts)]
+
+
+def coset_folds(evals, off_invs, betas, perms, idfts) -> list:
+    """coset_folds_plain's folds (every step over the same (B, Q)): one
+    launch of the CUDA kernel (csrc/fold.cu) for all of them for CUDA
+    tensors, the plain version for CPU tensors."""
+    if not evals:
+        return []
+    if evals[0].device.type == "cpu":
+        return coset_folds_plain(evals, off_invs, betas, perms, idfts)
+    return _coset_folds_kernel(evals, off_invs, betas, idfts)
+
+
+def _coset_folds_kernel(evals, off_invs, betas, idfts) -> list:
+    from . import kernels
+
+    out = kernels.load().coset_fold([(e, o, b.re, b.im, w) for e, o, b, w in zip(evals, off_invs, betas, idfts)])
+    return [GExt(x[0], x[1]) for x in out]
+
+
+def partial_products_plain(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int) -> GExt:
+    """L0(zeta)(z - 1) a round and the partial-product transition checks,
+    the counterpart of verifier_jax.py:345-385 -> the constraint vector's
+    head (B, r + r n_chunks). zeta_n, l0_den_inv (the inverse of n (zeta -
+    1)) and zeta (B,); zs and zs_next (B, r); pps (B, r npp); wires the
+    routed columns and sigmas (B, ns); betas and gammas (B, r); k_is (ns,);
+    n_chunks = ns / maxdeg."""
+    B, r = zs.shape
+    dev = zs.re.device
+    one = tf.ext_constant(1, shape=(B,), device=dev)
+    lag0 = tf.emul(zeta_n - one, l0_den_inv)
+    zs1 = tf.emul(lag0.unsqueeze(1), zs - tf.ext_constant(1, shape=(B, 1), device=dev))  # (B, r)
+
+    # all rounds, numerator and denominator in one tensor
+    ns = sigmas.shape[1]
+    n_chunks = ns // maxdeg
+    beta_s = betas.unsqueeze(-1)  # (B, r, 1)
+    gamma_s = gammas.unsqueeze(-1)
+    routed = wires.unsqueeze(1)  # (B, 1, ns)
+    bk = tf.mul(beta_s, k_is)  # (B, r, ns)
+    bz = tf.escale(bk, zeta.unsqueeze(1).unsqueeze(1))
+    numer = GExt(tf.add(tf.add(routed.re, bz.re), gamma_s), tf.add(routed.im, bz.im))
+    bs = tf.escale(beta_s, sigmas.unsqueeze(1))
+    denom = GExt(tf.add(tf.add(routed.re, bs.re), gamma_s), tf.add(routed.im, bs.im))
+    nd = tf.ext_stack([numer, denom], dim=2).reshape(B, r, 2, n_chunks, maxdeg)
+    prods = tree_prod_last(nd)  # (B, r, 2, n_chunks)
+    pp_round = pps.reshape(B, r, pps.shape[1] // r)
+    current = tf.ext_concat([zs.unsqueeze(-1), pp_round, zs_next.unsqueeze(-1)], dim=-1)
+    pv = tf.ext_stack([current[..., :-1], current[..., 1:]], dim=2)  # (B, r, 2, n_chunks)
+    pn = tf.emul(pv, prods)
+    pp_vec = (pn[:, :, 0] - pn[:, :, 1]).reshape(B, r * n_chunks)
+    return tf.ext_concat([zs1, pp_vec], dim=1)
+
+
+def partial_products(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int) -> GExt:
+    """partial_products_plain's head: one launch of the CUDA kernel
+    (csrc/plonk.cu) for CUDA tensors, reading the openings' views where they
+    lie; the plain version for CPU tensors."""
+    if zs.re.device.type == "cpu":
+        return partial_products_plain(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg)
+    return _partial_products_kernel(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg)
+
+
+def _partial_products_kernel(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int) -> GExt:
+    from . import kernels
+
+    pair = lambda x: (x.re, x.im)
+    re, im = kernels.load().partial_products(
+        pair(zeta_n), pair(l0_den_inv), pair(zs), pair(zs_next), pair(pps), pair(wires), pair(sigmas), betas.contiguous(),
+        gammas.contiguous(), pair(zeta), k_is, maxdeg,
+    )
+    return GExt(re, im)
+
+
+def lookup_tables(common, device):
+    """The lookup tables as the lookup argument reads them, a constant of
+    the template: each table padded with its first row to whole rows of
+    num_routed_wires // 3 slots (golden/plonk.pad_lut), all of them one
+    after the other as (rows, 2) words (input, output), and (luts + 1,) the
+    first row of each and the end."""
+    num_lut = common.config.num_routed_wires // 3
+    rows, offsets = [], [0]
+    for table in common.luts:
+        total = -(-len(table) // num_lut) * num_lut
+        rows += list(table) + [table[0]] * (total - len(table))
+        offsets.append(len(rows))
+    coeffs = tf.from_u64(np.array(rows, dtype=np.uint64).reshape(-1, 2), device)
+    return coeffs, torch.tensor(offsets, dtype=torch.int64, device=device)
+
+
+def lookup_checks_plain(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas, coeffs, offsets,
+                        num_routed_wires: int, maxdeg: int) -> GExt:
+    """The log-derivative lookup equations at zeta, the counterpart of
+    verifier_jax.py:468-642, all challenge rounds on a leading round axis.
+    lkp_sels (B, 4 + luts), wires (B, num_wires), lookup_zs and
+    lookup_zs_next (B, r * polys) with the layout [RE, SLDC_0 ...] a round,
+    deltas r tuples (a, b, alpha, delta) of (B,) words, coeffs and offsets
+    the padded tables (lookup_tables) -> (B, r * (4 + luts + 2 * n_sldc)),
+    a round after the other, each [last_sldc, init_sum, init_re] ++
+    finals_re ++ [re_trans] ++ interleaved (sum_trans, ldc_trans) per SLDC
+    chunk."""
+    r = len(deltas)
+    B = wires.shape[0]
+    dev = wires.re.device
+    num_lu = num_routed_wires // 2  # (input, output) slots of a LookupGate row
+    num_lut = num_routed_wires // 3  # (input, output, multiplicity) slots of a table row
+    n_polys = lookup_zs.shape[1] // r
+    n_sldc = n_polys - 1
+    lu_deg = maxdeg - 1
+    lut_deg = -(-num_lut // n_sldc)
+
+    av, bv, alv, dlv = (torch.stack([d[k] for d in deltas], dim=1) for k in range(4))  # (B, r)
+    lz = lookup_zs.reshape(B, r, n_polys)
+    lzn = lookup_zs_next.reshape(B, r, n_polys)
+    re_o, sldc = lz[..., 0], lz[..., 1:]
+    re_next, sldc_next = lzn[..., 0], lzn[..., 1:]
+
+    def sel(i: int, rank: int = 2) -> GExt:
+        return lkp_sels[:, i].reshape((B,) + (1,) * (rank - 1))
+
+    pairs_in = wires[:, 0 : 2 * num_lu : 2].unsqueeze(1)  # (B, 1, num_lu)
+    pairs_out = wires[:, 1 : 2 * num_lu : 2].unsqueeze(1)
+    trip_in = wires[:, 0 : 3 * num_lut : 3].unsqueeze(1)  # (B, 1, num_lut)
+    trip_out = wires[:, 1 : 3 * num_lut : 3].unsqueeze(1)
+    trip_mult = wires[:, 2 : 3 * num_lut : 3].unsqueeze(1)
+
+    def combo(inp: GExt, out: GExt, c) -> GExt:
+        return inp + tf.escale(c.unsqueeze(-1), out)  # (B, r, slots)
+
+    lu_combos = combo(pairs_in, pairs_out, av)
+    lut_combos_a = combo(trip_in, trip_out, av)
+    lut_combos_b = combo(trip_in, trip_out, bv)
+    alpha_e = tf.ext_from_base(alv.unsqueeze(-1))
+
+    def chunked_terms(combos: GExt, deg: int, slots: int):
+        """alpha - combo in chunks (B, r, n_sldc, deg), padded with 1, and
+        the mask (n_sldc, deg) of the real slots."""
+        t = alpha_e - combos
+        pad = n_sldc * deg - slots
+        if pad:
+            t = tf.ext_concat([t, tf.ext_constant(1, shape=(B, r, pad), device=dev)], dim=-1)
+        mask = torch.arange(n_sldc * deg, device=dev).reshape(n_sldc, deg) < slots
+        return t.reshape(B, r, n_sldc, deg), mask
+
+    def leave_one_out(terms: GExt, deg: int):
+        """The product over the last axis (B, r, n_sldc) and the products
+        that leave one slot out (B, r, n_sldc, deg), from the exclusive
+        prefix and suffix products."""
+        one = tf.ext_constant(1, shape=tuple(terms.shape[:-1]), device=dev)
+        pre, suf = [one], [one]
+        for j in range(deg - 1):
+            pre.append(tf.emul(pre[-1], terms[..., j]))
+            suf.append(tf.emul(suf[-1], terms[..., deg - 1 - j]))
+        full = tf.emul(pre[-1], terms[..., deg - 1])
+        return full, tf.emul(tf.ext_stack(pre, dim=-1), tf.ext_stack(suf[::-1], dim=-1))
+
+    lu_terms, lu_mask = chunked_terms(lu_combos, lu_deg, num_lu)
+    lut_terms, lut_mask = chunked_terms(lut_combos_a, lut_deg, num_lut)
+    lu_prod, lu_loo = leave_one_out(lu_terms, lu_deg)
+    lut_prod, lut_loo = leave_one_out(lut_terms, lut_deg)
+    # sums over the real slots only
+    nothing = tf.ext_zeros((1, 1, 1, 1), dev)
+    lu_sum = ext_sum_axis(tf.ext_where(lu_mask, lu_loo, nothing), -1)
+    mults = trip_mult
+    mult_pad = n_sldc * lut_deg - num_lut
+    if mult_pad:
+        mults = tf.ext_concat([mults, tf.ext_zeros((B, 1, mult_pad), dev)], dim=-1)
+    mults = mults.reshape(B, 1, n_sldc, lut_deg)
+    lut_sum = ext_sum_axis(tf.ext_where(lut_mask, tf.emul(mults, lut_loo), nothing), -1)
+
+    # transitions of the SLDC chunks: chunk 0 follows the last chunk at omega x
+    prev = tf.ext_concat([sldc_next[..., -1:], sldc[..., :-1]], dim=-1)
+    dmin = sldc - prev  # (B, r, n_sldc)
+    eq_sum_t = tf.emul(sel(0, 3), tf.emul(lut_prod, dmin) - lut_sum)
+    eq_ldc_t = tf.emul(sel(1, 3), tf.emul(lu_prod, dmin) + lu_sum)
+    inter = tf.ext_stack([eq_sum_t, eq_ldc_t], dim=-1).reshape(B, r, 2 * n_sldc)
+
+    # RE transition: re minus the delta-Horner from re_next over the b-combos
+    cur = re_next
+    for k in range(num_lut):
+        cur = tf.escale(dlv, cur) + lut_combos_b[..., k]
+    eq_re_t = tf.emul(sel(0), re_o - cur)  # (B, r)
+
+    # final RE per table: the padded table's (input, output) columns as
+    # polynomials in delta, both Horner sums in one loop
+    eq_finals = []
+    bounds = offsets.tolist()
+    for k in range(len(bounds) - 1):
+        acc = tf.zeros((B, r, 2), dev)
+        for c in coeffs[bounds[k] : bounds[k + 1]]:
+            acc = tf.add(tf.mul(dlv.unsqueeze(-1), acc), c)
+        expected = tf.add(acc[..., 0], tf.mul(bv, acc[..., 1]))
+        eq_finals.append(tf.emul(sel(4 + k), re_o - tf.ext_from_base(expected)))
+
+    eq_last = tf.emul(sel(3), sldc[..., -1])
+    eq_ini_sum = tf.emul(sel(2), sldc[..., 0])
+    eq_ini_re = tf.emul(sel(2), re_o)
+    singles = [eq_last, eq_ini_sum, eq_ini_re] + eq_finals + [eq_re_t]
+    per_round = tf.ext_concat([e.unsqueeze(-1) for e in singles] + [inter], dim=-1)
+    return per_round.reshape(B, r * per_round.shape[-1])
+
+
+def lookup_checks(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas, coeffs, offsets,
+                  num_routed_wires: int, maxdeg: int) -> GExt:
+    """lookup_checks_plain's equations: one launch of the CUDA kernel
+    (csrc/plonk.cu) for CUDA tensors, reading the openings' views where they
+    lie and the tables from the template's buffers; the plain version for
+    CPU tensors."""
+    if wires.re.device.type == "cpu":
+        return lookup_checks_plain(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg)
+    return _lookup_checks_kernel(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg)
+
+
+def _lookup_checks_kernel(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas, coeffs, offsets,
+                          num_routed_wires: int, maxdeg: int) -> GExt:
+    from . import kernels
+
+    B = wires.shape[0]
+    stacked = torch.stack([x for d in deltas for x in d], dim=1).reshape(B, len(deltas), 4)
+    pair = lambda x: (x.re, x.im)
+    re, im = kernels.load().lookup_checks(pair(lkp_sels), pair(wires), pair(lookup_zs), pair(lookup_zs_next), stacked, coeffs, offsets,
+                                          num_routed_wires, maxdeg)
+    return GExt(re, im)
+
+
 def merkle_batched(digest, index, sibs, cap, path_len: int, consts: tp.PoseidonConstants):
     """digest (..., 4), index (...,), sibs (..., L, 4), cap (..., cap, 4)
     -> bool (...,): the walked root equals the cap row that the residual
@@ -225,6 +481,10 @@ class TorchVerifier(nn.Module):
             device,
         )
         self.register_buffer("_k_is", tf.from_u64(np.array(common.k_is, dtype=np.uint64), device))
+        # the padded lookup tables (none without lookups), a constant of the template
+        coeffs, offsets = lookup_tables(common, device)
+        self.register_buffer("_lut_coeffs", coeffs)
+        self.register_buffer("_lut_off", offsets)
         # the gate program's outputs in the padded (gates with constraints, n_gc)
         # layout, slot 0 (zero) in the padding: one gather, no concatenation
         n_gc = common.num_gate_constraints
@@ -455,30 +715,10 @@ class TorchVerifier(nn.Module):
         lkp_sels = constants[:, tpl.n_gate_selectors : tpl.n_gate_selectors + tpl.n_lookup_selectors]
         gate_consts = constants[:, tpl.n_gate_selectors + tpl.n_lookup_selectors :]
 
-        # L0(zeta)(z - 1)
+        # L0(zeta)(z - 1) and the partial products: the constraint vector's head (B, r + r n_chunks)
         zeta_n = pw["zeta_n"]
-        one = tf.ext_constant(1, shape=(B,), device=dev)
-        lag0 = tf.emul(zeta_n - one, pw["l0_den_inv"])
-        zs1 = tf.emul(lag0.unsqueeze(1), zs - tf.ext_constant(1, shape=(B, 1), device=dev))  # (B, r)
-
-        # partial products: all rounds, numerator and denominator in one tensor
-        ns = tpl.n_sigmas
-        n_chunks = ns // maxdeg
-        beta_s = torch.stack(betas, dim=1).unsqueeze(-1)  # (B, r, 1)
-        gamma_s = torch.stack(gammas, dim=1).unsqueeze(-1)
-        routed = wires[:, :ns].unsqueeze(1)  # (B, 1, ns)
-        bk = tf.mul(beta_s, self._k_is)  # (B, r, ns)
-        bz = tf.escale(bk, zeta.unsqueeze(1).unsqueeze(1))
-        numer = GExt(tf.add(tf.add(routed.re, bz.re), gamma_s), tf.add(routed.im, bz.im))
-        bs = tf.escale(beta_s, sigmas.unsqueeze(1))
-        denom = GExt(tf.add(tf.add(routed.re, bs.re), gamma_s), tf.add(routed.im, bs.im))
-        nd = tf.ext_stack([numer, denom], dim=2).reshape(B, r, 2, n_chunks, maxdeg)
-        prods = tree_prod_last(nd)  # (B, r, 2, n_chunks)
-        pp_round = pps.reshape(B, r, common.num_partial_products)
-        current = tf.ext_concat([zs.unsqueeze(-1), pp_round, zs_next.unsqueeze(-1)], dim=-1)
-        pv = tf.ext_stack([current[..., :-1], current[..., 1:]], dim=2)  # (B, r, 2, n_chunks)
-        pn = tf.emul(pv, prods)
-        pp_vec = (pn[:, :, 0] - pn[:, :, 1]).reshape(B, r * n_chunks)
+        head = partial_products(zeta_n, pw["l0_den_inv"], zs, zs_next, pps, wires[:, : tpl.n_sigmas], sigmas,
+                                torch.stack(betas, dim=1), torch.stack(gammas, dim=1), zeta, self._k_is, maxdeg)
         self._stage("plonk: L0 and partial products")
 
         # gate constraints
@@ -502,13 +742,14 @@ class TorchVerifier(nn.Module):
         # assemble, alpha-combine, quotient equation
         lookup_vec = []
         if common.num_lookup_polys > 0:
-            lookup_vec = [self._lookup_checks(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas)]
+            lookup_vec = [lookup_checks(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, self._lut_coeffs, self._lut_off,
+                                        common.config.num_routed_wires, maxdeg)]
         self._stage("plonk: lookup argument")
-        constraint_vec = tf.ext_concat([zs1, pp_vec] + lookup_vec + [acc], dim=1)  # (B, K)
+        constraint_vec = tf.ext_concat([head] + lookup_vec + [acc], dim=1)  # (B, K)
         combined = horner_scaled(constraint_vec, torch.stack(alphas, dim=1))  # (B, r)
         quots_r = quots.reshape(B, r, maxdeg)
         q = horner_ext(quots_r, zeta_n.unsqueeze(1).expand(B, r))
-        zn1 = zeta_n - one
+        zn1 = zeta_n - tf.ext_constant(1, shape=(B,), device=dev)
         ok = tf.ext_equal(tf.emul(q, zn1.unsqueeze(1)), combined)  # (B, r)
         ok = ok.all(dim=1)
         self._stage("plonk: alpha combination and quotient")
@@ -524,117 +765,12 @@ class TorchVerifier(nn.Module):
         return tree_prod_last(terms)  # (B, n_gates)
 
     def _lookup_checks(self, lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas) -> GExt:
-        """The log-derivative lookup equations at zeta, the counterpart of
-        verifier_jax.py  _lookup_checks, all challenge rounds on a leading
-        round axis. lkp_sels (B, 4 + luts), wires (B, num_wires), lookup_zs
-        and lookup_zs_next (B, r * polys) with the layout [RE, SLDC_0 ...]
-        a round, deltas r tuples (a, b, alpha, delta) of (B,) words ->
-        (B, r * (4 + luts + 2 * n_sldc)), a round after the other, each
-        [last_sldc, init_sum, init_re] ++ finals_re ++ [re_trans] ++
-        interleaved (sum_trans, ldc_trans) per SLDC chunk."""
-        tpl = self.tpl
-        common = tpl.common
-        r = tpl.r
-        B = wires.shape[0]
-        dev = wires.re.device
-        num_lu = common.config.num_routed_wires // 2  # (input, output) slots of a LookupGate row
-        num_lut = common.config.num_routed_wires // 3  # (input, output, multiplicity) slots of a table row
-        n_polys = common.num_lookup_polys
-        n_sldc = n_polys - 1
-        lu_deg = common.quotient_degree_factor - 1
-        lut_deg = -(-num_lut // n_sldc)
-
-        av, bv, alv, dlv = (torch.stack([d[k] for d in deltas], dim=1) for k in range(4))  # (B, r)
-        lz = lookup_zs.reshape(B, r, n_polys)
-        lzn = lookup_zs_next.reshape(B, r, n_polys)
-        re_o, sldc = lz[..., 0], lz[..., 1:]
-        re_next, sldc_next = lzn[..., 0], lzn[..., 1:]
-
-        def sel(i: int, rank: int = 2) -> GExt:
-            return lkp_sels[:, i].reshape((B,) + (1,) * (rank - 1))
-
-        pairs_in = wires[:, 0 : 2 * num_lu : 2].unsqueeze(1)  # (B, 1, num_lu)
-        pairs_out = wires[:, 1 : 2 * num_lu : 2].unsqueeze(1)
-        trip_in = wires[:, 0 : 3 * num_lut : 3].unsqueeze(1)  # (B, 1, num_lut)
-        trip_out = wires[:, 1 : 3 * num_lut : 3].unsqueeze(1)
-        trip_mult = wires[:, 2 : 3 * num_lut : 3].unsqueeze(1)
-
-        def combo(inp: GExt, out: GExt, c) -> GExt:
-            return inp + tf.escale(c.unsqueeze(-1), out)  # (B, r, slots)
-
-        lu_combos = combo(pairs_in, pairs_out, av)
-        lut_combos_a = combo(trip_in, trip_out, av)
-        lut_combos_b = combo(trip_in, trip_out, bv)
-        alpha_e = tf.ext_from_base(alv.unsqueeze(-1))
-
-        def chunked_terms(combos: GExt, deg: int, slots: int):
-            """alpha - combo in chunks (B, r, n_sldc, deg), padded with 1, and
-            the mask (n_sldc, deg) of the real slots."""
-            t = alpha_e - combos
-            pad = n_sldc * deg - slots
-            if pad:
-                t = tf.ext_concat([t, tf.ext_constant(1, shape=(B, r, pad), device=dev)], dim=-1)
-            mask = torch.arange(n_sldc * deg, device=dev).reshape(n_sldc, deg) < slots
-            return t.reshape(B, r, n_sldc, deg), mask
-
-        def leave_one_out(terms: GExt, deg: int):
-            """The product over the last axis (B, r, n_sldc) and the products
-            that leave one slot out (B, r, n_sldc, deg), from the exclusive
-            prefix and suffix products."""
-            one = tf.ext_constant(1, shape=tuple(terms.shape[:-1]), device=dev)
-            pre, suf = [one], [one]
-            for j in range(deg - 1):
-                pre.append(tf.emul(pre[-1], terms[..., j]))
-                suf.append(tf.emul(suf[-1], terms[..., deg - 1 - j]))
-            full = tf.emul(pre[-1], terms[..., deg - 1])
-            return full, tf.emul(tf.ext_stack(pre, dim=-1), tf.ext_stack(suf[::-1], dim=-1))
-
-        lu_terms, lu_mask = chunked_terms(lu_combos, lu_deg, num_lu)
-        lut_terms, lut_mask = chunked_terms(lut_combos_a, lut_deg, num_lut)
-        lu_prod, lu_loo = leave_one_out(lu_terms, lu_deg)
-        lut_prod, lut_loo = leave_one_out(lut_terms, lut_deg)
-        # sums over the real slots only
-        nothing = tf.ext_zeros((1, 1, 1, 1), dev)
-        lu_sum = ext_sum_axis(tf.ext_where(lu_mask, lu_loo, nothing), -1)
-        mults = trip_mult
-        mult_pad = n_sldc * lut_deg - num_lut
-        if mult_pad:
-            mults = tf.ext_concat([mults, tf.ext_zeros((B, 1, mult_pad), dev)], dim=-1)
-        mults = mults.reshape(B, 1, n_sldc, lut_deg)
-        lut_sum = ext_sum_axis(tf.ext_where(lut_mask, tf.emul(mults, lut_loo), nothing), -1)
-
-        # transitions of the SLDC chunks: chunk 0 follows the last chunk at omega x
-        prev = tf.ext_concat([sldc_next[..., -1:], sldc[..., :-1]], dim=-1)
-        dmin = sldc - prev  # (B, r, n_sldc)
-        eq_sum_t = tf.emul(sel(0, 3), tf.emul(lut_prod, dmin) - lut_sum)
-        eq_ldc_t = tf.emul(sel(1, 3), tf.emul(lu_prod, dmin) + lu_sum)
-        inter = tf.ext_stack([eq_sum_t, eq_ldc_t], dim=-1).reshape(B, r, 2 * n_sldc)
-
-        # RE transition: re minus the delta-Horner from re_next over the b-combos
-        cur = re_next
-        for k in range(num_lut):
-            cur = tf.escale(dlv, cur) + lut_combos_b[..., k]
-        eq_re_t = tf.emul(sel(0), re_o - cur)  # (B, r)
-
-        # final RE per table: the padded table's (input, output) columns as
-        # polynomials in delta, both Horner sums in one loop
-        eq_finals = []
-        for k, table in enumerate(common.luts):
-            rows = -(-len(table) // num_lut) * num_lut
-            padded = list(table) + [table[0]] * (rows - len(table))
-            coeffs = tf.from_u64(np.array(padded, dtype=np.uint64), dev)  # (rows, 2)
-            acc = tf.zeros((B, r, 2), dev)
-            for c in coeffs:
-                acc = tf.add(tf.mul(dlv.unsqueeze(-1), acc), c)
-            expected = tf.add(acc[..., 0], tf.mul(bv, acc[..., 1]))
-            eq_finals.append(tf.emul(sel(4 + k), re_o - tf.ext_from_base(expected)))
-
-        eq_last = tf.emul(sel(3), sldc[..., -1])
-        eq_ini_sum = tf.emul(sel(2), sldc[..., 0])
-        eq_ini_re = tf.emul(sel(2), re_o)
-        singles = [eq_last, eq_ini_sum, eq_ini_re] + eq_finals + [eq_re_t]
-        per_round = tf.ext_concat([e.unsqueeze(-1) for e in singles] + [inter], dim=-1)
-        return per_round.reshape(B, r * per_round.shape[-1])
+        """The lookup equations of this template by the plain version
+        (lookup_checks_plain on its padded tables), the counterpart of
+        verifier_jax.py  _lookup_checks."""
+        common = self.tpl.common
+        return lookup_checks_plain(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, self._lut_coeffs, self._lut_off,
+                                   common.config.num_routed_wires, common.quotient_degree_factor)
 
     # -- FRI ------------------------------------------------------------------------
     def _fri_checks(self, a, o1, o2, fri_alpha, fri_betas, pow_response, qidx, final_poly, pw):
@@ -646,9 +782,6 @@ class TorchVerifier(nn.Module):
 
         def bq(x: GExt) -> GExt:
             return GExt(x.re.unsqueeze(1).expand(B, Q), x.im.unsqueeze(1).expand(B, Q))
-
-        def const(v: int):
-            return tf.constant(v, (B, Q), dev)
 
         # proof of work: the top pow_bits bits of the response are zero
         if tpl.pow_bits:
@@ -699,6 +832,15 @@ class TorchVerifier(nn.Module):
         eval_cur = tf.emul(bq(pw["alpha_m"]), one_div) + two_div  # (B, Q)
         self._stage("fri: combineInitial")
 
+        # every step's coset fold at once: a step's fold reads its own opened
+        # coset, offset and beta, and the step before is only compared with
+        # its opened slot below
+        steps = range(len(tpl.steps))
+        folds = coset_folds([a[f"step_evals_{s}"] for s in steps], pw["offset_invs"], fri_betas,
+                            [getattr(self, f"_coset_perm_{s}") for s in steps], [getattr(self, f"_idft_{s}") for s in steps])
+        if tpl.steps:
+            self._stage("fri: coset folds")
+
         # folding
         fold_ok = torch.ones((B, Q), dtype=torch.bool, device=dev)
         idx = qidx
@@ -716,28 +858,9 @@ class TorchVerifier(nn.Module):
             slot = (idx & (arity - 1)).unsqueeze(-1)
             opened = GExt(evals_ext.re.gather(-1, slot).squeeze(-1), evals_ext.im.gather(-1, slot).squeeze(-1))
             fold_ok = fold_ok & ok_m & tf.ext_equal(opened, eval_cur)
-            self._stage(f"fri: step {s} Merkle walk and opened slot")
-
-            # coset fold: values to subgroup order, offset, IDFT, beta-Horner
-            vals = evals_ext[..., getattr(self, f"_coset_perm_{s}")]
-            # y'_k = sum_j omega^{-jk} v_j
-            wmat = getattr(self, f"_idft_{s}")  # (A, A)
-            yprime = tf.ext_zeros((B, Q, arity), dev)
-            for j in range(arity):
-                yprime = yprime + tf.escale(wmat[:, j], vals[..., j].unsqueeze(-1))
-            # y_k = (1/A) offset^{-k} y'_k; powers of offset^{-1} by doubling
-            off_inv = pw["offset_invs"][s]
-            pows = tf.constant(1, (B, Q, 1), dev)
-            cur = off_inv
-            while pows.shape[-1] < arity:
-                pows = torch.cat([pows, tf.mul(pows, cur.unsqueeze(-1))], dim=-1)
-                if pows.shape[-1] < arity:
-                    cur = tf.square(cur)
-            ys = tf.escale(pows[..., :arity], yprime)
-            folded = horner_ext(ys, bq(fri_betas[s]))
-            eval_cur = tf.escale(const(gf.finv(arity % gf.P)), folded)
+            eval_cur = folds[s]
             idx = new_idx
-            self._stage(f"fri: step {s} coset fold")
+            self._stage(f"fri: step {s} Merkle walk and opened slot")
 
         # final polynomial at x_final = shift_F w_F^rev(idx_F)
         x_final = pw["x_final"]

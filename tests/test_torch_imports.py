@@ -153,6 +153,9 @@ tf.inv_grouped = counted("inv_grouped", tf.inv_grouped)
 tf.pow_grouped = counted("pow_grouped", tf.pow_grouped)
 from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
 GateProgram.forward = counted("gate_program", GateProgram.forward)
+vt.coset_folds = counted("coset_fold", vt.coset_folds, lambda evals, *a: bool(evals))  # no fold step, no launch
+vt.partial_products = counted("partial_products", vt.partial_products)
+vt.lookup_checks = counted("lookup_checks", vt.lookup_checks)
 cs.DEVICE, cs.BATCH = "cpu", 6
 cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
 cs.ZOO = {"num_query_rounds": 2, "proof_of_work_bits": 2}
@@ -161,12 +164,13 @@ torch.cuda.synchronize = lambda: None
 v, dev, launches, fib = cs.main_path(lib, checks)
 assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
 assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
-assert (launches["horner"], launches["inv"], launches["inv_grouped"]) == (7 + len(v.tpl.steps), 0, 1), launches
+assert (launches["horner"], launches["inv"], launches["inv_grouped"]) == (7, 0, 1), launches
 assert (launches["pow"], launches["pow_grouped"], launches["gate_program"]) == (0, 1, 1), launches
+assert (launches["coset_fold"], launches["partial_products"], launches["lookup_checks"]) == (1 if v.tpl.steps else 0, 1, 0), launches
 prover = cs.start_prover("gate_zoo", cs.ZOO)
 zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
 assert prover.returncode == 0
-assert sorted(zoo_launches) == [7, 8] and all(n["sponge_rows_grouped"] == 1 for n in zoo_launches.values()), zoo_launches
+assert sorted(zoo_launches) == [7, 8] and all(n["sponge_rows_grouped"] == n["lookup_checks"] == 1 for n in zoo_launches.values()), zoo_launches
 bad = LOADED
 assert not bad, bad
 """
@@ -210,7 +214,7 @@ assert snap["proofs"] == 10, snap
 assert launches["permutation_scan"] == 3 and launches["sponge_rows_grouped"] == 3, launches
 cli = cs.cli_path(lib, {"fibonacci": fib, "other": fixture(2)}, checks)
 assert cli["permutation_scan"] == 4 and cli["sponge_rows_grouped"] == 4, cli
-assert all(checks[k].cases > 0 and checks[k].max_abs_err == 0 for k in ("horner", "inv", "pow", "gate_program")), {k: c.cases for k, c in checks.items()}
+assert all(checks[k].cases > 0 and checks[k].max_abs_err == 0 for k in ("horner", "inv", "pow", "gate_program", "partial_products")), {k: c.cases for k, c in checks.items()}
 sc.GRID, sc.FUZZ_SEEDS = [(4, 2, 0)], [13]
 shapes = cs.shapes_path(lib, checks)
 assert shapes["permutation_scan"] == 4 and shapes["merkle_fold"] == 4, shapes
@@ -253,7 +257,8 @@ if __name__ == "__main__":
     common, vkey, pwp = get_fixture_proof("fibonacci", **cs.STANDARD)
     checks = new_checks()
     cs.mesh_path((CircuitTemplate(common), common, vkey, pwp), checks, {"proofs_per_sec": 1.0, "steady_proofs_per_sec": 1.0}, 1.0)
-    assert all(c.cases > 0 and c.max_abs_err == 0 for c in checks.values()), {k: c.cases for k, c in checks.items()}
+    unused = ("coset_fold", "lookup_checks")  # this fibonacci template has no fold step and no lookup
+    assert all(c.cases > 0 and c.max_abs_err == 0 for k, c in checks.items() if k not in unused), {k: c.cases for k, c in checks.items()}
     cs.profile_path()
     # a rank of run_ranks: what parallel.mesh's entry point of the children has loaded
     in_ranks = run_ranks(eval, 2, ("LOADED".replace("sys.modules", "__import__('sys').modules"),), threads=1, timeout_s=120)
@@ -287,12 +292,16 @@ import sys, torch
 from plonky2_verifier_tpu_torch import kernels, verifier_torch as vt
 from plonky2_verifier_tpu_torch.compiler.gates_torch import INPUT_KINDS, GateProgram
 from plonky2_verifier_tpu_torch.ops import field as tf
-from plonky2_verifier_tpu_torch.tools.check_field_kernels import gate_programs, golden_packed_program, horner_rows_plain, pow_rows_plain
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import (coset_fold_rows_plain, gate_programs, golden_packed_program,
+    horner_rows_plain, lookup_checks_rows_plain, partial_products_rows_plain, pow_rows_plain)
 
 class Lib:  # the library's field entry points by their plain versions
     horner = staticmethod(horner_rows_plain)
     pow = staticmethod(pow_rows_plain)
     gate_program = staticmethod(golden_packed_program)
+    coset_fold = staticmethod(coset_fold_rows_plain)
+    partial_products = staticmethod(partial_products_rows_plain)
+    lookup_checks = staticmethod(lookup_checks_rows_plain)
 
 (_, lp), = [p for p in gate_programs() if p[0] == "fibonacci"]
 prog = GateProgram(lp, "cpu")
@@ -303,12 +312,18 @@ tf._pow_kernel(tf.constant(7, (1, 1), "cpu"), None, torch.arange(6).reshape(2, 3
 tf._pow_kernel(x, x, 4096, 13)  # ext_pow_const's
 vt._horner_kernel(tf.GExt(x, x), tf.GExt(x[:, 0], x[:, 0]))
 prog._forward_kernel({k: tf.ext_zeros((2, lp.input_slots[k][1]), "cpu") for k in INPUT_KINDS}, (2,))
+e = lambda *shape: tf.GExt(tf.constant(3, shape, "cpu"), tf.constant(5, shape, "cpu"))
+vt._coset_folds_kernel([tf.constant(2, (2, 3, 2, 2), "cpu")], [x], [e(2)], [tf.constant(1, (2, 2), "cpu")])
+vt._partial_products_kernel(e(2), e(2), e(2, 1), e(2, 1), e(2, 1), e(2, 4), e(2, 4), x[:, :1], x[:, :1], e(2), x[0, :2].repeat(2), 2)
+coeffs, offsets = vt.lookup_tables(type("C", (), {"config": type("F", (), {"num_routed_wires": 6}), "luts": [[(1, 2)]]}), "cpu")
+vt._lookup_checks_kernel(e(2, 5), e(2, 6), e(2, 2), e(2, 2), [(x[:, 0],) * 4], coeffs, offsets, 6, 4)
 print(sorted(m for m in set(sys.modules) - before if m.split(".")[0] == "sympy" or "symbolic_shapes" in m))
 """
 
 
 def test_card_paths_import_nothing_at_their_first_call():
-    """The wrappers' card paths (exponentiations, Horner sum, gate program),
+    """The wrappers' card paths (exponentiations, Horner sum, gate program,
+    coset folds, partial products, lookup argument),
     with the library's plain stand-ins, load no sympy: torch.broadcast_shapes
     imports torch.fx's symbolic shapes at its first call, which cost a fresh
     process ~3 s of its first verifier call on the card."""

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions and the golden
 model, on the card: the three Poseidon kernels, the three field kernels
 (the extension Horner sum, the Fermat inversion and the exponentiations,
-the last two also in their grouped forms) and the levelized gate program (in both forms, the tapes in shared memory
-and in device scratch), their inputs drawn from the edge band and words
+the last two also in their grouped forms), the levelized gate program (in both forms, the tapes in shared memory
+and in device scratch), the FRI coset folds, and L0 with the partial
+products and the lookup argument, their inputs drawn from the edge band and words
 x + p as well. Bit-exact (integer arithmetic).
 
 These tests need a CUDA device and nvcc; without them they skip. This file
@@ -26,6 +27,9 @@ from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.ops.field import GExt
 from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram, compact_ops
 from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
+    check_coset_fold,
+    check_lookup_checks,
+    check_partial_products,
     gate_inputs,
     gate_programs,
     golden_gate_program,
@@ -293,9 +297,25 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     got, want = tf.pow_grouped(exps % 2**15, gens, [(point, 4096), (point, 1)]), tf.pow_grouped_plain(exps % 2**15, gens, [(point, 4096), (point, 1)])
     assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
     assert all(torch.equal(g.re, w.re) and torch.equal(g.im, w.im) for g, w in zip(got[1], want[1]))
+    evals, off_inv = _rand(44, (2, 3, 4, 2)), _rand(45, (2, 3))
+    perm, idft = torch.tensor([0, 2, 1, 3], device="cuda"), tf.from_u64(np.array([[gf.fpow(gf.finv(gf.subgroup_generator(2)), j * k) for j in range(4)]
+                                                                                 for k in range(4)], np.uint64), "cuda")
+    beta = GExt(point.re[:, 0], point.im[:, 0])
+    (got,), want = vt.coset_folds([evals], [off_inv], [beta], [perm], [idft]), vt.coset_fold_plain(evals, off_inv, beta, perm, idft)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    ext = lambda seed, *shape: GExt(_rand(seed, shape), _rand(seed + 100, shape))
+    pp = (ext(46, 2), ext(47, 2), ext(48, 2, 2), ext(49, 2, 2), ext(50, 2, 2), ext(51, 2, 6), ext(52, 2, 6), _rand(53, (2, 2)), _rand(54, (2, 2)),
+          ext(55, 2), _rand(56, (6,)), 3)
+    got, want = vt.partial_products(*pp), vt.partial_products_plain(*pp)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    coeffs, offsets = _rand(57, (4, 2)) & 0xFFFF, torch.tensor([0, 2, 4], device="cuda")
+    deltas = [tuple(_rand(58 + k, (2,)) for k in range(4))]
+    lk = (ext(62, 2, 6), ext(63, 2, 6), ext(64, 2, 3), ext(65, 2, 3), deltas, coeffs, offsets, 6, 4)
+    got, want = vt.lookup_checks(*lk), vt.lookup_checks_plain(*lk)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     assert {k: lib.launches[k] - before[k] for k in before} == {
         "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1, "inv": 1,
-        "inv_grouped": 1, "pow": 2, "pow_grouped": 1, "gate_program": 1,
+        "inv_grouped": 1, "pow": 2, "pow_grouped": 1, "gate_program": 1, "coset_fold": 1, "partial_products": 1, "lookup_checks": 1,
     }
 
 
@@ -511,3 +531,47 @@ def test_gate_program_forms_agree_at_the_verifier_batch(lib):
         assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
     with pytest.raises(ValueError, match="shared memory"):
         lib.gate_program(views, big, form="shared")
+
+
+@pytest.mark.parametrize("check", [check_coset_fold, check_partial_products, check_lookup_checks], ids=["coset_fold", "partial_products", "lookup_checks"])
+def test_stage_kernels_against_plain_and_golden(lib, check):
+    """tools/check_field_kernels.py's sweep of each stage kernel at full
+    size: the coset folds (arity 2 to 32 in one launch, a query slice,
+    B = 0), L0 with the partial products (r, maxdeg, chunk counts) and the
+    lookup argument (SLDC chunks, table counts and lengths): the plain
+    version's words, the kernel order's in PyTorch, and golden/'s on a few
+    lanes."""
+    from plonky2_verifier_tpu_torch.tools.check_hash_kernels import KernelCheck
+
+    c = KernelCheck(check.__name__)
+    check(lib, c, np.random.default_rng(11), "cuda", 1 << 20)
+    assert c.cases > 0 and c.max_abs_err == 0
+
+
+def test_stage_kernels_validate_inputs(lib):
+    """More fold steps than a launch takes, a fold step's values not
+    contiguous, sigmas that make no whole chunks and a lookup round of one
+    polynomial raise; zero lanes launch nothing."""
+    from plonky2_verifier_tpu_torch.kernels import FOLD_MAX_STEPS
+
+    evals, off_inv, beta, idft = _rand(70, (2, 3, 2, 2)), _rand(71, (2, 3)), _rand(72, (2,)), _rand(73, (2, 2))
+    with pytest.raises(ValueError, match="fold steps"):
+        lib.coset_fold([(evals, off_inv, beta, beta, idft)] * (FOLD_MAX_STEPS + 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        lib.coset_fold([(evals.transpose(2, 3).contiguous().transpose(2, 3), off_inv, beta, beta, idft)])
+    with pytest.raises(ValueError, match="idft"):
+        lib.coset_fold([(evals, off_inv, beta, beta, _rand(74, (3, 3)))])
+    ext = lambda seed, *shape: (_rand(seed, shape), _rand(seed + 100, shape))
+    with pytest.raises(ValueError, match="chunks"):
+        lib.partial_products(ext(75, 2), ext(76, 2), ext(77, 2, 2), ext(78, 2, 2), ext(79, 2, 2), ext(80, 2, 7), ext(81, 2, 7),
+                             _rand(82, (2, 2)), _rand(83, (2, 2)), ext(84, 2), _rand(85, (7,)), 3)
+    with pytest.raises(ValueError, match="polynomials"):
+        lib.lookup_checks(ext(86, 2, 5), ext(87, 2, 6), ext(88, 2, 1), ext(89, 2, 1), _rand(90, (2, 1, 4)), _rand(91, (2, 2)),
+                          torch.tensor([0, 2], device="cuda"), 6, 4)
+    before = dict(lib.launches)
+    assert lib.coset_fold([(evals[:0], off_inv[:0], beta[:0], beta[:0], idft)]).shape == (1, 2, 0, 3)
+    assert lib.partial_products(*(x[:0] if isinstance(x, torch.Tensor) and x.dim() == 2 and x.shape[0] == 2 else
+                                  (x[0][:0], x[1][:0]) if isinstance(x, tuple) else x
+                                  for x in (ext(75, 2), ext(76, 2), ext(77, 2, 2), ext(78, 2, 2), ext(79, 2, 2), ext(80, 2, 6),
+                                            ext(81, 2, 6), _rand(82, (2, 2)), _rand(83, (2, 2)), ext(84, 2), _rand(85, (6,)), 3)))[0].shape == (0, 6)
+    assert lib.launches == before

@@ -4,7 +4,11 @@
     `JaxVerifier._lookup_checks` on the same numpy inputs and against
     `golden.plonk.eval_lookup_equations`, for the lookup and multi_lookup
     fixtures; lane 1 of the batch carries a flipped lookup opening, so the two
-    verifiers are also compared where the equations do not vanish.
+    verifiers are also compared where the equations do not vanish. The
+    padded tables are the verifier's buffers, built once with the module
+    (golden/'s pad_lut rows; a call uploads nothing), and the card path
+    (`verifier_torch._lookup_checks_kernel`, the kernel's own order on a
+    stand-in library) gives the JAX module's words too.
 (b) The whole lookup templates through `TorchVerifier(device="cpu")` and
     `verify_batch`: accepted, every challenge (the lookup deltas among them)
     equal to `golden.challenges`, and each mutated lookup opening rejected on
@@ -28,9 +32,12 @@ from plonky2_verifier_tpu.verifier_jax import JaxVerifier
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
 from plonky2_verifier_tpu_torch.golden import field as gf
 from plonky2_verifier_tpu_torch.golden.challenges import proof_challenges
+from plonky2_verifier_tpu_torch import kernels
+from plonky2_verifier_tpu_torch import verifier_torch as vt
 from plonky2_verifier_tpu_torch.golden.plonk import (
     eval_lookup_equations,
     get_selector_config,
+    pad_lut,
     split_constant_columns,
 )
 from plonky2_verifier_tpu_torch.golden.verifier import verify_proof
@@ -90,13 +97,17 @@ def module_inputs(proved):
     return common, arrays, deltas, want
 
 
+def _port_inputs(arrays, deltas):
+    t_ext = {k: GExt(tf.from_u64(a[..., 0], "cpu"), tf.from_u64(a[..., 1], "cpu")) for k, a in arrays.items()}
+    t_deltas = [tuple(tf.from_u64(x, "cpu") for x in d) for d in deltas]
+    return [t_ext["lkp_sels"], t_ext["wires"], t_ext["lookup_zs"], t_ext["lookup_zs_next"], t_deltas]
+
+
 @pytest.fixture(scope="module")
 def module_outputs(module_inputs):
     common, arrays, deltas, _ = module_inputs
     tv = TorchVerifier(CircuitTemplate(common), device="cpu")
-    t_ext = {k: GExt(tf.from_u64(a[..., 0], "cpu"), tf.from_u64(a[..., 1], "cpu")) for k, a in arrays.items()}
-    t_deltas = [tuple(tf.from_u64(x, "cpu") for x in d) for d in deltas]
-    got = tv._lookup_checks(t_ext["lkp_sels"], t_ext["wires"], t_ext["lookup_zs"], t_ext["lookup_zs_next"], t_deltas)
+    got = tv._lookup_checks(*_port_inputs(arrays, deltas))
 
     jv = JaxVerifier(JaxTemplate(common))
     j_ext = {k: jf.ext_from_u64(a[..., 0], a[..., 1]) for k, a in arrays.items()}
@@ -123,6 +134,46 @@ def test_lookup_checks_equal_golden_equations(module_inputs, module_outputs):
 def test_lookup_checks_see_a_flipped_opening(module_outputs):
     (got_re, _), _ = module_outputs
     assert not np.array_equal(got_re[1], got_re[0])
+
+
+def test_lookup_tables_are_buffers_built_once(module_inputs, module_outputs, monkeypatch):
+    """The padded tables are buffers of the verifier (golden/'s pad_lut rows,
+    one table after the other), and a call of _lookup_checks uploads
+    nothing: with tf.from_u64 refused it gives the JAX module's words."""
+    common, arrays, deltas, _ = module_inputs
+    tv = TorchVerifier(CircuitTemplate(common), device="cpu")
+    num_lut = common.config.num_routed_wires // 3
+    rows = [list(row) for t in common.luts for row in pad_lut(t, -(-len(t) // num_lut) * num_lut)]
+    assert to_u64(tv._lut_coeffs).tolist() == rows
+    assert {"_lut_coeffs", "_lut_off"} <= dict(tv.named_buffers()).keys()
+    inputs = _port_inputs(arrays, deltas)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the lookup argument uploaded a table")
+
+    monkeypatch.setattr(tf, "from_u64", refuse)
+    got = tv._lookup_checks(*inputs)
+    _, (ref_re, ref_im) = module_outputs
+    np.testing.assert_array_equal(to_u64(got.re), ref_re)
+    np.testing.assert_array_equal(to_u64(got.im), ref_im)
+
+
+def test_lookup_card_path_equals_jax_module(module_inputs, module_outputs, monkeypatch):
+    """The card path with the kernel's own order in PyTorch standing in for
+    the library (the running leave-one-out pair, a thread's Horner chains):
+    the JAX module's words."""
+    from plonky2_verifier_tpu_torch.tools.check_hash_kernels import PlainLibrary
+
+    common, arrays, deltas, _ = module_inputs
+    tv = TorchVerifier(CircuitTemplate(common), device="cpu")
+    lib = PlainLibrary(None)
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    got = vt._lookup_checks_kernel(*_port_inputs(arrays, deltas), tv._lut_coeffs, tv._lut_off, common.config.num_routed_wires,
+                                   common.quotient_degree_factor)
+    _, (ref_re, ref_im) = module_outputs
+    np.testing.assert_array_equal(to_u64(got.re), ref_re)
+    np.testing.assert_array_equal(to_u64(got.im), ref_im)
+    assert lib.launches["lookup_checks"] == 1
 
 
 # -- (b) the whole lookup templates ---------------------------------------------

@@ -80,7 +80,8 @@ def test_shape_against_golden(kind, arg, monkeypatch, capsys):
     assert batches == [2, len(rejected) + 1]  # the sizes at which the card run holds the kernels against plain
     checks = new_checks()
     cs.hold_against_plain(v, 2, checks, "cpu")  # on the CPU the wrappers are the plain versions: the shapes must be accepted
-    assert all(c.cases > 0 and c.max_abs_err == 0 for name, c in checks.items() if name != "merkle_fold")
+    held = [name for name in checks if name != "merkle_fold" and (name != "lookup_checks" or tpl.common.num_lookup_polys)]  # no lookups here
+    assert all(checks[name].cases > 0 and checks[name].max_abs_err == 0 for name in held)
 
 
 def test_the_circuits_differ_in_shape():

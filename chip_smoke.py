@@ -42,9 +42,10 @@ success):
    poseidon_chain, gate-zoo and fuzz 13 / 23 circuits in both of its forms
    (the tapes in shared memory, in device scratch), at batches whose lanes
    a block do and do not divide them and at B = 0, the coset folds (arity
-   2 to 32 in one launch, a query slice, B = 0), L0 with the partial
-   products (r, maxdeg and chunk counts) and the lookup argument (SLDC
-   chunks, table counts and lengths) (tools/check_field_kernels.py);
+   2 to 64 in one launch, staged in shared memory and in scratch, a query
+   slice, B = 0), L0 with the partial products (r, maxdeg and chunk
+   counts) and the lookup argument (SLDC chunks, table counts and lengths,
+   the lanes each gets, subtrahends y + p) (tools/check_field_kernels.py);
 4. main path: the standard fixture (degree 12, 28 queries, PoW 16; proved
    by a child process that starts with phase 2 and is waited for here),
    batch 1024, all accepted; lane 0's transcript equal to golden; six single-array
@@ -320,7 +321,8 @@ def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
     gate_plain = lambda prog, inputs, batch_shape, packed=None, **kw: prog.forward_plain(inputs, batch_shape, **kw)  # packed: the card's
     plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain,
              "inv_grouped": tf.inv_grouped_plain, "pow_grouped": tf.pow_grouped_plain, "forward": gate_plain, "coset_folds": vt.coset_folds_plain,
-             "partial_products": vt.partial_products_plain, "lookup_checks": vt.lookup_checks_plain}
+             "partial_products": vt.partial_products_plain,
+             "lookup_checks": lambda *args, lanes=None: vt.lookup_checks_plain(*args)}  # lanes: the card's
     wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv_grouped": tf.inv_grouped, "pow_grouped": tf.pow_grouped,
                "forward": gate, "coset_folds": vt.coset_folds, "partial_products": vt.partial_products, "lookup_checks": vt.lookup_checks}
     bucket = {"horner_ext": "horner", "horner_scaled": "horner", "inv_grouped": "inv", "pow_grouped": "pow", "forward": "gate_program",
@@ -588,7 +590,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
                 plain = lambda prog=prog, args=args, kwargs=kwargs: pair(prog.forward_plain(*args[1:], out_slots=kwargs.get("out_slots")))
                 size = instructions
             elif name in stages:
-                kernel = lambda fn=getattr(vt, name), args=args: fn(*args)
+                kernel = lambda fn=getattr(vt, name), args=args, kwargs=kwargs: fn(*args, **kwargs)
                 name, work_of, plain_fn = stages[name]
                 instructions, n_bytes, what, *_ = work_of(*args)
                 what, size = f"{path}: {what}", instructions
@@ -686,25 +688,28 @@ def inv_grouped_work(n: int):
     return least, 16 * n, (INV_PRODUCTS * groups + 3 * (n - groups)) * PRODUCT
 
 
-def fold_work(evals, off_invs, betas, perms, idfts):
+def fold_work(evals, off_invs, betas, perms, idfts, *, product=PRODUCT, add=ADD):
     """(int32 instructions, bytes, description, the kernel's instructions)
     of one coset_fold launch, the least the function needs, counted in the
     FFT form: a (b, q) of a step of arity A takes A log2(A) / 2 butterflies
-    (a base-field twiddle times an extension value, 2 products, and an
-    extension add and subtract, 4 adds), the Horner chain in c = beta
-    off_inv (4 products and 4 adds a value; c itself 2 products) and the
-    scaling by 1/A (2 products); each opened value, offset inverse and beta
-    word read once, the (A, A) weights once, each folded pair written once.
-    The kernel forms the IDFT as A^2 scalings and adds (2 products, 2 adds)
-    in place of the butterflies."""
+    (an extension add and subtract, 4 adds), all but the A - 1 whose
+    twiddle is 1 with a base-field twiddle times an extension value (2
+    products), the Horner chain in c = beta off_inv (4 products and 4 adds
+    a value; c itself 2 products) and the scaling by 1/A (2 products); each
+    opened value, offset inverse and beta word read once, the (A, A)
+    weights once, each folded pair written once. The kernel (csrc/fold.cu)
+    runs these and besides makes each opened word canonical (an add a
+    word). `product` and `add`: the instructions a product and an add are
+    counted at (W's reckoning unless given)."""
     least = kernel = n_words = 0
     for e, w in zip(evals, idfts):
         B, Q, arity = e.shape[:3]
-        lanes, bits = B * Q, arity.bit_length() - 1
-        chain = arity * (4 * PRODUCT + 4 * ADD) + 4 * PRODUCT
-        least += lanes * (arity * bits // 2 * (2 * PRODUCT + 4 * ADD) + chain)
-        kernel += lanes * (arity * arity * (2 * PRODUCT + 2 * ADD) + chain)
+        lanes, butterflies = B * Q, arity * (arity.bit_length() - 1) // 2
+        chain = arity * (4 * product + 4 * add) + 4 * product
+        least += lanes * (butterflies * 4 * add + (butterflies - arity + 1) * 2 * product + chain)
+        kernel += lanes * 2 * arity * add
         n_words += lanes * (2 * arity + 3) + 2 * B + w.numel()
+    kernel += least
     what = f"coset_fold: {len(evals)} steps of arity {[e.shape[2] for e in evals]} at {tuple(evals[0].shape[:2])}; the kernel's {kernel} instructions"
     return least, 8 * n_words, what, kernel
 
@@ -726,29 +731,48 @@ def partial_products_work(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, b
     return instructions, 8 * n_words, f"partial_products: (B, r) ({B}, {r}), {ns} routed wires in {n_chunks} chunks of {maxdeg}"
 
 
-def lookup_work(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg):
-    """(int32 instructions, bytes, description) of one lookup_checks launch,
-    counted in the running pair's form (the least this code knows), a (b,
-    round): a lookup slot's combo (2 products, 2 adds), its term (2 adds)
-    and the pair's 2 emuls and 2 adds; a table slot the same with a third
-    emul (its multiplicity); a chunk's difference, 2 emuls by it, an add,
-    2 emuls by the selectors; an RE step a combo and an escale (4 products,
-    4 adds), then a subtraction and an emul; a padded table row 2 products
-    and 2 adds, a table's final a product, 3 adds and an emul; the three
-    single equations 3 emuls. The openings, challenges and padded tables
-    read once, each output written once."""
+def lookup_work(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg, *, product=PRODUCT, add=ADD):
+    """(int32 instructions, bytes, description, the kernel's instructions)
+    of one lookup_checks launch, counted in the running pair's form (the
+    least this code knows), a (b, round): a lookup slot's combo (2 products,
+    2 adds), its term (2 adds) and the pair's 2 emuls and 2 adds; a table
+    slot the same with a third emul (its multiplicity); a chunk's
+    difference, 2 emuls by it, an add, 2 emuls by the selectors; an RE step
+    a combo and an escale (4 products, 4 adds), then a subtraction and an
+    emul; a padded table row 2 products and 2 adds, a table's final a
+    product, 3 adds and an emul; the three single equations 3 emuls. The
+    openings, challenges and padded tables read once, each output written
+    once. The kernel (csrc/plonk.cu, its lanes kernels.lookup_split's for
+    the longest table) runs the slots as these, and besides: on every lane
+    of a chunk the pairs' meetings, 3 emuls and 2 adds a pair a tree level;
+    on every lane of the RE transition and of a table its segment's steps
+    (a step past the last value too), q = delta^S by squarings and a tree
+    level's product, add and squaring. An emul is 5 products and 2 adds;
+    `product` and `add` are the instructions a product and an add count
+    (W's reckoning unless given)."""
+    from plonky2_verifier_tpu_torch.kernels import lookup_split
+
+    emul = 5 * product + 2 * add
     B, r = wires.shape[0], len(deltas)
     n_polys = lookup_zs.shape[1] // r
     n_sldc, num_lu, num_lut = n_polys - 1, num_routed_wires // 2, num_routed_wires // 3
     rows, luts = coeffs.shape[0], offsets.numel() - 1
-    slot = 2 * PRODUCT + 4 * ADD
-    per_round = (num_lu * (slot + 2 * EMUL + 2 * ADD) + num_lut * (slot + 3 * EMUL + 2 * ADD) + n_sldc * (4 * EMUL + 6 * ADD)
-                 + num_lut * (4 * PRODUCT + 4 * ADD) + 2 * ADD + EMUL + rows * 2 * (PRODUCT + ADD) + luts * (PRODUCT + 3 * ADD + EMUL)
-                 + 3 * EMUL)
+    slot = 2 * product + 4 * add
+    slots = num_lu * (slot + 2 * emul + 2 * add) + num_lut * (slot + 3 * emul + 2 * add)
+    equations = n_sldc * (4 * emul + 6 * add) + 2 * add + emul + luts * (product + 3 * add + emul) + 3 * emul
+    per_round = slots + equations + num_lut * (4 * product + 4 * add) + rows * 2 * (product + add)
+    chunk, re_lanes, table_lanes = lookup_split(num_routed_wires, n_sldc, maxdeg, offsets.tolist())
+    levels = lambda lanes: lanes.bit_length() - 1
+    segments = lambda lanes, n, step, tree: lanes * (-(-n // lanes) * step + levels(lanes) * (product + tree))
+    table_rows = (offsets[1:] - offsets[:-1]).tolist()
+    kernel_round = (slots + equations + n_sldc * chunk * levels(chunk) * 2 * (3 * emul + 2 * add)
+                    + segments(re_lanes, num_lut + 1, 4 * product + 4 * add, 3 * product + 2 * add)
+                    + sum(segments(table_lanes, n, 2 * (product + add), 2 * (product + add) + product) for n in table_rows))
     width = 4 + luts + 2 * n_sldc
     n_words = 2 * B * (4 + luts) + 2 * B * max(2 * num_lu, 3 * num_lut) + 4 * B * r * n_polys + 4 * B * r + 2 * rows + luts + 1 + 2 * B * r * width
-    what = f"lookup_checks: (B, r) ({B}, {r}), {n_sldc} SLDC chunks, {num_lu} lookup and {num_lut} table slots, {luts} tables of {rows} padded rows"
-    return B * r * per_round, 8 * n_words, what
+    what = (f"lookup_checks: (B, r) ({B}, {r}), {n_sldc} SLDC chunks, {num_lu} lookup and {num_lut} table slots, {luts} tables of {rows} "
+            f"padded rows; lanes {chunk} a chunk, {re_lanes} the RE transition, {table_lanes} a table: the kernel's {B * r * kernel_round} instructions")
+    return B * r * per_round, 8 * n_words, what, B * r * kernel_round
 
 
 def gate_work(packed, inputs):

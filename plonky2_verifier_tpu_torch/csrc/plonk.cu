@@ -37,23 +37,58 @@
 // current and a subtraction; L0 an emul a lane and one a round. Against the
 // bytes: each opening and challenge word read once, each output written once.
 //
-// p2v_lookup_checks: a thread a (b, round, j), j < n_sldc an SLDC chunk
-// (its two transition equations), j = n_sldc the RE transition with the
-// three single equations, j > n_sldc a table's final RE (the padded table,
-// the template's constant on the card, as a Horner chain in delta). The
-// leave-one-out sums of a chunk of terms t_i (alpha - combo) by the running
-// pair P' = P t, S' = S t + m P (m = 1 for the lookup slots, the
-// multiplicity for the table slots): sum_i m_i prod_{l != i} t_l without
-// the prefix and suffix arrays. Output (B, r (4 + luts + 2 n_sldc)), a round
-// after the other, each [last_sldc, init_sum, init_re] ++ finals ++
-// [re_trans] ++ (sum_trans, ldc_trans) a chunk, as lookup_checks_plain.
+// p2v_lookup_checks: the equations of a (b, round) spread over three kinds
+// of thread, each kind in warps of its own (the grid is three regions, each
+// a whole number of warps: every warp runs one body), so that no warp runs
+// the three bodies one after the other, and with more threads than jobs, so
+// that every SM has several warps (the first form, a thread a (b, round,
+// job), left 2 warps a scheduler and ran every body in every warp):
+// - an SLDC chunk j: 2^chunk_bits lanes. Lane l runs the running pair
+//   P' = P t, S' = S t + m P from (1, 0) over the chunk's slots l, l + L,
+//   ... of each kind (t = alpha - combo; m = 1 for the lookup slots, the
+//   multiplicity for the table slots), then the lanes' pairs meet by warp
+//   shuffles: (P1, S1) o (P2, S2) = (P1 P2, S1 P2 + P1 S2), associative and
+//   commutative, so P = prod_i t_i and S = sum_i m_i prod_{l != i} t_l for
+//   any split. Lane 0 writes the chunk's two transition equations.
+// - the RE transition: 2^re_bits lanes. cur = delta^n re_next + sum_k
+//   delta^(n - 1 - k) combo_b(k) over the n = num_lut table slots is a
+//   Horner sum in delta of the n + 1 values u_0 = combo_b(n - 1), ...,
+//   u_(n-1) = combo_b(0), u_n = re_next in ascending powers; segment s takes
+//   u_s, u_(s+S), ... in q = delta^S, and a shuffle tree joins the segments
+//   by delta^(2^j) (csrc/field.cu's p2v_horner does the same). Lane 0
+//   writes the RE transition and the three single equations.
+// - a table's final RE: 2^table_bits lanes, the same segmented Horner in
+//   delta over its padded (input, output) rows, both columns at once; lane 0
+//   writes expected = input + b output against re.
+// The wrapper (kernels.lookup_split) picks the lanes: the fewest (a power of
+// two up to a warp) that leave a lane at most LOOKUP_SLOTS_A_LANE slots of
+// each kind or LOOKUP_VALUES_A_SEGMENT values of a Horner sum, a table's
+// for the longest table; the zoo's (7 + 5 slots a chunk, 27 RE values, one
+// table of 26 rows) takes 2, 4 and 4.
+// Output (B, r (4 + luts + 2 n_sldc)), a round after the other, each
+// [last_sldc, init_sum, init_re] ++ finals ++ [re_trans] ++ (sum_trans,
+// ldc_trans) a chunk, as lookup_checks_plain.
+// Bits: a combo is add(raw wire, canonical product), exact and canonical;
+// alpha - combo takes two canonical words; every product is canonical; so
+// every value that the split reassociates (the pairs, the segments and their
+// tree, re_next's product by a power of delta, or add(re_next, 0) where it
+// is a segment's only value: the same element) is the canonical
+// representative of the plain version's sum, hence its word. The ops that
+// touch raw proof words are the plain version's, operand for operand:
+// sldc - prev (two proof words: ops/field.sub is not exact mod p where the
+// subtrahend is a word y + p above the minuend + p, and the JAX package's
+// sub is the same; the port keeps those bits), re - cur and re - expected
+// (cur and expected canonical: num_lut >= 1, so cur is never re_next
+// itself), and the products by the selectors.
 // Bound (chip_smoke.lookup_work): integer ALU work, counted in the running
 // pair's form (the least this code knows): a lookup slot's combo (2
 // products, 2 adds), its term (2 adds) and the pair's 2 emuls and add; a
 // table slot the same and the emul by its multiplicity; an RE step a combo
 // and an escale with its adds; a table row 2 products and 2 adds; the
 // equations' emuls. Against the bytes: the openings, challenges and padded
-// tables read once, each output written once.
+// tables read once, each output written once. The split adds the pairs'
+// meetings (3 emuls a pair a tree level), the segments' powers of delta and
+// their tree (lookup_work prints the kernel's own count).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -123,7 +158,12 @@ struct LookupArgs {
     uint64_t* out_im;
     int64_t batch;
     int32_t r, luts, n_polys, num_lu, num_lut, lu_deg, lut_deg;
+    int32_t chunk_bits, re_bits, table_bits;  // lanes a SLDC chunk, the RE transition, a table: 2^bits <= 32
 };
+
+constexpr unsigned ALL = 0xffffffffu;
+
+__host__ __device__ __forceinline__ int64_t whole_warps(int64_t threads) { return (threads + 31) & ~(int64_t)31; }
 
 // inp + c out, alpha - that (the chunked terms' order in lookup_checks_plain)
 __device__ __forceinline__ Ext combo(const LookupArgs& a, int64_t b, int64_t inp, uint64_t c) {
@@ -133,59 +173,148 @@ __device__ __forceinline__ Ext combo(const LookupArgs& a, int64_t b, int64_t inp
 
 __device__ __forceinline__ Ext alpha_minus(uint64_t alpha, Ext x) { return gl::esub({alpha, 0}, x); }
 
-__global__ void __launch_bounds__(PLONK_THREADS) lookup_checks_kernel(const LookupArgs a) {
-    const int64_t t = (int64_t)blockIdx.x * PLONK_THREADS + threadIdx.x;
-    const int n_sldc = a.n_polys - 1;
-    const int jobs = n_sldc + 1 + a.luts;  // a round's threads
-    const int64_t per_lane = (int64_t)a.r * jobs;
-    if (t >= a.batch * per_lane) return;
-    const int64_t b = t / per_lane;
-    const int rj = (int)(t - b * per_lane), round = rj / jobs, j = rj - round * jobs;
-    const uint64_t* d = a.deltas + (b * a.r + round) * 4;
-    const uint64_t ca = d[0], cb = d[1], alpha = d[2], delta = d[3];
-    const int width = 4 + a.luts + 2 * n_sldc;
-    const int64_t row = b * a.r * width + (int64_t)round * width;  // this round's first output
-    const int64_t z0 = (int64_t)round * a.n_polys;  // this round's RE column
-    const Ext one = {1, 0}, zero = {0, 0}, re = gl::at(a.zs, b, z0);
-    auto put = [&](int col, Ext e) {
-        a.out_re[row + col] = e.re;
-        a.out_im[row + col] = e.im;
-    };
-    if (j < n_sldc) {  // chunk j's sum and LDC transitions
+__device__ __forceinline__ Ext shfl_down(Ext x, int by, int width) {
+    return {(uint64_t)__shfl_down_sync(ALL, (unsigned long long)x.re, by, width), (uint64_t)__shfl_down_sync(ALL, (unsigned long long)x.im, by, width)};
+}
+
+__device__ __forceinline__ uint64_t shfl_down(uint64_t x, int by, int width) {
+    return (uint64_t)__shfl_down_sync(ALL, (unsigned long long)x, by, width);
+}
+
+// (p, s) o (op, os) = (p op, s op + p os): two leave-one-out pairs of disjoint slots as one
+__device__ __forceinline__ void meet(Ext& p, Ext& s, Ext op, Ext os) {
+    s = gl::eadd(gl::emul(s, op), gl::emul(p, os));
+    p = gl::emul(p, op);
+}
+
+struct Round {  // a (b, round) of the grid; live = false for a lane past the region's last, which copies it
+    int64_t b, br;  // br = b r + round: the row of deltas and of the output
+    int round;
+    bool live;
+};
+
+__device__ __forceinline__ Round round_of(const LookupArgs& a, int64_t& g, int64_t groups, int per) {
+    const bool live = g < groups;
+    if (!live) g = groups - 1;  // every lane of a warp takes part in the shuffles
+    const unsigned br = (unsigned)g / (unsigned)per, b = br / (unsigned)a.r;  // g < 2^31
+    return {b, br, (int)(br - b * a.r), live};
+}
+
+__device__ __forceinline__ void put(const LookupArgs& a, int64_t br, int col, Ext e) {
+    const int64_t at = br * (4 + a.luts + 2 * (a.n_polys - 1)) + col;
+    a.out_re[at] = e.re;
+    a.out_im[at] = e.im;
+}
+
+// SLDC chunk j of a (b, round): its lanes' pairs, then the two transition equations
+__device__ void sldc_lanes(const LookupArgs& a, int64_t t) {
+    const int n_sldc = a.n_polys - 1, L = 1 << a.chunk_bits, lane = (int)(t & (L - 1));
+    int64_t g = t >> a.chunk_bits;
+    const Round rd = round_of(a, g, a.batch * a.r * n_sldc, n_sldc);
+    const int j = (int)(g - rd.br * n_sldc);
+    const uint64_t* d = a.deltas + rd.br * 4;
+    const uint64_t ca = d[0], alpha = d[2];
+    const int64_t z0 = (int64_t)rd.round * a.n_polys, b = rd.b;
+    const Ext one = {1, 0}, zero = {0, 0};
+    Ext lu_p = one, lu_s = zero, lut_p = one, lut_s = zero;
+    const int lu_end = min((j + 1) * a.lu_deg, a.num_lu), lut_end = min((j + 1) * a.lut_deg, a.num_lut);
+    for (int i = j * a.lu_deg + lane; i < lu_end; i += L) {
+        const Ext term = alpha_minus(alpha, combo(a, b, 2 * i, ca));
+        lu_s = gl::eadd(gl::emul(lu_s, term), lu_p);
+        lu_p = gl::emul(lu_p, term);
+    }
+    for (int i = j * a.lut_deg + lane; i < lut_end; i += L) {
+        const Ext term = alpha_minus(alpha, combo(a, b, 3 * i, ca));
+        lut_s = gl::eadd(gl::emul(lut_s, term), gl::emul(gl::at(a.wires, b, 3 * i + 2), lut_p));
+        lut_p = gl::emul(lut_p, term);
+    }
+    for (int k = 0; k < a.chunk_bits; ++k) {  // one value for the whole grid: every lane shuffles alike
+        const Ext op = shfl_down(lu_p, 1 << k, L), os = shfl_down(lu_s, 1 << k, L);
+        const Ext tp = shfl_down(lut_p, 1 << k, L), ts = shfl_down(lut_s, 1 << k, L);
+        meet(lu_p, lu_s, op, os);
+        meet(lut_p, lut_s, tp, ts);
+    }
+    if (rd.live && lane == 0) {
         const Ext prev = j == 0 ? gl::at(a.zs_next, b, z0 + n_sldc) : gl::at(a.zs, b, z0 + j);
         const Ext dmin = gl::esub(gl::at(a.zs, b, z0 + 1 + j), prev);
-        Ext lu_p = one, lu_s = zero;
-        const int lu_end = min((j + 1) * a.lu_deg, a.num_lu);
-        for (int i = j * a.lu_deg; i < lu_end; ++i) {
-            const Ext term = alpha_minus(alpha, combo(a, b, 2 * i, ca));
-            lu_s = gl::eadd(gl::emul(lu_s, term), lu_p);
-            lu_p = gl::emul(lu_p, term);
-        }
-        Ext lut_p = one, lut_s = zero;
-        const int lut_end = min((j + 1) * a.lut_deg, a.num_lut);
-        for (int i = j * a.lut_deg; i < lut_end; ++i) {
-            const Ext term = alpha_minus(alpha, combo(a, b, 3 * i, ca));
-            lut_s = gl::eadd(gl::emul(lut_s, term), gl::emul(gl::at(a.wires, b, 3 * i + 2), lut_p));
-            lut_p = gl::emul(lut_p, term);
-        }
-        put(4 + a.luts + 2 * j, gl::emul(gl::at(a.sels, b, 0), gl::esub(gl::emul(lut_p, dmin), lut_s)));
-        put(5 + a.luts + 2 * j, gl::emul(gl::at(a.sels, b, 1), gl::eadd(gl::emul(lu_p, dmin), lu_s)));
-    } else if (j == n_sldc) {  // the RE transition, and the three single equations
-        Ext cur = gl::at(a.zs_next, b, z0);
-        for (int k = 0; k < a.num_lut; ++k) cur = gl::eadd(gl::escale(delta, cur), combo(a, b, 3 * k, cb));
-        put(3 + a.luts, gl::emul(gl::at(a.sels, b, 0), gl::esub(re, cur)));
-        put(0, gl::emul(gl::at(a.sels, b, 3), gl::at(a.zs, b, z0 + n_sldc)));
-        put(1, gl::emul(gl::at(a.sels, b, 2), gl::at(a.zs, b, z0 + 1)));
-        put(2, gl::emul(gl::at(a.sels, b, 2), re));
-    } else {  // table k's final RE: its (input, output) columns as polynomials in delta
-        const int k = j - n_sldc - 1;
-        uint64_t acc_in = 0, acc_out = 0;
-        for (int64_t i = a.table_off[k]; i < a.table_off[k + 1]; ++i) {
-            acc_in = gl::add(gl::mul(delta, acc_in), a.coeffs[2 * i]);
-            acc_out = gl::add(gl::mul(delta, acc_out), a.coeffs[2 * i + 1]);
-        }
+        put(a, rd.br, 4 + a.luts + 2 * j, gl::emul(gl::at(a.sels, b, 0), gl::esub(gl::emul(lut_p, dmin), lut_s)));
+        put(a, rd.br, 5 + a.luts + 2 * j, gl::emul(gl::at(a.sels, b, 1), gl::eadd(gl::emul(lu_p, dmin), lu_s)));
+    }
+}
+
+// the RE transition of a (b, round) as a segmented Horner sum in delta, and the three single equations
+__device__ void re_lanes(const LookupArgs& a, int64_t t) {
+    const int S = 1 << a.re_bits, s = (int)(t & (S - 1));
+    int64_t g = t >> a.re_bits;
+    const Round rd = round_of(a, g, a.batch * a.r, 1);
+    const uint64_t* d = a.deltas + rd.br * 4;
+    const uint64_t cb = d[1], delta = d[3];
+    const int64_t z0 = (int64_t)rd.round * a.n_polys, b = rd.b;
+    const int n = a.num_lut, steps = (n + S) >> a.re_bits;  // ceil((n + 1) / S)
+    uint64_t q = delta;  // delta^S
+    for (int k = 0; k < a.re_bits; ++k) q = gl::mul(q, q);
+    Ext acc = {0, 0};
+    for (int m = steps - 1; m >= 0; --m) {
+        const int k = s + (m << a.re_bits);  // u_k; a first step past u_n adds 0 to 0
+        const Ext u = k < n ? combo(a, b, 3 * (n - 1 - k), cb) : k == n ? gl::at(a.zs_next, b, z0) : Ext{0, 0};
+        acc = gl::eadd(u, gl::escale(q, acc));
+    }
+    uint64_t pw = delta;  // delta^(2^k) at level k
+    for (int k = 0; k < a.re_bits; ++k) {
+        acc = gl::eadd(acc, gl::escale(pw, shfl_down(acc, 1 << k, S)));
+        pw = gl::mul(pw, pw);
+    }
+    if (rd.live && s == 0) {
+        const int n_sldc = a.n_polys - 1;
+        const Ext re = gl::at(a.zs, b, z0);
+        put(a, rd.br, 3 + a.luts, gl::emul(gl::at(a.sels, b, 0), gl::esub(re, acc)));
+        put(a, rd.br, 0, gl::emul(gl::at(a.sels, b, 3), gl::at(a.zs, b, z0 + n_sldc)));
+        put(a, rd.br, 1, gl::emul(gl::at(a.sels, b, 2), gl::at(a.zs, b, z0 + 1)));
+        put(a, rd.br, 2, gl::emul(gl::at(a.sels, b, 2), re));
+    }
+}
+
+// table k's final RE for a (b, round): its (input, output) columns as segmented Horner sums in delta
+__device__ void table_lanes(const LookupArgs& a, int64_t t) {
+    const int S = 1 << a.table_bits, s = (int)(t & (S - 1));
+    int64_t g = t >> a.table_bits;
+    const Round rd = round_of(a, g, a.batch * a.r * a.luts, a.luts);
+    const int k = (int)(g - rd.br * a.luts);
+    const uint64_t* d = a.deltas + rd.br * 4;
+    const uint64_t cb = d[1], delta = d[3];
+    const int64_t first = a.table_off[k], rows = a.table_off[k + 1] - first;
+    const int64_t steps = (rows + S - 1) >> a.table_bits;
+    uint64_t q = delta;
+    for (int j = 0; j < a.table_bits; ++j) q = gl::mul(q, q);
+    uint64_t acc_in = 0, acc_out = 0;
+    for (int64_t m = steps - 1; m >= 0; --m) {
+        const int64_t u = s + (m << a.table_bits);  // ascending powers: row first + rows - 1 - u
+        const uint64_t* row = u < rows ? a.coeffs + 2 * (first + rows - 1 - u) : nullptr;
+        acc_in = gl::add(row ? row[0] : 0, gl::mul(q, acc_in));
+        acc_out = gl::add(row ? row[1] : 0, gl::mul(q, acc_out));
+    }
+    uint64_t pw = delta;
+    for (int j = 0; j < a.table_bits; ++j) {
+        acc_in = gl::add(acc_in, gl::mul(pw, shfl_down(acc_in, 1 << j, S)));
+        acc_out = gl::add(acc_out, gl::mul(pw, shfl_down(acc_out, 1 << j, S)));
+        pw = gl::mul(pw, pw);
+    }
+    if (rd.live && s == 0) {
         const uint64_t expected = gl::add(acc_in, gl::mul(cb, acc_out));
-        put(3 + k, gl::emul(gl::at(a.sels, b, 4 + k), gl::esub(re, {expected, 0})));
+        put(a, rd.br, 3 + k, gl::emul(gl::at(a.sels, rd.b, 4 + k), gl::esub(gl::at(a.zs, rd.b, (int64_t)rd.round * a.n_polys), {expected, 0})));
+    }
+}
+
+__global__ void __launch_bounds__(PLONK_THREADS) lookup_checks_kernel(const LookupArgs a) {
+    const int64_t t = (int64_t)blockIdx.x * PLONK_THREADS + threadIdx.x;
+    const int64_t rounds = a.batch * a.r;
+    const int64_t sldc = whole_warps((rounds * (a.n_polys - 1)) << a.chunk_bits), re = whole_warps(rounds << a.re_bits);
+    if (t < sldc) {
+        sldc_lanes(a, t);
+    } else if (t < sldc + re) {
+        re_lanes(a, t - sldc);
+    } else if (t < sldc + re + whole_warps((rounds * a.luts) << a.table_bits)) {
+        table_lanes(a, t - sldc - re);
     }
 }
 
@@ -204,9 +333,14 @@ extern "C" int p2v_partial_products(const void* args, void* stream) {
 
 extern "C" int p2v_lookup_checks(const void* args, void* stream) {
     const LookupArgs a = *(const LookupArgs*)args;
-    if (a.batch < 0 || a.r < 0 || a.luts < 0 || a.n_polys < 2 || a.num_lu < 0 || a.num_lut < 0 || a.lu_deg < 1 || a.lut_deg < 1)
+    if (a.batch < 0 || a.r < 0 || a.luts < 0 || a.n_polys < 2 || a.num_lu < 0 || a.num_lut < 1 || a.lu_deg < 1 || a.lut_deg < 1)
         return (int)cudaErrorInvalidValue;
-    const int64_t threads = a.batch * a.r * (a.n_polys + a.luts);
+    if (a.chunk_bits < 0 || a.chunk_bits > 5 || a.re_bits < 0 || a.re_bits > 5 || a.table_bits < 0 || a.table_bits > 5)
+        return (int)cudaErrorInvalidValue;  // a group of lanes within a warp
+    const int64_t rounds = a.batch * a.r;
+    if (rounds >= INT32_MAX / 32 || a.n_polys > 1024 || a.luts > 1024) return (int)cudaErrorInvalidValue;
+    const int64_t threads = whole_warps((rounds * (a.n_polys - 1)) << a.chunk_bits) + whole_warps(rounds << a.re_bits) +
+                            whole_warps((rounds * a.luts) << a.table_bits);
     if (threads >= INT32_MAX) return (int)cudaErrorInvalidValue;
     if (threads > 0) lookup_checks_kernel<<<blocks_for(threads), PLONK_THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();

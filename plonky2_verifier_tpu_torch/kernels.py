@@ -208,7 +208,7 @@ class FoldStep(ctypes.Structure):
 
     _fields_ = [
         ("evals", ctypes.c_void_p), ("off_inv", ctypes.c_void_p), ("beta_re", ctypes.c_void_p), ("beta_im", ctypes.c_void_p),
-        ("idft", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("idft", ctypes.c_void_p), ("out", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
         ("e_row", ctypes.c_int64), ("e_query", ctypes.c_int64), ("o_row", ctypes.c_int64), ("o_query", ctypes.c_int64),
         ("beta_stride", ctypes.c_int64), ("inv_arity", ctypes.c_uint64), ("arity_bits", ctypes.c_int32), ("unused", ctypes.c_int32),
     ]
@@ -232,12 +232,20 @@ class LookupArgs(ctypes.Structure):
         ("out_im", ctypes.c_void_p), ("batch", ctypes.c_int64),
         ("r", ctypes.c_int32), ("luts", ctypes.c_int32), ("n_polys", ctypes.c_int32), ("num_lu", ctypes.c_int32),
         ("num_lut", ctypes.c_int32), ("lu_deg", ctypes.c_int32), ("lut_deg", ctypes.c_int32),
+        ("chunk_bits", ctypes.c_int32), ("re_bits", ctypes.c_int32), ("table_bits", ctypes.c_int32),
     ]
 
 
 FOLD_MAX_STEPS = 32  # fold steps a launch of p2v_coset_fold (csrc/fold.cu): lde_bits <= 32, a step takes at least 1 bit
+FOLD_SHARED_MAX_BITS = 5  # a fold step of arity up to 2^5 is staged in shared memory, a larger one in device scratch (csrc/fold.cu)
+# the largest arity bits p2v_coset_fold takes: above every arity a Plonky2 FRI config gives (MinSize picks at
+# most 2^4 by default; any step's arity divides the LDE of at most 2^32 points), and a step's (A, A) table of
+# weights alone exceeds the card's memory from A = 2^17 on
+FOLD_MAX_ARITY_BITS = 30
 POW_MAX_SEGMENTS = 16  # segments a launch of p2v_pow_grouped (csrc/field.cu)
 INV_GROUP = 8  # words a thread of p2v_inv_grouped: one Fermat chain a group (csrc/field.cu)
+LOOKUP_SLOTS_A_LANE = 4  # a SLDC chunk's slots of each kind a lane at most (csrc/plonk.cu p2v_lookup_checks; probe_kernels --lookup-lanes)
+LOOKUP_VALUES_A_SEGMENT = 8  # values of the RE transition's or a table's Horner sum a lane at most (the same probe)
 HORNER_MAX_SEGMENTS = 32  # a row's segments share a warp (csrc/field.cu)
 HORNER_MIN_CHAIN = 4  # values a segment at least
 HORNER_THREADS_AN_SM = 256  # enough to hide a chain's latency (tools/probe_kernels.py --field)
@@ -255,6 +263,29 @@ def horner_segments(rows: int, k: int, sms: int) -> int:
     while 2 * s <= HORNER_MAX_SEGMENTS and 2 * s * HORNER_MIN_CHAIN <= k and s * rows < sms * HORNER_THREADS_AN_SM:
         s *= 2
     return s
+
+
+def lookup_lanes(items: int, per_lane: int) -> int:
+    """The fewest lanes, a power of two up to a warp's 32, that leave each at
+    most `per_lane` of `items` (past 32 lanes, more a lane)."""
+    lanes = 1
+    while lanes < 32 and lanes * per_lane < items:
+        lanes *= 2
+    return lanes
+
+
+def lookup_split(num_routed_wires: int, n_sldc: int, maxdeg: int, table_off, slots_a_lane: int = LOOKUP_SLOTS_A_LANE,
+                 values_a_segment: int = LOOKUP_VALUES_A_SEGMENT):
+    """The lanes of p2v_lookup_checks (csrc/plonk.cu): (a SLDC chunk's, the
+    RE transition's, a table's), each at most `slots_a_lane` slots or
+    `values_a_segment` values a lane. A chunk's lanes share its maxdeg - 1
+    lookup and ceil(num_lut / n_sldc) table slots; the RE transition's the
+    num_lut + 1 values of its Horner sum; a table's the rows of the longest
+    table, from `table_off` (a list: the tables' first rows and the end)."""
+    num_lut = num_routed_wires // 3
+    rows = max((b - a for a, b in zip(table_off, table_off[1:])), default=0)
+    return (lookup_lanes(max(maxdeg - 1, -(-num_lut // n_sldc)), slots_a_lane), lookup_lanes(num_lut + 1, values_a_segment),
+            lookup_lanes(rows, values_a_segment))
 
 
 GATE_MAX_LANES = 32  # lanes a block at most (csrc/gates.cu)
@@ -693,27 +724,36 @@ class KernelLibrary:
         off_inv, beta_re, beta_im, idft) a step, evals (B, Q, A, 2) with its
         (A, 2) values contiguous, off_inv (B, Q) at any strides, beta_re and
         beta_im (B,) at one stride, idft the (A, A) weights omega^(-jk),
-        contiguous; every step over the same (B, Q). Returns (steps, 2, B, Q):
-        a step's folded (re, im)."""
+        contiguous; every step over the same (B, Q). A step of arity above
+        2^FOLD_SHARED_MAX_BITS stages its values in device scratch allocated
+        here (2A B Q words). Returns (steps, 2, B, Q): a step's folded (re,
+        im)."""
         if len(steps) > FOLD_MAX_STEPS:
             raise ValueError(f"{len(steps)} fold steps, above the {FOLD_MAX_STEPS} a launch takes")
         batch, queries = steps[0][1].shape if steps else (0, 0)
         device = torch.device("cuda", torch.cuda.current_device())
         out = torch.empty((len(steps), 2, batch, queries), dtype=torch.int64, device=device)
         table = (FoldStep * max(len(steps), 1))()
+        scratch = []  # alive until the launch is enqueued; the allocator orders its reuse on this stream after it
         for k, (evals, off_inv, beta_re, beta_im, idft) in enumerate(steps):
             arity = idft.shape[0] if idft.dim() == 2 else -1
             if arity < 1 or arity & (arity - 1):
                 raise ValueError(f"step {k}: idft has shape {tuple(idft.shape)}, not (A, A) with A a power of two")
+            bits = arity.bit_length() - 1
+            if bits > FOLD_MAX_ARITY_BITS:
+                raise ValueError(f"step {k}: arity 2^{bits}, above the 2^{FOLD_MAX_ARITY_BITS} a launch takes")
             _check_tensor(idft, f"step {k} idft", (arity, arity))
             _check_tensor(evals, f"step {k} evals", (batch, queries, arity, 2), contiguous=False)
             if evals.numel() and evals.stride()[2:] != (2, 1):
                 raise ValueError(f"step {k}: evals' (A, 2) values must be contiguous, got strides {evals.stride()}")
             _check_tensor(off_inv, f"step {k} off_inv", (batch, queries), contiguous=False)
             beta = _ext_view((beta_re, beta_im), f"step {k} beta", (batch,))
+            if bits > FOLD_SHARED_MAX_BITS:
+                scratch.append(torch.empty(2 * arity * batch * queries, dtype=torch.int64, device=device))
             table[k] = FoldStep(evals.data_ptr(), off_inv.data_ptr(), beta.re, beta.im, idft.data_ptr(), out[k].data_ptr(),
+                                scratch[-1].data_ptr() if bits > FOLD_SHARED_MAX_BITS else None,
                                 evals.stride(0), evals.stride(1), off_inv.stride(0), off_inv.stride(1), beta.row,
-                                pow(arity, P - 2, P), arity.bit_length() - 1, 0)
+                                pow(arity, P - 2, P), bits, 0)
         if out.numel():
             err = self._fn["p2v_coset_fold"](ctypes.addressof(table), len(steps), batch, queries, _stream())
             _check_cuda(err, "coset_fold")
@@ -752,14 +792,18 @@ class KernelLibrary:
             self.launches["partial_products"] += 1
         return out[0], out[1]
 
-    def lookup_checks(self, sels, wires, zs, zs_next, deltas, coeffs, table_off, num_routed_wires: int, maxdeg: int):
+    def lookup_checks(self, sels, wires, zs, zs_next, deltas, coeffs, table_off, num_routed_wires: int, maxdeg: int, lanes=None):
         """The lookup equations of every round (csrc/plonk.cu), as
         verifier_torch.lookup_checks_plain computes them: sels (B, 4 + luts),
         wires (B, num_wires), zs and zs_next (B, r n_polys), each an (re, im)
         pair at any strides; deltas (B, r, 4) contiguous, (a, b, alpha,
         delta) a round; coeffs (rows, 2) the padded tables one after the
-        other and table_off (luts + 1,) their first rows, contiguous. Returns
-        (out_re, out_im), each (B, r (4 + luts + 2 n_sldc))."""
+        other and table_off (luts + 1,) their first rows, contiguous.
+        lanes: (a chunk's, the RE transition's, a table's), powers of two up
+        to 32, as lookup_split gives them for these tables; None reads
+        table_off to the host for them (a caller with the tables' lengths
+        on the host passes them). Returns (out_re, out_im), each (B, r (4 +
+        luts + 2 n_sldc))."""
         _check_tensor(deltas, "deltas", (None, None, 4))
         batch, r = deltas.shape[:2]
         luts = table_off.shape[0] - 1 if table_off.dim() == 1 else -1
@@ -785,6 +829,12 @@ class KernelLibrary:
         a.deltas, a.coeffs, a.table_off = deltas.data_ptr(), coeffs.data_ptr(), table_off.data_ptr()
         a.out_re, a.out_im, a.batch, a.r, a.luts, a.n_polys = out[0].data_ptr(), out[1].data_ptr(), batch, r, luts, n_polys
         a.num_lu, a.num_lut, a.lu_deg, a.lut_deg = num_lu, num_lut, maxdeg - 1, -(-num_lut // n_sldc)
+        if num_lut < 1:
+            raise ValueError(f"{num_routed_wires} routed wires make no table slot")
+        lanes = lookup_split(num_routed_wires, n_sldc, maxdeg, table_off.tolist()) if lanes is None else tuple(lanes)
+        if len(lanes) != 3 or any(x < 1 or x > 32 or x & (x - 1) for x in lanes):
+            raise ValueError(f"lanes {lanes}: not three powers of two up to 32")
+        a.chunk_bits, a.re_bits, a.table_bits = (x.bit_length() - 1 for x in lanes)
         if batch and r:
             err = self._fn["p2v_lookup_checks"](ctypes.addressof(a), _stream())
             _check_cuda(err, "lookup_checks")

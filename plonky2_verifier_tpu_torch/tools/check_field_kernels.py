@@ -54,8 +54,9 @@ kernels must give the plain bits for them too.
   Python-int interpreter of the compact op lists (golden_gate_program);
   the plain stand-in runs the packed program in Python ints
   (golden_packed_program);
-- coset_fold: steps of arity 2 to 32 in one launch over (B, Q) lanes, the
-  offsets' inverses 0, 1 and random, on every Q and on a strided query
+- coset_fold: steps of arity 2 to 64 in one launch over (B, Q) lanes (up
+  to 32 staged in shared memory, 64 in scratch), the offsets' inverses 0, 1
+  and random, on every Q and on a strided query
   slice (a mesh rank's), B = 0 (no launch); against coset_fold_plain, the
   kernel's order in PyTorch (coset_fold_rows_plain) and golden/fri.py
   fold_coset on a few lanes;
@@ -64,8 +65,11 @@ kernels must give the plain bits for them too.
   against partial_products_plain, partial_products_rows_plain and the
   golden formula (golden_partial_products) on a few lanes;
 - lookup_checks: routed wires, SLDC chunks (1 to 6, the last one short),
-  table counts and lengths (shorter than a row, whole rows, and more),
-  B = 0; against lookup_checks_plain, lookup_checks_rows_plain and
+  table counts and lengths (shorter than a row, whole rows, and more), so
+  that kernels.lookup_split gives 1 to 16 lanes a chunk, 1 to 8 for the
+  RE transition and 1 to 32 a table (its longest table's: 312 rows past
+  32 lanes of 8, tables of other lengths beside it), B = 0, subtrahends y + p at every
+  chunk's sldc - prev (probe_sldc_subtrahends); against lookup_checks_plain, lookup_checks_rows_plain and
   golden/plonk.py eval_lookup_equations on a few lanes.
 """
 
@@ -81,7 +85,7 @@ from ..compiler.levelize import levelize_gates
 from ..golden import field as gf
 from ..golden.fri import fold_coset
 from ..golden.plonk import eval_lookup_equations
-from ..kernels import INV_GROUP, KernelLibrary, horner_segments
+from ..kernels import INV_GROUP, KernelLibrary, horner_segments, lookup_split
 from ..ops import field as tf
 from ..ops.field import GExt
 from ..verifier_torch import coset_fold_plain, horner_ext_plain, lookup_checks_plain, lookup_tables, partial_products_plain
@@ -582,21 +586,30 @@ def check_gate_program(lib, c, rng, dev, max_lanes: int, kernel: bool):
 
 def coset_fold_rows_plain(steps):
     """What `KernelLibrary.coset_fold` computes, in the kernel's own order
-    (csrc/fold.cu): with c = beta off_inv, the Horner chain in c from
-    k = A - 1 down over y'_k = sum_j omega^(-jk) v_(rev j), then 1/A.
-    Returns (steps, 2, B, Q); its words equal coset_fold_plain's."""
+    (csrc/fold.cu): the opened values made canonical, the inverse DFT as a
+    radix-2 decimation-in-time butterfly network on them in bit-reversed
+    order (twiddle omega^(-j A / 2h) of butterfly j at span 2h from the
+    weights' row 1, no product where j = 0), then with c = beta off_inv the
+    Horner chain in c from k = A - 1 down, then 1/A. Returns (steps, 2, B,
+    Q); its words equal coset_fold_plain's."""
     outs = []
     for evals, off_inv, beta_re, beta_im, idft in steps:
         B, Q, arity = evals.shape[:3]
         bits = arity.bit_length() - 1
-        v = GExt(evals[..., 0], evals[..., 1])
+        canon = torch.where(tf.uge(evals, tf.P_I64), evals - tf.P_I64, evals)
+        v = [GExt(canon[..., j, 0], canon[..., j, 1]) for j in range(arity)]  # bit-reversed order
+        for s in range(bits):
+            h = 1 << s
+            for m in range(arity // 2):
+                j, lo = m & (h - 1), ((m >> s) << (s + 1)) | (m & (h - 1))
+                u, w = v[lo], v[lo + h]
+                if j:
+                    w = tf.escale(idft[1, j << (bits - 1 - s)].expand(B, Q), w)
+                v[lo], v[lo + h] = u + w, u - w
         c = tf.escale(off_inv, GExt(beta_re.unsqueeze(1).expand(B, Q), beta_im.unsqueeze(1).expand(B, Q)))
         acc = tf.ext_zeros((B, Q), evals.device)
         for k in range(arity - 1, -1, -1):
-            y = tf.ext_zeros((B, Q), evals.device)
-            for j in range(arity):
-                y = y + tf.escale(idft[k, j].expand(B, Q), v[..., gf.reverse_bits(bits, j)])
-            acc = y + tf.emul(c, acc)
+            acc = v[k] + tf.emul(c, acc)
         out = tf.escale(tf.constant(gf.finv(arity % P), (B, Q), evals.device), acc)
         outs.append(torch.stack([out.re, out.im]))
     return torch.stack(outs)
@@ -631,11 +644,49 @@ def partial_products_rows_plain(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sig
     return out.re, out.im
 
 
-def lookup_checks_rows_plain(sels, wires, zs, zs_next, deltas, coeffs, table_off, num_routed_wires: int, maxdeg: int):
+def _tree(values, join):
+    """A warp's shuffle tree over a group's lanes, as csrc/plonk.cu runs it:
+    at level j lane s (a multiple of 2^(j + 1)) joins lane s + 2^j's value
+    into its own (join(value, other, j)); lane 0's value at the end."""
+    values, j = list(values), 0
+    while (1 << j) < len(values):
+        for s in range(0, len(values), 2 << j):
+            values[s] = join(values[s], values[s + (1 << j)], j)
+        j += 1
+    return values[0]
+
+
+def _segmented_horner(n: int, lanes: int, value, point, scale, add, zero):
+    """sum_k point^k value(k) over k < n, as csrc/plonk.cu's segments take it:
+    segment s the values s, s + S, ... in point^S from `zero` (a step past n
+    adds 0), then the tree joins segment s + 2^j by point^(2^j). Values and
+    sums are extension pairs or base-field words, scaled by `scale(word,
+    x)` and added by `add`."""
+    q = point
+    for _ in range(lanes.bit_length() - 1):
+        q = tf.mul(q, q)
+    segments = []
+    for s in range(lanes):
+        acc = zero
+        for m in range(-(-n // lanes) - 1, -1, -1):
+            k = s + m * lanes
+            acc = add(value(k) if k < n else zero, scale(q, acc))
+        segments.append(acc)
+    powers = [point]
+    for _ in range(lanes.bit_length() - 1):
+        powers.append(tf.mul(powers[-1], powers[-1]))
+    return _tree(segments, lambda a, o, j: add(a, scale(powers[j], o)))
+
+
+def lookup_checks_rows_plain(sels, wires, zs, zs_next, deltas, coeffs, table_off, num_routed_wires: int, maxdeg: int, lanes=None):
     """What `KernelLibrary.lookup_checks` computes from its arguments, in
-    the kernel's own order (csrc/plonk.cu): a chunk's leave-one-out sums by
-    the running pair P' = P t, S' = S t + m P. Returns (re, im), each (B,
-    r (4 + luts + 2 n_sldc)); its words equal lookup_checks_plain's."""
+    the kernel's own order (csrc/plonk.cu) with its lanes
+    (`lanes`, or kernels.lookup_split's): a chunk's slots split over its lanes, each lane
+    a running pair P' = P t, S' = S t + m P from (1, 0) over its slots, the
+    lanes' pairs met by the tree ((P1, S1) o (P2, S2) = (P1 P2, S1 P2 + P1
+    S2)); the RE transition and each table's final as segmented Horner sums
+    in delta joined by the tree. Returns (re, im), each (B, r (4 + luts + 2
+    n_sldc)); its words equal lookup_checks_plain's."""
     sels, wires, zs, zs_next = (GExt(*x) for x in (sels, wires, zs, zs_next))
     B, r = deltas.shape[:2]
     dev = deltas.device
@@ -643,9 +694,15 @@ def lookup_checks_rows_plain(sels, wires, zs, zs_next, deltas, coeffs, table_off
     n_sldc, num_lu, num_lut = n_polys - 1, num_routed_wires // 2, num_routed_wires // 3
     lu_deg, lut_deg = maxdeg - 1, -(-num_lut // n_sldc)
     bounds = table_off.tolist()
+    chunk_lanes, re_lanes, table_lanes = lookup_split(num_routed_wires, n_sldc, maxdeg, bounds) if lanes is None else lanes
     one, zero = tf.ext_constant(1, shape=(B,), device=dev), tf.ext_zeros((B,), dev)
     combo = lambda i, c: wires[:, i] + tf.escale(c, wires[:, i + 1])
     term = lambda i, c, alpha: GExt(tf.sub(alpha, combo(i, c).re), tf.sub(torch.zeros_like(alpha), combo(i, c).im))
+
+    def meet(a, o, _):
+        (p, s), (op, os) = a, o
+        return tf.emul(p, op), tf.emul(s, op) + tf.emul(p, os)
+
     rounds = []
     for rnd in range(r):
         ca, cb, alpha, delta = (deltas[:, rnd, k] for k in range(4))
@@ -653,26 +710,31 @@ def lookup_checks_rows_plain(sels, wires, zs, zs_next, deltas, coeffs, table_off
         re = zs[:, z0]
         cols = {0: tf.emul(sels[:, 3], zs[:, z0 + n_sldc]), 1: tf.emul(sels[:, 2], zs[:, z0 + 1]), 2: tf.emul(sels[:, 2], re)}
         for k in range(len(bounds) - 1):
-            acc_in = acc_out = torch.zeros_like(delta)
-            for row in coeffs[bounds[k] : bounds[k + 1]]:
-                acc_in, acc_out = tf.add(tf.mul(delta, acc_in), row[0].expand(B)), tf.add(tf.mul(delta, acc_out), row[1].expand(B))
+            first, rows = bounds[k], bounds[k + 1] - bounds[k]
+            acc_in, acc_out = (_segmented_horner(rows, table_lanes, lambda u, col=col: coeffs[first + rows - 1 - u, col].expand(B), delta,
+                                                 tf.mul, tf.add, torch.zeros_like(delta)) for col in (0, 1))
             cols[3 + k] = tf.emul(sels[:, 4 + k], re - tf.ext_from_base(tf.add(acc_in, tf.mul(cb, acc_out))))
-        cur = zs_next[:, z0]
-        for k in range(num_lut):
-            cur = tf.escale(delta, cur) + combo(3 * k, cb)
+        # ascending powers of delta: combo_b(num_lut - 1), ..., combo_b(0), then re_next
+        cur = _segmented_horner(num_lut + 1, re_lanes, lambda u: combo(3 * (num_lut - 1 - u), cb) if u < num_lut else zs_next[:, z0],
+                                delta, tf.escale, GExt.__add__, zero)
         luts = len(bounds) - 1
         cols[3 + luts] = tf.emul(sels[:, 0], re - cur)
         for j in range(n_sldc):
             prev = zs_next[:, z0 + n_sldc] if j == 0 else zs[:, z0 + j]
             dmin = zs[:, z0 + 1 + j] - prev
-            lu_p, lu_s = one, zero
-            for i in range(j * lu_deg, min((j + 1) * lu_deg, num_lu)):
-                t = term(2 * i, ca, alpha)
-                lu_s, lu_p = tf.emul(lu_s, t) + lu_p, tf.emul(lu_p, t)
-            lut_p, lut_s = one, zero
-            for i in range(j * lut_deg, min((j + 1) * lut_deg, num_lut)):
-                t = term(3 * i, ca, alpha)
-                lut_s, lut_p = tf.emul(lut_s, t) + tf.emul(wires[:, 3 * i + 2], lut_p), tf.emul(lut_p, t)
+            lu, lut = [], []
+            for lane in range(chunk_lanes):
+                lu_p, lu_s = one, zero
+                for i in range(j * lu_deg + lane, min((j + 1) * lu_deg, num_lu), chunk_lanes):
+                    t = term(2 * i, ca, alpha)
+                    lu_s, lu_p = tf.emul(lu_s, t) + lu_p, tf.emul(lu_p, t)
+                lut_p, lut_s = one, zero
+                for i in range(j * lut_deg + lane, min((j + 1) * lut_deg, num_lut), chunk_lanes):
+                    t = term(3 * i, ca, alpha)
+                    lut_s, lut_p = tf.emul(lut_s, t) + tf.emul(wires[:, 3 * i + 2], lut_p), tf.emul(lut_p, t)
+                lu.append((lu_p, lu_s))
+                lut.append((lut_p, lut_s))
+            (lu_p, lu_s), (lut_p, lut_s) = _tree(lu, meet), _tree(lut, meet)
             cols[4 + luts + 2 * j] = tf.emul(sels[:, 0], tf.emul(lut_p, dmin) - lut_s)
             cols[5 + luts + 2 * j] = tf.emul(sels[:, 1], tf.emul(lu_p, dmin) + lu_s)
         rounds += [cols[k] for k in range(len(cols))]
@@ -685,7 +747,7 @@ def _ext_ints(re, im, lane, *index):
     return int(tf.to_u64(re[(lane,) + index])) % P, int(tf.to_u64(im[(lane,) + index])) % P
 
 
-FOLD_ARITY_BITS = [1, 2, 3, 4, 5]  # the steps of one launch, arity 2 to 32
+FOLD_ARITY_BITS = [1, 2, 3, 4, 5, 6]  # the steps of one launch: arity 2 to 32 staged in shared memory, 64 in scratch
 FOLD_SHAPES = [(37, 28), (5, 3), (1030, 2), (0, 28)]  # (B, Q)
 
 
@@ -798,7 +860,22 @@ def check_partial_products(lib, c, rng, dev, max_lanes: int):
 # (B, r, num_routed_wires, lookup polys a round, maxdeg, table lengths)
 # (every shape golden/ takes: ceil(slots / chunk size) = the SLDC chunks, for both kinds of slot)
 LOOKUP_SHAPES = [(37, 2, 80, 7, 8, [5, 26, 27, 53]), (9, 1, 12, 3, 4, [1, 4, 9]), (5, 3, 6, 2, 4, [2]), (1030, 2, 80, 7, 8, [17]),
-                 (0, 2, 80, 7, 8, [5])]
+                 (0, 2, 80, 7, 8, [5]), (7, 1, 80, 2, 41, [5, 26]), (11, 2, 30, 4, 6, [3, 7]), (3, 1, 100, 6, 11, [40]),
+                 (4, 2, 12, 3, 4, [50]), (6, 1, 80, 7, 8, [300, 5])]
+
+
+def probe_sldc_subtrahends(rng, zs, zs_next, r: int, n_polys: int, lanes):
+    """Write into numpy words (B, r n_polys, 2) in place: in the k-th lane
+    of `lanes` the SLDC transition of chunk k mod n_sldc of every round gets
+    a small minuend and a subtrahend y + p above it + p (0 < y < 2^32 - 1),
+    where ops/field.sub is not exact mod p (as the JAX package's): chunk 0's
+    subtrahend is zs_next's last SLDC column, chunk j's zs's column j."""
+    for k, lane in enumerate(lanes):
+        j = k % (n_polys - 1)
+        for z0 in range(0, r * n_polys, n_polys):
+            zs[lane, z0 + 1 + j] = rng.integers(0, 1 << 16, size=2, dtype=np.uint64)
+            prev = zs_next[lane, z0 + n_polys - 1] if j == 0 else zs[lane, z0 + j]
+            prev[:] = zs[lane, z0 + 1 + j] + rng.integers(1, 1 << 31, size=2, dtype=np.uint64) + np.uint64(P)
 
 
 def check_lookup_checks(lib, c, rng, dev, max_lanes: int):
@@ -810,7 +887,8 @@ def check_lookup_checks(lib, c, rng, dev, max_lanes: int):
     GOLDEN_LANES lanes, whose words are canonical: the SLDC transition's
     sldc - prev subtracts two proof words, and ops/field.sub (as the JAX
     package's) is not exact mod p where the subtrahend is a word x + p above
-    the minuend + p, which golden/ reduces first."""
+    the minuend + p, which golden/ reduces first. The lanes after those
+    carry such subtrahends at every chunk (probe_sldc_subtrahends)."""
     for B, r, routed, n_polys, maxdeg, lengths in LOOKUP_SHAPES:
         B = min(B, max_lanes)
         luts = len(lengths)
@@ -822,6 +900,7 @@ def check_lookup_checks(lib, c, rng, dev, max_lanes: int):
         at = np.concatenate([[0], np.cumsum(widths)])
         op_np = words(rng, (B, int(at[-1]), 2))
         op_np[:GOLDEN_LANES] %= np.uint64(P)  # golden/'s lanes (see check_lookup_checks)
+        probe_sldc_subtrahends(rng, op_np[:, at[2] : at[3]], op_np[:, at[3] : at[4]], r, n_polys, range(GOLDEN_LANES, min(B, 2 * GOLDEN_LANES + n_polys)))
         op = tf.from_u64(op_np, dev)
         sels, wires, zs, zs_next = (GExt(op[:, at[i] : at[i + 1], 0], op[:, at[i] : at[i + 1], 1]) for i in range(4))
         d_np = rng.integers(0, P, size=(B, r, 4), dtype=np.uint64)

@@ -2,13 +2,34 @@
 what chip_smoke.py measures about the kernels, without the fixture and the
 verifier.
 
-Run from the repository root:  python3 -m plonky2_verifier_tpu_torch.tools.probe_kernels [--field]
+Run from the repository root:
+  python3 -m plonky2_verifier_tpu_torch.tools.probe_kernels [--field | --stages | --lookup-lanes]
 
 With --field it builds, runs the whole check (step 2) and then only the
 field probe: the Horner sum at the main path's shapes (batch 1024, 28
 queries) and the gate program of the fibonacci and gate-zoo circuits at
 1024 lanes, each as the library launches it (segments a row; lanes and
 threads a block), beside its bound.
+
+With --stages it builds and runs chip_smoke.py's kernel times (its phase 5,
+`time_kernels`) alone, on the standard fixture's proof at batch 1024 and
+the gate zoo's template (both cached under fixtures/, or proved first), and
+prints the rows of the three stage kernels -- the coset folds, L0 with the
+partial products, the lookup argument -- as one JSON line: kernel ms by
+events, device ms, plain ms, bound and share. No check runs first; each
+timed call is held bit-exact against its plain version there.
+
+With --stages it then counts the SASS instructions of a product, an add
+and the extension ops (csrc/probe_field_sass.cu, read with cuobjdump) and
+prints the fold's and the lookup argument's own counts at those weights
+beside their device time, as a share of the card's issue rate.
+
+With --lookup-lanes it builds and times the lookup kernel on the gate
+zoo's call at batch 1024 (random proof words) on the lanes that
+kernels.lookup_split gives at every pair of slots a lane and values a
+segment in 1, 2, 4, 8 (the shipped pair: LOOKUP_SLOTS_A_LANE and
+LOOKUP_VALUES_A_SEGMENT), passed to the wrapper, with the device ms; each
+call held bit-exact against the plain version.
 
 1. builds the kernels and prints nvcc's registers and spills;
 2. runs tools/check_hash_kernels.py's check at a reduced random size (every kernel,
@@ -35,6 +56,7 @@ Any failed check raises. Times are CUDA-event times of repeated launches.
 """
 
 import os
+import re
 import subprocess
 import sys
 import time
@@ -143,6 +165,106 @@ def probe_field(lib, rng, rate):
               f"by events {event_ms(run, 20, 3):.4f} ms, device {dev:.4f} ms (share {bound / dev:.3f}), the host's enqueue {_host_ms(run, 20):.4f} ms")
 
 
+SASS_OPS = ("mul", "add", "sub", "emul", "emul by a Point", "escale")  # csrc/probe_field_sass.cu's OP 0-5
+
+
+def field_sass_counts() -> dict:
+    """The SASS instructions one of goldilocks.cuh's ops executes inside a
+    dependent chain, by op (SASS_OPS) and opcode: csrc/probe_field_sass.cu
+    compiled to a cubin as the kernels are, read with cuobjdump, each op's
+    chain of 8 less its chain of 4, over 4. Needs nvcc and cuobjdump."""
+    nvcc = kernels._nvcc()
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    cubin = os.path.join(kernels.BUILD_DIR, f"probe_field_sass.{os.getpid()}.cubin")
+    cmd = [nvcc, *kernels.ARCH_FLAGS, "-cubin", "-o", cubin, os.path.join(kernels.CSRC, "probe_field_sass.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    try:
+        cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
+    finally:
+        os.remove(cubin)
+    chains, chain = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"count_kernelILi(\d)ELi(\d)E", line)
+            chain = chains.setdefault((int(m.group(1)), int(m.group(2))), {}) if m else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*(?:\.(?:WIDE|MOV|HI|X))?)", line)
+        if chain is not None and m and m.group(1) != "NOP":
+            chain[m.group(1)] = chain.get(m.group(1), 0) + 1
+    counts = {}
+    for k, name in enumerate(SASS_OPS):
+        if (k, 4) not in chains or (k, 8) not in chains:
+            raise RuntimeError(f"the chains of {name} were not found in the SASS")
+        long, short = chains[k, 8], chains[k, 4]
+        by_op = {op: (long.get(op, 0) - short.get(op, 0)) / 4 for op in set(long) | set(short)}
+        counts[name] = {op: n for op, n in by_op.items() if n}
+    return counts
+
+
+def probe_stages(lib, rate, smi: str):
+    """chip_smoke.time_kernels at the main path's shapes; prints its stage
+    kernels' rows as one JSON line, then the SASS instructions a product
+    and an add execute (field_sass_counts) and the fold's and the lookup
+    argument's own counts at those weights beside their device time."""
+    import json
+
+    from .. import verifier_torch as vt
+    from ..compiler import CircuitTemplate, flatten_proofs
+    from ..models.cache import get_fixture_proof
+    from ..verifier_torch import TorchVerifier
+    from .check_hash_kernels import new_checks
+
+    common, vkey, pwp = get_fixture_proof("fibonacci", **cs.STANDARD)
+    tpl = CircuitTemplate(common)
+    v = TorchVerifier(tpl)
+    dev = v.prepare(flatten_proofs(tpl, [(vkey, pwp)] * cs.BATCH))
+    zoo_tpl = CircuitTemplate(get_fixture_proof("gate_zoo", **cs.ZOO)[0])
+    times = cs.time_kernels(lib, tp.PoseidonConstants(), v, dev, new_checks(), rate, zoo_tpl)
+    print(json.dumps({"card": smi, **{k: times[k] for k in ("coset_fold", "partial_products", "lookup_checks")}}))
+
+    sass = field_sass_counts()
+    for name, ops in sass.items():
+        print(f"sass {name}: {sum(ops.values()):g} instructions: " + ", ".join(f"{op} {n:g}" for op, n in sorted(ops.items(), key=lambda kv: -kv[1])))
+    product, add = sum(sass["mul"].values()), sum(sass["add"].values())
+    zoo_v = TorchVerifier(zoo_tpl)
+    zoo_dev = zoo_v.prepare(cs.random_arrays(zoo_tpl, cs.BATCH, zoo_tpl.num_queries, np.random.default_rng(5)))
+    ((_, fold_args, _),) = cs.recorded_calls([(vt, "coset_folds")], v, dev)
+    ((_, lookup_args, _),) = cs.recorded_calls([(vt, "lookup_checks")], zoo_v, zoo_dev)
+    issue = rate / cs.INT32_LANES_PER_SM * 128  # 4 schedulers an SM, each a warp instruction a clock
+    for name, work in [("coset_fold", lambda **w: cs.fold_work(*fold_args, **w)[3]), ("lookup_checks", lambda **w: cs.lookup_work(*lookup_args, **w)[3])]:
+        ms = times[name]["device_ms"]
+        at_w, at_sass = work(), work(product=product, add=add)
+        print(f"sass {name}: its own count {at_w} instructions at {cs.PRODUCT} a product and {cs.ADD} an add, {at_sass} at {product:g} and {add:g} "
+              f"(the SASS counts above); over its device {ms:.4f} ms: {at_w / ms * 1e3:.4g} /s = {at_w / ms * 1e3 / rate:.3f} of the int32 rate, "
+              f"{at_sass / ms * 1e3:.4g} SASS /s = {at_sass / ms * 1e3 / rate:.3f} of the int32 rate ({rate:.4g} /s), "
+              f"{at_sass / ms * 1e3 / issue:.3f} of the issue rate ({issue:.4g} /s)")
+
+
+def probe_lookup_lanes(rng):
+    """The lookup kernel's device ms on the zoo's call under other lanes."""
+    from .. import verifier_torch as vt
+    from ..compiler import CircuitTemplate
+    from ..models.cache import get_fixture_proof
+
+    tpl = CircuitTemplate(get_fixture_proof("gate_zoo", **cs.ZOO)[0])
+    v = vt.TorchVerifier(tpl)
+    ((_, args, kwargs),) = cs.recorded_calls([(vt, "lookup_checks")], v, v.prepare(cs.random_arrays(tpl, cs.BATCH, tpl.num_queries, rng)))
+    want = cs.words_of(vt.lookup_checks_plain(*args))
+    routed, maxdeg, n_sldc, bounds = args[7], args[8], tpl.common.num_lookup_polys - 1, args[6].tolist()
+    for slots in (1, 2, 4, 8):
+        for values in (1, 2, 4, 8):
+            lanes = kernels.lookup_split(routed, n_sldc, maxdeg, bounds, slots, values)
+            run = lambda: vt.lookup_checks(*args, lanes=lanes)
+            if not torch.equal(cs.words_of(run()), want):
+                raise AssertionError(f"lookup_checks on lanes {lanes} differs from the plain version")
+            shipped = (slots, values) == (kernels.LOOKUP_SLOTS_A_LANE, kernels.LOOKUP_VALUES_A_SEGMENT)
+            print(f"lookup lanes: {slots} slots a lane, {values} values a segment -> lanes {lanes}"
+                  f"{' (shipped: ' + str(kwargs['lanes']) + ' on the main path)' if shipped else ''}: device {device_ms(run, 20, 3):.4f} ms")
+
+
 def cycles_probe() -> str:
     """Build csrc/probe_cycles.cu into csrc/_build/ and return its output."""
     nvcc = kernels._nvcc()
@@ -163,6 +285,13 @@ def main():
     t = time.time()
     lib = kernels.load()
     print(f"build_s {time.time() - t:.1f}")
+    if "--stages" in sys.argv[1:]:
+        probe_stages(lib, rate, smi)
+        return
+    if "--lookup-lanes" in sys.argv[1:]:
+        probe_lookup_lanes(np.random.default_rng(5))
+        print(f"card: {smi}")
+        return
     consts = tp.PoseidonConstants()
     check_kernels(lib, consts, n_random=5000)
 

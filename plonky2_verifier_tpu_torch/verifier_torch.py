@@ -401,25 +401,26 @@ def lookup_checks_plain(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_
 
 
 def lookup_checks(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas, coeffs, offsets,
-                  num_routed_wires: int, maxdeg: int) -> GExt:
+                  num_routed_wires: int, maxdeg: int, lanes=None) -> GExt:
     """lookup_checks_plain's equations: one launch of the CUDA kernel
     (csrc/plonk.cu) for CUDA tensors, reading the openings' views where they
-    lie and the tables from the template's buffers; the plain version for
-    CPU tensors."""
+    lie and the tables from the template's buffers, on the kernel's `lanes`
+    (kernels.lookup_split; None has the wrapper read the offsets for them);
+    the plain version for CPU tensors."""
     if wires.re.device.type == "cpu":
         return lookup_checks_plain(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg)
-    return _lookup_checks_kernel(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg)
+    return _lookup_checks_kernel(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg, lanes)
 
 
 def _lookup_checks_kernel(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas, coeffs, offsets,
-                          num_routed_wires: int, maxdeg: int) -> GExt:
+                          num_routed_wires: int, maxdeg: int, lanes=None) -> GExt:
     from . import kernels
 
     B = wires.shape[0]
     stacked = torch.stack([x for d in deltas for x in d], dim=1).reshape(B, len(deltas), 4)
     pair = lambda x: (x.re, x.im)
     re, im = kernels.load().lookup_checks(pair(lkp_sels), pair(wires), pair(lookup_zs), pair(lookup_zs_next), stacked, coeffs, offsets,
-                                          num_routed_wires, maxdeg)
+                                          num_routed_wires, maxdeg, lanes)
     return GExt(re, im)
 
 
@@ -485,6 +486,13 @@ class TorchVerifier(nn.Module):
         coeffs, offsets = lookup_tables(common, device)
         self.register_buffer("_lut_coeffs", coeffs)
         self.register_buffer("_lut_off", offsets)
+        # the lookup kernel's lanes, from the tables' lengths known here (none without lookups)
+        self._lookup_lanes = None
+        if common.num_lookup_polys > 0:
+            from .kernels import lookup_split
+
+            self._lookup_lanes = lookup_split(common.config.num_routed_wires, common.num_lookup_polys - 1,
+                                              common.quotient_degree_factor, offsets.tolist())
         # the gate program's outputs in the padded (gates with constraints, n_gc)
         # layout, slot 0 (zero) in the padding: one gather, no concatenation
         n_gc = common.num_gate_constraints
@@ -743,7 +751,7 @@ class TorchVerifier(nn.Module):
         lookup_vec = []
         if common.num_lookup_polys > 0:
             lookup_vec = [lookup_checks(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, self._lut_coeffs, self._lut_off,
-                                        common.config.num_routed_wires, maxdeg)]
+                                        common.config.num_routed_wires, maxdeg, lanes=self._lookup_lanes)]
         self._stage("plonk: lookup argument")
         constraint_vec = tf.ext_concat([head] + lookup_vec + [acc], dim=1)  # (B, K)
         combined = horner_scaled(constraint_vec, torch.stack(alphas, dim=1))  # (B, r)

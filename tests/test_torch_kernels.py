@@ -536,9 +536,10 @@ def test_gate_program_forms_agree_at_the_verifier_batch(lib):
 @pytest.mark.parametrize("check", [check_coset_fold, check_partial_products, check_lookup_checks], ids=["coset_fold", "partial_products", "lookup_checks"])
 def test_stage_kernels_against_plain_and_golden(lib, check):
     """tools/check_field_kernels.py's sweep of each stage kernel at full
-    size: the coset folds (arity 2 to 32 in one launch, a query slice,
-    B = 0), L0 with the partial products (r, maxdeg, chunk counts) and the
-    lookup argument (SLDC chunks, table counts and lengths): the plain
+    size: the coset folds (arity 2 to 64 in one launch, both forms, a query
+    slice, B = 0), L0 with the partial products (r, maxdeg, chunk counts)
+    and the lookup argument (SLDC chunks, table counts and lengths, the
+    lanes of each kind, subtrahends y + p at sldc - prev): the plain
     version's words, the kernel order's in PyTorch, and golden/'s on a few
     lanes."""
     from plonky2_verifier_tpu_torch.tools.check_hash_kernels import KernelCheck

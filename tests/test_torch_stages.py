@@ -49,9 +49,11 @@ from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops.field import GExt
 from plonky2_verifier_tpu_torch.prover.prove import prove
 from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
+    LOOKUP_SHAPES,
     coset_fold_rows_plain,
     lookup_checks_rows_plain,
     partial_products_rows_plain,
+    probe_sldc_subtrahends,
     words,
 )
 from plonky2_verifier_tpu_torch.tools.check_hash_kernels import PlainLibrary
@@ -103,6 +105,94 @@ def test_coset_fold_plain_equals_golden_lane_by_lane(bits, cut):
             assert _ints(got, b, q) == want, (b, q)
     order = coset_fold_rows_plain([(evals, off_inv, beta.re, beta.im, _idft(bits))])
     assert torch.equal(order[0, 0], got.re) and torch.equal(order[0, 1], got.im)
+
+
+@pytest.mark.parametrize("bits,batch,cut", [(1, B, None), (2, B, None), (3, B, None), (4, B, None), (5, B, None), (6, B, None),
+                                            (4, B, slice(1, 6, 2)), (4, 0, None)],
+                         ids=["arity2", "arity4", "arity8", "arity16", "arity32", "arity64-scratch-form", "arity16-strided-queries",
+                              "no-lanes"])
+def test_coset_fold_kernel_order_equals_plain(bits, batch, cut):
+    """The kernel's order in PyTorch (coset_fold_rows_plain: the opened
+    words made canonical, the butterflies, the Horner chain in beta off_inv)
+    gives coset_fold_plain's words, word for word, on opened values with
+    the p-edge band and words x + p among them, every offset inverse and
+    beta as words() gives them too; at every arity the kernel's shared form
+    takes and one of its scratch form, on a strided query slice and on no
+    lanes."""
+    rng = np.random.default_rng(100 + bits)
+    evals = tf.from_u64(words(rng, (batch, Q, 1 << bits, 2)), "cpu")
+    off_inv = tf.from_u64(words(rng, (batch, Q)), "cpu")
+    beta = tf.from_u64(words(rng, (batch, 2)), "cpu")
+    if cut is not None:
+        evals, off_inv = evals[:, cut], off_inv[:, cut]
+    assert batch == 0 or (evals.numel() and bool(tf.uge(evals, tf.P_I64).any()))  # words x + p among the values
+    want = vt.coset_fold_plain(evals, off_inv, GExt(beta[:, 0], beta[:, 1]), _perm(bits), _idft(bits))
+    got = coset_fold_rows_plain([(evals, off_inv, beta[:, 0], beta[:, 1], _idft(bits))])
+    assert got.shape == (1, 2) + tuple(off_inv.shape)
+    assert torch.equal(got[0, 0], want.re) and torch.equal(got[0, 1], want.im)
+
+
+def _lookup_case(shape, seed):
+    """A LOOKUP_SHAPES entry at a few lanes: tables padded as the verifier
+    pads them, openings from words() in one interleaved tensor as the
+    verifier's views are, and in lane i >= 1 the SLDC transition of chunk
+    (i - 1) mod n_sldc of every round with its subtrahend a word y + p above
+    its minuend + p, where ops/field.sub is not exact mod p
+    (probe_sldc_subtrahends)."""
+    from types import SimpleNamespace
+
+    batch, r, routed, n_polys, maxdeg, lengths = shape
+    batch = min(batch, 4)
+    rng = np.random.default_rng(seed)
+    tables = [[tuple(int(x) for x in row) for row in rng.integers(0, 1 << 16, size=(n, 2))] for n in lengths]
+    coeffs, offsets = vt.lookup_tables(SimpleNamespace(config=SimpleNamespace(num_routed_wires=routed), luts=tables), "cpu")
+    widths = [4 + len(lengths), routed + 5, r * n_polys, r * n_polys]
+    at = np.concatenate([[0], np.cumsum(widths)])
+    op = words(rng, (batch, int(at[-1]), 2))
+    probe_sldc_subtrahends(rng, op[:, at[2] : at[3]], op[:, at[3] : at[4]], r, n_polys, range(1, batch))
+    t = tf.from_u64(op, "cpu")
+    sels, wires, zs_t, zs_next_t = (GExt(t[:, at[i] : at[i + 1], 0], t[:, at[i] : at[i + 1], 1]) for i in range(4))
+    d = tf.from_u64(rng.integers(0, P, size=(batch, r, 4), dtype=np.uint64), "cpu")
+    return (sels, wires, zs_t, zs_next_t), d, coeffs, offsets, routed, maxdeg
+
+
+@pytest.mark.parametrize("shape", LOOKUP_SHAPES, ids=[f"B{s[0]}-r{s[1]}-routed{s[2]}-polys{s[3]}-maxdeg{s[4]}" for s in LOOKUP_SHAPES])
+def test_lookup_kernel_order_equals_plain(shape):
+    """The kernel's order in PyTorch (lookup_checks_rows_plain: a chunk's
+    slots over kernels.lookup_split's lanes, the lanes' leave-one-out pairs
+    met by the tree, the RE transition and each table's final as segmented
+    Horner sums in delta) gives lookup_checks_plain's words, word for word,
+    with words y + p at the SLDC transition's sldc - prev (lanes 1 on) and
+    the p-edge band and words x + p everywhere else."""
+    ext, d, coeffs, offsets, routed, maxdeg = _lookup_case(shape, 200 + shape[2] + shape[4])
+    r, n_polys = d.shape[1], ext[2].shape[1] // d.shape[1]
+    if ext[2].shape[0] > 1:  # lane 1's probe of chunk 0 meets the inexact subtraction: not sub of the same elements reduced
+        a, b = ext[2].re[1, 1], ext[3].re[1, n_polys - 1]
+        assert not torch.equal(tf.sub(a, b), tf.sub(a, b - tf.P_I64))
+    deltas = [tuple(d[:, k, j] for j in range(4)) for k in range(r)]
+    want = vt.lookup_checks_plain(*ext, deltas, coeffs, offsets, routed, maxdeg)
+    got = lookup_checks_rows_plain(*[(x.re, x.im) for x in ext], d, coeffs, offsets, routed, maxdeg)
+    assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
+
+
+def test_lookup_split_sizes_a_tables_lanes_by_the_longest_table():
+    """kernels.lookup_split: a table's lanes follow the longest padded
+    table, not the tables' rows together (26 + 26 + 52 + 78 rows: 16 lanes
+    of at most 8 rows, not 32); the zoo's one table of 26 rows takes 4; past
+    32 lanes a lane takes more rows; other slots a lane and values a segment
+    give other lanes, and the order in PyTorch on lanes passed explicitly
+    still gives the plain version's words."""
+    assert kernels.lookup_split(80, 6, 8, [0, 26, 52, 104, 182]) == (2, 4, 16)
+    assert kernels.lookup_split(80, 6, 8, [0, 26]) == (2, 4, 4)
+    assert kernels.lookup_split(80, 6, 8, [0, 312, 338]) == (2, 4, 32)
+    assert kernels.lookup_split(80, 6, 8, [0, 26], 1, 1) == (8, 32, 32)
+    ext, d, coeffs, offsets, routed, maxdeg = _lookup_case(LOOKUP_SHAPES[0], 7)
+    r = d.shape[1]
+    deltas = [tuple(d[:, k, j] for j in range(4)) for k in range(r)]
+    want = vt.lookup_checks_plain(*ext, deltas, coeffs, offsets, routed, maxdeg)
+    for lanes in [(1, 1, 1), (4, 8, 32)]:
+        got = lookup_checks_rows_plain(*[(x.re, x.im) for x in ext], d, coeffs, offsets, routed, maxdeg, lanes)
+        assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
 
 
 @pytest.fixture(scope="module")

@@ -125,6 +125,51 @@ def test_profile_verifier_names_each_fold_step():
     assert v.on_stage is None and tf.inv is inv
 
 
+def test_fold_work_counts_the_fft_form_and_the_kernels_butterflies():
+    """chip_smoke.fold_work at a fibonacci forward's folds (two steps of
+    arity 16 over (1024, 28)): the least work in the FFT form (the bound
+    the kernel's share is taken against), 32 butterflies of 4 adds, 17 of
+    them with 2 products by a twiddle (the 15 by a twiddle 1 need none),
+    and the Horner chain a (b, q); the kernel's count the same and an add
+    a word for the canonicalisation, so never below the least."""
+    import chip_smoke as cs
+
+    lanes, arity = 1024 * 28, 16
+    evals = [torch.empty((1024, 28, arity, 2), dtype=torch.int64)] * 2
+    idfts = [torch.empty((arity, arity), dtype=torch.int64)] * 2
+    least, n_bytes, what, kernel = cs.fold_work(evals, [None] * 2, [None] * 2, [None] * 2, idfts)
+    chain = arity * (4 * cs.PRODUCT + 4 * cs.ADD) + 4 * cs.PRODUCT
+    assert least == 2 * lanes * (32 * 4 * cs.ADD + 17 * 2 * cs.PRODUCT + chain) == 137_625_600
+    assert kernel == least + 2 * lanes * 2 * arity * cs.ADD == 144_965_632
+    assert n_bytes == 8 * (2 * (lanes * (2 * arity + 3) + 2 * 1024 + arity * arity)) and f"the kernel's {kernel} instructions" in what
+
+
+@pytest.mark.parametrize("routed,n_polys,maxdeg,rows,lanes", [(80, 7, 8, 26, (2, 4, 4)), (6, 2, 4, 2, (1, 1, 1))], ids=["zoo", "one-lane"])
+def test_lookup_work_counts_the_kernels_lanes(routed, n_polys, maxdeg, rows, lanes):
+    """chip_smoke.lookup_work on the zoo's shape and on one where every part
+    of the kernel takes one lane: the least work in the running pair's
+    form (the bound the kernel's share is taken against); the kernel's
+    count names its lanes (kernels.lookup_split) and adds the lanes'
+    meetings and segments to it -- with one lane each, one Horner step a
+    round (re_next's own, where the running chain starts from it)."""
+    import chip_smoke as cs
+    from plonky2_verifier_tpu_torch.ops import field as tf
+
+    B, r = 3, 2
+    ext = lambda w: tf.GExt(torch.zeros((B, w), dtype=torch.int64), torch.zeros((B, w), dtype=torch.int64))
+    deltas = [tuple(torch.zeros(B, dtype=torch.int64) for _ in range(4))] * r
+    coeffs, offsets = torch.zeros((rows, 2), dtype=torch.int64), torch.tensor([0, rows])
+    least, n_bytes, what, kernel = cs.lookup_work(ext(5), ext(routed), ext(r * n_polys), ext(r * n_polys), deltas, coeffs, offsets, routed, maxdeg)
+    n_sldc, num_lu, num_lut = n_polys - 1, routed // 2, routed // 3
+    slot = 2 * cs.PRODUCT + 4 * cs.ADD
+    per_round = (num_lu * (slot + 2 * cs.EMUL + 2 * cs.ADD) + num_lut * (slot + 3 * cs.EMUL + 2 * cs.ADD) + n_sldc * (4 * cs.EMUL + 6 * cs.ADD)
+                 + num_lut * (4 * cs.PRODUCT + 4 * cs.ADD) + 2 * cs.ADD + cs.EMUL + rows * 2 * (cs.PRODUCT + cs.ADD)
+                 + (cs.PRODUCT + 3 * cs.ADD + cs.EMUL) + 3 * cs.EMUL)
+    assert least == B * r * per_round and n_bytes > 0
+    assert f"lanes {lanes[0]} a chunk, {lanes[1]} the RE transition, {lanes[2]} a table" in what
+    assert kernel > least if lanes != (1, 1, 1) else kernel == least + B * r * (4 * cs.PRODUCT + 4 * cs.ADD)
+
+
 def test_check_hash_kernels_plain_versions_against_golden(capsys):
     assert check_hash_kernels.main(["--device", "cpu", "--random", "64", "--rows", "40"]) == 0
     res = _last_json(capsys)

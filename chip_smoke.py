@@ -714,21 +714,43 @@ def fold_work(evals, off_invs, betas, perms, idfts, *, product=PRODUCT, add=ADD)
     return least, 8 * n_words, what, kernel
 
 
-def partial_products_work(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg):
-    """(int32 instructions, bytes, description) of one partial_products
-    launch, the least the function needs: a wire's numerator term beta k_i
-    (a product), its escale of zeta (2) and 3 adds, its denominator term an
-    escale of sigma (2) and 3 adds, a round; a chunk's two products maxdeg -
-    1 emuls each, two emuls by the current values and a subtraction; L0 an
-    emul a lane and one a round, with their subtractions; each opening and
-    challenge word read once, each output written once."""
+def partial_products_work(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg, *, weights=None,
+                          lanes=None):
+    """(int32 instructions, bytes, description, the kernel's instructions)
+    of one partial_products launch. The least the function needs: beta
+    zeta a round (2 products); a wire's numerator term k_i times it (2) and
+    3 adds, its denominator term an escale of sigma (2) and 3 adds, a round;
+    a chunk's two products maxdeg - 1 emuls each, two emuls by the current
+    values and a subtraction; L0 an emul a lane and one a round, with their
+    subtractions; each opening and challenge word read once, each output
+    written once. The kernel (csrc/plonk.cu; L lanes a chunk,
+    kernels.partial_products_lanes unless `lanes`) runs on every lane of a
+    chunk's group, padding lanes too: beta zeta (2 products), ceil(maxdeg /
+    L) wires' terms (four products, each added to its words and reduced
+    once: goldilocks.cuh's mul_add), the chain of a lane's further wires (2
+    emuls a wire), log2 L tree levels of one emul and the last emul (L = 1:
+    the two), a subtraction (2 subs); a thread a (b, round) L0's 2 emuls and
+    4 subs. `weights`: the instructions of "mul", "mul_add" (a b + c),
+    "mul_add2" (a b + c + d), "emul" (each part reduced once) and "sub" the
+    kernel's ops are counted at, W's reckoning unless given (a product
+    PRODUCT, an add ADD, an emul EMUL); the least is W's always."""
+    from plonky2_verifier_tpu_torch.kernels import partial_products_lanes
+
     B, r = zs.shape
     ns = sigmas.shape[1]
     n_chunks = ns // maxdeg
-    instructions = (B * r * ns * (5 * PRODUCT + 6 * ADD) + B * r * n_chunks * (2 * maxdeg * EMUL + 2 * ADD)
+    instructions = (B * r * 2 * PRODUCT + B * r * ns * (4 * PRODUCT + 6 * ADD) + B * r * n_chunks * (2 * maxdeg * EMUL + 2 * ADD)
                     + B * (EMUL + 2 * ADD) + B * r * (EMUL + 2 * ADD))
     n_words = 6 * B + 4 * B * r + 2 * pps.re.numel() + 4 * B * ns + 2 * B * r + ns + 2 * B * (r + r * n_chunks)
-    return instructions, 8 * n_words, f"partial_products: (B, r) ({B}, {r}), {ns} routed wires in {n_chunks} chunks of {maxdeg}"
+    w = weights or {"mul": PRODUCT, "mul_add": PRODUCT + ADD, "mul_add2": PRODUCT + 2 * ADD, "emul": EMUL, "sub": ADD}
+    L = lanes or partial_products_lanes(maxdeg)
+    steps, levels = -(-maxdeg // L), L.bit_length() - 1
+    lane = (2 * w["mul"] + steps * (2 * w["mul_add2"] + 2 * w["mul_add"]) + 2 * (steps - 1) * w["emul"]
+            + (levels + 1 if L > 1 else 2) * w["emul"] + 2 * w["sub"])
+    kernel = B * r * (n_chunks * L * lane + 2 * w["emul"] + 4 * w["sub"])
+    what = (f"partial_products: (B, r) ({B}, {r}), {ns} routed wires in {n_chunks} chunks of {maxdeg}; {L} lanes a chunk, "
+            f"{steps} wires a lane, {levels} tree levels: the kernel's {kernel} instructions")
+    return instructions, 8 * n_words, what, kernel
 
 
 def lookup_work(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offsets, num_routed_wires, maxdeg, *, product=PRODUCT, add=ADD):

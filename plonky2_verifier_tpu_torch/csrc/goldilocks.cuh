@@ -101,4 +101,71 @@ __device__ __forceinline__ Ext emul(Point a, Ext b) {
     return {add(mul(a.re, b.re), mul(a.im7, b.im)), add(mul(a.re, b.im), mul(a.im, b.re))};
 }
 
+// Forms that reduce once (plonk.cu's p2v_partial_products alone calls them):
+// a sum of full products and words kept exact in three words, reduced to the
+// canonical representative by one reduce192. Every operand may be any u64
+// word, and every result is the canonical value of the exact expression, so
+// where the forms above are exact mod p with a canonical result (mul, add
+// with one canonical operand, emul) these give their words.
+struct Wide {  // lo + hi 2^64 + top 2^128
+    uint64_t lo, hi, top;
+};
+
+__device__ __forceinline__ Wide wide_mul(uint64_t a, uint64_t b) { return {a * b, __umul64hi(a, b), 0}; }
+
+__device__ __forceinline__ Wide wide_add(Wide x, Wide y) {
+    Wide s;
+    asm("add.cc.u64 %0, %3, %6;\n\taddc.cc.u64 %1, %4, %7;\n\taddc.u64 %2, %5, %8;"
+        : "=l"(s.lo), "=l"(s.hi), "=l"(s.top)
+        : "l"(x.lo), "l"(x.hi), "l"(x.top), "l"(y.lo), "l"(y.hi), "l"(y.top));
+    return s;
+}
+
+__device__ __forceinline__ Wide wide_add(Wide x, uint64_t y) {
+    Wide s;
+    asm("add.cc.u64 %0, %3, %6;\n\taddc.cc.u64 %1, %4, 0;\n\taddc.u64 %2, %5, 0;"
+        : "=l"(s.lo), "=l"(s.hi), "=l"(s.top)
+        : "l"(x.lo), "l"(x.hi), "l"(x.top), "l"(y));
+    return s;
+}
+
+// 7 x as 8 x - x
+__device__ __forceinline__ Wide wide_times7(Wide x) {
+    const uint64_t lo = x.lo << 3, hi = (x.hi << 3) | (x.lo >> 61), top = (x.top << 3) | (x.hi >> 61);
+    Wide s;
+    asm("sub.cc.u64 %0, %3, %6;\n\tsubc.cc.u64 %1, %4, %7;\n\tsubc.u64 %2, %5, %8;"
+        : "=l"(s.lo), "=l"(s.hi), "=l"(s.top)
+        : "l"(lo), "l"(hi), "l"(top), "l"(x.lo), "l"(x.hi), "l"(x.top));
+    return s;
+}
+
+// reduce128 with a third word: with 2^96 = -1 and 2^128 = -2^32 mod p,
+// x = lo - (top 2^32 + hi_hi) + hi_lo (2^32 - 1); top < 2^32 - 1 keeps the
+// subtrahend below p, so one p added where it borrows makes it good (every
+// caller's top is at most 7). reduce192({lo, hi, 0}) is reduce128(lo, hi).
+__device__ __forceinline__ uint64_t reduce192(Wide x) {
+    const uint64_t sub = (x.top << 32) | (x.hi >> 32), hi_lo = x.hi & EPSILON;
+    uint64_t t0 = x.lo - sub;
+    if (x.lo < sub) t0 -= EPSILON;  // borrowed: take 2^32 - 1 (add p)
+    const uint64_t t1 = hi_lo * EPSILON;  // < 2^64
+    uint64_t t2 = t0 + t1;
+    if (t2 < t1) t2 += EPSILON;
+    if (t2 >= P) t2 -= P;
+    return t2;
+}
+
+// a b + c and a b + c + d (top <= 1), canonical: add(add(c, mul(a, b)), d)'s
+// words wherever that is exact (one canonical operand in each add)
+__device__ __forceinline__ uint64_t mul_add(uint64_t a, uint64_t b, uint64_t c) { return reduce192(wide_add(wide_mul(a, b), c)); }
+__device__ __forceinline__ uint64_t mul_add(uint64_t a, uint64_t b, uint64_t c, uint64_t d) {
+    return reduce192(wide_add(wide_add(wide_mul(a, b), c), d));
+}
+
+// emul with each part reduced once: re = a.re b.re + 7 a.im b.im (top <= 7),
+// im = a.re b.im + a.im b.re (top <= 1), for any u64 words: emul's words.
+__device__ __forceinline__ Ext emul_once(Ext a, Ext b) {
+    return {reduce192(wide_add(wide_mul(a.re, b.re), wide_times7(wide_mul(a.im, b.im)))),
+            reduce192(wide_add(wide_mul(a.re, b.im), wide_mul(a.im, b.re)))};
+}
+
 }  // namespace gl

@@ -14,28 +14,62 @@
 //
 // Bits: every kernel mirrors the plain version's field ops (goldilocks.cuh
 // has ops/field.py's add, sub, mul and emul on any u64 words). Where it
-// takes another order -- products of a chunk one after the other rather than
-// a halving tree, the leave-one-out sums by a running (product, sum) pair
-// rather than prefix and suffix products -- every operand is a canonical
-// product or a sum of canonical words, so the value is the same and
-// canonical, hence the same word. Proof words (which may be x + p) enter
-// products and the adds and subtractions of the plain version, in its order.
+// takes another order -- a chunk's products by a shuffle tree of another
+// shape than the plain version's halving tree, the leave-one-out sums by a
+// running (product, sum) pair rather than prefix and suffix products --
+// every operand is a canonical product or a sum of canonical words, so the
+// value is the same and canonical, hence the same word. Proof words (which
+// may be x + p) enter products and the adds and subtractions of the plain
+// version, in its order.
 //
-// p2v_partial_products: a thread a (b, round, chunk). The chunk's numerator
-// and denominator products over its maxdeg routed wires,
-//   w + beta k_i zeta + gamma  and  w + beta sigma + gamma,
-// then current[c] num - current[c + 1] den with current = [z, partial
-// products ..., z(omega zeta)]; chunk 0's thread also writes
+// p2v_partial_products: L0(zeta)(z - 1) a round and the
+// partial-product checks, verifier_jax.py:345-385 (plain:
+// verifier_torch.partial_products_plain). A group of L lanes inside one warp
+// a (b, round, chunk), L = maxdeg / 2 rounded up to a power of two, at most
+// 32 (kernels.partial_products_lanes, passed as lane_bits): two wires a
+// lane read fastest of 1, 2, 4 and 8 at the main path's shape, as did a
+// launch bound of 3 blocks an SM of 1, 3 and 4 (tools/probe_kernels.py
+// --pp-lanes; PERF.md §6). Lane l forms the terms of the chunk's routed
+// wires l, l + L, ..., each wire's
+//   w + k_i (beta zeta) + gamma  and  w + beta sigma + gamma
+// independent of the others (beta zeta formed once a round; four products,
+// each added to its words and reduced once, gl::mul_add), and multiplies
+// them in that order; a lane past maxdeg holds 1, as tree_prod_last pads
+// with 1. The group's (numerator, denominator) pairs meet by shuffles in
+// log2 L levels of one emul a lane: at level 0 lane 2k keeps the
+// numerators' product of lanes 2k and 2k + 1 and lane 2k + 1 the
+// denominators', at level j >= 1 lane l joins lane l + 2^j's, so lane 0
+// ends with the chunk's numerator product and lane 1 with its
+// denominator's (the association of the pairs' tree,
+// check_field_kernels.partial_products_rows_plain). Lane 0 multiplies by
+// current[c] and lane 1 by current[c + 1] (current = [z, partial products
+// ..., z(omega zeta)]) in one emul, and lane 0 writes the difference. A
+// thread of its own a (b, round), in warps after the groups', writes
 // L0(zeta)(z - 1), L0 = (zeta^n - 1) / (n (zeta - 1)) from the forward's
-// zeta^n and inverse (verifier_torch.TorchVerifier._powers_and_inverses).
+// zeta^n and inverse, so that no group's warp waits on its two dependent
+// emuls. Neighbouring lanes read neighbouring wire,
+// sigma and k_i columns of one b. Every extension product is
+// gl::emul_once (each part reduced once from an exact three-word sum).
 // Output: the constraint vector's head, (B, r + r n_chunks), [L0(z - 1) a
 // round] ++ [the checks of round 0's chunks, of round 1's, ...].
+// Bits: every op of this function is exact mod p for any u64 words (mul and
+// the once-reduced forms reduce the full sums; add(add(w, product), gamma)
+// has a canonical operand in each add; sub is exact where the subtrahend is
+// at most the minuend + p: z - 1, zeta^n - 1 and the difference of two
+// canonical products), and each result is canonical. So every output word
+// is the canonical value of the exact expression, whatever the order of the
+// products, the tree or the reduction: the plain version's word, also where
+// proof words are y + p (tests/test_torch_stages.py and
+// tests/test_torch_noncanonical.py hold it).
 // Bound (chip_smoke.partial_products_work): integer ALU work, the least the
-// function needs: a wire's numerator term beta k_i (a product), its escale
-// of zeta (2) and 3 adds, its denominator term an escale of sigma (2) and 3
-// adds; a chunk's two products maxdeg - 1 emuls each, the two emuls by
-// current and a subtraction; L0 an emul a lane and one a round. Against the
-// bytes: each opening and challenge word read once, each output written once.
+// function needs: beta zeta a round (2 products); a wire's numerator term
+// k_i times it (2) and 3 adds, its denominator term an escale of sigma (2)
+// and 3 adds; a chunk's two products maxdeg - 1 emuls each, the two emuls
+// by current and a subtraction; L0 an emul a lane and one a round. Against
+// the bytes: each opening and challenge word read once, each output written
+// once. partial_products_work also counts the kernel's own ops: every lane
+// of a group forms beta zeta, its terms, its chain, the tree and the last
+// emul, padding lanes too.
 //
 // p2v_lookup_checks: the equations of a (b, round) spread over three kinds
 // of thread, each kind in warps of its own (the grid is three regions, each
@@ -113,37 +147,107 @@ struct PartialProductArgs {
     uint64_t* out_im;
     int64_t batch;
     int32_t r, maxdeg, n_chunks, npp;
+    int32_t lane_bits;  // 2^lane_bits lanes a chunk, at most a warp (kernels.partial_products_lanes)
 };
 
-__global__ void __launch_bounds__(PLONK_THREADS) partial_products_kernel(const PartialProductArgs a) {
+constexpr unsigned ALL = 0xffffffffu;
+
+__host__ __device__ __forceinline__ int64_t whole_warps(int64_t threads) { return (threads + 31) & ~(int64_t)31; }
+
+__device__ __forceinline__ Ext shfl_down(Ext x, int by, int width) {
+    return {(uint64_t)__shfl_down_sync(ALL, (unsigned long long)x.re, by, width), (uint64_t)__shfl_down_sync(ALL, (unsigned long long)x.im, by, width)};
+}
+
+__device__ __forceinline__ uint64_t shfl_down(uint64_t x, int by, int width) {
+    return (uint64_t)__shfl_down_sync(ALL, (unsigned long long)x, by, width);
+}
+
+__device__ __forceinline__ Ext shfl_xor(Ext x, int mask, int width) {
+    return {(uint64_t)__shfl_xor_sync(ALL, (unsigned long long)x.re, mask, width), (uint64_t)__shfl_xor_sync(ALL, (unsigned long long)x.im, mask, width)};
+}
+
+// wire i's numerator and denominator terms in a round: w + k_i (beta zeta) + gamma, w + beta sigma + gamma
+__device__ __forceinline__ void wire_terms(const PartialProductArgs& a, int64_t b, int64_t i, uint64_t beta, uint64_t gamma, Ext bz,
+                                           Ext& num, Ext& den) {
+    const Ext w = gl::at(a.wires, b, i), sigma = gl::at(a.sigmas, b, i);
+    const uint64_t k = a.k_is[i];
+    num = {gl::mul_add(k, bz.re, w.re, gamma), gl::mul_add(k, bz.im, w.im)};
+    den = {gl::mul_add(beta, sigma.re, w.re, gamma), gl::mul_add(beta, sigma.im, w.im)};
+}
+
+// current[k] of a round, current = [z, partial products ..., z(omega zeta)]
+__device__ __forceinline__ Ext current(const PartialProductArgs& a, int64_t b, int round, int k) {
+    if (k == 0) return gl::at(a.zs, b, round);
+    return k == a.n_chunks ? gl::at(a.zs_next, b, round) : gl::at(a.pps, b, (int64_t)round * a.npp + k - 1);
+}
+
+// L0(zeta)(z - 1) of a (b, round)
+__device__ __forceinline__ void l0_term(const PartialProductArgs& a, int64_t q) {
+    const int64_t b = q / a.r;
+    const int round = (int)(q - b * a.r);
+    const Ext one = {1, 0};
+    const Ext lag0 = gl::emul_once(gl::esub(gl::at(a.zeta_n, b), one), gl::at(a.l0_den_inv, b));
+    const Ext e = gl::emul_once(lag0, gl::esub(gl::at(a.zs, b, round), one));
+    const int64_t at = b * (a.r + (int64_t)a.r * a.n_chunks) + round;
+    a.out_re[at] = e.re;
+    a.out_im[at] = e.im;
+}
+
+// The grid is two regions of whole warps: groups of 2^a.lane_bits lanes a
+// (b, round, chunk) -- with ALL_ROUNDS (the probe's second form) a (b,
+// chunk) whose lanes run the rounds one after the other; a lane past the
+// last group copies it -- then a thread a (b, round) for L0, so that no
+// group's warp waits on it. MIN_BLOCKS: the launch bound's blocks an SM
+// (3 shipped, the probe's fastest; 1 leaves the registers to the compiler).
+template <bool ALL_ROUNDS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(PLONK_THREADS, MIN_BLOCKS) partial_products_kernel(const PartialProductArgs a) {
     const int64_t t = (int64_t)blockIdx.x * PLONK_THREADS + threadIdx.x;
-    const int64_t per_lane = (int64_t)a.r * a.n_chunks;
-    if (t >= a.batch * per_lane) return;
-    const int64_t b = t / per_lane;
-    const int rc = (int)(t - b * per_lane), round = rc / a.n_chunks, c = rc - round * a.n_chunks;
-    const int64_t width = a.r + per_lane;
-    const uint64_t beta = a.betas[b * a.r + round], gamma = a.gammas[b * a.r + round];
+    const int lane_bits = a.lane_bits;
+    const int L = 1 << lane_bits, lane = (int)(t & (L - 1));
+    const int per_b = ALL_ROUNDS ? a.n_chunks : a.r * a.n_chunks;  // groups a b
+    const int64_t groups = a.batch * per_b, chunk_threads = whole_warps(groups << lane_bits);
+    if (t >= chunk_threads) {
+        if (t - chunk_threads < a.batch * a.r) l0_term(a, t - chunk_threads);
+        return;
+    }
+    int64_t g = t >> lane_bits;
+    const bool live = g < groups;
+    if (!live) g = groups - 1;  // every lane of a warp takes part in the shuffles
+    const unsigned b = (unsigned)g / (unsigned)per_b, rc = (unsigned)g - b * (unsigned)per_b;  // g < 2^31
+    const int c = (int)(rc % (unsigned)a.n_chunks), first = ALL_ROUNDS ? 0 : (int)(rc / (unsigned)a.n_chunks);
+    const int steps = (a.maxdeg + L - 1) >> lane_bits;  // wires a lane, the last ones past maxdeg for some lanes
     const Ext one = {1, 0}, zeta = gl::at(a.zeta, b);
-    const Ext z = gl::at(a.zs, b, round);
-    if (c == 0) {  // L0(zeta)(z - 1)
-        const Ext lag0 = gl::emul(gl::esub(gl::at(a.zeta_n, b), one), gl::at(a.l0_den_inv, b));
-        const Ext e = gl::emul(lag0, gl::esub(z, one));
-        a.out_re[b * width + round] = e.re;
-        a.out_im[b * width + round] = e.im;
+    const int64_t i0 = (int64_t)c * a.maxdeg;
+    for (int round = first; round < (ALL_ROUNDS ? a.r : first + 1); ++round) {
+        const uint64_t beta = a.betas[(int64_t)b * a.r + round], gamma = a.gammas[(int64_t)b * a.r + round];
+        const Ext bz = gl::escale(beta, zeta);
+        Ext num, den;
+        wire_terms(a, b, i0 + min(lane, a.maxdeg - 1), beta, gamma, bz, num, den);
+        if (lane >= a.maxdeg) num = den = one;  // a select: no branch before the shuffles
+        for (int k = 1; k < steps; ++k) {  // the lane's further wires in order (times 1 past maxdeg)
+            const int d = lane + (k << lane_bits);
+            Ext tn, td;
+            wire_terms(a, b, i0 + min(d, a.maxdeg - 1), beta, gamma, bz, tn, td);
+            if (d >= a.maxdeg) tn = td = one;
+            num = gl::emul_once(num, tn);
+            den = gl::emul_once(den, td);
+        }
+        Ext e;
+        if (lane_bits == 0) {
+            e = gl::esub(gl::emul_once(current(a, b, round, c), num), gl::emul_once(current(a, b, round, c + 1), den));
+        } else {
+            const int odd = lane & 1;
+            Ext v = gl::emul_once(odd ? den : num, shfl_xor(odd ? num : den, 1, L));  // level 0: a side a lane
+            for (int j = 1; j < lane_bits; ++j) v = gl::emul_once(v, shfl_down(v, 1 << j, L));
+            v = gl::emul_once(current(a, b, round, c + odd), v);  // lane 0 the numerators' product, lane 1 the denominators'
+            e = gl::esub(v, shfl_down(v, 1, L));
+        }
+        if (live && lane == 0) {
+            const int64_t at = (int64_t)b * (a.r + (int64_t)a.r * a.n_chunks) + a.r + (int64_t)round * a.n_chunks + c;
+            a.out_re[at] = e.re;
+            a.out_im[at] = e.im;
+        }
     }
-    Ext num = one, den = one;
-    for (int d = 0; d < a.maxdeg; ++d) {
-        const int64_t i = (int64_t)c * a.maxdeg + d;
-        const Ext w = gl::at(a.wires, b, i), sigma = gl::at(a.sigmas, b, i);
-        const Ext bz = gl::escale(gl::mul(beta, a.k_is[i]), zeta), bs = gl::escale(beta, sigma);
-        num = gl::emul(num, {gl::add(gl::add(w.re, bz.re), gamma), gl::add(w.im, bz.im)});
-        den = gl::emul(den, {gl::add(gl::add(w.re, bs.re), gamma), gl::add(w.im, bs.im)});
-    }
-    const Ext prev = c == 0 ? z : gl::at(a.pps, b, (int64_t)round * a.npp + c - 1);
-    const Ext next = c == a.n_chunks - 1 ? gl::at(a.zs_next, b, round) : gl::at(a.pps, b, (int64_t)round * a.npp + c);
-    const Ext e = gl::esub(gl::emul(prev, num), gl::emul(next, den));
-    a.out_re[b * width + a.r + rc] = e.re;
-    a.out_im[b * width + a.r + rc] = e.im;
 }
 
 // kernels.LookupArgs field for field
@@ -161,10 +265,6 @@ struct LookupArgs {
     int32_t chunk_bits, re_bits, table_bits;  // lanes a SLDC chunk, the RE transition, a table: 2^bits <= 32
 };
 
-constexpr unsigned ALL = 0xffffffffu;
-
-__host__ __device__ __forceinline__ int64_t whole_warps(int64_t threads) { return (threads + 31) & ~(int64_t)31; }
-
 // inp + c out, alpha - that (the chunked terms' order in lookup_checks_plain)
 __device__ __forceinline__ Ext combo(const LookupArgs& a, int64_t b, int64_t inp, uint64_t c) {
     const Ext x = gl::at(a.wires, b, inp), y = gl::at(a.wires, b, inp + 1);
@@ -172,14 +272,6 @@ __device__ __forceinline__ Ext combo(const LookupArgs& a, int64_t b, int64_t inp
 }
 
 __device__ __forceinline__ Ext alpha_minus(uint64_t alpha, Ext x) { return gl::esub({alpha, 0}, x); }
-
-__device__ __forceinline__ Ext shfl_down(Ext x, int by, int width) {
-    return {(uint64_t)__shfl_down_sync(ALL, (unsigned long long)x.re, by, width), (uint64_t)__shfl_down_sync(ALL, (unsigned long long)x.im, by, width)};
-}
-
-__device__ __forceinline__ uint64_t shfl_down(uint64_t x, int by, int width) {
-    return (uint64_t)__shfl_down_sync(ALL, (unsigned long long)x, by, width);
-}
 
 // (p, s) o (op, os) = (p op, s op + p os): two leave-one-out pairs of disjoint slots as one
 __device__ __forceinline__ void meet(Ext& p, Ext& s, Ext op, Ext os) {
@@ -320,16 +412,44 @@ __global__ void __launch_bounds__(PLONK_THREADS) lookup_checks_kernel(const Look
 
 unsigned blocks_for(int64_t threads) { return (unsigned)((threads + PLONK_THREADS - 1) / PLONK_THREADS); }
 
+template <bool ALL_ROUNDS, int MIN_BLOCKS>
+cudaError_t launch_partial_products(const PartialProductArgs& a, cudaStream_t stream) {
+    const int lane_bits = a.lane_bits;
+    if (a.batch < 0 || a.r < 0 || a.maxdeg < 1 || a.n_chunks < 1 || a.npp != a.n_chunks - 1 || lane_bits < 0 || lane_bits > 5)
+        return cudaErrorInvalidValue;
+    const int64_t groups = a.batch * (ALL_ROUNDS ? 1 : a.r) * a.n_chunks;
+    if (a.r > INT32_MAX / a.n_chunks || groups >= (INT32_MAX >> lane_bits) - 32 || a.batch * a.r >= INT32_MAX / 2)
+        return cudaErrorInvalidValue;
+    const int64_t threads = whole_warps(groups << lane_bits) + a.batch * a.r;
+    if (threads > 0 && a.r > 0)
+        partial_products_kernel<ALL_ROUNDS, MIN_BLOCKS><<<blocks_for(threads), PLONK_THREADS, 0, stream>>>(a);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int p2v_partial_products(const void* args, void* stream) {
-    const PartialProductArgs a = *(const PartialProductArgs*)args;
-    if (a.batch < 0 || a.r < 0 || a.maxdeg < 1 || a.n_chunks < 1 || a.npp != a.n_chunks - 1) return (int)cudaErrorInvalidValue;
-    const int64_t threads = a.batch * a.r * a.n_chunks;
-    if (threads >= INT32_MAX) return (int)cudaErrorInvalidValue;
-    if (threads > 0) partial_products_kernel<<<blocks_for(threads), PLONK_THREADS, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return (int)launch_partial_products<false, 3>(*(const PartialProductArgs*)args, (cudaStream_t)stream);
 }
+
+#ifdef P2V_PP_VARIANTS
+// the probe tool's forms (tools/probe_kernels.py --pp-lanes): a group a
+// (b, round, chunk) or with all_rounds a (b, chunk), under a launch bound
+// of min_blocks blocks an SM (1, 3 or 4)
+extern "C" int p2v_partial_products_variant(const void* args, int all_rounds, int min_blocks, void* stream) {
+    const PartialProductArgs& a = *(const PartialProductArgs*)args;
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (min_blocks * 2 + (all_rounds != 0)) {
+        case 2: return (int)launch_partial_products<false, 1>(a, s);
+        case 3: return (int)launch_partial_products<true, 1>(a, s);
+        case 6: return (int)launch_partial_products<false, 3>(a, s);
+        case 7: return (int)launch_partial_products<true, 3>(a, s);
+        case 8: return (int)launch_partial_products<false, 4>(a, s);
+        case 9: return (int)launch_partial_products<true, 4>(a, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+#endif
 
 extern "C" int p2v_lookup_checks(const void* args, void* stream) {
     const LookupArgs a = *(const LookupArgs*)args;

@@ -6,7 +6,9 @@
 // The chains of N = 8 and N = 4 differ by 4 ops and by nothing else, so an
 // op executes (count(8) - count(4)) / 4 instructions as the compiler emits
 // it inside a dependent chain. OP: 0 mul, 1 add, 2 sub, 3 emul, 4 emul by
-// a gl::Point (its 7 im formed once), 5 escale.
+// a gl::Point (its 7 im formed once), 5 escale, and the forms that reduce
+// once (csrc/plonk.cu's partial products): 6 mul_add (a b + c), 7 mul_add
+// of two words (a b + c + d), 8 emul_once.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -23,6 +25,9 @@ __device__ __forceinline__ Ext apply(Ext a, Ext b, const gl::Point& q) {
     if constexpr (OP == 3) return gl::emul(a, b);
     if constexpr (OP == 4) return gl::emul(q, a);
     if constexpr (OP == 5) return gl::escale(b.re, a);
+    if constexpr (OP == 6) return {gl::mul_add(a.re, b.re, a.im), a.im};
+    if constexpr (OP == 7) return {gl::mul_add(a.re, b.re, a.im, b.im), a.im};
+    if constexpr (OP == 8) return gl::emul_once(a, b);
     return a;
 }
 
@@ -53,3 +58,6 @@ P2V_COUNT(2)
 P2V_COUNT(3)
 P2V_COUNT(4)
 P2V_COUNT(5)
+P2V_COUNT(6)
+P2V_COUNT(7)
+P2V_COUNT(8)

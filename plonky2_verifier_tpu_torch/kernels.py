@@ -51,6 +51,8 @@ COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_group
             "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks")
 # also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
 SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
+# also builds the partial-product kernel's other lanes and forms, for the probe tool (csrc/plonk.cu)
+PP_VARIANTS_FLAG = "-DP2V_PP_VARIANTS"
 FORMS = {"auto": 0, "thread": 1, "split": 2}
 WIDTH, N_ROUNDS, FIRST_PARTIAL, FIRST_LAST_FULL = 12, 30, 4, 26
 
@@ -221,6 +223,7 @@ class PartialProductArgs(ctypes.Structure):
         ("betas", ctypes.c_void_p), ("gammas", ctypes.c_void_p), ("k_is", ctypes.c_void_p), ("out_re", ctypes.c_void_p),
         ("out_im", ctypes.c_void_p), ("batch", ctypes.c_int64),
         ("r", ctypes.c_int32), ("maxdeg", ctypes.c_int32), ("n_chunks", ctypes.c_int32), ("npp", ctypes.c_int32),
+        ("lane_bits", ctypes.c_int32),
     ]
 
 
@@ -286,6 +289,16 @@ def lookup_split(num_routed_wires: int, n_sldc: int, maxdeg: int, table_off, slo
     rows = max((b - a for a, b in zip(table_off, table_off[1:])), default=0)
     return (lookup_lanes(max(maxdeg - 1, -(-num_lut // n_sldc)), slots_a_lane), lookup_lanes(num_lut + 1, values_a_segment),
             lookup_lanes(rows, values_a_segment))
+
+
+PP_WIRES_A_LANE = 2  # the fastest of 1, 2, 4 and 8 wires a lane at the main path's shape (PERF.md §6)
+
+
+def partial_products_lanes(maxdeg: int) -> int:
+    """The lanes of a chunk in p2v_partial_products (csrc/plonk.cu):
+    maxdeg / PP_WIRES_A_LANE rounded up to a power of two, at most a
+    warp."""
+    return min(1 << max(-(-maxdeg // PP_WIRES_A_LANE) - 1, 0).bit_length(), 32)
 
 
 GATE_MAX_LANES = 32  # lanes a block at most (csrc/gates.cu)
@@ -372,6 +385,8 @@ class KernelLibrary:
                 fns = dict(fns, **{f"p2v_{source}_init": [vp, vp, vp, vp]})
             if hasattr(lib, "p2v_sponge_rows_variant"):  # built with SPONGE_VARIANTS_FLAG
                 fns["p2v_sponge_rows_variant"] = [vp, vp, vp, vp, i32, vp, i32, i32, vp, vp]
+            if hasattr(lib, "p2v_partial_products_variant"):  # built with PP_VARIANTS_FLAG
+                fns["p2v_partial_products_variant"] = [vp, i32, i32, vp]
             for name, argtypes in fns.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -760,14 +775,18 @@ class KernelLibrary:
             self.launches["coset_fold"] += 1
         return out
 
-    def partial_products(self, zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int):
+    def partial_products(self, zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int,
+                         variant=None):
         """L0(zeta)(z - 1) a round and the partial-product checks
         (csrc/plonk.cu), as verifier_torch.partial_products_plain computes
         them: every extension operand an (re, im) pair at any strides,
         zeta_n, l0_den_inv and zeta (B,), zs and zs_next (B, r), pps (B, r
         npp), wires and sigmas (B, ns) with ns = n_chunks maxdeg and npp =
         n_chunks - 1; betas and gammas (B, r) and k_is (ns,), contiguous.
-        Returns (out_re, out_im), each (B, r + r n_chunks)."""
+        Returns (out_re, out_im), each (B, r + r n_chunks). `variant` (the
+        probe tool's, on a library built with PP_VARIANTS_FLAG) is (lanes a
+        chunk, all rounds a lane, the launch bound's blocks an SM: 1, 3 or
+        4) for p2v_partial_products_variant."""
         z = _ext_view(zs, "zs", (None, None))
         batch, r = zs[0].shape
         ns = sigmas[0].shape[1] if sigmas[0].dim() == 2 else -1
@@ -786,8 +805,15 @@ class KernelLibrary:
         out = torch.empty((2, batch, r + r * n_chunks), dtype=torch.int64, device=betas.device)
         a.betas, a.gammas, a.k_is, a.out_re, a.out_im = betas.data_ptr(), gammas.data_ptr(), k_is.data_ptr(), out[0].data_ptr(), out[1].data_ptr()
         a.batch, a.r, a.maxdeg, a.n_chunks, a.npp = batch, r, maxdeg, n_chunks, n_chunks - 1
+        lanes, all_rounds, min_blocks = variant or (partial_products_lanes(maxdeg), False, None)
+        if lanes < 1 or lanes > 32 or lanes & (lanes - 1):
+            raise ValueError(f"lanes {lanes}: not a power of two up to 32")
+        a.lane_bits = lanes.bit_length() - 1
         if batch and r:
-            err = self._fn["p2v_partial_products"](ctypes.addressof(a), _stream())
+            if variant is None:
+                err = self._fn["p2v_partial_products"](ctypes.addressof(a), _stream())
+            else:
+                err = self._fn["p2v_partial_products_variant"](ctypes.addressof(a), int(all_rounds), min_blocks, _stream())
             _check_cuda(err, "partial_products")
             self.launches["partial_products"] += 1
         return out[0], out[1]

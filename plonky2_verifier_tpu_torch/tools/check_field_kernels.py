@@ -85,7 +85,7 @@ from ..compiler.levelize import levelize_gates
 from ..golden import field as gf
 from ..golden.fri import fold_coset
 from ..golden.plonk import eval_lookup_equations
-from ..kernels import INV_GROUP, KernelLibrary, horner_segments, lookup_split
+from ..kernels import INV_GROUP, KernelLibrary, horner_segments, lookup_split, partial_products_lanes
 from ..ops import field as tf
 from ..ops.field import GExt
 from ..verifier_torch import coset_fold_plain, horner_ext_plain, lookup_checks_plain, lookup_tables, partial_products_plain
@@ -615,31 +615,49 @@ def coset_fold_rows_plain(steps):
     return torch.stack(outs)
 
 
-def partial_products_rows_plain(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int):
+def partial_products_rows_plain(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int,
+                                lanes=None):
     """What `KernelLibrary.partial_products` computes from its arguments
-    ((re, im) pairs), in the kernel's own order (csrc/plonk.cu): a chunk's
-    products one term after the other. Returns (re, im), each (B, r + r
-    n_chunks); its words equal partial_products_plain's."""
+    ((re, im) pairs), in the kernel's own order (csrc/plonk.cu) with its
+    lanes a chunk (`lanes`, or kernels.partial_products_lanes'): lane l's
+    numerator and denominator terms (k_i times beta zeta, formed once a
+    round) of the chunk's wires l, l + L, ... multiplied in that order (a
+    lane past maxdeg holds 1), the lanes' (numerator, denominator) pairs
+    joined by the group's shuffle tree (`_tree`: the kernel keeps a pair's
+    two sides on lanes s and s + 1 from level 0 on, the same products),
+    then lane 0's current[c] num - current[c + 1] den, and L0(zeta)(z - 1).
+    Returns (re, im), each (B, r + r n_chunks); its words equal
+    partial_products_plain's."""
     e = lambda pair: GExt(*pair)
     zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, zeta = map(e, (zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, zeta))
     B, r = zs.shape
     n_chunks = sigmas.shape[1] // maxdeg
+    L = partial_products_lanes(maxdeg) if lanes is None else lanes
     one = tf.ext_constant(1, shape=(B,), device=zs.re.device)
     lag0 = tf.emul(zeta_n - one, l0_den_inv)
     cols = [tf.emul(lag0, zs[:, i] - one) for i in range(r)]
+    npp = n_chunks - 1
     for rnd in range(r):
         beta, gamma = betas[:, rnd], gammas[:, rnd]
+        bz = tf.escale(beta, zeta)
+
+        def terms(i):  # w + k_i (beta zeta) + gamma, w + beta sigma + gamma
+            w, kz, bs = wires[:, i], tf.escale(k_is[i].expand(B), bz), tf.escale(beta, sigmas[:, i])
+            return (GExt(tf.add(tf.add(w.re, kz.re), gamma), tf.add(w.im, kz.im)),
+                    GExt(tf.add(tf.add(w.re, bs.re), gamma), tf.add(w.im, bs.im)))
+
+        current = [zs[:, rnd]] + [pps[:, rnd * npp + k] for k in range(npp)] + [zs_next[:, rnd]]
         for c in range(n_chunks):
-            num = den = one
-            for i in range(c * maxdeg, (c + 1) * maxdeg):
-                w = wires[:, i]
-                bz, bs = tf.escale(tf.mul(beta, k_is[i].expand(B)), zeta), tf.escale(beta, sigmas[:, i])
-                num = tf.emul(num, GExt(tf.add(tf.add(w.re, bz.re), gamma), tf.add(w.im, bz.im)))
-                den = tf.emul(den, GExt(tf.add(tf.add(w.re, bs.re), gamma), tf.add(w.im, bs.im)))
-            npp = n_chunks - 1
-            prev = zs[:, rnd] if c == 0 else pps[:, rnd * npp + c - 1]
-            nxt = zs_next[:, rnd] if c == n_chunks - 1 else pps[:, rnd * npp + c]
-            cols.append(tf.emul(prev, num) - tf.emul(nxt, den))
+            pairs = []
+            for lane in range(L):
+                wires_of_lane = range(c * maxdeg + lane, (c + 1) * maxdeg, L)
+                pair = (one, one)
+                for k, i in enumerate(wires_of_lane):
+                    num, den = terms(i)
+                    pair = (num, den) if k == 0 else (tf.emul(pair[0], num), tf.emul(pair[1], den))
+                pairs.append(pair)
+            num, den = _tree(pairs, lambda a, o, j: (tf.emul(a[0], o[0]), tf.emul(a[1], o[1])))
+            cols.append(tf.emul(current[c], num) - tf.emul(current[c + 1], den))
     out = tf.ext_stack(cols, dim=1) if cols else tf.ext_zeros((B, 0), zs.re.device)
     return out.re, out.im
 
@@ -794,7 +812,10 @@ def check_coset_fold(lib, c, rng, dev, max_lanes: int):
                     c.compare(got[k, :, lane, q], np.array(gold, np.uint64), f"{name}, lane {lane} query {q} vs golden")
 
 
-PP_SHAPES = [(37, 2, 8, 10), (5, 1, 2, 3), (1030, 3, 4, 1), (0, 2, 8, 10)]  # (B, r, maxdeg, n_chunks)
+# (B, r, maxdeg, n_chunks): the main path's shape at a B not a multiple of a block, maxdeg 1 to 8 (powers of two and
+# not: some lanes' second wire is past maxdeg), one above a warp (32 lanes, two wires or one each), no lanes
+PP_SHAPES = [(37, 2, 8, 10), (5, 1, 2, 3), (1030, 3, 4, 1), (29, 2, 3, 4), (11, 1, 5, 3), (7, 3, 7, 2), (9, 2, 40, 2),
+             (3, 1, 1, 5), (0, 2, 8, 10)]
 
 
 def golden_partial_products(n, zeta, zs, zs_next, pps, wires, sigmas, betas, gammas, k_is, maxdeg):
@@ -816,6 +837,33 @@ def golden_partial_products(n, zeta, zs, zs_next, pps, wires, sigmas, betas, gam
                 den = gf.emul(den, t)
             out.append(gf.esub(gf.emul(current[c], num), gf.emul(current[c + 1], den)))
     return out
+
+
+def partial_products_words(rng, B: int, r: int, maxdeg: int, n_chunks: int, n: int, above_p=()) -> dict:
+    """numpy words of one partial-product call: the openings (zs, zs_next
+    (B, r, 2), pps (B, r (n_chunks - 1), 2), wires and sigmas (B, maxdeg
+    n_chunks, 2)) from words(), zeta and the challenges canonical, zeta^n
+    and the inverse of n (zeta - 1) from golden/; in each lane of `above_p`
+    every opening word written as y + p (0 < y < 2^32 - 1)."""
+    ns = maxdeg * n_chunks
+    w = {"zs": words(rng, (B, r, 2)), "zs_next": words(rng, (B, r, 2)), "pps": words(rng, (B, r * (n_chunks - 1), 2)),
+         "wires": words(rng, (B, ns, 2)), "sigmas": words(rng, (B, ns, 2))}
+    for lane in above_p:
+        for x in w.values():
+            x[lane] = rng.integers(1, 2**32 - 1, size=x[lane].shape, dtype=np.uint64) + np.uint64(P)
+    w["zeta"] = rng.integers(2, P, size=(B, 2), dtype=np.uint64)
+    w["zeta_n"] = np.array([gf.epow((int(x), int(y)), n) for x, y in w["zeta"]], np.uint64).reshape(B, 2)
+    w["l0_den_inv"] = np.array([gf.einv(gf.escale(n, gf.esub((int(x), int(y)), gf.EXT_ONE))) for x, y in w["zeta"]], np.uint64).reshape(B, 2)
+    w["betas"], w["gammas"] = (rng.integers(0, P, size=(B, r), dtype=np.uint64) for _ in range(2))
+    w["k_is"] = rng.integers(0, P, size=ns, dtype=np.uint64)
+    return w
+
+
+def partial_products_args(w: dict, maxdeg: int, dev="cpu") -> tuple:
+    """partial_products_words' words as partial_products_plain's arguments."""
+    ext = lambda a: GExt(tf.from_u64(a[..., 0], dev), tf.from_u64(a[..., 1], dev))
+    return (ext(w["zeta_n"]), ext(w["l0_den_inv"]), ext(w["zs"]), ext(w["zs_next"]), ext(w["pps"]), ext(w["wires"]), ext(w["sigmas"]),
+            tf.from_u64(w["betas"], dev), tf.from_u64(w["gammas"], dev), ext(w["zeta"]), tf.from_u64(w["k_is"], dev), maxdeg)
 
 
 def check_partial_products(lib, c, rng, dev, max_lanes: int):

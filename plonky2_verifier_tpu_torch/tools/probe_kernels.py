@@ -3,7 +3,7 @@ what chip_smoke.py measures about the kernels, without the fixture and the
 verifier.
 
 Run from the repository root:
-  python3 -m plonky2_verifier_tpu_torch.tools.probe_kernels [--field | --stages | --lookup-lanes]
+  python3 -m plonky2_verifier_tpu_torch.tools.probe_kernels [--field | --stages | --lookup-lanes | --pp-lanes]
 
 With --field it builds, runs the whole check (step 2) and then only the
 field probe: the Horner sum at the main path's shapes (batch 1024, 28
@@ -19,10 +19,12 @@ partial products, the lookup argument -- as one JSON line: kernel ms by
 events, device ms, plain ms, bound and share. No check runs first; each
 timed call is held bit-exact against its plain version there.
 
-With --stages it then counts the SASS instructions of a product, an add
-and the extension ops (csrc/probe_field_sass.cu, read with cuobjdump) and
-prints the fold's and the lookup argument's own counts at those weights
-beside their device time, as a share of the card's issue rate.
+With --stages it then counts the SASS instructions of a product, an add,
+the extension ops and the once-reduced forms of the partial products
+(csrc/probe_field_sass.cu, read with cuobjdump) and prints the fold's, the
+lookup argument's and the partial products' own counts at W's reckoning
+and at those weights beside their device time, as a share of the card's
+int32 and issue rates.
 
 With --lookup-lanes it builds and times the lookup kernel on the gate
 zoo's call at batch 1024 (random proof words) on the lanes that
@@ -30,6 +32,17 @@ kernels.lookup_split gives at every pair of slots a lane and values a
 segment in 1, 2, 4, 8 (the shipped pair: LOOKUP_SLOTS_A_LANE and
 LOOKUP_VALUES_A_SEGMENT), passed to the wrapper, with the device ms; each
 call held bit-exact against the plain version.
+
+With --pp-lanes it builds the kernels with kernels.PP_VARIANTS_FLAG and
+times the partial-product kernel on the main path's call (the standard
+shape's template, batch 1024, random proof words) in both forms -- a group
+a (b, round, chunk), and a group a (b, chunk) whose lanes run the rounds
+one after the other -- at 1 to 32 lanes a chunk and under launch bounds of
+1, 3 and 4 blocks an SM, beside the shipped launch
+(kernels.partial_products_lanes, the first form), with the device ms and
+the kernel's own count; each call held bit-exact against the plain
+version. Last the shipped launch on one b: a block's time, the floor that
+a launch of the kernel costs under the device timing.
 
 1. builds the kernels and prints nvcc's registers and spills;
 2. runs tools/check_hash_kernels.py's check at a reduced random size (every kernel,
@@ -165,7 +178,8 @@ def probe_field(lib, rng, rate):
               f"by events {event_ms(run, 20, 3):.4f} ms, device {dev:.4f} ms (share {bound / dev:.3f}), the host's enqueue {_host_ms(run, 20):.4f} ms")
 
 
-SASS_OPS = ("mul", "add", "sub", "emul", "emul by a Point", "escale")  # csrc/probe_field_sass.cu's OP 0-5
+# csrc/probe_field_sass.cu's OP 0-8
+SASS_OPS = ("mul", "add", "sub", "emul", "emul by a Point", "escale", "mul_add", "mul_add2", "emul_once")
 
 
 def field_sass_counts() -> dict:
@@ -206,9 +220,9 @@ def field_sass_counts() -> dict:
 
 def probe_stages(lib, rate, smi: str):
     """chip_smoke.time_kernels at the main path's shapes; prints its stage
-    kernels' rows as one JSON line, then the SASS instructions a product
-    and an add execute (field_sass_counts) and the fold's and the lookup
-    argument's own counts at those weights beside their device time."""
+    kernels' rows as one JSON line, then the SASS instructions each of
+    goldilocks.cuh's ops executes (field_sass_counts) and the three stage
+    kernels' own counts at those weights beside their device time."""
     import json
 
     from .. import verifier_torch as vt
@@ -228,19 +242,54 @@ def probe_stages(lib, rate, smi: str):
     sass = field_sass_counts()
     for name, ops in sass.items():
         print(f"sass {name}: {sum(ops.values()):g} instructions: " + ", ".join(f"{op} {n:g}" for op, n in sorted(ops.items(), key=lambda kv: -kv[1])))
-    product, add = sum(sass["mul"].values()), sum(sass["add"].values())
+    total = {name: sum(ops.values()) for name, ops in sass.items()}
+    product, add = total["mul"], total["add"]
+    weights = {"mul": product, "mul_add": total["mul_add"], "mul_add2": total["mul_add2"], "emul": total["emul_once"], "sub": total["sub"]}
     zoo_v = TorchVerifier(zoo_tpl)
     zoo_dev = zoo_v.prepare(cs.random_arrays(zoo_tpl, cs.BATCH, zoo_tpl.num_queries, np.random.default_rng(5)))
     ((_, fold_args, _),) = cs.recorded_calls([(vt, "coset_folds")], v, dev)
     ((_, lookup_args, _),) = cs.recorded_calls([(vt, "lookup_checks")], zoo_v, zoo_dev)
+    ((_, pp_args, _),) = cs.recorded_calls([(vt, "partial_products")], v, dev)
     issue = rate / cs.INT32_LANES_PER_SM * 128  # 4 schedulers an SM, each a warp instruction a clock
-    for name, work in [("coset_fold", lambda **w: cs.fold_work(*fold_args, **w)[3]), ("lookup_checks", lambda **w: cs.lookup_work(*lookup_args, **w)[3])]:
+    counts = {"coset_fold": (cs.fold_work(*fold_args)[3], cs.fold_work(*fold_args, product=product, add=add)[3], f"{product:g} a product and {add:g} an add"),
+              "lookup_checks": (cs.lookup_work(*lookup_args)[3], cs.lookup_work(*lookup_args, product=product, add=add)[3],
+                                f"{product:g} a product and {add:g} an add"),
+              "partial_products": (cs.partial_products_work(*pp_args)[3], cs.partial_products_work(*pp_args, weights=weights)[3],
+                                   ", ".join(f"{k} {n:g}" for k, n in weights.items()))}
+    for name, (at_w, at_sass, weighed) in counts.items():
         ms = times[name]["device_ms"]
-        at_w, at_sass = work(), work(product=product, add=add)
-        print(f"sass {name}: its own count {at_w} instructions at {cs.PRODUCT} a product and {cs.ADD} an add, {at_sass} at {product:g} and {add:g} "
+        print(f"sass {name}: its own count {at_w} instructions at {cs.PRODUCT} a product and {cs.ADD} an add, {at_sass} at {weighed} "
               f"(the SASS counts above); over its device {ms:.4f} ms: {at_w / ms * 1e3:.4g} /s = {at_w / ms * 1e3 / rate:.3f} of the int32 rate, "
               f"{at_sass / ms * 1e3:.4g} SASS /s = {at_sass / ms * 1e3 / rate:.3f} of the int32 rate ({rate:.4g} /s), "
               f"{at_sass / ms * 1e3 / issue:.3f} of the issue rate ({issue:.4g} /s)")
+
+
+def probe_pp_lanes(lib, rng):
+    """The partial-product kernel's device ms on the main path's call in
+    both forms, at every lanes a chunk and under three launch bounds
+    (p2v_partial_products_variant), then the shipped launch on one b."""
+    from .. import verifier_torch as vt
+    from ..compiler import CircuitTemplate
+    from ..models.cache import get_fixture_proof
+
+    variants = kernels.KernelLibrary(kernels.build((kernels.PP_VARIANTS_FLAG,)))
+    tpl = CircuitTemplate(get_fixture_proof("fibonacci", **cs.STANDARD)[0])
+    v = vt.TorchVerifier(tpl)
+    ((_, args, _),) = cs.recorded_calls([(vt, "partial_products")], v, v.prepare(cs.random_arrays(tpl, cs.BATCH, tpl.num_queries, rng)))
+    want = cs.words_of(vt.partial_products_plain(*args))
+    pairs = [(x.re, x.im) if isinstance(x, tf.GExt) else x.contiguous() if isinstance(x, torch.Tensor) else x for x in args]
+    maxdeg = args[-1]
+    shipped = kernels.partial_products_lanes(maxdeg)
+    runs = [("the shipped launch", shipped, lambda: lib.partial_products(*pairs))] + [
+        (f"{lanes} lanes a {'(b, chunk), the rounds in turn' if all_rounds else '(b, round, chunk)'}, launch bound {blocks} blocks an SM",
+         lanes, lambda lanes=lanes, all_rounds=all_rounds, blocks=blocks: variants.partial_products(*pairs, variant=(lanes, all_rounds, blocks)))
+        for blocks in (1, 3, 4) for all_rounds in (False, True) for lanes in (1, 2, 4, 8, 16, 32)]
+    for what, lanes, run in runs:
+        if not torch.equal(cs.words_of(tf.GExt(*run())), want):
+            raise AssertionError(f"partial_products, {what}, differs from the plain version")
+        print(f"pp lanes: {what}: device {device_ms(run, 20, 3):.4f} ms; the kernel's own count {cs.partial_products_work(*args, lanes=lanes)[3]}")
+    one = [(x[0][:1], x[1][:1]) if isinstance(x, tuple) else x[:1] if i < 10 else x for i, x in enumerate(pairs)]
+    print(f"pp lanes: the shipped launch on one b (a block, the launch's floor): device {device_ms(lambda: lib.partial_products(*one), 20, 3):.4f} ms")
 
 
 def probe_lookup_lanes(rng):
@@ -290,6 +339,10 @@ def main():
         return
     if "--lookup-lanes" in sys.argv[1:]:
         probe_lookup_lanes(np.random.default_rng(5))
+        print(f"card: {smi}")
+        return
+    if "--pp-lanes" in sys.argv[1:]:
+        probe_pp_lanes(lib, np.random.default_rng(5))
         print(f"card: {smi}")
         return
     consts = tp.PoseidonConstants()

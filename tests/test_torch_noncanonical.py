@@ -1,9 +1,10 @@
-"""The port keeps the JAX package's bits where a subtraction's subtrahend is
-a raw proof word written as y + p (0 < y < 2^32 - 1) above the minuend + p.
-ops/field.sub, the port's as the JAX package's (plonky2_verifier_tpu/ops/
-field.py), is not exact mod p there; golden/ reduces its operands first and
-gives other words (ROADMAP.md Queue 3 lists every such site). Two sites
-subtract such a word:
+"""The port keeps the JAX package's bits on raw proof words above p.
+
+Where a subtraction's subtrahend is a raw proof word written as y + p
+(0 < y < 2^32 - 1) above the minuend + p, ops/field.sub, the port's as the
+JAX package's (plonky2_verifier_tpu/ops/field.py), is not exact mod p;
+golden/ reduces its operands first and gives other words (ROADMAP.md Queue
+3 lists every such site). Two sites subtract such a word:
 
 - the SLDC transition's sldc - prev in the lookup argument
   (`verifier_torch.lookup_checks_plain`; on the card csrc/plonk.cu, whose
@@ -18,7 +19,18 @@ openings of random words with such subtrahends written in, through the port
 also shows that it reaches the inexact subtraction: the same elements
 reduced first (golden/'s side) give other words on the probed lanes.
 
+L0 with the partial products is exact mod p on any words (csrc/plonk.cu
+says why), so there the reduced words give the same answer: on openings
+with every word y + p, `partial_products_plain` and the kernel's order
+(`check_field_kernels.partial_products_rows_plain`: lanes, shuffle tree)
+give the words of `JaxVerifier._plonk_checks`' head (verifier_jax.py:
+345-385, run eagerly up to the selectors) and of golden/'s terms on the
+reduced words, at maxdeg 2, 3, 5, 8 and 40 (above a warp) and 1-3 rounds.
+
 Tolerance: none (integers mod p, bit for bit)."""
+
+import inspect
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -34,7 +46,14 @@ from plonky2_verifier_tpu_torch.golden import field as gf
 from plonky2_verifier_tpu_torch.models.lookup import lookup_fixture
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops.field import GExt, to_u64
-from plonky2_verifier_tpu_torch.tools.check_field_kernels import probe_sldc_subtrahends, words
+from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
+    golden_partial_products,
+    partial_products_args,
+    partial_products_rows_plain,
+    partial_products_words,
+    probe_sldc_subtrahends,
+    words,
+)
 from plonky2_verifier_tpu_torch.tools.check_hash_kernels import PlainLibrary
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -113,3 +132,77 @@ def test_eval_selectors_equal_jax_on_noncanonical_subtrahends(verifiers):
 
     reduced = _words(tv._eval_selectors(_port(sels % np.uint64(P))))
     assert (reduced[1] != ref[1]).any()
+
+
+PP_CASES = [(2, 1, 3), (3, 2, 4), (5, 3, 3), (8, 2, 10), (40, 1, 2)]  # (maxdeg, r, n_chunks)
+PP_IDS = [f"maxdeg{m}-r{r}-chunks{c}" for m, r, c in PP_CASES]
+PP_N = 1 << 5
+
+
+def _pp_words(maxdeg, r, n_chunks):
+    """Lane 0 the words of words(), lanes 1 and 2 every opening word y + p."""
+    return partial_products_words(np.random.default_rng(40 + maxdeg + r), 3, r, maxdeg, n_chunks, PP_N, above_p=(1, 2))
+
+
+class _HeadDone(Exception):
+    pass
+
+
+def _jax_head(w: dict, maxdeg: int) -> np.ndarray:
+    """JaxVerifier._plonk_checks on the CPU, eagerly, as far as its first
+    call after the partial products (_eval_selectors), on a stand-in
+    template of these shapes; its (B, r + r n_chunks) head, zs1 ++ pp_vec,
+    read from the method's own frame there."""
+    B, r = w["zs"].shape[:2]
+    ns = w["sigmas"].shape[1]
+    common = SimpleNamespace(quotient_degree_factor=maxdeg, k_is=[int(k) for k in w["k_is"]], num_partial_products=ns // maxdeg - 1,
+                             num_lookup_polys=0)
+    tpl = SimpleNamespace(common=common, r=r, n=PP_N, n_sigmas=ns, n_gate_selectors=0, n_lookup_selectors=0)
+    head = {}
+
+    def eval_selectors(_):
+        head.update(inspect.currentframe().f_back.f_locals)
+        raise _HeadDone
+
+    e = lambda k: _jax(w[k])
+    betas, gammas = jf.from_u64(w["betas"]), jf.from_u64(w["gammas"])
+    with pytest.raises(_HeadDone):
+        JaxVerifier._plonk_checks(SimpleNamespace(tpl=tpl, _eval_selectors=eval_selectors), None, None, jf.ext_zeros((B, 0)),
+                                  e("sigmas"), e("wires"), e("zs"), e("zs_next"), e("pps"), None, None, None,
+                                  [betas[:, i] for i in range(r)], [gammas[:, i] for i in range(r)], [], [], e("zeta"))
+    out = jf.ext_concat([head["zs1"], head["pp_vec"]], axis=1)
+    return np.stack([np.asarray(x) for x in jf.ext_to_u64(out)], axis=-1)
+
+
+@pytest.mark.parametrize("maxdeg,r,n_chunks", PP_CASES, ids=PP_IDS)
+def test_partial_products_equal_jax_on_words_above_p(maxdeg, r, n_chunks):
+    """partial_products_plain and the kernel's order give JaxVerifier's L0
+    and partial-product head word for word, lanes 1 and 2 with every
+    opening word y + p."""
+    w = _pp_words(maxdeg, r, n_chunks)
+    assert (w["wires"][1] >= P).all() and (w["pps"][2] >= P).all()
+    args = partial_products_args(w, maxdeg)
+    ref = _jax_head(w, maxdeg)
+    assert ref.shape == (3, r + r * n_chunks, 2)
+    np.testing.assert_array_equal(_words(vt.partial_products_plain(*args)), ref)
+    order = partial_products_rows_plain(*[(x.re, x.im) if isinstance(x, GExt) else x for x in args])
+    np.testing.assert_array_equal(_words(GExt(*order)), ref)
+
+
+@pytest.mark.parametrize("maxdeg,r,n_chunks", PP_CASES, ids=PP_IDS)
+def test_partial_products_plain_equals_golden_on_reduced_words(maxdeg, r, n_chunks):
+    """Every op of L0 and the partial products is exact mod p on any u64
+    words: on the words y + p the plain version gives golden/'s terms on
+    the same words reduced mod p, every lane, and its own words on the
+    reduced inputs."""
+    w = _pp_words(maxdeg, r, n_chunks)
+    got = _words(vt.partial_products_plain(*partial_products_args(w, maxdeg)))
+    reduced = {k: x % np.uint64(P) for k, x in w.items()}
+    np.testing.assert_array_equal(_words(vt.partial_products_plain(*partial_products_args(reduced, maxdeg))), got)
+    ints = lambda a: [tuple(int(v) for v in x) for x in a]
+    for lane in range(3):
+        gold = golden_partial_products(PP_N, tuple(int(v) for v in reduced["zeta"][lane]), ints(reduced["zs"][lane]),
+                                       ints(reduced["zs_next"][lane]), ints(reduced["pps"][lane]), ints(reduced["wires"][lane]),
+                                       ints(reduced["sigmas"][lane]), [int(x) for x in reduced["betas"][lane]],
+                                       [int(x) for x in reduced["gammas"][lane]], [int(x) for x in reduced["k_is"]], maxdeg)
+        assert [tuple(int(v) for v in x) for x in got[lane]] == gold, lane

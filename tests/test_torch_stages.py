@@ -10,7 +10,9 @@ argument (csrc/plonk.cu) -- on the CPU, where they run their plain versions.
   golden/plonk.py `eval_all_plonk_constraints` on a proof's openings and
   challenges, lane by lane (an intact lane, a lane with a partial-product
   opening flipped, a lane with its openings written as x + p); the kernel's
-  order against the plain version.
+  order (lanes a chunk, their shuffle tree) against the plain version at
+  maxdeg 1 to 40 on every lane count a chunk the kernel takes, with every
+  opening word y + p in two lanes.
 - The card paths' argument marshaling (`verifier_torch._coset_folds_kernel`,
   `_partial_products_kernel`, `_lookup_checks_kernel`) with a stand-in
   library that records what it was given and computes in the kernels' own
@@ -52,7 +54,9 @@ from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
     LOOKUP_SHAPES,
     coset_fold_rows_plain,
     lookup_checks_rows_plain,
+    partial_products_args,
     partial_products_rows_plain,
+    partial_products_words,
     probe_sldc_subtrahends,
     words,
 )
@@ -253,6 +257,25 @@ def test_partial_products_plain_equals_golden_terms(two_steps):
     pairs = [(x.re, x.im) if isinstance(x, GExt) else x for x in args]
     re, im = partial_products_rows_plain(*pairs)
     assert torch.equal(re, got.re) and torch.equal(im, got.im)
+
+
+@pytest.mark.parametrize("maxdeg,r,n_chunks", [(1, 2, 5), (2, 1, 3), (3, 2, 4), (5, 3, 3), (8, 2, 10), (40, 1, 2)],
+                         ids=["maxdeg1", "maxdeg2", "maxdeg3", "maxdeg5", "maxdeg8", "maxdeg40"])
+def test_partial_products_kernel_order_equals_plain(maxdeg, r, n_chunks):
+    """The kernel's order in PyTorch (partial_products_rows_plain: a lane's
+    wires in order, the lanes' pairs joined by the shuffle tree, lanes past
+    maxdeg holding 1) gives partial_products_plain's words, word for word,
+    on the lanes kernels.partial_products_lanes gives and on every other
+    power of two up to 32, with every opening word y + p in lanes 1 and 2
+    and the p-edge band and words x + p in lane 0."""
+    w = partial_products_words(np.random.default_rng(60 + maxdeg), 3, r, maxdeg, n_chunks, 1 << 4, above_p=(1, 2))
+    args = partial_products_args(w, maxdeg)
+    want = vt.partial_products_plain(*args)
+    assert want.shape == (3, r + r * n_chunks)
+    pairs = [(x.re, x.im) if isinstance(x, GExt) else x for x in args]
+    for lanes in (None, 1, 2, 4, 8, 16, 32):
+        re, im = partial_products_rows_plain(*pairs, lanes=lanes)
+        assert torch.equal(re, want.re) and torch.equal(im, want.im), lanes
 
 
 class _Recording:

@@ -78,8 +78,14 @@ success):
    bound, the exponentiation also beside one call a power; the coset
    folds, L0 with the partial products and the lookup argument (the gate
    zoo's alone) likewise;
-6. timing: 5 verifier calls after warm-up -> proofs/s, step ms, and the
-   transcript alone;
+6. timing: 5 verifier calls after warm-up, each until its verdict is on
+   the host (bench.time_calls, the benchmark's own timing) -> proofs/s and
+   step ms of the median call, and the transcript alone; then
+   `python3 bench_torch.py` once in a process of its own (10 timed calls at
+   batch 1024 on the standard fixture and the kernels of this run): exit 0,
+   one JSON line, every proof accepted, its seeded fault lanes rejected,
+   every kernel the main path launched launched, the card named as
+   nvidia-smi names it;
 7. second path: the gate-zoo fixture with lookups (degree 12, 28 queries,
    PoW 16; proved by a child process that starts with phase 2 and is waited
    for here), at batch 512 and 1024: all accepted, lane 0's transcript
@@ -159,7 +165,7 @@ ZOO = {"target_degree_bits": 12, "num_query_rounds": 28, "proof_of_work_bits": 1
 ZOO_BATCHES = [512, 1024]
 TIMED_CALLS = 5
 ZOO_TIMED_CALLS = 2
-MUTATED = ["openings1", "pow_witness", "leaves_1", "final_poly", "public_inputs", "circuit_digest"]
+BENCH_ITERS, BENCH_TIMEOUT_S = 10, 300  # bench_torch.py's timed calls in its one run here, and its time limit
 INGEST_PROOFS = 64
 STREAM_PROOFS, STREAM_CORRUPT_EVERY = 10_000, 1000
 CLI_BATCH, CLI_REPEAT, CLI_VERIFY_BATCH = 512, 1024, 4
@@ -878,15 +884,12 @@ def _check_launches(launches, what: str, tpl):
 
 def _check_mutations(tpl, arrays, batch: int, names):
     """Lane k gets one u64 of array names[k] flipped (a (name, column) pair
-    flips that column's first word); exactly those lanes must be rejected,
-    through the one-call entry point."""
+    flips that column's first word; bench.fault_lanes); exactly those lanes
+    must be rejected, through the one-call entry point."""
+    from plonky2_verifier_tpu_torch.bench import fault_lanes
     from plonky2_verifier_tpu_torch.verifier_torch import verify_batch
 
-    mutated = {k: a.copy() for k, a in arrays.items()}
-    for lane, name in enumerate(names):
-        name, column = name if isinstance(name, tuple) else (name, 0)
-        mutated[name].reshape(batch, -1)[lane, column] ^= np.uint64(1)
-    out_m = verify_batch(tpl, mutated, device=DEVICE)["ok"]
+    out_m = verify_batch(tpl, fault_lanes(arrays, batch, list(enumerate(names))), device=DEVICE)["ok"]
     rejected = sorted(int(i) for i in np.flatnonzero(~out_m))
     print(f"mutations {names}: rejected lanes {rejected}")
     if rejected != list(range(len(names))):
@@ -896,6 +899,7 @@ def _check_mutations(tpl, arrays, batch: int, names):
 def main_path(lib, checks):
     import torch
 
+    from plonky2_verifier_tpu_torch.bench import FAULTED
     from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
     from plonky2_verifier_tpu_torch.metrics import perms_per_proof
     from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
@@ -932,7 +936,7 @@ def main_path(lib, checks):
     _check_launches(launches, "the main path", tpl)
     _transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
     print("lane 0 transcript equals golden")
-    _check_mutations(tpl, arrays, BATCH, MUTATED)
+    _check_mutations(tpl, arrays, BATCH, list(FAULTED))
 
     fx0 = fibonacci_fixture(num_query_rounds=6)
     tpl6 = CircuitTemplate(fx0.common)
@@ -949,21 +953,20 @@ def main_path(lib, checks):
 
 
 def time_main_path(v, dev, batch: int, iters: int, warmup: int = 2):
+    """bench.time_calls, the benchmark's own timing: `iters` calls, each
+    until its verdict is on the host, after `warmup`; returns the median
+    step in seconds."""
     import torch
 
+    from plonky2_verifier_tpu_torch.bench import step_stats, time_calls
     from plonky2_verifier_tpu_torch.tools.bench_poseidon import event_ms
 
-    for _ in range(warmup):
-        v(dev)
-    torch.cuda.synchronize()
-    t = time.time()
-    for _ in range(iters):
-        out = v(dev)
-    torch.cuda.synchronize()
-    step = (time.time() - t) / iters
-    if not bool(out["ok"].all()):
+    timed = time_calls(v, dev, iters, warmup)
+    if not timed["all_verified"]:
         raise AssertionError("timed batch not fully accepted")
-    print(f"step_ms {step * 1e3:.3f}")
+    stats = step_stats(timed["steps_s"])
+    step = stats["step_ms_median"] / 1e3
+    print(f"step_ms {step * 1e3:.3f} (the median of {iters} calls; min {stats['step_ms_min']:.3f}, max {stats['step_ms_max']:.3f})")
     print(f"proofs_per_s {batch / step:.1f}")
     print(f"batch {batch}")
 
@@ -972,6 +975,43 @@ def time_main_path(v, dev, batch: int, iters: int, warmup: int = 2):
     data = v._transcript_data(dev, pi_hash)
     print(f"transcript_ms {event_ms(lambda: v._run_transcript(data), 20, 2):.3f}")
     return step
+
+
+def bench_once(smi: str, main_launches: dict):
+    """`python3 bench_torch.py` once, in a process of its own, on the
+    standard fixture this run proved and the kernels it built, BENCH_ITERS
+    calls at BATCH: exit 0, one JSON line, every proof accepted, the seeded
+    faults rejected on exactly their lanes, every kernel the main path
+    launched launched by the bench too, and the card named as nvidia-smi
+    names it. Returns the line."""
+    from plonky2_verifier_tpu_torch import bench
+
+    env = dict(os.environ, BENCH_MODE="batch", BENCH_MODEL="fibonacci", BENCH_BATCH=str(BATCH), BENCH_ITERS=str(BENCH_ITERS))
+    for k in ("BENCH_DEGREE_BITS", "BENCH_QUERIES", "BENCH_POW_BITS"):
+        env.pop(k, None)
+    if bench.fixture_params(bench.settings(env)) != STANDARD:
+        raise AssertionError(f"the bench's fixture {bench.fixture_params(bench.settings(env))} is not this run's {STANDARD}")
+    t = time.time()
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    if res.returncode != 0:
+        raise RuntimeError(f"bench_torch.py exited {res.returncode}:\n{res.stdout}\n{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} lines, not one: {res.stdout[-2000:]}")
+    line = json.loads(lines[0])
+    print(f"bench_torch ({time.time() - t:.1f} s): {lines[0]}")
+    if not (line["all_verified"] and line["faults_rejected"] and line["fault_lanes"] == line["rejected_lanes"] and line["fault_lanes"]):
+        raise AssertionError(f"bench_torch.py's gate: all_verified {line['all_verified']}, faults {line['fault_lanes']}, "
+                             f"rejected {line['rejected_lanes']}")
+    if (line["step_count"], line["batch"], line["mode"]) != (BENCH_ITERS, BATCH, "batch"):
+        raise AssertionError(f"bench_torch.py timed {line['step_count']} calls at batch {line['batch']} in mode {line['mode']}")
+    missing = [k for k, n in main_launches.items() if n > 0 and not line["kernel_launches"][k] > 0]
+    if missing:
+        raise AssertionError(f"bench_torch.py never launched {missing}, which the main path launched: {line['kernel_launches']}")
+    if line["device"] != smi:
+        raise AssertionError(f"bench_torch.py names the device {line['device']!r}, nvidia-smi {smi!r}")
+    return line
 
 
 PROVER = """
@@ -1024,13 +1064,13 @@ def zoo_path(lib, zoo, checks):
     each batch's first call."""
     import torch
 
+    from plonky2_verifier_tpu_torch.bench import FAULTED, lookup_opening_column
     from plonky2_verifier_tpu_torch.compiler import flatten_proofs
     from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 
     tpl, common, vkey, pwp = zoo
     # one u64 flipped in each array, and a lookup opening inside openings1
-    lookup_at = 2 * (tpl.n_const_cols + tpl.n_sigmas + tpl.num_wires + tpl.n_zs + tpl.n_pp + tpl.n_quot)
-    names = MUTATED + [("openings1", lookup_at)]
+    names = list(FAULTED) + [("openings1", lookup_opening_column(tpl))]
     v = TorchVerifier(tpl, debug=True, device=DEVICE)
     counts = {}
     for batch in ZOO_BATCHES:
@@ -1487,6 +1527,7 @@ def main():
     times = time_kernels(lib, consts, v, dev, checks, rate, zoo[0])
     step_s = time_main_path(v, dev, BATCH, TIMED_CALLS)
     del v, dev
+    bench_once(smi, launches)
     phase("kernel times and timed calls")
     zoo_launches = zoo_path(lib, zoo, checks)
     phase("gate-zoo path")

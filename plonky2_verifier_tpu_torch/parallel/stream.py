@@ -276,6 +276,26 @@ class StreamVerifier:
             self._fold(self._pending, on_batch)
             self._pending = None
 
+    def warm_up(self, group: list) -> float:
+        """Verify one group of `batch` items outside the metrics: a
+        process's first call pays the kernels' first launches and the
+        template's constants, which a server pays once. On a mesh every rank
+        calls it with the same group, and it returns once every rank has.
+        The metrics start anew after it. Returns its seconds."""
+        if len(group) != self.batch:
+            raise ValueError(f"a warm-up group has {self.batch} items, not {len(group)}")
+        t0 = time.time()
+        dev, slot, _, _ = self._ingest(group)
+        with torch.no_grad():
+            if self._staging is None:
+                self._v.to_host(self._v(dev, queries=self._sharded.queries))
+            else:
+                self._staging.call(self._v, dev, slot, self._sharded.queries)()
+        if self.mesh.world_size > 1:
+            torch.distributed.barrier()
+        self.metrics = StreamMetrics(perms_per_proof=self.metrics.perms_per_proof, queries_per_proof=self.metrics.queries_per_proof)
+        return time.time() - t0
+
     def run(
         self,
         proofs: Iterable[Tuple],

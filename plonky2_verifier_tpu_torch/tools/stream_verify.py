@@ -47,15 +47,19 @@ def proof_stream(vkey, pwp, n: int, corrupt_every: int, raw: bool):
     return items(), (n // corrupt_every if corrupt_every else 0)
 
 
-def stream_rank(items, batch: int, dp: int, qp: int, raw: bool, device, common=None) -> dict:
+def stream_rank(items, batch: int, dp: int, qp: int, raw: bool, device, common=None, warm_up=None) -> dict:
     """One rank's run of a stream over a dp x qp mesh, to be called by every
     rank of an initialised process group with the same arguments: `items`
     through StreamVerifier (the template of `common`) or, without `common`,
     (common, vkey, proof) triples through BucketedStreamVerifier. Returns
     the rank and the counts {"proofs", "accepted", "rejected", "batches"},
-    per shape key in the bucketed form. The stream's counterpart of
-    parallel.verify_sharded: a target for parallel.run_ranks, whose children
-    import the module that holds it, so it lives in the package."""
+    per shape key in the bucketed form; the StreamVerifier form adds its
+    final snapshot, ingest times and, on the card, the kernels' launches over
+    the stream. `warm_up` (the StreamVerifier form): a group of `batch` items
+    verified before the stream, outside its metrics and counts. The stream's
+    counterpart of parallel.verify_sharded: a target for parallel.run_ranks,
+    whose children import the module that holds it, so it lives in the
+    package."""
     from ..compiler import CircuitTemplate
     from ..parallel import BucketedStreamVerifier, StreamVerifier, make_mesh
 
@@ -65,7 +69,17 @@ def stream_rank(items, batch: int, dp: int, qp: int, raw: bool, device, common=N
         per_shape = BucketedStreamVerifier(batch, mesh=mesh, raw_json=raw, device=device).run(items)
         return {"rank": mesh.rank, "per_shape": {k: counts(m) for k, m in per_shape.items()}}
     sv = StreamVerifier(CircuitTemplate(common), batch, mesh=mesh, raw_json=raw, device=device)
-    return {"rank": mesh.rank, "ingest_workers": sv.ingest_workers, **counts(sv.run(items))}
+    warm_up_s = sv.warm_up(warm_up) if warm_up is not None else 0.0
+    lib = None
+    if sv.device.type == "cuda":
+        from .. import kernels
+
+        lib = kernels.load()
+        lib.reset_launches()
+    m = sv.run(items)
+    return {"rank": mesh.rank, "ingest_workers": sv.ingest_workers, **counts(m), "snapshot": m.snapshot(), "warm_up_s": warm_up_s,
+            "ingest_work_s": sv.ingest_work_s, "ingest_s": m.ingest_s, "device_wait_s": m.device_wait_s,
+            "launches": dict(lib.launches) if lib is not None else None}
 
 
 def main(argv=None):

@@ -1,7 +1,8 @@
 """The port's import boundary and device dispatch, on a machine without CUDA.
 
-- Importing every port module (and chip_smoke.py) loads no JAX and nothing
-  of the JAX package; no source file of the port, nor chip_smoke.py, holds
+- Importing every port module (and chip_smoke.py, bench_torch.py) loads no
+  JAX and nothing of the JAX package; no source file of the port, nor
+  chip_smoke.py or bench_torch.py, holds
   an import of either at any depth of nesting; a CPU rehearsal of
   chip_smoke's paths (main, gate zoo, ingest, stream, command line, shapes,
   the mesh of processes and the profile) loads neither, in this process or
@@ -69,7 +70,9 @@ PORT_MODULES = [
     "plonky2_verifier_tpu_torch.tools.stream_verify",
     "plonky2_verifier_tpu_torch.tools.bench_ingest",
     "plonky2_verifier_tpu_torch.tools.shape_circuits",
+    "plonky2_verifier_tpu_torch.bench",
     "chip_smoke",
+    "bench_torch",
 ]
 FORBIDDEN = ["jax", "jaxlib", "plonky2_verifier_tpu"]
 _LOADED_FORBIDDEN = f"[m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]"
@@ -94,7 +97,7 @@ def test_import_loads_no_jax(module):
 
 
 def _port_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch.py")]
     for folder, _, names in os.walk(os.path.join(ROOT, "plonky2_verifier_tpu_torch")):
         files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -102,7 +105,7 @@ def _port_sources():
 
 def test_no_source_imports_jax_or_the_jax_package():
     """An `import` or `from` of a forbidden package anywhere in the port's
-    sources or chip_smoke.py, inside functions too."""
+    sources, chip_smoke.py or bench_torch.py, inside functions too."""
     files = _port_sources()
     assert len(files) > 40
     bad = []

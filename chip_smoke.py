@@ -135,7 +135,7 @@ success):
    mesh=2 x 1): 8,184 / 8 and 4 batches on both ranks, launches a rank 4 / 8
    / 12, proofs/s over all beside phase 9's one-process stream;
 13. tools/profile_verifier.py at the standard shape and at the gate zoo's,
-   batch 1024: stage times (a synchronise around each), cudaLaunchKernel
+   batch 1024: stage times (the tracer's spans, device ms), cudaLaunchKernel
    calls a forward, kernel time and the card's idle share (torch.profiler),
    seconds to construct, for the first call and for a warm call.
 The line before the last is the kernels' JSON summary; the last line is

@@ -24,14 +24,21 @@ copy that read it has finished. The verdict returns into a pinned buffer
 behind an event of its own, so folding batch k waits for batch k alone.
 
 The metrics in the port (metrics.StreamMetrics) are the calling thread's
-own time, so they never overlap and `ingest_s + device_wait_s <= elapsed_s`:
+own time, so they never overlap and `ingest_s + device_wait_s <= elapsed_s`.
+They are summed from the stream's spans (tracing.py, one clock for both
+threads; a span enters the tracer's store only while tracing is on): a
+batch's "stream.ingest" (on whichever thread makes it ready),
+"stream.dispatch" (the verifier call) and "stream.wait" (the verdict), each
+carrying the batch's number.
 - `ingest_s`: time the calling thread paid for making batches ready (parse
-  and flatten, stage, enqueue the copy to the device): all of it in
-  `submit()`, and in `run()` only what it waited for the prefetch thread.
-  `ingest_work_s` (an attribute of the StreamVerifier) is the whole time
-  spent making batches ready on whichever thread, so
-  1 - ingest_s / ingest_work_s is the share that the prefetch hid.
-- `device_wait_s`: time the calling thread was blocked on a verdict's event.
+  and flatten, stage, enqueue the copy to the device): all of each
+  "stream.ingest" in `submit()`, and in `run()` the part of it that the
+  calling thread's wait for the prefetch thread overlaps, so never more.
+  `ingest_work_s` (an attribute of the StreamVerifier) is the whole of the
+  "stream.ingest" spans, so 1 - ingest_s / ingest_work_s is the share that
+  the prefetch hid.
+- `device_wait_s`: the "stream.wait" spans, the calling thread blocked on a
+  verdict's event.
 - `elapsed_s - ingest_s - device_wait_s` is the rest of the calling thread's
   time: the verifier calls, and reading the proofs from their iterator.
 
@@ -63,6 +70,7 @@ from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..compiler.flatten import flatten_proofs
 from ..compiler.template import CircuitTemplate
 from ..metrics import StreamMetrics, perms_per_proof
@@ -112,6 +120,15 @@ def init_distributed(backend: Optional[str] = None, device=None) -> bool:
         torch.cuda.set_device(index)
     join_group(backend, f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", rank, world_size)
     return True
+
+
+def paid_ns(ingest, waited: Optional[Tuple[int, int]]) -> int:
+    """What the calling thread paid of a batch's "stream.ingest" span: the
+    part of it that its wait (host ns, from and to) overlaps, or all of it
+    where it made the batch itself (`waited` None)."""
+    if waited is None:
+        return ingest.host_end - ingest.host_start
+    return max(0, min(waited[1], ingest.host_end) - max(waited[0], ingest.host_start))
 
 
 class _CardStaging:
@@ -217,7 +234,7 @@ class StreamVerifier:
             perms_per_proof=perms_per_proof(tpl), queries_per_proof=tpl.num_queries
         )
         self.ingest_work_s = 0.0  # making batches ready, on whichever thread; metrics.ingest_s is the part the caller paid
-        self._pending = None  # (wait for the ok lanes, live) dispatched but not folded yet
+        self._pending = None  # (wait for the ok lanes, live, batch number) dispatched but not folded yet
 
     def _batches(self, proofs: Iterable[Tuple]) -> Iterator[Tuple[list, int]]:
         buf: list = []
@@ -240,22 +257,24 @@ class StreamVerifier:
 
     def _ingest(self, group: list):
         """Make one full-size batch ready on the device: flatten, stage, start
-        the copy. Returns (device arrays, buffer set, seconds, proofs). Runs
-        on the prefetch thread in run()."""
-        t0 = time.time()
-        arrays = self._sharded.cut_queries(self._flatten(group[self._lanes]))
-        slot = self._staged % _CardStaging.SETS
+        the copy. Returns (device arrays, buffer set, its "stream.ingest"
+        span, proofs). Runs on the prefetch thread in run()."""
+        number = self._staged
         self._staged += 1
-        dev = self._v.prepare(arrays) if self._staging is None else self._staging.load(arrays, slot)
-        return dev, slot, time.time() - t0, len(group)
+        with tracing.Span("stream.ingest", number) as span:
+            arrays = self._sharded.cut_queries(self._flatten(group[self._lanes]))
+            slot = number % _CardStaging.SETS
+            dev = self._v.prepare(arrays) if self._staging is None else self._staging.load(arrays, slot)
+        return dev, slot, span, len(group)
 
-    def _dispatch(self, ready, live: int, on_batch, paid_s: Optional[float] = None) -> None:
-        """`paid_s`: what the calling thread waited for `ready`; by default
-        the whole time it took to make ready."""
-        dev, slot, dt, n = ready
-        self.ingest_work_s += dt
-        self.metrics.record_ingest(dt if paid_s is None else paid_s, n)
-        with torch.no_grad():
+    def _dispatch(self, ready, live: int, on_batch, waited: Optional[Tuple[int, int]] = None) -> None:
+        """`waited`: the calling thread's wait for `ready` (host ns, from and
+        to), of which the part inside its "stream.ingest" was paid; without
+        it the whole span was."""
+        dev, slot, span, n = ready
+        self.ingest_work_s += span.host_s
+        self.metrics.record_ingest(paid_ns(span, waited) / 1e9, n)
+        with torch.no_grad(), tracing.span("stream.dispatch", span.request):
             if self._staging is None:
                 out = self._v(dev, queries=self._sharded.queries)
                 wait = lambda: self._v.to_host(out)
@@ -263,7 +282,7 @@ class StreamVerifier:
                 wait = self._staging.call(self._v, dev, slot, self._sharded.queries)
         if self._pending is not None:
             self._fold(self._pending, on_batch)
-        self._pending = (wait, live)
+        self._pending = (wait, live, span.request)
 
     def submit(self, group: list, live: int, on_batch=None) -> None:
         """Make one full-size batch ready and dispatch it; folds the previous
@@ -307,9 +326,9 @@ class StreamVerifier:
 
         def dispatch(ahead):
             future, live = ahead
-            t0 = time.time()
+            t0 = time.time_ns()
             ready = future.result()
-            self._dispatch(ready, live, on_batch, paid_s=time.time() - t0)
+            self._dispatch(ready, live, on_batch, waited=(t0, time.time_ns()))
 
         with ThreadPoolExecutor(max_workers=1, thread_name_prefix="p2v-ingest") as pool:
             ahead = None
@@ -324,10 +343,10 @@ class StreamVerifier:
         return self.metrics
 
     def _fold(self, pending, on_batch) -> None:
-        wait, live = pending
-        t0 = time.time()
-        ok = wait()
-        self.metrics.record_device_wait(time.time() - t0)
+        wait, live, number = pending
+        with tracing.Span("stream.wait", number) as span:
+            ok = wait()
+        self.metrics.record_device_wait(span.host_s)
         # this rank's live lanes of a padded last batch; a rank with none still joins the collectives
         mine = min(max(live - self._lanes.start, 0), len(ok))
         if self._sharded.shard_queries:

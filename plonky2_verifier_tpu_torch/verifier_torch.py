@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import tracing
 from .compiler.template import CircuitTemplate
 from .gates import CONST, LKPSEL, PI, SEL, WIRE
 from .golden import field as gf
@@ -453,7 +454,6 @@ class TorchVerifier(nn.Module):
             raise ValueError("lde domains beyond 2^32 and PoW beyond 32 bits are unsupported")
         self.tpl = tpl
         self.debug = debug
-        self.on_stage = None  # tools/profile_verifier.py: called with a stage's name where the stage ends
         common = tpl.common
 
         self.poseidon = tp.PoseidonConstants(device)
@@ -576,12 +576,11 @@ class TorchVerifier(nn.Module):
         checks query rounds q0 ... q1 - 1 alone: the per-query arrays of `a`
         (QUERY_AXIS_ARRAYS) arrive already cut to those rounds, and `fri_ok`
         is this slice's share of the verdict, to be ANDed with the other
-        slices' (parallel/mesh.py)."""
-        return self._verify(a, queries)
-
-    def _stage(self, name: str) -> None:
-        if self.on_stage is not None:
-            self.on_stage(name)
+        slices' (parallel/mesh.py). Traced (tracing.py) in the span
+        "forward", its stages "challenges", "plonk_checks" and "fri_checks",
+        and their parts."""
+        with tracing.forward(self._ov_idx.device):
+            return self._verify(a, queries)
 
     # -- transcript -------------------------------------------------------------
     def _transcript_data(self, a, pi_hash):
@@ -624,20 +623,21 @@ class TorchVerifier(nn.Module):
             for name, x in a.items():
                 if is_query_axis_array(name) and x.shape[1] != q1 - q0:
                     raise ValueError(f"{name} holds {x.shape[1]} query rounds, the slice {q0}:{q1} needs {q1 - q0}")
-        pi_hash = th.sponge_rows(a["public_inputs"], tpl.n_pi, self.poseidon)
-        self._stage("pi hash")
-        ch = self._run_transcript(self._transcript_data(a, pi_hash))
-        self._stage("transcript")
-        betas, gammas, alphas = ch["betas"], ch["gammas"], ch["alphas"]
-        zeta = GExt(*ch["zeta"])
-        fri_alpha = GExt(*ch["fri_alpha"])
-        fri_betas = [GExt(*ch[f"fri_beta_{i}"]) for i in range(len(tpl.steps))]
-        pow_response = ch["pow_response"][0]
-        # lde_n <= 2^32, so the index is a low-bit mask of the canonical u64
-        qidx = torch.stack([q & (tpl.lde_n - 1) for q in ch["query_indices"]], dim=1)  # (B, Q)
-        fri_qidx = qidx if queries is None else qidx[:, q0:q1]
-        pw = self._powers_and_inverses(zeta, fri_alpha, fri_qidx)
-        self._stage("powers and inverses")
+        with tracing.span("challenges"):
+            pi_hash = th.sponge_rows(a["public_inputs"], tpl.n_pi, self.poseidon)
+            tracing.mark("pi hash")
+            ch = self._run_transcript(self._transcript_data(a, pi_hash))
+            tracing.mark("transcript")
+            betas, gammas, alphas = ch["betas"], ch["gammas"], ch["alphas"]
+            zeta = GExt(*ch["zeta"])
+            fri_alpha = GExt(*ch["fri_alpha"])
+            fri_betas = [GExt(*ch[f"fri_beta_{i}"]) for i in range(len(tpl.steps))]
+            pow_response = ch["pow_response"][0]
+            # lde_n <= 2^32, so the index is a low-bit mask of the canonical u64
+            qidx = torch.stack([q & (tpl.lde_n - 1) for q in ch["query_indices"]], dim=1)  # (B, Q)
+            fri_qidx = qidx if queries is None else qidx[:, q0:q1]
+            pw = self._powers_and_inverses(zeta, fri_alpha, fri_qidx)
+            tracing.mark("powers and inverses")
 
         def ext_view(x):
             return GExt(x[..., 0], x[..., 1])
@@ -663,11 +663,13 @@ class TorchVerifier(nn.Module):
             all4 = betas + gammas + ch["deltas"]
             deltas = [tuple(all4[i : i + 4]) for i in range(0, len(all4), 4)]
 
-        eqs_ok = self._plonk_checks(
-            pi_hash, constants, sigmas, wires, zs, zs_next, pps, lookup_zs, lookup_zs_next, quots,
-            betas, gammas, alphas, deltas, zeta, pw,
-        )
-        fri_ok = self._fri_checks(a, o1, o2, fri_alpha, fri_betas, pow_response, fri_qidx, final_poly, pw)
+        with tracing.span("plonk_checks"):
+            eqs_ok = self._plonk_checks(
+                pi_hash, constants, sigmas, wires, zs, zs_next, pps, lookup_zs, lookup_zs_next, quots,
+                betas, gammas, alphas, deltas, zeta, pw,
+            )
+        with tracing.span("fri_checks"):
+            fri_ok = self._fri_checks(a, o1, o2, fri_alpha, fri_betas, pow_response, fri_qidx, final_poly, pw)
 
         out = {"ok": eqs_ok & fri_ok, "eqs_ok": eqs_ok, "fri_ok": fri_ok}
         if self.debug:
@@ -727,7 +729,7 @@ class TorchVerifier(nn.Module):
         zeta_n = pw["zeta_n"]
         head = partial_products(zeta_n, pw["l0_den_inv"], zs, zs_next, pps, wires[:, : tpl.n_sigmas], sigmas,
                                 torch.stack(betas, dim=1), torch.stack(gammas, dim=1), zeta, self._k_is, maxdeg)
-        self._stage("plonk: L0 and partial products")
+        tracing.mark("plonk: L0 and partial products")
 
         # gate constraints
         sel_values = self._eval_selectors(gate_sels)  # (B, n_gates)
@@ -745,14 +747,14 @@ class TorchVerifier(nn.Module):
         if live:
             sel_live = sel_values[:, live]
             acc = ext_sum_axis(tf.emul(sel_live.unsqueeze(-1), cons_all), axis=1)
-        self._stage("plonk: selectors and gate program")
+        tracing.mark("plonk: selectors and gate program")
 
         # assemble, alpha-combine, quotient equation
         lookup_vec = []
         if common.num_lookup_polys > 0:
             lookup_vec = [lookup_checks(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, self._lut_coeffs, self._lut_off,
                                         common.config.num_routed_wires, maxdeg, lanes=self._lookup_lanes)]
-        self._stage("plonk: lookup argument")
+        tracing.mark("plonk: lookup argument")
         constraint_vec = tf.ext_concat([head] + lookup_vec + [acc], dim=1)  # (B, K)
         combined = horner_scaled(constraint_vec, torch.stack(alphas, dim=1))  # (B, r)
         quots_r = quots.reshape(B, r, maxdeg)
@@ -760,7 +762,7 @@ class TorchVerifier(nn.Module):
         zn1 = zeta_n - tf.ext_constant(1, shape=(B,), device=dev)
         ok = tf.ext_equal(tf.emul(q, zn1.unsqueeze(1)), combined)  # (B, r)
         ok = ok.all(dim=1)
-        self._stage("plonk: alpha combination and quotient")
+        tracing.mark("plonk: alpha combination and quotient")
         return ok
 
     def _eval_selectors(self, gate_sels: GExt) -> GExt:
@@ -800,7 +802,7 @@ class TorchVerifier(nn.Module):
         # reduced openings
         y0 = horner_ext(o1, fri_alpha)  # (B,)
         y1 = horner_ext(o2, fri_alpha)
-        self._stage("fri: proof of work and reduced openings")
+        tracing.mark("fri: proof of work and reduced openings")
 
         # every leaf hash up front, in one grouped launch: the four oracles'
         # rows and each fold step's coset leaf ((re, im) interleaved) are all
@@ -813,7 +815,7 @@ class TorchVerifier(nn.Module):
             + [a[f"step_evals_{s}"].reshape(B, Q, 2 << st["arity_bits"]) for s, st in enumerate(tpl.steps)],
             self.poseidon,
         )
-        self._stage("fri: leaf hashes")
+        tracing.mark("fri: leaf hashes")
 
         # initial tree checks: the four oracles walk as one stacked batch
         digests = torch.stack(leaf_digests[:4], dim=1)  # (B, 4, Q, 4)
@@ -822,7 +824,7 @@ class TorchVerifier(nn.Module):
         cap_b = caps.unsqueeze(2).expand(B, 4, Q, *caps.shape[2:])
         idx4 = qidx.unsqueeze(1).expand(B, 4, Q)
         merkle_ok = merkle_batched(digests, idx4, sibs, cap_b, tpl.initial_path_len, self.poseidon).all(dim=1)  # (B, Q)
-        self._stage("fri: initial Merkle walks")
+        tracing.mark("fri: initial Merkle walks")
 
         # combineInitial
         npp = -(-tpl.n_sigmas // common.quotient_degree_factor)
@@ -838,7 +840,7 @@ class TorchVerifier(nn.Module):
         one_div = tf.emul(g0 - bq(y0), pw["one_den_inv"])
         two_div = tf.emul(g1 - bq(y1), pw["two_den_inv"])
         eval_cur = tf.emul(bq(pw["alpha_m"]), one_div) + two_div  # (B, Q)
-        self._stage("fri: combineInitial")
+        tracing.mark("fri: combineInitial")
 
         # every step's coset fold at once: a step's fold reads its own opened
         # coset, offset and beta, and the step before is only compared with
@@ -847,7 +849,7 @@ class TorchVerifier(nn.Module):
         folds = coset_folds([a[f"step_evals_{s}"] for s in steps], pw["offset_invs"], fri_betas,
                             [getattr(self, f"_coset_perm_{s}") for s in steps], [getattr(self, f"_idft_{s}") for s in steps])
         if tpl.steps:
-            self._stage("fri: coset folds")
+            tracing.mark("fri: coset folds")
 
         # folding
         fold_ok = torch.ones((B, Q), dtype=torch.bool, device=dev)
@@ -868,7 +870,7 @@ class TorchVerifier(nn.Module):
             fold_ok = fold_ok & ok_m & tf.ext_equal(opened, eval_cur)
             eval_cur = folds[s]
             idx = new_idx
-            self._stage(f"fri: step {s} Merkle walk and opened slot")
+            tracing.mark(f"fri: step {s} Merkle walk and opened slot")
 
         # final polynomial at x_final = shift_F w_F^rev(idx_F)
         x_final = pw["x_final"]
@@ -878,7 +880,7 @@ class TorchVerifier(nn.Module):
 
         round_ok = merkle_ok & fold_ok & final_ok
         ok = pow_ok & round_ok.all(dim=1)
-        self._stage("fri: final polynomial")
+        tracing.mark("fri: final polynomial")
         return ok
 
 

@@ -15,7 +15,7 @@ import sys
 import pytest
 import torch
 
-from plonky2_verifier_tpu_torch import graft_entry
+from plonky2_verifier_tpu_torch import graft_entry, tracing
 from plonky2_verifier_tpu_torch.tools import bench_poseidon, check_hash_kernels, lookup_device_check, profile_verifier
 from torch_threads import child_env, one_torch_thread  # noqa: F401  (one_torch_thread: autouse)
 
@@ -98,15 +98,37 @@ def test_profile_verifier_stage_times_add_up(capsys):
     assert list(stages) == want  # the 6-query fibonacci template has no fold step
     assert all(ms >= 0 for ms in stages.values())
     assert 0.95 * res["staged_call_ms"] <= sum(stages.values()) <= res["staged_call_ms"]
-    assert sorted(res["inner_ms"]) == ["GateProgram.forward", "horner_ext", "horner_scaled", "inv_grouped", "pow_grouped"]
-    assert 0 < sum(res["inner_ms"].values()) < res["staged_call_ms"]
+    spans = res["spans_ms"]  # the tracer's stage spans, each holding its stages
+    assert list(spans) == ["challenges", "plonk_checks", "fri_checks"]
+    assert sum(stages.values()) <= sum(spans.values()) <= res["staged_call_ms"]
+    assert sum(stages[s] for s in want[:3]) <= spans["challenges"] and sum(stages[s] for s in want[3:7]) <= spans["plonk_checks"]
+    assert res["syncs"] == {}  # the CPU never synchronises
     assert all(res[k] > 0 for k in ("construct_s", "first_call_s", "warm_call_s"))
+
+
+def test_profile_verifier_puts_a_moment_in_the_innermost_span_open():
+    """device_profile's merge of the profiler's events with the tracer's
+    spans: a time goes to the innermost span open at it, nested or
+    abutting, and to none outside them; a span without times on a clock is
+    left out there."""
+    raw = [{"name": "forward", "parent": None, "host_ns": [0, 100], "device_ns": [0, 100]},
+           {"name": "challenges", "parent": 0, "host_ns": [0, 30], "device_ns": [0, 30]},
+           {"name": "pi hash", "parent": 1, "host_ns": [0, 10], "device_ns": [0, 10]},
+           {"name": "transcript", "parent": 1, "host_ns": [10, 30], "device_ns": [10, 30]},
+           {"name": "plonk_checks", "parent": 0, "host_ns": [40, 90], "device_ns": [40, 90]},
+           {"name": "stream.ingest", "parent": None, "host_ns": [200, 300], "device_ns": None}]
+    points, labels = profile_verifier.innermost(raw, "host_ns")
+    at = {t: profile_verifier.label_at(points, labels, t) for t in (-1, 0, 9, 10, 29, 30, 35, 40, 95, 100, 250, 300)}
+    assert at == {-1: "(no span)", 0: "pi hash", 9: "pi hash", 10: "transcript", 29: "transcript", 30: "forward", 35: "forward",
+                  40: "plonk_checks", 95: "forward", 100: "(no span)", 250: "stream.ingest", 300: "(no span)"}
+    points, labels = profile_verifier.innermost(raw, "device_ns")
+    assert profile_verifier.label_at(points, labels, 250) == "(no span)"
 
 
 def test_profile_verifier_names_each_fold_step():
     """A template with a fold step: its Merkle walk is a stage of its own,
     every step's coset fold one stage (one kernel launch on the card), and
-    the hook is taken off again."""
+    tracing is off again."""
     from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
     from plonky2_verifier_tpu_torch.ops import field as tf
     from plonky2_verifier_tpu_torch.prover.prove import prove
@@ -122,7 +144,7 @@ def test_profile_verifier_names_each_fold_step():
     for s in range(len(tpl.steps)):
         assert f"fri: step {s} Merkle walk and opened slot" in res["stages_ms"]
     assert "fri: coset folds" in res["stages_ms"]
-    assert v.on_stage is None and tf.inv is inv
+    assert not tracing._on and tf.inv is inv
 
 
 def test_fold_work_counts_the_fft_form_and_the_kernels_butterflies():

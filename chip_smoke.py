@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch port on one CUDA card: build the kernels (the
 three Poseidon kernels, the three field kernels -- the extension Horner
 sum, the Fermat inversion and the exponentiations -- the levelized gate
-program, the FRI coset folds, and L0 with the partial products and the
-lookup argument), hold each against its plain PyTorch version and the golden model,
+program, the FRI coset folds, and L0 with the partial products, the
+lookup argument and the gate filter), hold each against its plain PyTorch version and the golden model,
 time both, then verify a batch of 1024 standard-shape fibonacci proofs
 through TorchVerifier and check verdicts and transcripts, then batches
 of 512 and 1024 proofs of the gate-zoo circuit (all 16 gate kinds and the
@@ -44,8 +44,10 @@ success):
    a block do and do not divide them and at B = 0, the coset folds (arity
    2 to 64 in one launch, staged in shared memory and in scratch, a query
    slice, B = 0), L0 with the partial products (r, maxdeg and chunk
-   counts) and the lookup argument (SLDC chunks, table counts and lengths,
-   the lanes each gets, subtrahends y + p) (tools/check_field_kernels.py);
+   counts), the lookup argument (SLDC chunks, table counts and lengths,
+   the lanes each gets, subtrahends y + p) and the gate filter (templates
+   of one selector group and of several, rows of one live slot, of none and
+   with gaps, batches 1, 1,023 and 16,384) (tools/check_field_kernels.py);
 4. main path: the standard fixture (degree 12, 28 queries, PoW 16; proved
    by a child process that starts with phase 2 and is waited for here),
    batch 1024, all accepted; lane 0's transcript equal to golden; six single-array
@@ -59,8 +61,9 @@ success):
    every inversion of a call in one grouped launch and every
    exponentiation in another (the one-call inversion and exponentiation
    never), the gate program once, every fold step's coset fold in one
-   launch, L0 with the partial products once and the lookup argument once
-   where the template has lookups (`_field_launches`; every path below
+   launch, L0 with the partial products and the gate filter once and the
+   lookup argument once where the template has lookups (`_field_launches`;
+   every path below
    checks these counts too);
 5. kernel times at the main path's shapes (batch 1024), kernel and plain,
    each pair also compared bit for bit, each beside its bound (the integer
@@ -76,8 +79,8 @@ success):
    and the gate program of one main-path call and of one gate-zoo call
    (batch 1024, random proof words), each beside its plain version and its
    bound, the exponentiation also beside one call a power; the coset
-   folds, L0 with the partial products and the lookup argument (the gate
-   zoo's alone) likewise;
+   folds, L0 with the partial products, the gate filter and the lookup
+   argument (the gate zoo's alone) likewise;
 6. timing: 5 verifier calls after warm-up, each until its verdict is on
    the host (bench.time_calls, the benchmark's own timing) -> proofs/s and
    step ms of the median call, and the transcript alone; then
@@ -304,7 +307,7 @@ def recorded_calls(targets, v, a, queries=None):
 def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
     """The field kernels' share of hold_against_plain: every Horner sum,
     inversion, exponentiation, the gate program, the coset folds, L0 with
-    the partial products and the lookup argument (where the template has
+    the partial products, the gate filter and the lookup argument (where the template has
     lookups) of one call of `v` on random words over all the lanes,
     recorded with its views (stride-0 rows, scalar bases and views of the
     openings among them); each wrapper then runs on each batch size's lanes
@@ -320,7 +323,7 @@ def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
     Q = queries or v.tpl.num_queries
     a = v.prepare(random_arrays(v.tpl, sum(batches), Q, rng))
     targets = [(vt, "horner_ext"), (vt, "horner_scaled"), (tf, "inv_grouped"), (tf, "pow_grouped"), (GateProgram, "forward")]
-    targets += [(vt, "coset_folds"), (vt, "partial_products"), (vt, "lookup_checks")]
+    targets += [(vt, "coset_folds"), (vt, "partial_products"), (vt, "lookup_checks"), (vt, "gate_filter")]
     calls = recorded_calls(targets, v, a, None if queries is None else slice(0, Q))
     constants = {id(b) for b in v.buffers()}
     gate = lambda prog, inputs, batch_shape, **kw: GateProgram.forward(prog, inputs, batch_shape, **kw)
@@ -328,11 +331,12 @@ def hold_field_kernels(v, batches, parts, checks, what: str, rng, queries=None):
     plain = {"horner_ext": lambda x, p: vt.horner_ext_plain(vt.as_ext(x), vt.as_ext(p)), "horner_scaled": vt.horner_scaled_plain,
              "inv_grouped": tf.inv_grouped_plain, "pow_grouped": tf.pow_grouped_plain, "forward": gate_plain, "coset_folds": vt.coset_folds_plain,
              "partial_products": vt.partial_products_plain,
-             "lookup_checks": lambda *args, lanes=None: vt.lookup_checks_plain(*args)}  # lanes: the card's
+             "lookup_checks": lambda *args, lanes=None: vt.lookup_checks_plain(*args), "gate_filter": vt.gate_filter_plain}  # lanes: the card's
     wrapper = {"horner_ext": vt.horner_ext, "horner_scaled": vt.horner_scaled, "inv_grouped": tf.inv_grouped, "pow_grouped": tf.pow_grouped,
-               "forward": gate, "coset_folds": vt.coset_folds, "partial_products": vt.partial_products, "lookup_checks": vt.lookup_checks}
+               "forward": gate, "coset_folds": vt.coset_folds, "partial_products": vt.partial_products, "lookup_checks": vt.lookup_checks,
+               "gate_filter": vt.gate_filter}
     bucket = {"horner_ext": "horner", "horner_scaled": "horner", "inv_grouped": "inv", "pow_grouped": "pow", "forward": "gate_program",
-              "coset_folds": "coset_fold", "partial_products": "partial_products", "lookup_checks": "lookup_checks"}
+              "coset_folds": "coset_fold", "partial_products": "partial_products", "lookup_checks": "lookup_checks", "gate_filter": "gate_filter"}
 
     def cut(x, part, b):
         """x's lanes `part`: a tensor's or GExt's first axis, a dict's, a list's or a segment's items, the batch shape."""
@@ -376,8 +380,8 @@ def hold_against_plain(v, batch, checks, what: str, queries=None):
     0 where the circuit has none), every leaf hash in one grouped launch, the
     stacked initial Merkle walk and each fold step's, and every Horner sum,
     inversion, exponentiation, the gate program, the coset folds, L0 with
-    the partial products and the lookup argument of a call on random proof
-    words (hold_field_kernels). A
+    the partial products, the gate filter and the lookup argument of a call
+    on random proof words (hold_field_kernels). A
     walk of length 0 is never launched (verifier_torch.merkle_batched) and
     is passed over here too. `batch` may be a list of batch sizes: each wrapper is then called
     once at each size, and the plain version (lane by lane the same work,
@@ -575,11 +579,13 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
     zoo_v = TorchVerifier(zoo_tpl, device=DEVICE)
     zoo_dev = zoo_v.prepare(random_arrays(zoo_tpl, B, zoo_tpl.num_queries, rng))
     pair = lambda x: (x.re, x.im) if isinstance(x, tf.GExt) else x
-    targets = [(tf, "pow_grouped"), (GateProgram, "forward"), (vt, "coset_folds"), (vt, "partial_products"), (vt, "lookup_checks")]
+    targets = [(tf, "pow_grouped"), (GateProgram, "forward"), (vt, "coset_folds"), (vt, "partial_products"), (vt, "lookup_checks"),
+               (vt, "gate_filter")]
     # the three stages' kernels: their wrapper's call beside their plain version
     stages = {"coset_folds": ("coset_fold", fold_work, vt.coset_folds_plain),
               "partial_products": ("partial_products", partial_products_work, vt.partial_products_plain),
-              "lookup_checks": ("lookup_checks", lookup_work, vt.lookup_checks_plain)}
+              "lookup_checks": ("lookup_checks", lookup_work, vt.lookup_checks_plain),
+              "gate_filter": ("gate_filter", gate_filter_work, vt.gate_filter_plain)}
     for path, verifier, arrays in [("main path", v, dev), ("gate zoo", zoo_v, zoo_dev)]:
         largest = {}
         for name, args, kwargs in recorded_calls(targets, verifier, arrays):
@@ -611,7 +617,7 @@ def time_kernels(lib, consts, v, dev, checks, rate, zoo_tpl):
             if name == "pow":
                 work += f"; {before} instructions before the table (n_bits - 1 squarings a generator)"
             res = timed(name, what, kernel, plain, 20, field_bound_ms(instructions, n_bytes, rate), work, plain_iters=1,
-                        words=words_of if name in ("pow", "coset_fold", "partial_products", "lookup_checks") else None)
+                        words=words_of if name in ("pow", "coset_fold", "partial_products", "lookup_checks", "gate_filter") else None)
             if name == "pow":  # beside one launch of the one-call kernel a power, as before they were grouped
                 apart = powers_apart(*args)
                 res["apart"] = {"ms": event_ms(apart, 20, 2), "device_ms": device_ms(apart, 20, 1), "launches": len(apart())}
@@ -803,6 +809,26 @@ def lookup_work(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, coeffs, offs
     return B * r * per_round, 8 * n_words, what, B * r * kernel_round
 
 
+def gate_filter_work(gate_sels, cons, cols, consts, mask, n_gc):
+    """(int32 instructions, bytes, description) of one gate_filter launch,
+    the least the function needs: a (lane, live gate) its selector value,
+    a subtraction a live factor (2 adds) and an emul a factor past the
+    first; a (lane, slot, live gate) term an emul and the sum's add (2
+    adds); the selector columns it reads, the constraints and the rows read
+    once, the output written once."""
+    from plonky2_verifier_tpu_torch.kernels import GATE_FILTER_LANES, GATE_FILTER_MAX_LIVE
+
+    B, L = cons.shape[0], cols.shape[0]
+    lanes = min(GATE_FILTER_LANES, GATE_FILTER_MAX_LIVE // max(L, 1))
+    factors = [int(x) for x in mask.sum(dim=1)]
+    per_lane = sum(2 * ADD * f + EMUL * max(f - 1, 0) for f in factors)
+    instructions = B * (L * n_gc * (EMUL + 2 * ADD) + per_lane)
+    n_words = 2 * B * len(set(cols.tolist())) + 2 * B * L * n_gc + 2 * B * n_gc + L + consts.numel()
+    what = (f"gate_filter: {B} lanes, {L} live gates of {n_gc} constraints, {sum(factors)} live factors in rows of {consts.shape[1]} slots, "
+            f"{lanes} lanes a block")
+    return instructions, 8 * n_words + mask.numel(), what
+
+
 def gate_work(packed, inputs):
     """(int32 instructions, bytes) of one gate-program launch on the packed
     program (the ops its gather needs): an add is a reduction, a negation
@@ -861,12 +887,15 @@ def _field_launches(tpl) -> dict:
     alpha^(n_zs + n_lookup)); the one-call inversion and exponentiation
     never; the gate program once; every fold step's coset fold in one
     launch (none without fold steps); L0 with the partial products once;
-    the lookup argument once where the template has lookups, else never."""
+    the lookup argument once where the template has lookups, else never;
+    the gate filter once where a gate has constraints."""
     return {"horner": 7, "inv": 0, "inv_grouped": 1, "pow": 0, "pow_grouped": 1, "gate_program": 1, "coset_fold": 1 if tpl.steps else 0,
-            "partial_products": 1, "lookup_checks": 1 if tpl.common.num_lookup_polys > 0 else 0}
+            "partial_products": 1, "lookup_checks": 1 if tpl.common.num_lookup_polys > 0 else 0,
+            "gate_filter": 1 if tpl.common.num_gate_constraints > 0 else 0}
 
 
-FIELD_KERNELS = ("horner", "inv", "inv_grouped", "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks")
+FIELD_KERNELS = ("horner", "inv", "inv_grouped", "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks",
+                 "gate_filter")
 
 
 def _check_launches(launches, what: str, tpl):
@@ -1554,7 +1583,8 @@ def main():
     print(f"card: {smi}")
 
     sources = {"permutation": "permutation.cu", "sponge_rows": "sponge.cu", "merkle_fold": "merkle.cu", "horner": "field.cu", "inv": "field.cu",
-               "pow": "field.cu", "gate_program": "gates.cu", "coset_fold": "fold.cu", "partial_products": "plonk.cu", "lookup_checks": "plonk.cu"}
+               "pow": "field.cu", "gate_program": "gates.cu", "coset_fold": "fold.cu", "partial_products": "plonk.cu", "lookup_checks": "plonk.cu",
+               "gate_filter": "plonk.cu"}
     replaces = {
         "permutation": "plonky2_verifier_tpu/ops/pallas_poseidon.py:122",
         "sponge_rows": "plonky2_verifier_tpu/ops/pallas_hash.py:112",
@@ -1567,6 +1597,7 @@ def main():
         "coset_fold": "plonky2_verifier_tpu/verifier_jax.py:749-810 (_fri_checks' coset fold)",
         "partial_products": "plonky2_verifier_tpu/verifier_jax.py:345-385 (_plonk_checks' L0 and partial products)",
         "lookup_checks": "plonky2_verifier_tpu/verifier_jax.py:468-642 _lookup_checks",
+        "gate_filter": "plonky2_verifier_tpu/verifier_jax.py:393-418 (_plonk_checks' selectors and filtered sum)",
     }
     entry_points = {
         "permutation": ("permutation", "permutation_scan"),
@@ -1579,6 +1610,7 @@ def main():
         "coset_fold": ("coset_fold",),
         "partial_products": ("partial_products",),
         "lookup_checks": ("lookup_checks",),
+        "gate_filter": ("gate_filter",),
     }
     rows = []
     for name in kernels.KERNELS:

@@ -101,7 +101,7 @@ __device__ __forceinline__ Ext emul(Point a, Ext b) {
     return {add(mul(a.re, b.re), mul(a.im7, b.im)), add(mul(a.re, b.im), mul(a.im, b.re))};
 }
 
-// Forms that reduce once (plonk.cu's p2v_partial_products alone calls them):
+// Forms that reduce once (plonk.cu's p2v_partial_products and p2v_gate_filter call them):
 // a sum of full products and words kept exact in three words, reduced to the
 // canonical representative by one reduce192. Every operand may be any u64
 // word, and every result is the canonical value of the exact expression, so
@@ -142,7 +142,8 @@ __device__ __forceinline__ Wide wide_times7(Wide x) {
 // reduce128 with a third word: with 2^96 = -1 and 2^128 = -2^32 mod p,
 // x = lo - (top 2^32 + hi_hi) + hi_lo (2^32 - 1); top < 2^32 - 1 keeps the
 // subtrahend below p, so one p added where it borrows makes it good (every
-// caller's top is at most 7). reduce192({lo, hi, 0}) is reduce128(lo, hi).
+// caller's top is at most 7 but p2v_gate_filter's sums', below 8 x 3072).
+// reduce192({lo, hi, 0}) is reduce128(lo, hi).
 __device__ __forceinline__ uint64_t reduce192(Wide x) {
     const uint64_t sub = (x.top << 32) | (x.hi >> 32), hi_lo = x.hi & EPSILON;
     uint64_t t0 = x.lo - sub;

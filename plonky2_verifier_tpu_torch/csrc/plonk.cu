@@ -1,6 +1,7 @@
-// Two stages of the Plonk checks at zeta, one launch each a forward:
-// p2v_partial_products (L0 and the partial products) and p2v_lookup_checks
-// (the lookup argument).
+// Three stages of the Plonk checks at zeta, one launch each a forward:
+// p2v_partial_products (L0 and the partial products), p2v_lookup_checks
+// (the lookup argument) and p2v_gate_filter (the gate constraints filtered
+// by their gates' selectors and summed).
 //
 // No Pallas kernel: the JAX package's _plonk_checks is part of one jax.jit
 // program, and XLA fuses the same arithmetic into a few loops --
@@ -123,6 +124,39 @@
 // tables read once, each output written once. The split adds the pairs'
 // meetings (3 emuls a pair a tree level), the segments' powers of delta and
 // their tree (lookup_work prints the kernel's own count).
+//
+// p2v_gate_filter: Plonky2's gate filter, compute_filter and the filtered
+// sum of evaluate_gate_constraints, verifier_jax.py:393-418 (plain:
+// verifier_torch.gate_filter_plain). For lane b and constraint slot c
+//   acc[b, c] = sum_k sel_k(b) cons[b, k n_gc + c],
+//   sel_k(b) = prod_{j : mask[k, j]} (consts[k, j] - x_b[cols[k]]),
+// k over the L live gates (those with constraints), cons the gate
+// program's outputs in the padded (L, n_gc) layout, x the gate-selector
+// columns of openings1 read where they lie. Run as plain PyTorch this was
+// ~190 passes over (B, L, n_gc) tensors a forward (41 ms of the gate zoo's
+// at 16,384) and a Python-list gather that synchronised with the host twice.
+// A block takes `lanes` lanes: its threads first form each lane's L
+// selector values into shared memory (a thread a (lane, gate): the first
+// live factor, then one emul a further one, as tree_prod_last's product),
+// then a thread a (lane, c) sums over the gates, neighbouring threads on
+// neighbouring c, so each gate's row of cons is read once, coalesced. The
+// sum is kept exact in three words a part, sum_k s.re v.re + 7 sum_k s.im
+// v.im and sum_k (s.re v.im + s.im v.re), and reduced once (goldilocks.cuh's
+// Wide forms: top < 8 L, far below 2^32 - 1 for any L the wrapper takes).
+// Bits: sel_k is consts - x by ops/field.sub on the raw proof word (not
+// exact mod p where x is a word y + p above consts + p, as the plain and
+// the JAX package's sub; tests/test_torch_noncanonical.py), multiplied in
+// another order than the halving tree; every product reduces the exact
+// product of its words, so sel_k's value mod p is the plain version's, and
+// the plain emul by the constraint and its sum are canonical and exact mod
+// p: the canonical value of the exact sum, this kernel's word. Where a row
+// has one live slot sel_k is the raw sub word itself, as the plain chain's
+// where nothing multiplies it; the sum reduces its product alike.
+// Bound (chip_smoke.gate_filter_work): B L n_gc terms, each an emul (5
+// products, 2 adds) and 2 adds of the sum, beside L selector products of
+// span factors a lane; against the bytes, cons and the selector columns
+// read once, the output written once. The zoo at 16,384: ~0.150 ms by
+// operations, 0.135 by bytes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -410,6 +444,55 @@ __global__ void __launch_bounds__(PLONK_THREADS) lookup_checks_kernel(const Look
     }
 }
 
+// kernels.GateFilterArgs field for field
+struct GateFilterArgs {
+    ExtView sels;            // (B, n_sel): the gate-selector columns
+    ExtView cons;            // (B, live n_gc): live gate k's constraints at columns k n_gc ... (k + 1) n_gc - 1
+    const int64_t* cols;     // (live,): live gate k's selector column
+    const uint64_t* consts;  // (live, span) contiguous: its factor constants
+    const uint8_t* mask;     // (live, span) contiguous bool: its factor slots
+    uint64_t* out_re;        // (B, n_gc) contiguous
+    uint64_t* out_im;
+    int64_t batch;
+    int32_t live, n_gc, span, lanes;  // lanes a block
+};
+
+constexpr int FILTER_THREADS = 256;
+
+__global__ void __launch_bounds__(FILTER_THREADS) gate_filter_kernel(const GateFilterArgs a) {
+    extern __shared__ Ext sel[];  // (lanes, live): the block's lanes' selector values
+    const int64_t b0 = (int64_t)blockIdx.x * a.lanes;
+    const int lanes = (int)min((int64_t)a.lanes, a.batch - b0);
+    for (int i = threadIdx.x; i < lanes * a.live; i += FILTER_THREADS) {
+        const int l = i / a.live, k = i - l * a.live;
+        const Ext x = gl::at(a.sels, b0 + l, a.cols[k]);
+        Ext s = {1, 0};
+        bool first = true;
+        for (int j = 0; j < a.span; ++j) {
+            if (!a.mask[k * a.span + j]) continue;
+            const Ext t = gl::esub({a.consts[k * a.span + j], 0}, x);
+            s = first ? t : gl::emul(s, t);
+            first = false;
+        }
+        sel[i] = s;
+    }
+    __syncthreads();
+    const gl::Wide zero = {0, 0, 0};
+    for (int i = threadIdx.x; i < lanes * a.n_gc; i += FILTER_THREADS) {
+        const int l = i / a.n_gc, c = i - l * a.n_gc;
+        const int64_t b = b0 + l;
+        gl::Wide rr = zero, ii = zero, im = zero;
+        for (int k = 0; k < a.live; ++k) {
+            const Ext s = sel[l * a.live + k], v = gl::at(a.cons, b, (int64_t)k * a.n_gc + c);
+            rr = gl::wide_add(rr, gl::wide_mul(s.re, v.re));
+            ii = gl::wide_add(ii, gl::wide_mul(s.im, v.im));
+            im = gl::wide_add(gl::wide_add(im, gl::wide_mul(s.re, v.im)), gl::wide_mul(s.im, v.re));
+        }
+        a.out_re[b * a.n_gc + c] = gl::reduce192(gl::wide_add(rr, gl::wide_times7(ii)));
+        a.out_im[b * a.n_gc + c] = gl::reduce192(im);
+    }
+}
+
 unsigned blocks_for(int64_t threads) { return (unsigned)((threads + PLONK_THREADS - 1) / PLONK_THREADS); }
 
 template <bool ALL_ROUNDS, int MIN_BLOCKS>
@@ -463,5 +546,17 @@ extern "C" int p2v_lookup_checks(const void* args, void* stream) {
                             whole_warps((rounds * a.luts) << a.table_bits);
     if (threads >= INT32_MAX) return (int)cudaErrorInvalidValue;
     if (threads > 0) lookup_checks_kernel<<<blocks_for(threads), PLONK_THREADS, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int p2v_gate_filter(const void* args, void* stream) {
+    const GateFilterArgs a = *(const GateFilterArgs*)args;
+    // kernels.GATE_FILTER_MAX_LIVE and _MAX_SPAN: the selector values fit the default 48 KB of shared memory, the sums' top word 2^32
+    if (a.batch < 0 || a.live < 1 || a.live > 3072 || a.n_gc < 1 || a.span < 1 || a.span > 64 || a.lanes < 1 || a.lanes > 32)
+        return (int)cudaErrorInvalidValue;
+    const size_t shared = sizeof(Ext) * (size_t)a.lanes * a.live;
+    const int64_t blocks = (a.batch + a.lanes - 1) / a.lanes;
+    if (shared > 48 * 1024 || (int64_t)a.lanes * a.n_gc >= INT32_MAX || blocks >= INT32_MAX) return (int)cudaErrorInvalidValue;
+    if (blocks > 0) gate_filter_kernel<<<(unsigned)blocks, FILTER_THREADS, shared, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -11,8 +11,8 @@ the three Poseidon kernels (permutation.cu, sponge.cu, merkle.cu), the
 three field kernels (field.cu: the extension Horner sum, the inversion and
 the exponentiations, the last two also in the grouped form a verifier's
 forward launches once each), the levelized gate program (gates.cu), every
-FRI coset fold of a forward (fold.cu), and L0 with the partial products and
-the lookup argument (plonk.cu).
+FRI coset fold of a forward (fold.cu), and L0 with the partial products,
+the lookup argument and the gate filter (plonk.cu).
 
 Both raise on any failure (no CUDA device, no nvcc, a compile error, a
 refused launch); nothing here falls back to the plain PyTorch versions.
@@ -45,10 +45,10 @@ NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("permutation", "sponge", "merkle", "field", "gates", "fold", "plonk")
 POSEIDON_SOURCES = ("permutation", "sponge", "merkle")  # take the Poseidon tables at load
 KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program", "coset_fold", "partial_products",
-           "lookup_checks")
+           "lookup_checks", "gate_filter")
 # launch counters: the permutation, sponge, inversion and exponentiation kernels have two entry points each
 COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv", "inv_grouped",
-            "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks")
+            "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks", "gate_filter")
 # also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
 SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
 # also builds the partial-product kernel's other lanes and forms, for the probe tool (csrc/plonk.cu)
@@ -239,6 +239,14 @@ class LookupArgs(ctypes.Structure):
     ]
 
 
+class GateFilterArgs(ctypes.Structure):
+    """csrc/plonk.cu's GateFilterArgs, field for field."""
+
+    _fields_ = [("sels", ExtView), ("cons", ExtView), ("cols", ctypes.c_void_p), ("consts", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("out_re", ctypes.c_void_p), ("out_im", ctypes.c_void_p), ("batch", ctypes.c_int64),
+                ("live", ctypes.c_int32), ("n_gc", ctypes.c_int32), ("span", ctypes.c_int32), ("lanes", ctypes.c_int32)]
+
+
 FOLD_MAX_STEPS = 32  # fold steps a launch of p2v_coset_fold (csrc/fold.cu): lde_bits <= 32, a step takes at least 1 bit
 FOLD_SHARED_MAX_BITS = 5  # a fold step of arity up to 2^5 is staged in shared memory, a larger one in device scratch (csrc/fold.cu)
 # the largest arity bits p2v_coset_fold takes: above every arity a Plonky2 FRI config gives (MinSize picks at
@@ -249,6 +257,9 @@ POW_MAX_SEGMENTS = 16  # segments a launch of p2v_pow_grouped (csrc/field.cu)
 INV_GROUP = 8  # words a thread of p2v_inv_grouped: one Fermat chain a group (csrc/field.cu)
 LOOKUP_SLOTS_A_LANE = 4  # a SLDC chunk's slots of each kind a lane at most (csrc/plonk.cu p2v_lookup_checks; probe_kernels --lookup-lanes)
 LOOKUP_VALUES_A_SEGMENT = 8  # values of the RE transition's or a table's Horner sum a lane at most (the same probe)
+GATE_FILTER_LANES = 16  # lanes a block of p2v_gate_filter (csrc/plonk.cu), fewer where their selector values outgrow 48 KB
+GATE_FILTER_MAX_LIVE = 3072  # live gates p2v_gate_filter takes: one lane's 16-byte selector values in 48 KB of shared memory
+GATE_FILTER_MAX_SPAN = 64  # factor slots a gate's row at most
 HORNER_MAX_SEGMENTS = 32  # a row's segments share a warp (csrc/field.cu)
 HORNER_MIN_CHAIN = 4  # values a segment at least
 HORNER_THREADS_AN_SM = 256  # enough to hide a chain's latency (tools/probe_kernels.py --field)
@@ -368,7 +379,7 @@ class KernelLibrary:
             },
             "gates": {"p2v_gate_program": [vp, i32, i32, vp], "p2v_gate_smem_limit": []},
             "fold": {"p2v_coset_fold": [vp, i32, i64, i64, vp]},
-            "plonk": {"p2v_partial_products": [vp, vp], "p2v_lookup_checks": [vp, vp]},
+            "plonk": {"p2v_partial_products": [vp, vp], "p2v_lookup_checks": [vp, vp], "p2v_gate_filter": [vp, vp]},
         }
         if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
             raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
@@ -865,6 +876,36 @@ class KernelLibrary:
             err = self._fn["p2v_lookup_checks"](ctypes.addressof(a), _stream())
             _check_cuda(err, "lookup_checks")
             self.launches["lookup_checks"] += 1
+        return out[0], out[1]
+
+
+    def gate_filter(self, sels, cons, cols, consts, mask, n_gc: int):
+        """The gate constraints filtered by their gates' selectors and summed
+        (csrc/plonk.cu), as verifier_torch.gate_filter_plain computes them:
+        sels (B, n_sel), the gate-selector columns, and cons (B, L n_gc), the
+        L live gates' constraints one gate after the other, each an (re,
+        im) pair at any strides; cols (L,), consts (L, span) and mask (L,
+        span) bool, the live gates' selector columns, factor constants and
+        factor slots, contiguous. Returns (out_re, out_im), each (B, n_gc);
+        no launch where B or L is 0 (zeros)."""
+        _check_tensor(cols, "cols", (None,))
+        live = cols.shape[0]
+        _check_tensor(consts, "consts", (live, None))
+        span = consts.shape[1]
+        _check_tensor(mask, "mask", (live, span), torch.bool)
+        s = _ext_view(sels, "sels", (None, None))
+        batch = sels[0].shape[0]
+        c = _ext_view(cons, "cons", (batch, live * n_gc))
+        if n_gc < 0 or live and (n_gc < 1 or live > GATE_FILTER_MAX_LIVE or not 1 <= span <= GATE_FILTER_MAX_SPAN):
+            raise ValueError(f"{live} live gates of {n_gc} constraints and {span} factor slots: the kernel takes n_gc >= 1, "
+                             f"at most {GATE_FILTER_MAX_LIVE} live gates and 1 to {GATE_FILTER_MAX_SPAN} slots")
+        out = (torch.empty if live else torch.zeros)((2, batch, n_gc), dtype=torch.int64, device=cols.device)
+        if batch and live:
+            a = GateFilterArgs(s, c, cols.data_ptr(), consts.data_ptr(), mask.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), batch,
+                               live, n_gc, span, min(GATE_FILTER_LANES, GATE_FILTER_MAX_LIVE // live))
+            err = self._fn["p2v_gate_filter"](ctypes.addressof(a), _stream())
+            _check_cuda(err, "gate_filter")
+            self.launches["gate_filter"] += 1
         return out[0], out[1]
 
 

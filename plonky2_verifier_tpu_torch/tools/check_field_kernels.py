@@ -1,12 +1,12 @@
 """Bit-exactness check of the field kernels on the card: the extension
 Horner sum, the Fermat inversion and the exponentiations (csrc/field.cu),
 the levelized gate program (csrc/gates.cu), the FRI coset folds
-(csrc/fold.cu), and L0 with the partial products and the lookup argument
-(csrc/plonk.cu), against their plain PyTorch versions
+(csrc/fold.cu), and L0 with the partial products, the lookup argument and
+the gate filter (csrc/plonk.cu), against their plain PyTorch versions
 (`verifier_torch.horner_ext_plain`, `ops/field.inv_plain`,
 `pow_dynamic_plain` / `ext_pow_const_plain`, `GateProgram.forward_plain`,
 `verifier_torch.coset_fold_plain`, `partial_products_plain`,
-`lookup_checks_plain`) and the golden (Python-int) model. `tools/check_hash_kernels.py` runs it
+`lookup_checks_plain`, `gate_filter_plain`) and the golden (Python-int) model. `tools/check_hash_kernels.py` runs it
 after the Poseidon kernels, for its command line and chip_smoke.py's kernel
 phase.
 
@@ -70,7 +70,16 @@ kernels must give the plain bits for them too.
   RE transition and 1 to 32 a table (its longest table's: 312 rows past
   32 lanes of 8, tables of other lengths beside it), B = 0, subtrahends y + p at every
   chunk's sldc - prev (probe_sldc_subtrahends); against lookup_checks_plain, lookup_checks_rows_plain and
-  golden/plonk.py eval_lookup_equations on a few lanes.
+  golden/plonk.py eval_lookup_equations on a few lanes;
+- gate_filter: the live gates' rows of the fibonacci, gate-zoo and lookup
+  templates (several selector groups: UNUSED_SELECTOR among the factors),
+  of a shape-grid point and a fuzz seed (one group and several) and of rows
+  made here (one gate of one live slot, the raw subtraction's word; a row
+  of no live slot; slots with gaps; no live gate), at batches 1, 1,023 and
+  16,384 (a block's 16 lanes do not divide the first two) and B = 0 (no
+  launch), the selector columns a view of an openings-like tensor (column
+  stride 2); against gate_filter_plain, gate_filter_rows_plain and the
+  filter in Python ints on the first lanes' words reduced.
 """
 
 import functools
@@ -88,7 +97,8 @@ from ..golden.plonk import eval_lookup_equations
 from ..kernels import INV_GROUP, KernelLibrary, horner_segments, lookup_split, partial_products_lanes
 from ..ops import field as tf
 from ..ops.field import GExt
-from ..verifier_torch import coset_fold_plain, horner_ext_plain, lookup_checks_plain, lookup_tables, partial_products_plain
+from ..verifier_torch import (coset_fold_plain, gate_filter_plain, horner_ext_plain, lookup_checks_plain, lookup_tables,
+                              partial_products_plain)
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -972,11 +982,133 @@ def check_lookup_checks(lib, c, rng, dev, max_lanes: int):
             c.compare(got[:, lane].t(), np.array(gold, np.uint64), f"{what}, lane {lane} vs golden")
 
 
+def gate_filter_rows_plain(sels, cons, cols, consts, mask, n_gc: int):
+    """What `KernelLibrary.gate_filter` computes from its arguments (sels
+    and cons (re, im) pairs), in the kernel's own order (csrc/plonk.cu): a
+    live gate's selector value is its first live factor's consts - x, times
+    each further one in slot order (1 where none is live); then for each
+    slot c the sum over the gates in order of sel_k cons[:, k n_gc + c]
+    (the kernel keeps the sum exact and reduces once: the canonical value
+    of the same sum, which these canonical adds give). Returns (re, im),
+    each (B, n_gc); its words equal gate_filter_plain's."""
+    sels, cons = GExt(*sels), GExt(*cons)
+    B, dev = cons.shape[0], cons.re.device
+    acc = tf.ext_zeros((B, n_gc), dev)
+    for k in range(cols.shape[0]):
+        x = sels[:, int(cols[k])]
+        sel = tf.ext_constant(1, shape=(B,), device=dev)
+        first = True
+        for j in range(consts.shape[1]):
+            if bool(mask[k, j]):
+                t = GExt(consts[k, j].expand(B), torch.zeros_like(x.im)) - x
+                sel, first = (t if first else tf.emul(sel, t)), False
+        acc = acc + tf.emul(sel.unsqueeze(-1), cons[:, k * n_gc : (k + 1) * n_gc])
+    return acc.re, acc.im
+
+
+def golden_gate_filter(sels, cons, cols, consts, mask, n_gc: int):
+    """The filter of one lane in Python ints on canonical words: sels
+    (n_sel,) and cons (L n_gc,) extension pairs, the rows as lists ->
+    (n_gc,) pairs."""
+    acc = [gf.EXT_ZERO] * n_gc
+    for k, col in enumerate(cols):
+        sel = gf.EXT_ONE
+        for c, live in zip(consts[k], mask[k]):
+            if live:
+                sel = gf.emul(sel, gf.esub((int(c), 0), sels[col]))
+        acc = [gf.eadd(a, gf.emul(sel, cons[k * n_gc + i])) for i, a in enumerate(acc)]
+    return acc
+
+
+GATE_FILTER_BATCHES = [1, 1023, 16384, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def gate_filter_commons():
+    """(name, common data) of the templates whose live gates' rows the gate
+    filter's check runs: fibonacci, the gate zoo (as gate_programs() finds
+    it), the lookup fixture, a shape-grid point and fuzz seed 13."""
+    from ..models.fibonacci import fibonacci_fixture
+    from ..models.gate_zoo import gate_zoo_fixture
+    from ..models.lookup import lookup_fixture
+    from ..types import load_common
+    from . import shape_circuits as sc
+
+    zoo = load_common(ZOO_COMMON) if os.path.exists(ZOO_COMMON) else gate_zoo_fixture(num_query_rounds=2, proof_of_work_bits=2).common
+    return (("fibonacci", fibonacci_fixture(num_query_rounds=2).common), ("gate zoo", zoo),
+            ("lookup", lookup_fixture(num_query_rounds=2, proof_of_work_bits=2).common),
+            (f"grid {sc.GRID[0]}", sc.grid_fixture(*sc.GRID[0]).common), ("fuzz 13", sc.fuzz_fixture(13).common))
+
+
+def gate_filter_rows(common, dev):
+    """(n_sel, n_gc, cols, consts, mask): a template's gate-selector columns,
+    gate constraints and live gates' rows as TorchVerifier builds them."""
+    from ..compiler import CircuitTemplate
+    from ..verifier_torch import TorchVerifier
+
+    v = TorchVerifier(CircuitTemplate(common), device=dev)
+    return v.tpl.n_gate_selectors, common.num_gate_constraints, v._filter_cols, v._filter_consts, v._filter_mask
+
+
+def made_filter_rows(dev):
+    """(name, n_sel, n_gc, cols, consts, mask) of rows made here: one gate
+    of one live slot (its selector the raw subtraction's word); gates of no
+    live slot, of one after a gap, of three with a gap; no live gate."""
+    out = []
+    for name, n_sel, n_gc, cols, consts, mask in [
+        ("one gate, one slot", 2, 5, [1], [[3]], [[True]]),
+        ("gaps", 4, 7, [0, 3, 2], [[5, 0, 0, 0], [0, 9, 0, 0], [2**32 - 1, 1, 0, 4]],
+         [[False, False, False, False], [False, True, False, False], [True, True, False, True]]),
+        ("no live gate", 3, 4, [], [], []),
+    ]:
+        out.append((name, n_sel, n_gc, torch.tensor(cols, dtype=torch.int64, device=dev),
+                    tf.from_u64(np.array(consts, dtype=np.uint64).reshape(len(cols), -1 if cols else 1), dev),
+                    torch.tensor(np.array(mask, dtype=bool).reshape(len(cols), -1 if cols else 1), device=dev)))
+    return out
+
+
+def check_gate_filter(lib, c, rng, dev, max_lanes: int, commons=None):
+    """checks["gate_filter"]: the live gates' rows of `commons` ((name,
+    common) pairs; gate_filter_commons() unless given) and made_filter_rows()
+    at GATE_FILTER_BATCHES cut to max_lanes, the selector columns a view at
+    column stride 2 beside other openings; against gate_filter_plain,
+    gate_filter_rows_plain and golden_gate_filter on the first
+    GOLDEN_LANES lanes, whose words are reduced mod p (golden/ reduces
+    first; consts - x is not exact mod p on a word y + p above consts + p,
+    tests/test_torch_noncanonical.py)."""
+    cases = [(name, *gate_filter_rows(common, dev)) for name, common in (gate_filter_commons() if commons is None else commons)]
+    for name, n_sel, n_gc, cols, consts, mask in cases + made_filter_rows(dev):
+        live = cols.shape[0]
+        for batch in sorted({min(b, max_lanes) for b in GATE_FILTER_BATCHES}):
+            op_np = words(rng, (batch, n_sel + 3, 2))
+            cons_np = words(rng, (batch, live * n_gc, 2))
+            op_np[:GOLDEN_LANES] %= np.uint64(P)
+            cons_np[:GOLDEN_LANES] %= np.uint64(P)
+            op, cons_t = tf.from_u64(op_np, dev), tf.from_u64(cons_np, dev)
+            sels = GExt(op[:, 1 : 1 + n_sel, 0], op[:, 1 : 1 + n_sel, 1])  # column stride 2, as the verifier's view of openings1
+            cons = GExt(cons_t[..., 0].contiguous(), cons_t[..., 1].contiguous())
+            what = f"{name}: {live} live gates, {n_gc} constraints, {consts.shape[1]} factor slots, {batch} lanes"
+            before = lib.launches.get("gate_filter", 0)
+            got = torch.stack(lib.gate_filter((sels.re, sels.im), (cons.re, cons.im), cols, consts, mask, n_gc))
+            if lib.launches.get("gate_filter", 0) != before + (1 if batch and live else 0) or got.shape != (2, batch, n_gc):
+                raise AssertionError(f"gate_filter {what}: {lib.launches.get('gate_filter', 0) - before} launches, shape {tuple(got.shape)}")
+            want = gate_filter_plain(sels, cons, cols, consts, mask, n_gc)
+            c.compare(got, torch.stack([want.re, want.im]), what)
+            c.compare(got, torch.stack(gate_filter_rows_plain((sels.re, sels.im), (cons.re, cons.im), cols, consts, mask, n_gc)),
+                      f"{what}, the kernel's order")
+            rows = (cols.tolist(), [[int(x) for x in r] for r in tf.to_u64(consts)], mask.tolist())
+            for lane in range(min(batch, GOLDEN_LANES)):
+                gold = golden_gate_filter([_ext_ints(sels.re, sels.im, lane, i) for i in range(n_sel)],
+                                          [_ext_ints(cons.re, cons.im, lane, i) for i in range(live * n_gc)], *rows, n_gc)
+                c.compare(got[:, lane].t(), np.array(gold, np.uint64).reshape(n_gc, 2), f"{what}, lane {lane} vs golden")
+
+
 def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     """The field kernels of `lib` (kernels.KernelLibrary, or the CPU run's
     PlainLibrary) into checks["inv"], checks["horner"], checks["pow"],
     checks["gate_program"], checks["coset_fold"], checks["partial_products"]
-    and checks["lookup_checks"]; raises on the first word that differs."""
+    checks["lookup_checks"] and checks["gate_filter"]; raises on the first
+    word that differs."""
     rng = np.random.default_rng(2026)
 
     c = checks["inv"]
@@ -1041,6 +1173,7 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     check_coset_fold(lib, checks["coset_fold"], rng, dev, n_random)
     check_partial_products(lib, checks["partial_products"], rng, dev, n_random)
     check_lookup_checks(lib, checks["lookup_checks"], rng, dev, n_random)
-    for name in ("horner", "inv", "pow", "gate_program", "coset_fold", "partial_products", "lookup_checks"):
+    check_gate_filter(lib, checks["gate_filter"], rng, dev, n_random)
+    for name in ("horner", "inv", "pow", "gate_program", "coset_fold", "partial_products", "lookup_checks", "gate_filter"):
         print(f"check {name}: {checks[name].cases} words bit-exact against plain and golden")
     return checks

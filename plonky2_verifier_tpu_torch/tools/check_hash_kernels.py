@@ -42,7 +42,7 @@ from ..ops import field as tf
 from ..ops import hash as th
 from ..ops import poseidon as tp
 from ..kernels import horner_segments
-from .check_field_kernels import (check_field_kernels, coset_fold_rows_plain, golden_packed_program, horner_split_plain,
+from .check_field_kernels import (check_field_kernels, coset_fold_rows_plain, gate_filter_rows_plain, golden_packed_program, horner_split_plain,
                                   inv_grouped_split_plain, lookup_checks_rows_plain, partial_products_rows_plain, pow_grouped_rows_plain,
                                   pow_rows_plain)
 
@@ -54,7 +54,7 @@ N_RANDOM = (1 << 20) + 37  # random permutation states, not a multiple of the bl
 N_ROWS = 4099
 SCAN_BATCHES = [1, 5, 1024]
 KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program", "coset_fold", "partial_products",
-           "lookup_checks")
+           "lookup_checks", "gate_filter")
 
 
 def rand_words(rng, shape) -> np.ndarray:
@@ -99,9 +99,9 @@ class PlainLibrary:
     the gate program run in the kernels' own order (horner_split_plain, the
     packed program in Python ints), as do the grouped inversion and
     exponentiation (inv_grouped_split_plain, pow_grouped_rows_plain), the
-    coset folds, the partial products and the lookup argument
-    (coset_fold_rows_plain, partial_products_rows_plain,
-    lookup_checks_rows_plain)."""
+    coset folds, the partial products, the lookup argument and the gate
+    filter (coset_fold_rows_plain, partial_products_rows_plain,
+    lookup_checks_rows_plain, gate_filter_rows_plain)."""
 
     max_segments = 16
     sms = 132  # the H100's, for the Horner segment rule
@@ -109,7 +109,7 @@ class PlainLibrary:
     def __init__(self, consts):
         self.consts = consts
         self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0, "inv_grouped": 0, "pow": 0, "pow_grouped": 0, "gate_program": 0,
-                         "coset_fold": 0, "partial_products": 0, "lookup_checks": 0}
+                         "coset_fold": 0, "partial_products": 0, "lookup_checks": 0, "gate_filter": 0}
 
     def permutation(self, state, form="auto"):
         return tp.permutation_plain(state, self.consts)
@@ -171,6 +171,11 @@ class PlainLibrary:
     def lookup_checks(self, *args):
         out = lookup_checks_rows_plain(*args)
         self.launches["lookup_checks"] += bool(out[0].numel())
+        return out
+
+    def gate_filter(self, sels, cons, cols, consts, mask, n_gc):
+        out = gate_filter_rows_plain(sels, cons, cols, consts, mask, n_gc)
+        self.launches["gate_filter"] += bool(out[0].shape[0] and cols.shape[0])
         return out
 
 

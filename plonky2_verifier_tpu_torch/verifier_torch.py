@@ -7,9 +7,10 @@ proof batch B (and inside FRI over the Q query rounds):
    per step one gather, one masked overwrite and one permutation; on the
    card the whole scan is one kernel launch) -> every Fiat-Shamir challenge,
    bit-exact;
-2. Plonk checks at zeta: selectors, L0, partial products, the lookup
-   argument (where the template has lookup tables), the gate constraints
-   (levelized gate program), alpha-combination, quotient equation;
+2. Plonk checks at zeta: L0, partial products, the lookup argument (where
+   the template has lookup tables), the gate constraints (levelized gate
+   program) filtered by their selectors, alpha-combination, quotient
+   equation;
 3. FRI: proof of work, the leaf hashes of the four oracles and of every fold
    step's coset (one grouped sponge launch on the card), the Merkle
    openings, combineInitial, the coset folds (every step's in one kernel
@@ -23,8 +24,9 @@ inversion of a forward through one call each of ops/field's `pow_grouped`
 and `inv_grouped` right after the transcript (`_powers_and_inverses`: every
 exponent is a function of zeta, alpha and the query indices, every
 denominator one of zeta and those powers), the gate constraints through
-compiler/gates_torch's `GateProgram`, L0 with the partial products through
-`partial_products`, the lookup argument through `lookup_checks` and every
+compiler/gates_torch's `GateProgram`, their selector filter through
+`gate_filter`, L0 with the partial products through `partial_products`,
+the lookup argument through `lookup_checks` and every
 fold step's coset fold through one call of `coset_folds`; each launches its
 CUDA kernel for CUDA tensors and runs its `*_plain` version for CPU tensors.
 
@@ -273,6 +275,48 @@ def _partial_products_kernel(zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas
     return GExt(re, im)
 
 
+def eval_selectors(gate_sels: GExt, cols, consts, mask) -> GExt:
+    """Closed-form selector values of the gates whose rows are given
+    (Gate/Selector.hs:78-95): per gate, the product of (factor - x) over its
+    factor row, masked slots 1, x its column of gate_sels (B, n_sel). cols
+    (G,), consts (G, span) and mask (G, span) -> (B, G)."""
+    x = gate_sels[:, cols]  # (B, G)
+    factors = tf.ext_from_base(consts).unsqueeze(0)  # (1, G, span)
+    one = tf.ext_constant(1, shape=(1, 1, 1), device=x.re.device)
+    terms = tf.ext_where(mask, factors - x.unsqueeze(-1), one)
+    return tree_prod_last(terms)
+
+
+def gate_filter_plain(gate_sels: GExt, cons: GExt, cols, consts, mask, n_gc: int) -> GExt:
+    """Plonky2's gate filter, the counterpart of verifier_jax.py:393-418:
+    each live gate's constraints times its selector value, summed over the
+    gates. gate_sels (B, n_sel); cons (B, L n_gc), the L live gates'
+    constraints one gate after the other; cols, consts and mask the live
+    gates' rows (eval_selectors) -> (B, n_gc)."""
+    B, L = cons.shape[0], cols.shape[0]
+    if not L:
+        return tf.ext_zeros((B, n_gc), cons.re.device)
+    sel = eval_selectors(gate_sels, cols, consts, mask)  # (B, L)
+    return ext_sum_axis(tf.emul(sel.unsqueeze(-1), cons.reshape(B, L, n_gc)), axis=1)
+
+
+def gate_filter(gate_sels: GExt, cons: GExt, cols, consts, mask, n_gc: int) -> GExt:
+    """gate_filter_plain's sum: one launch of the CUDA kernel (csrc/plonk.cu)
+    for CUDA tensors, reading the selector columns where they lie and the
+    live gates' rows from the template's buffers; the plain version for CPU
+    tensors."""
+    if cols.device.type == "cpu":
+        return gate_filter_plain(gate_sels, cons, cols, consts, mask, n_gc)
+    return _gate_filter_kernel(gate_sels, cons, cols, consts, mask, n_gc)
+
+
+def _gate_filter_kernel(gate_sels: GExt, cons: GExt, cols, consts, mask, n_gc: int) -> GExt:
+    from . import kernels
+
+    re, im = kernels.load().gate_filter((gate_sels.re, gate_sels.im), (cons.re, cons.im), cols, consts, mask, n_gc)
+    return GExt(re, im)
+
+
 def lookup_tables(common, device):
     """The lookup tables as the lookup argument reads them, a constant of
     the template: each table padded with its first row to whole rows of
@@ -507,22 +551,22 @@ class TorchVerifier(nn.Module):
         # the kernel's program for this gather, packed once (the CPU path runs the padded arrays)
         self._gate_packed = self.gates.pack(self._gate_out_slots) if self._k_is.device.type == "cuda" else None
 
-        # selector factor matrices (Gate/Selector.hs:78-95): per gate,
-        # (UNUSED if several groups) and every other index of its group
+        # the gate filter's rows (Gate/Selector.hs:78-95): per live gate, its
+        # selector column and its factors, (UNUSED if several groups) and
+        # every other index of its group
         si = common.selectors_info
-        n_gates = len(si.selector_indices)
         multi = len(si.groups) > 1
         span = max(max(g.end - g.start for g in si.groups) - 1 + (1 if multi else 0), 1)
-        tmat = np.zeros((n_gates, span), dtype=np.uint64)
-        mask = np.zeros((n_gates, span), dtype=bool)
-        for g, grp in enumerate(si.selector_indices):
-            rng = si.groups[grp]
+        tmat = np.zeros((len(self._live_gates), span), dtype=np.uint64)
+        mask = np.zeros((len(self._live_gates), span), dtype=bool)
+        for k, g in enumerate(self._live_gates):
+            rng = si.groups[si.selector_indices[g]]
             fs = ([UNUSED_SELECTOR] if multi else []) + [j for j in range(rng.start, rng.end) if j != g]
-            tmat[g, : len(fs)] = fs
-            mask[g, : len(fs)] = True
-        self.register_buffer("_sel_consts", tf.from_u64(tmat, device))
-        self.register_buffer("_sel_mask", torch.from_numpy(mask).to(device))
-        self.register_buffer("_sel_cols", torch.tensor(si.selector_indices, dtype=torch.int64, device=device))
+            tmat[k, : len(fs)] = fs
+            mask[k, : len(fs)] = True
+        self.register_buffer("_filter_cols", torch.tensor([si.selector_indices[g] for g in self._live_gates], dtype=torch.int64, device=device))
+        self.register_buffer("_filter_consts", tf.from_u64(tmat, device))
+        self.register_buffer("_filter_mask", torch.from_numpy(mask).to(device))
 
         # the forward's fixed-generator powers (pow_grouped): combineInitial's
         # query points MULT_GEN g_lde^rev(idx), each fold step's coset offset
@@ -731,8 +775,7 @@ class TorchVerifier(nn.Module):
                                 torch.stack(betas, dim=1), torch.stack(gammas, dim=1), zeta, self._k_is, maxdeg)
         tracing.mark("plonk: L0 and partial products")
 
-        # gate constraints
-        sel_values = self._eval_selectors(gate_sels)  # (B, n_gates)
+        # gate constraints, filtered by their selectors
         inputs = {
             SEL: gate_sels,
             LKPSEL: lkp_sels,
@@ -740,13 +783,8 @@ class TorchVerifier(nn.Module):
             WIRE: wires,
             PI: tf.ext_from_base(pi_hash),
         }
-        n_gc = common.num_gate_constraints
-        live = self._live_gates
-        cons_all = self.gates(inputs, (B,), out_slots=self._gate_out_slots, packed=self._gate_packed).reshape(B, len(live), n_gc)
-        acc = tf.ext_zeros((B, n_gc), dev)
-        if live:
-            sel_live = sel_values[:, live]
-            acc = ext_sum_axis(tf.emul(sel_live.unsqueeze(-1), cons_all), axis=1)
+        cons = self.gates(inputs, (B,), out_slots=self._gate_out_slots, packed=self._gate_packed)  # (B, live gates x n_gc)
+        acc = gate_filter(gate_sels, cons, self._filter_cols, self._filter_consts, self._filter_mask, common.num_gate_constraints)
         tracing.mark("plonk: selectors and gate program")
 
         # assemble, alpha-combine, quotient equation
@@ -764,15 +802,6 @@ class TorchVerifier(nn.Module):
         ok = ok.all(dim=1)
         tracing.mark("plonk: alpha combination and quotient")
         return ok
-
-    def _eval_selectors(self, gate_sels: GExt) -> GExt:
-        """Closed-form selector values for all gates at once: per gate, the
-        product of (factor - x) over its factor row, with masked slots 1."""
-        x = gate_sels[:, self._sel_cols]  # (B, n_gates)
-        consts = tf.ext_from_base(self._sel_consts).unsqueeze(0)  # (1, n_gates, span)
-        one = tf.ext_constant(1, shape=(1, 1, 1), device=x.re.device)
-        terms = tf.ext_where(self._sel_mask, consts - x.unsqueeze(-1), one)
-        return tree_prod_last(terms)  # (B, n_gates)
 
     def _lookup_checks(self, lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas) -> GExt:
         """The lookup equations of this template by the plain version

@@ -18,10 +18,16 @@ version of its interface. The same for the exponentiations
 axis reach the kernel as one row and as repeated rows, never copied;
 `ext_pow_const` at e = 0 and 1 answers without the library) and the gate
 program (`GateProgram._forward_kernel`: the inputs' views at their strides,
-the program packed for the verifier's padded slots). The Horner kernel's
+the program packed for the verifier's padded slots) and the gate filter
+(`_gate_filter_kernel`: the selector columns' view and the template's
+rows as they lie; `_plonk_checks` hands it those and indexes nothing by a
+Python list; `gate_filter_plain` against the chain it replaced, on both
+benchmark templates). The Horner kernel's
 own order of products and adds (`horner_split_plain`, every segment count)
 against the plain chain, and the rule that picks the segments. Tolerance:
-bit-exact. No verifier forward."""
+bit-exact. One verifier forward (the gate filter's call site)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -31,10 +37,14 @@ from plonky2_verifier_tpu import verifier_jax as vj
 from plonky2_verifier_tpu.ops import field as jf
 from plonky2_verifier_tpu_torch import kernels
 from plonky2_verifier_tpu_torch import verifier_torch as vt
-from plonky2_verifier_tpu_torch.compiler import gates_torch
+from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs, gates_torch
+from plonky2_verifier_tpu_torch.golden.plonk import UNUSED_SELECTOR
+from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+from plonky2_verifier_tpu_torch.types import load_common
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops.field import GExt
 from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
+    gate_filter_rows_plain,
     gate_programs,
     golden_packed_program,
     horner_split_plain,
@@ -317,3 +327,91 @@ def test_card_path_gate_program_views_and_slots(monkeypatch):
         prog(inputs, (B,), per_prog=True, out_slots=slots)
     with pytest.raises(ValueError, match="packed"):
         prog._forward_kernel(inputs, (B,), out_slots=slots)
+
+
+BENCH_DATA = os.path.join(os.path.dirname(__file__), "..", "benchmark", "data")
+
+
+def _chain_before_the_kernel(v, gate_sels, cons, n_gc):
+    """The filter as the verifier computed it before the gate filter: every
+    gate's selector value from the whole (n_gates, span) factor matrices,
+    the live gates gathered by a Python list, their emul by the gate
+    outputs and ext_sum_axis over the gates."""
+    si = v.tpl.common.selectors_info
+    multi = len(si.groups) > 1
+    span = max(max(g.end - g.start for g in si.groups) - 1 + (1 if multi else 0), 1)
+    tmat = np.zeros((len(si.selector_indices), span), dtype=np.uint64)
+    mask = np.zeros(tmat.shape, dtype=bool)
+    for g, grp in enumerate(si.selector_indices):
+        fs = ([UNUSED_SELECTOR] if multi else []) + [j for j in range(si.groups[grp].start, si.groups[grp].end) if j != g]
+        tmat[g, : len(fs)], mask[g, : len(fs)] = fs, True
+    x = gate_sels[:, torch.tensor(si.selector_indices)]
+    terms = tf.ext_where(torch.from_numpy(mask), tf.ext_from_base(tf.from_u64(tmat, "cpu")).unsqueeze(0) - x.unsqueeze(-1),
+                         tf.ext_constant(1, shape=(1, 1, 1), device="cpu"))
+    sel_live = vt.tree_prod_last(terms)[:, v._live_gates]
+    B, L = cons.shape[0], len(v._live_gates)
+    return vt.ext_sum_axis(tf.emul(sel_live.unsqueeze(-1), cons.reshape(B, L, n_gc)), axis=1)
+
+
+@pytest.mark.parametrize("config", ["fibonacci-std-d12", "gate-zoo-lookup-d12"])
+def test_gate_filter_plain_equals_the_chain_it_replaced(config):
+    """On the benchmark templates' rows (one selector group; four, with
+    UNUSED_SELECTOR), random selector openings and gate outputs (the edge
+    band and x + p): gate_filter_plain and the kernel's order give the
+    words of the chain the verifier ran before."""
+    v = vt.TorchVerifier(CircuitTemplate(load_common(os.path.join(BENCH_DATA, config, "common.json"))), device="cpu")
+    n_sel, n_gc, L = v.tpl.n_gate_selectors, v.tpl.common.num_gate_constraints, len(v._live_gates)
+    sels, cons = _port(*_ext_np(60, (5, n_sel))), _port(*_ext_np(61, (5, L * n_gc)))
+    rows = (v._filter_cols, v._filter_consts, v._filter_mask)
+    want = _chain_before_the_kernel(v, sels, cons, n_gc)
+    for got in (vt.gate_filter_plain(sels, cons, *rows, n_gc), GExt(*gate_filter_rows_plain((sels.re, sels.im), (cons.re, cons.im), *rows, n_gc))):
+        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert L == v._filter_cols.shape[0] > 1 and (len(v.tpl.common.selectors_info.groups) > 1) == (config == "gate-zoo-lookup-d12")
+
+
+class _FilterLibrary:
+    """The kernel library's gate_filter by the kernel's order in PyTorch,
+    recording the tensors it was given."""
+
+    def __init__(self):
+        self.calls, self.launches = [], {"gate_filter": 0}
+
+    def gate_filter(self, sels, cons, cols, consts, mask, n_gc):
+        self.calls.append((sels, cons, cols, consts, mask, n_gc))
+        self.launches["gate_filter"] += 1
+        return gate_filter_rows_plain(sels, cons, cols, consts, mask, n_gc)
+
+
+def test_card_path_gate_filter_views_and_table(monkeypatch):
+    """A CPU forward hands gate_filter the selector columns as a view of
+    openings1 (its column stride, never copied), the gate program's outputs
+    and the template's buffers, and indexes no GExt by a Python list (the
+    gather that synchronised with the card); `_gate_filter_kernel` passes
+    those tensors to the library as they are and gives the plain words."""
+    common, vkey, pwp = get_fixture_proof("fibonacci", num_query_rounds=6)
+    tpl = CircuitTemplate(common)
+    v = vt.TorchVerifier(tpl, device="cpu")
+    a = v.prepare(flatten_proofs(tpl, [(vkey, pwp)] * 2))
+    seen, indexes = [], []
+    plain_filter, getitem = vt.gate_filter, GExt.__getitem__
+    monkeypatch.setattr(vt, "gate_filter", lambda *args: seen.append(args) or plain_filter(*args))
+    monkeypatch.setattr(GExt, "__getitem__", lambda self, idx: indexes.append(idx) or getitem(self, idx))
+    with torch.no_grad():
+        out = v(a)
+    assert bool(out["ok"].all())
+    (sels, cons, cols, consts, mask, n_gc), = seen
+    assert cols is v._filter_cols and consts is v._filter_consts and mask is v._filter_mask and n_gc == common.num_gate_constraints
+    o1 = a["openings1"]
+    assert sels.re.data_ptr() == o1.data_ptr() and sels.re.stride() == (o1.shape[1] * 2, 2) and sels.shape == (2, tpl.n_gate_selectors)
+    assert cons.shape == (2, len(v._live_gates) * n_gc)
+    flat = lambda idx: idx if isinstance(idx, tuple) else (idx,)
+    assert not any(isinstance(i, list) for idx in indexes for i in flat(idx))
+
+    lib = _FilterLibrary()
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    got = vt._gate_filter_kernel(sels, cons, cols, consts, mask, n_gc)
+    want = vt.gate_filter_plain(sels, cons, cols, consts, mask, n_gc)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    (l_sels, l_cons, *l_rows, l_n), = lib.calls
+    assert l_sels[0] is sels.re and l_sels[1] is sels.im and l_cons[0] is cons.re and l_cons[1] is cons.im
+    assert all(x is y for x, y in zip(l_rows, (cols, consts, mask))) and l_n == n_gc

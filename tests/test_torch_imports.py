@@ -159,6 +159,7 @@ GateProgram.forward = counted("gate_program", GateProgram.forward)
 vt.coset_folds = counted("coset_fold", vt.coset_folds, lambda evals, *a: bool(evals))  # no fold step, no launch
 vt.partial_products = counted("partial_products", vt.partial_products)
 vt.lookup_checks = counted("lookup_checks", vt.lookup_checks)
+vt.gate_filter = counted("gate_filter", vt.gate_filter, lambda sels, cons, cols, *a: bool(cols.shape[0]))  # no live gate, no launch
 cs.DEVICE, cs.BATCH = "cpu", 6
 cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
 cs.ZOO = {"num_query_rounds": 2, "proof_of_work_bits": 2}
@@ -170,6 +171,7 @@ assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, la
 assert (launches["horner"], launches["inv"], launches["inv_grouped"]) == (7, 0, 1), launches
 assert (launches["pow"], launches["pow_grouped"], launches["gate_program"]) == (0, 1, 1), launches
 assert (launches["coset_fold"], launches["partial_products"], launches["lookup_checks"]) == (1 if v.tpl.steps else 0, 1, 0), launches
+assert launches["gate_filter"] == 1, launches
 prover = cs.start_prover("gate_zoo", cs.ZOO)
 zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
 assert prover.returncode == 0

@@ -3,7 +3,7 @@ model, on the card: the three Poseidon kernels, the three field kernels
 (the extension Horner sum, the Fermat inversion and the exponentiations,
 the last two also in their grouped forms), the levelized gate program (in both forms, the tapes in shared memory
 and in device scratch), the FRI coset folds, and L0 with the partial
-products and the lookup argument, their inputs drawn from the edge band and words
+products, the lookup argument and the gate filter, their inputs drawn from the edge band and words
 x + p as well. Bit-exact (integer arithmetic).
 
 These tests need a CUDA device and nvcc; without them they skip. This file
@@ -11,6 +11,8 @@ imports no JAX, so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -25,9 +27,12 @@ from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.ops import hash as th
 from plonky2_verifier_tpu_torch.ops import poseidon as tp
 from plonky2_verifier_tpu_torch.ops.field import GExt
+from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
 from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram, compact_ops
+from plonky2_verifier_tpu_torch.types import load_common
 from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
     check_coset_fold,
+    check_gate_filter,
     check_lookup_checks,
     check_partial_products,
     gate_inputs,
@@ -313,9 +318,13 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     lk = (ext(62, 2, 6), ext(63, 2, 6), ext(64, 2, 3), ext(65, 2, 3), deltas, coeffs, offsets, 6, 4)
     got, want = vt.lookup_checks(*lk), vt.lookup_checks_plain(*lk)
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    gf_args = (ext(66, 2, 3), ext(67, 2, 8), torch.tensor([0, 2], device="cuda"), _rand(68, (2, 2)), torch.ones((2, 2), dtype=torch.bool, device="cuda"), 4)
+    got, want = vt.gate_filter(*gf_args), vt.gate_filter_plain(*gf_args)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     assert {k: lib.launches[k] - before[k] for k in before} == {
         "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1, "inv": 1,
         "inv_grouped": 1, "pow": 2, "pow_grouped": 1, "gate_program": 1, "coset_fold": 1, "partial_products": 1, "lookup_checks": 1,
+        "gate_filter": 1,
     }
 
 
@@ -533,15 +542,18 @@ def test_gate_program_forms_agree_at_the_verifier_batch(lib):
         lib.gate_program(views, big, form="shared")
 
 
-@pytest.mark.parametrize("check", [check_coset_fold, check_partial_products, check_lookup_checks], ids=["coset_fold", "partial_products", "lookup_checks"])
+@pytest.mark.parametrize("check", [check_coset_fold, check_partial_products, check_lookup_checks, check_gate_filter],
+                         ids=["coset_fold", "partial_products", "lookup_checks", "gate_filter"])
 def test_stage_kernels_against_plain_and_golden(lib, check):
     """tools/check_field_kernels.py's sweep of each stage kernel at full
     size: the coset folds (arity 2 to 64 in one launch, both forms, a query
     slice, B = 0), L0 with the partial products (r, maxdeg, chunk counts)
     and the lookup argument (SLDC chunks, table counts and lengths, the
-    lanes of each kind, subtrahends y + p at sldc - prev): the plain
-    version's words, the kernel order's in PyTorch, and golden/'s on a few
-    lanes."""
+    lanes of each kind, subtrahends y + p at sldc - prev) and the gate
+    filter (templates of one selector group and of several, rows of one
+    live slot, of none and with gaps, one live gate and none, batches 1,
+    1,023 and 16,384): the plain version's words, the kernel order's in
+    PyTorch, and golden/'s on a few lanes."""
     from plonky2_verifier_tpu_torch.tools.check_hash_kernels import KernelCheck
 
     c = KernelCheck(check.__name__)
@@ -576,3 +588,85 @@ def test_stage_kernels_validate_inputs(lib):
                                   for x in (ext(75, 2), ext(76, 2), ext(77, 2, 2), ext(78, 2, 2), ext(79, 2, 2), ext(80, 2, 6),
                                             ext(81, 2, 6), _rand(82, (2, 2)), _rand(83, (2, 2)), ext(84, 2), _rand(85, (6,)), 3)))[0].shape == (0, 6)
     assert lib.launches == before
+
+
+BENCH_DATA = os.path.join(os.path.dirname(__file__), "..", "benchmark", "data")
+
+
+def _bench_common(config):
+    return load_common(os.path.join(BENCH_DATA, config, "common.json"))
+
+
+@pytest.mark.parametrize("config", ["fibonacci-std-d12", "gate-zoo-lookup-d12"])
+def test_gate_filter_kernel_on_the_benchmark_templates(lib, config):
+    """check_gate_filter on the live gates' rows of each benchmark
+    template (3 live gates in one selector group; 13 in four, with
+    UNUSED_SELECTOR) at batches 1, 1,023 and 16,384 and B = 0."""
+    from plonky2_verifier_tpu_torch.tools.check_hash_kernels import KernelCheck
+
+    c = KernelCheck("gate_filter")
+    check_gate_filter(lib, c, np.random.default_rng(12), "cuda", 1 << 20, commons=[(config, _bench_common(config))])
+    assert c.cases > 0 and c.max_abs_err == 0
+
+
+def test_gate_filter_kernel_on_noncanonical_subtrahends(lib):
+    """The gate zoo's rows with lane 1's every selector column y + p
+    (n_gates < y < 2^32 - 1, where consts - x is not exact mod p): the
+    kernel gives gate_filter_plain's words (tests/test_torch_noncanonical.py
+    holds those to the JAX package's), and on the same words reduced it
+    reads otherwise exactly where the plain version does, lane 1 among
+    them."""
+    common = _bench_common("gate-zoo-lookup-d12")
+    v = vt.TorchVerifier(CircuitTemplate(common), device="cuda")
+    n_sel, n_gc, L = v.tpl.n_gate_selectors, common.num_gate_constraints, len(v._live_gates)
+    rng = np.random.default_rng(13)
+    sels = rng.integers(0, P, size=(3, n_sel, 2), dtype=np.uint64)
+    sels[1] = rng.integers(len(common.selectors_info.selector_indices) + 1, (1 << 32) - 1, size=(n_sel, 2), dtype=np.uint64) + np.uint64(P)
+    cons = tf.from_u64(rng.integers(0, P, size=(2, 3, L * n_gc), dtype=np.uint64), "cuda")
+    rows = (v._filter_cols, v._filter_consts, v._filter_mask)
+
+    def both(words):
+        t = tf.from_u64(words, "cuda")
+        s = GExt(t[..., 0], t[..., 1])
+        got = lib.gate_filter((s.re, s.im), (cons[0], cons[1]), *rows, n_gc)
+        want = vt.gate_filter_plain(s, GExt(cons[0], cons[1]), *rows, n_gc)
+        return torch.stack(got), torch.stack([want.re, want.im])
+
+    got, want = both(sels)
+    assert torch.equal(got, want)
+    got_red, want_red = both(sels % np.uint64(P))
+    assert torch.equal(got != got_red, want != want_red) and (want[:, 1] != want_red[:, 1]).any()
+
+
+def test_gate_filter_validates_inputs(lib):
+    """CPU tensors, int32 words, constraints of the wrong width, a mask of
+    the wrong shape or type and more live gates or factor slots than the
+    kernel takes raise; no live gate or no lane gives zeros with no
+    launch."""
+    from plonky2_verifier_tpu_torch.kernels import GATE_FILTER_MAX_LIVE, GATE_FILTER_MAX_SPAN
+
+    B, n_sel, n_gc, L, span = 5, 3, 4, 2, 2
+    sels, cons = (_rand(90, (B, n_sel)), _rand(91, (B, n_sel))), (_rand(92, (B, L * n_gc)), _rand(93, (B, L * n_gc)))
+    cols, consts = torch.tensor([0, 2], device="cuda"), _rand(94, (L, span))
+    mask = torch.ones((L, span), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        lib.gate_filter((sels[0].cpu(), sels[1].cpu()), cons, cols, consts, mask, n_gc)
+    with pytest.raises(ValueError, match="int64"):
+        lib.gate_filter(sels, cons, cols, consts.to(torch.int32), mask, n_gc)
+    with pytest.raises(ValueError, match="shape"):
+        lib.gate_filter(sels, cons, cols, consts, mask, n_gc + 1)
+    with pytest.raises(ValueError, match="bool"):
+        lib.gate_filter(sels, cons, cols, consts, mask.to(torch.uint8), n_gc)
+    with pytest.raises(ValueError, match="shape"):
+        lib.gate_filter(sels, cons, cols, consts, mask[:, :1], n_gc)
+    many = GATE_FILTER_MAX_LIVE + 1
+    with pytest.raises(ValueError, match="live gates"):
+        lib.gate_filter(sels, (_rand(95, (B, many)), _rand(96, (B, many))), torch.zeros(many, dtype=torch.int64, device="cuda"),
+                        _rand(97, (many, 1)), torch.ones((many, 1), dtype=torch.bool, device="cuda"), 1)
+    wide = GATE_FILTER_MAX_SPAN + 1
+    with pytest.raises(ValueError, match="factor slots"):
+        lib.gate_filter(sels, cons, cols, _rand(98, (L, wide)), torch.ones((L, wide), dtype=torch.bool, device="cuda"), n_gc)
+    before = dict(lib.launches)
+    none = lib.gate_filter(sels, (cons[0][:, :0], cons[1][:, :0]), cols[:0], consts[:0], mask[:0], n_gc)
+    empty = lib.gate_filter((sels[0][:0], sels[1][:0]), (cons[0][:0], cons[1][:0]), cols, consts, mask, n_gc)
+    assert lib.launches == before and none[0].shape == (B, n_gc) and not (none[0].any() or none[1].any()) and empty[0].shape == (0, n_gc)

@@ -9,13 +9,15 @@ golden/ reduces its operands first and gives other words (ROADMAP.md Queue
 - the SLDC transition's sldc - prev in the lookup argument
   (`verifier_torch.lookup_checks_plain`; on the card csrc/plonk.cu, whose
   order in PyTorch is `check_field_kernels.lookup_checks_rows_plain`),
-- the selector factors' consts - x in `TorchVerifier._eval_selectors`, x the
-  gate-selector columns of openings1.
+- the selector factors' consts - x in `verifier_torch.eval_selectors`, x the
+  gate-selector columns of openings1, and so the gate filter
+  (`gate_filter_plain`; on the card csrc/plonk.cu, whose order in PyTorch is
+  `check_field_kernels.gate_filter_rows_plain`).
 
 Function by function on the CPU, no proof: the lookup fixture's template,
 openings of random words with such subtrahends written in, through the port
 (the plain version and the kernel's order) and through the JAX package's
-`JaxVerifier._lookup_checks` / `_eval_selectors`: the same words. Each case
+`JaxVerifier._lookup_checks` / `_eval_selectors` / its filtered sum: the same words. Each case
 also shows that it reaches the inexact subtraction: the same elements
 reduced first (golden/'s side) give other words on the probed lanes.
 
@@ -38,7 +40,8 @@ import pytest
 
 from plonky2_verifier_tpu.compiler.template import CircuitTemplate as JaxTemplate
 from plonky2_verifier_tpu.ops import field as jf
-from plonky2_verifier_tpu.verifier_jax import JaxVerifier
+from plonky2_verifier_tpu.verifier_jax import JaxVerifier, _unsq
+from plonky2_verifier_tpu.verifier_jax import ext_sum_axis as jax_ext_sum_axis
 from plonky2_verifier_tpu_torch import kernels
 from plonky2_verifier_tpu_torch import verifier_torch as vt
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
@@ -113,25 +116,65 @@ def test_lookup_checks_equal_jax_on_noncanonical_subtrahends(verifiers, monkeypa
     assert differs[1:].all(), differs
 
 
-def test_eval_selectors_equal_jax_on_noncanonical_subtrahends(verifiers):
-    """consts - x with x the gate-selector openings: lane 1 has every column
-    written as y + p (n_gates < y < 2^32 - 1, above every gate-index factor;
-    the UNUSED factor 2^32 - 1 stays above it), lanes 0 and 2 the words of
-    words(): the port's _eval_selectors gives JaxVerifier's words; reduced
-    first, lane 1 reads otherwise."""
-    common, tv, jv = verifiers
+def _selector_words(tv, seed):
+    """Gate-selector openings of 3 lanes: lane 1 has every column written as
+    y + p (n_gates < y < 2^32 - 1, above every gate-index factor; the UNUSED
+    factor 2^32 - 1 stays above it), lanes 0 and 2 the words of words()."""
     n_sel = tv.tpl.n_gate_selectors
-    n_gates = len(common.selectors_info.selector_indices)
-    rng = np.random.default_rng(32)
+    n_gates = len(tv.tpl.common.selectors_info.selector_indices)
+    rng = np.random.default_rng(seed)
     sels = words(rng, (3, n_sel, 2))
     sels[1] = rng.integers(n_gates + 1, (1 << 32) - 1, size=(n_sel, 2), dtype=np.uint64) + np.uint64(P)
-    got = tv._eval_selectors(_port(sels))
-    ref = jv._eval_selectors(_jax(sels))
+    return sels, rng
+
+
+def test_eval_selectors_equal_jax_on_noncanonical_subtrahends(verifiers):
+    """consts - x with x the gate-selector openings of _selector_words: the
+    port's eval_selectors on the live gates' rows gives JaxVerifier's words
+    for those gates; reduced first, lane 1 reads otherwise."""
+    common, tv, jv = verifiers
+    sels, _ = _selector_words(tv, 32)
+    rows = (tv._filter_cols, tv._filter_consts, tv._filter_mask)
+    got = vt.eval_selectors(_port(sels), *rows)
+    ref = jv._eval_selectors(_jax(sels))[:, np.array(tv._live_gates)]
     ref = np.stack([np.asarray(x) for x in jf.ext_to_u64(ref)], axis=-1)
     np.testing.assert_array_equal(_words(got), ref)
 
-    reduced = _words(tv._eval_selectors(_port(sels % np.uint64(P))))
+    reduced = _words(vt.eval_selectors(_port(sels % np.uint64(P)), *rows))
     assert (reduced[1] != ref[1]).any()
+
+
+def test_gate_filter_equal_jax_on_noncanonical_subtrahends(verifiers, monkeypatch):
+    """The filtered sum of the gate constraints on the selector words of
+    _selector_words: gate_filter_plain and the card path's order
+    (_gate_filter_kernel over gate_filter_rows_plain) give the words of
+    JaxVerifier's selectors, gathered, multiplied and summed as its
+    _plonk_checks does; reduced first, each reads otherwise exactly where
+    the plain version does, lane 1 among them."""
+    common, tv, jv = verifiers
+    sels, rng = _selector_words(tv, 33)
+    n_gc, live = common.num_gate_constraints, tv._live_gates
+    cons = words(rng, (3, len(live) * n_gc, 2))
+    rows = (tv._filter_cols, tv._filter_consts, tv._filter_mask)
+    lib = PlainLibrary(None)
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+
+    def port(s):
+        return (_words(vt.gate_filter_plain(_port(s), _port(cons), *rows, n_gc)),
+                _words(vt._gate_filter_kernel(_port(s), _port(cons), *rows, n_gc)))
+
+    plain, order = port(sels)
+    sel_live = jv._eval_selectors(_jax(sels))[:, np.array(live)]
+    ref = jax_ext_sum_axis(jf.emul(_unsq(sel_live, -1), _jax(cons.reshape(3, len(live), n_gc, 2))), axis=1)
+    ref = np.stack([np.asarray(x) for x in jf.ext_to_u64(ref)], axis=-1)
+    np.testing.assert_array_equal(plain, ref)
+    np.testing.assert_array_equal(order, ref)
+    assert lib.launches["gate_filter"] == 1
+
+    plain_red, order_red = port(sels % np.uint64(P))
+    differs = plain != plain_red
+    np.testing.assert_array_equal(order != order_red, differs)
+    assert differs[1].any()
 
 
 PP_CASES = [(2, 1, 3), (3, 2, 4), (5, 3, 3), (8, 2, 10), (40, 1, 2)]  # (maxdeg, r, n_chunks)

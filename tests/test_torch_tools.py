@@ -166,6 +166,30 @@ def test_fold_work_counts_the_fft_form_and_the_kernels_butterflies():
     assert n_bytes == 8 * (2 * (lanes * (2 * arity + 3) + 2 * 1024 + arity * arity)) and f"the kernel's {kernel} instructions" in what
 
 
+def test_gate_filter_work_at_the_zoo_benchmark_shape():
+    """chip_smoke.gate_filter_work on the gate-zoo benchmark template's rows
+    at 16,384 lanes (13 live gates of 123 constraints, 60 live factors in
+    rows of 6 slots): a term an emul and 2 adds, a factor a subtraction and
+    an emul past a gate's first; bound by the operations, 0.155 ms at the
+    H100's int32 rate, beside 0.135 ms for the bytes."""
+    import chip_smoke as cs
+    from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
+    from plonky2_verifier_tpu_torch.ops import field as tf
+    from plonky2_verifier_tpu_torch.types import load_common
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+
+    v = TorchVerifier(CircuitTemplate(load_common(os.path.join(ROOT, "benchmark", "data", "gate-zoo-lookup-d12", "common.json"))), device="cpu")
+    B, L, n_gc = 16384, 13, 123
+    meta = lambda w: tf.GExt(torch.empty((B, w), dtype=torch.int64, device="meta"), torch.empty((B, w), dtype=torch.int64, device="meta"))
+    least, n_bytes, what = cs.gate_filter_work(meta(4), meta(L * n_gc), v._filter_cols, v._filter_consts, v._filter_mask, n_gc)
+    assert v._filter_cols.shape[0] == L and int(v._filter_mask.sum()) == 60 and v._filter_consts.shape[1] == 6
+    assert least == B * (L * n_gc * (cs.EMUL + 2 * cs.ADD) + 60 * 2 * cs.ADD + (60 - L) * cs.EMUL) == 2_590_638_080
+    assert n_bytes == 8 * (2 * B * 4 + 2 * B * L * n_gc + 2 * B * n_gc + L + L * 6) + L * 6
+    ms, by = cs.field_bound_ms(least, n_bytes, 132 * cs.INT32_LANES_PER_SM * 1.98e9)
+    assert by == "operations" and 0.154 < ms < 0.156 and 0.134 < n_bytes / cs.HBM_BYTES_PER_S * 1e3 < 0.136
+    assert "13 live gates of 123 constraints" in what and "16 lanes a block" in what
+
+
 @pytest.mark.parametrize("routed,n_polys,maxdeg,rows,lanes", [(80, 7, 8, 26, (2, 4, 4)), (6, 2, 4, 2, (1, 1, 1))], ids=["zoo", "one-lane"])
 def test_lookup_work_counts_the_kernels_lanes(routed, n_polys, maxdeg, rows, lanes):
     """chip_smoke.lookup_work on the zoo's shape and on one where every part

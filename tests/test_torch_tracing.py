@@ -4,16 +4,21 @@ TorchVerifier.forward and the stream.
 On the CPU: spans nest, with their parents and their forward's id; the three
 stage spans tile "forward"; tracing off records nothing and changes no
 output bit; the switch follows torch.profiler; report()'s arithmetic on a
-trace made by hand; the stream's rule for the ingest its caller paid.
+trace made by hand; the stream's rule for the ingest its caller paid; a
+forward launches no gate filter kernel on the CPU.
 
 On the card (marked `cuda`, skipped without one): one clock, the profiler's
 launches and device operations of a forward inside the tracer's spans of it
 to +-50 us; the tracer records under a profiler of CUDA activity alone; a
-planted `.item()` counts one synchronisation in its span. This file imports
+planted `.item()` counts one synchronisation in its span; a forward of
+each benchmark template synchronises with the host 0 times and launches
+the gate filter once. This file imports
 no JAX, so on a machine with a card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py
 """
+
+import os
 
 import pytest
 import torch
@@ -23,6 +28,7 @@ from plonky2_verifier_tpu_torch import tracing
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
 from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
 from plonky2_verifier_tpu_torch.parallel.stream import paid_ns
+from plonky2_verifier_tpu_torch.tools.profile_verifier import load_proofs
 from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -232,3 +238,44 @@ def test_card_a_planted_item_counts_one_synchronisation_in_its_span(card_verifie
     rep = tracing.report()
     assert sum(rep["syncs"]["planted"].values()) == 1 and "clean" not in rep["syncs"]
     assert rep["syncs_per_forward"] == 0.5
+
+
+def test_a_cpu_forward_launches_no_gate_filter(cpu_verifier, monkeypatch):
+    """On the CPU the gate filter is its plain version: the kernel
+    library is never loaded."""
+    from plonky2_verifier_tpu_torch import kernels
+
+    def refuse():
+        raise AssertionError("a CPU forward loaded the kernel library")
+
+    monkeypatch.setattr(kernels, "load", refuse)
+    v, dev = cpu_verifier
+    assert bool(_call(v, dev)["ok"].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fibonacci-std-d12", "gate-zoo-lookup-d12"])
+def test_card_a_benchmark_forward_synchronises_zero_times(config):
+    """The benchmark's proofs of each template, 64 lanes: a traced forward
+    counts no host-device synchronisation (syncs_per_forward's counter),
+    and each forward launches the gate filter exactly once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from plonky2_verifier_tpu_torch import kernels
+
+    common, pairs = load_proofs(os.path.join(os.path.dirname(__file__), "..", "benchmark", "data", config))
+    tpl = CircuitTemplate(common)
+    v = TorchVerifier(tpl)
+    dev = v.prepare(flatten_proofs(tpl, [pairs[i % len(pairs)] for i in range(64)]))
+    assert bool(_call(v, dev)["ok"].all())
+    torch.cuda.synchronize()
+    lib = kernels.load()
+    before = lib.launches["gate_filter"]
+    tracing.enable()
+    _call(v, dev)
+    _call(v, dev)
+    torch.cuda.synchronize()
+    tracing.disable()
+    rep = tracing.report()
+    assert rep["forwards"] == 2 and rep["syncs_per_forward"] == 0, rep["syncs"]
+    assert lib.launches["gate_filter"] - before == 2

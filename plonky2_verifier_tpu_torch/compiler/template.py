@@ -15,7 +15,7 @@ from typing import Dict, List, Tuple
 
 from ..golden import field as gf
 from ..golden.duplex import Duplex
-from ..golden.fri import expand_reduction_strategy, oracle_widths
+from ..golden.fri import oracle_widths
 from ..golden.plonk import get_selector_config
 from ..types import CommonCircuitData
 
@@ -66,9 +66,7 @@ class CircuitTemplate:
         self.oracle_widths = list(oracle_widths(common))  # constants, wires, pp, quotient
         self.initial_path_len = self.lde_bits - self.cap_height
 
-        self.step_arity_bits = expand_reduction_strategy(
-            self.degree_bits, cfg.fri_config.reduction_strategy
-        )
+        self.step_arity_bits = list(common.fri_params.reduction_arity_bits)
         # per-step: (arity_bits, codeword_bits_before, tree_leaves_bits, path_len, cap_len)
         self.steps = []
         bits = self.lde_bits

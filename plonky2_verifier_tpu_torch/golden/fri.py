@@ -17,7 +17,7 @@ check returns False cleanly so fault-injection tests can assert rejection.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 from ..types import CommonCircuitData, Proof, VerifierOnlyCircuitData
 from .challenges import ProofChallenges, fri_opening_batches
@@ -50,29 +50,6 @@ def oracle_widths(common: CommonCircuitData) -> Tuple[int, int, int, int]:
         r * (1 + common.num_partial_products + common.num_lookup_polys),
         r * common.quotient_degree_factor,
     )
-
-
-def expand_reduction_strategy(degree_bits: int, strategy) -> List[int]:
-    """Per-step arity bits (Plonk/FRI.hs:337-354)."""
-    if strategy.constant_arity_bits is not None:
-        arity_bits, final_poly_bits = strategy.constant_arity_bits
-        out = []
-        logn = degree_bits
-        while logn > final_poly_bits:
-            # upstream pushes the FULL arity each step (commentary/FRI.md:46
-            # — overshoot below final_poly_bits is normal, the final poly
-            # may be smaller than 2^final_poly_bits). Only logn < arity
-            # (upstream-unreachable) is clamped so the canonical final-poly
-            # length stays >= 1. Mirrors models/builder.py; the reference
-            # verifier never expands — arities arrive as data
-            # (Types.hs:151-157) — so self-consistency is on us.
-            a = min(arity_bits, logn)
-            out.append(a)
-            logn -= a
-        return out
-    if strategy.fixed is not None:
-        return list(strategy.fixed)
-    raise ValueError("reduction strategy not implemented")
 
 
 def check_proof_of_work(fri_config, pow_response: int) -> bool:
@@ -169,7 +146,7 @@ def check_fri_proof(
     y1 = reduce_with_powers(fri.alpha, batch_next)
 
     logn_lde = common.fri_params.lde_bits
-    step_arities = expand_reduction_strategy(common.fri_params.degree_bits, fri_config.reduction_strategy)
+    step_arities = list(common.fri_params.reduction_arity_bits)
 
     if len(fri_proof.commit_phase_merkle_caps) != len(step_arities):
         return False

@@ -340,10 +340,12 @@ class CircuitBuilder:
         # poly may be SMALLER than 2^final_poly_bits). Only the upstream-
         # unreachable corner logn < arity_bits is clamped (to logn) so the
         # canonical final-poly length 2^(degree_bits - sum) stays >= 1.
-        # Mirrored in golden/fri.py expand_reduction_strategy.
+        # Plonky2's second stop (FriReductionStrategy::reduction_arity_bits):
+        # no step once logn + rate_bits - arity_bits < cap_height. The port
+        # reads the arities from fri_params (template, prover, golden/).
         arities = []
         logn = degree_bits
-        while logn > self.final_poly_bits:
+        while logn > self.final_poly_bits and logn + self.rate_bits - self.arity_bits >= fri_config.cap_height:
             a = min(self.arity_bits, logn)
             arities.append(a)
             logn -= a

@@ -67,3 +67,26 @@ def multi_lookup_fixture(
     b.add_row(arith, constants=(1, 0), prefill=prefill)
     b.set_public_inputs([total])
     return b.build(name="multi_lookup")
+
+
+def big_lut_fixture(
+    table_size: int = 1 << 16,
+    inputs: tuple = (51, 2),
+    num_query_rounds: int = 28,
+    proof_of_work_bits: int = 16,
+    seed: int = 0,
+) -> Fixture:
+    """Plonky2's `test_big_lut` (plonky2/src/lookup_test.rs) under the
+    standard recursion config: one table of `table_size` (u16::MAX + 1 in
+    Plonky2) pairs (x, y), x = 0, 1, ... and each y a u16 drawn from `seed`,
+    then one lookup of each of `inputs`. The public inputs are those inputs
+    and their outputs, in the order the test registers them (initial_a,
+    initial_b, output_a, output_b). Proofs of other `inputs` share the
+    circuit: the looked-up pairs and the multiplicities are witness words."""
+    b = CircuitBuilder(seed=seed, num_query_rounds=num_query_rounds, proof_of_work_bits=proof_of_work_bits)
+    outputs = [b.rng.getrandbits(16) for _ in range(table_size)]
+    lut = b.add_lookup_table(list(zip(range(table_size), outputs)))
+    looked = [b.add_lookup(lut, x) for x in inputs]
+    b.add_row(Gate("PublicInputGate"))
+    b.set_public_inputs(list(inputs) + looked)
+    return b.build(name="big_lut")

@@ -400,9 +400,7 @@ def prove(fixture: Fixture, grind_hook=None) -> Tuple[VerifierOnlyCircuitData, P
         p_coeffs[i] = gf.eadd(p_coeffs[i], c)
 
     # commit phase
-    from ..golden.fri import expand_reduction_strategy
-
-    step_arities = expand_reduction_strategy(degree_bits, cfg.fri_config.reduction_strategy)
+    step_arities = list(common.fri_params.reduction_arity_bits)
     cw_re = npf.arr([c[0] for c in p_coeffs])
     cw_im = npf.arr([c[1] for c in p_coeffs])
     shift = gf.MULT_GEN

@@ -23,7 +23,9 @@ gathered on the device):
     leaf hashes, initial Merkle walks, combineInitial, the coset folds of
     every step in one stage -- one kernel launch on the card -- then each
     fold step's Merkle walk and opened slot, the final polynomial; the span
-    "fri_checks"). The stages add up to the staged call, the span "forward";
+    "fri_checks"). The stages add up to the staged call, the span "forward".
+    Beside them the tracer's work counters of the call ("counts": the
+    lookup argument's padded table rows x rounds x lanes);
 (b) under torch.profiler, on the card, `calls` calls with `in_flight` of them
     enqueued (the next enqueued before the wait for a verdict, as
     benchmark/program.py runs them): `cudaLaunchKernel` calls a forward, the
@@ -84,8 +86,8 @@ def _sync(device):
 def stage_times(v, dev) -> dict:
     """One call of `v` on `dev`, traced, with no synchronise but its end.
     -> {"staged_call_ms": the span "forward", "stages_ms": {stage: ms},
-    "spans_ms": {"challenges" | "plonk_checks" | "fri_checks": ms}, "syncs"},
-    device ms where `v` is on the card."""
+    "spans_ms": {"challenges" | "plonk_checks" | "fri_checks": ms}, "syncs",
+    "counts": the tracer's work counters}, device ms where `v` is on the card."""
     device = v._ov_idx.device
     _sync(device)
     tracing.reset()
@@ -102,7 +104,8 @@ def stage_times(v, dev) -> dict:
     spans = rep["spans"]
     return {"staged_call_ms": spans["forward"]["device_ms"],
             "stages_ms": {name: s["device_ms"] for name, s in spans.items() if s["parent"] in STAGE_SPANS},
-            "spans_ms": {name: spans[name]["device_ms"] for name in STAGE_SPANS}, "syncs": rep["syncs"]}
+            "spans_ms": {name: spans[name]["device_ms"] for name in STAGE_SPANS}, "syncs": rep["syncs"],
+            "counts": rep["counts_per_forward"]}
 
 
 def short_name(name: str) -> str:

@@ -27,6 +27,11 @@ reports every host-device synchronisation, and each one counts in the
 innermost open span of the thread that made it, by site (the innermost two
 frames of this package: "ops/field.py:262 < verifier_torch.py:748").
 
+The work counters. `count(name, n)` adds n to the counter `name` of the
+innermost open span, as the verifier counts the lookup argument's table
+work (`LOOKUP_TABLE_ROWS`: padded table rows x challenge rounds x lanes, each
+forward). Host arithmetic only: a count reads nothing from the card.
+
 The store is module state, so it outlives the verifier that filled it:
 `report()` reads it, `reset()` empties it. Nothing is written to a file.
 """
@@ -42,6 +47,7 @@ import warnings
 
 import torch
 
+LOOKUP_TABLE_ROWS = "lookup table rows"  # the counter of the lookup argument's table work
 POOL = 512  # events made at once: ~25 boundaries a forward, ~20 forwards; past them an event is made at its boundary
 SYNC_WARNING = "called a synchronizing CUDA operation"
 _HERE = os.path.abspath(__file__)
@@ -65,12 +71,12 @@ class Span:
     where tracing was on when it opened."""
 
     __slots__ = ("name", "request", "device", "parent", "thread", "host_start", "host_end", "ev_start", "ev_end",
-                 "dev_start", "dev_end", "syncs", "_cursor", "_traced")
+                 "dev_start", "dev_end", "syncs", "counts", "_cursor", "_traced")
 
     def __init__(self, name: str, request=None, device=None):
         self.name, self.request, self.device = name, request, device
         self.parent = self.thread = self.host_end = self.ev_start = self.ev_end = self.dev_start = self.dev_end = None
-        self.syncs = None
+        self.syncs = self.counts = None
         self._traced = False
 
     def __enter__(self):
@@ -167,6 +173,19 @@ def mark(name: str) -> None:
     leaf.host_start, leaf.ev_start = parent._cursor
     leaf.host_end, leaf.ev_end = parent._cursor = _boundary(parent.device)
     _spans.append(leaf)
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to the counter `name` of the innermost open span."""
+    if not _on:
+        return
+    stack = _stack()
+    if not stack:
+        return
+    top = stack[-1]
+    if top.counts is None:
+        top.counts = {}
+    top.counts[name] = top.counts.get(name, 0) + n
 
 
 def forward(device):
@@ -294,13 +313,15 @@ def report() -> dict:
       (`host_ms_a_forward`, `device_ms_a_forward`; None without a forward);
     - `syncs`: by span name ("" outside any span), {site: count};
       `syncs_per_forward`: those inside a forward span, over the forwards;
+    - `counts`: each work counter (`count`) summed over the spans inside a
+      forward; `counts_per_forward`: each over the forwards;
     - `raw`: every span, {name, parent (its index here), request, thread,
       host_ns: [start, end], device_ns: [start, end] or None}, to merge with
       a profiler's events."""
     _resolve()
     closed = [s for s in _spans if s.host_end is not None]
     n = sum(1 for s in closed if s.name == "forward")
-    spans, syncs, in_forwards = {}, {}, 0
+    spans, syncs, in_forwards, counts = {}, {}, 0, {}
     for s in closed:
         e = spans.setdefault(s.name, {"parent": s.parent.name if s.parent else None, "count": 0, "host_ms": 0.0,
                                       "device_ms": None})
@@ -314,6 +335,9 @@ def report() -> dict:
                 by_site[site] = by_site.get(site, 0) + k
             if _under_forward(s):
                 in_forwards += sum(s.syncs.values())
+        if s.counts and _under_forward(s):
+            for name, k in s.counts.items():
+                counts[name] = counts.get(name, 0) + k
     if _loose_syncs:
         syncs[""] = dict(_loose_syncs)
     for e in spans.values():
@@ -323,4 +347,5 @@ def report() -> dict:
     raw = [{"name": s.name, "parent": index.get(id(s.parent)), "request": s.request, "thread": s.thread,
             "host_ns": [s.host_start, s.host_end],
             "device_ns": [s.dev_start, s.dev_end] if s.dev_start is not None else None} for s in closed]
-    return {"forwards": n, "spans": spans, "syncs": syncs, "syncs_per_forward": in_forwards / n if n else None, "raw": raw}
+    return {"forwards": n, "spans": spans, "syncs": syncs, "syncs_per_forward": in_forwards / n if n else None,
+            "counts": counts, "counts_per_forward": {k: v / n for k, v in counts.items()} if n else {}, "raw": raw}

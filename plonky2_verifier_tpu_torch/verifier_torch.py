@@ -333,6 +333,41 @@ def lookup_tables(common, device):
     return coeffs, torch.tensor(offsets, dtype=torch.int64, device=device)
 
 
+LUT_BLOCK = 1024  # table rows a step of table_poly_eval: (B, r, LUT_BLOCK, 2) words at a time
+
+
+def base_sum_axis(v: torch.Tensor, axis: int) -> torch.Tensor:
+    """Sum of base-field words over `axis` by halving."""
+    v = v.movedim(axis, 0)
+    while v.shape[0] > 1:
+        if v.shape[0] % 2:
+            v = torch.cat([v, torch.zeros_like(v[:1])], dim=0)
+        half = v.shape[0] // 2
+        v = tf.add(v[:half], v[half:])
+    return v[0]
+
+
+def table_poly_eval(rows: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """rows (n, 2) words, point (B, r) -> (B, r, 2): each column's sum of
+    rows[i] point^(n - 1 - i), the Horner sum over the rows in order, as
+    sums of the rows times the powers of `point`, LUT_BLOCK rows at a time."""
+    n = rows.shape[0]
+    m = max(min(n, LUT_BLOCK), 1)
+    powers = torch.ones(tuple(point.shape) + (1,), dtype=point.dtype, device=point.device)
+    square = point
+    while powers.shape[-1] < m:  # point^0 ... point^(m - 1), doubling
+        powers = torch.cat([powers, tf.mul(powers, square.unsqueeze(-1))], dim=-1)
+        square = tf.mul(square, square)
+    powers = powers[..., :m]
+    acc = tf.zeros(tuple(point.shape) + (2,), point.device)
+    for start in range(0, n, m):
+        block = rows[start : start + m].flip(0)  # the block's last row takes point^0
+        k = block.shape[0]
+        value = base_sum_axis(tf.mul(powers[..., :k, None], block), -2)
+        acc = tf.add(tf.mul(acc, tf.mul(powers[..., k - 1], point).unsqueeze(-1)), value)
+    return acc
+
+
 def lookup_checks_plain(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_next: GExt, deltas, coeffs, offsets,
                         num_routed_wires: int, maxdeg: int) -> GExt:
     """The log-derivative lookup equations at zeta, the counterpart of
@@ -427,13 +462,11 @@ def lookup_checks_plain(lkp_sels: GExt, wires: GExt, lookup_zs: GExt, lookup_zs_
     eq_re_t = tf.emul(sel(0), re_o - cur)  # (B, r)
 
     # final RE per table: the padded table's (input, output) columns as
-    # polynomials in delta, both Horner sums in one loop
+    # polynomials in delta, the first row at the highest power
     eq_finals = []
     bounds = offsets.tolist()
     for k in range(len(bounds) - 1):
-        acc = tf.zeros((B, r, 2), dev)
-        for c in coeffs[bounds[k] : bounds[k + 1]]:
-            acc = tf.add(tf.mul(dlv.unsqueeze(-1), acc), c)
+        acc = table_poly_eval(coeffs[bounds[k] : bounds[k + 1]], dlv)
         expected = tf.add(acc[..., 0], tf.mul(bv, acc[..., 1]))
         eq_finals.append(tf.emul(sel(4 + k), re_o - tf.ext_from_base(expected)))
 
@@ -792,6 +825,7 @@ class TorchVerifier(nn.Module):
         if common.num_lookup_polys > 0:
             lookup_vec = [lookup_checks(lkp_sels, wires, lookup_zs, lookup_zs_next, deltas, self._lut_coeffs, self._lut_off,
                                         common.config.num_routed_wires, maxdeg, lanes=self._lookup_lanes)]
+            tracing.count(tracing.LOOKUP_TABLE_ROWS, self._lut_coeffs.shape[0] * len(deltas) * B)
         tracing.mark("plonk: lookup argument")
         constraint_vec = tf.ext_concat([head] + lookup_vec + [acc], dim=1)  # (B, K)
         combined = horner_scaled(constraint_vec, torch.stack(alphas, dim=1))  # (B, r)

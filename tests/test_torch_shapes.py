@@ -9,7 +9,9 @@ from_json. There chip_smoke.check_circuit, the check that runs on the card
 too, holds it against golden/: a batch of 2 accepted, lane 0's challenges
 equal, one fault a lane (tests/shape_grid_check.py, fuzz_device_check.py)
 rejected on exactly its lane. The port's own copies of those two functions
-(tools/shape_circuits.py) must give the same circuits and proofs. Grid point
+(tools/shape_circuits.py) must give the same circuits and proofs, but at the
+three circuits where the port's builder stops folding as Plonky2 does: there
+the same circuits but for their FRI arities, and proofs golden/ accepts. Grid point
 (4, 3, 2) also goes through JaxVerifier on the same arrays: equal verdicts
 and debug challenges. Tolerance: none (integers and booleans)."""
 
@@ -25,6 +27,7 @@ from plonky2_verifier_tpu.prover.prove import prove as ref_prove
 from plonky2_verifier_tpu.verifier_jax import JaxVerifier
 from plonky2_verifier_tpu_torch import types as pt
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
+from plonky2_verifier_tpu_torch.golden.verifier import verify_proof
 from plonky2_verifier_tpu_torch.prover.prove import prove
 from plonky2_verifier_tpu_torch.tools import shape_circuits as sc
 from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
@@ -36,6 +39,10 @@ from test_torch_verifier import _debug_pairs
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CIRCUITS = [("grid", pt_) for pt_ in GRID] + [("fuzz", seed) for seed in (13, 23)]
+# (the port's arities, the JAX package's) where degree_bits + rate_bits -
+# arity_bits falls below cap_height before the degree reaches
+# final_poly_bits: Plonky2's builder stops there, the JAX package's folds on
+PLONKY2_STOPS = {("grid", (4, 3, 2)): ([], [3]), ("grid", (4, 2, 0)): ([2], [2, 1]), ("fuzz", 13): ([1], [1, 1])}
 
 
 def _build(kind, arg):
@@ -62,11 +69,19 @@ def test_shape_against_golden(kind, arg, monkeypatch, capsys):
     monkeypatch.setattr(cs, "DEVICE", "cpu")
     ref_fx, fx, faults = _build(kind, arg)
     ref_vkey, ref_pwp = ref_prove(ref_fx)
-    # the port's copy and its prover give the same circuit and the same proof
-    assert json.dumps(fx.common.to_json()) == json.dumps(ref_fx.common.to_json())
+    # the port's copy and its prover give the same circuit and the same proof,
+    # but where the port's builder stops folding as Plonky2 does (PLONKY2_STOPS):
+    # there the same circuit but for its arities, and a proof golden/ accepts
+    ours, theirs = fx.common.to_json(), ref_fx.common.to_json()
+    arities = (ours["fri_params"].pop("reduction_arity_bits"), theirs["fri_params"].pop("reduction_arity_bits"))
+    assert json.dumps(ours) == json.dumps(theirs)
+    assert arities == PLONKY2_STOPS.get((kind, arg), (arities[1], arities[1]))
     vkey, pwp = prove(fx)
-    assert json.dumps(pwp.to_json()) == json.dumps(ref_pwp.to_json())
-    assert json.dumps(vkey.to_json()) == json.dumps(ref_vkey.to_json())
+    if arities[0] == arities[1]:
+        assert json.dumps(pwp.to_json()) == json.dumps(ref_pwp.to_json())
+        assert json.dumps(vkey.to_json()) == json.dumps(ref_vkey.to_json())
+    else:
+        assert verify_proof(fx.common, vkey, pwp)
 
     v, batches = cs.check_circuit(f"{kind} {arg}", *_cross(ref_fx.common, ref_vkey, ref_pwp), faults)
     tpl, line = v.tpl, capsys.readouterr().out

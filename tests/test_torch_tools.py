@@ -103,6 +103,7 @@ def test_profile_verifier_stage_times_add_up(capsys):
     assert sum(stages.values()) <= sum(spans.values()) <= res["staged_call_ms"]
     assert sum(stages[s] for s in want[:3]) <= spans["challenges"] and sum(stages[s] for s in want[3:7]) <= spans["plonk_checks"]
     assert res["syncs"] == {}  # the CPU never synchronises
+    assert res["counts"] == {}  # fibonacci has no lookup table
     assert all(res[k] > 0 for k in ("construct_s", "first_call_s", "warm_call_s"))
 
 

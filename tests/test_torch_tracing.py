@@ -11,8 +11,8 @@ On the card (marked `cuda`, skipped without one): one clock, the profiler's
 launches and device operations of a forward inside the tracer's spans of it
 to +-50 us; the tracer records under a profiler of CUDA activity alone; a
 planted `.item()` counts one synchronisation in its span; a forward of
-each benchmark template synchronises with the host 0 times and launches
-the gate filter once. This file imports
+each benchmark template synchronises with the host 0 times, launches
+the gate filter once and counts its lookup table rows. This file imports
 no JAX, so on a machine with a card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py
@@ -254,11 +254,12 @@ def test_a_cpu_forward_launches_no_gate_filter(cpu_verifier, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("config", ["fibonacci-std-d12", "gate-zoo-lookup-d12"])
+@pytest.mark.parametrize("config", ["fibonacci-std-d12", "gate-zoo-lookup-d12", "big-lut-d12"])
 def test_card_a_benchmark_forward_synchronises_zero_times(config):
     """The benchmark's proofs of each template, 64 lanes: a traced forward
     counts no host-device synchronisation (syncs_per_forward's counter),
-    and each forward launches the gate filter exactly once."""
+    each forward launches the gate filter exactly once, and the lookup
+    argument's table work counts the padded table rows x rounds x lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from plonky2_verifier_tpu_torch import kernels
@@ -279,3 +280,5 @@ def test_card_a_benchmark_forward_synchronises_zero_times(config):
     rep = tracing.report()
     assert rep["forwards"] == 2 and rep["syncs_per_forward"] == 0, rep["syncs"]
     assert lib.launches["gate_filter"] - before == 2
+    rows = v._lut_coeffs.shape[0] * tpl.r * 64
+    assert rep["counts_per_forward"] == ({tracing.LOOKUP_TABLE_ROWS: rows} if rows else {})

@@ -146,7 +146,8 @@ The line before the last is the kernels' JSON summary; the last line is
 
 With --sass it also prints the SASS instructions one permutation executes
 (kernels.sass_instruction_count; needs cuobjdump), a cross-check of the
-kernels' distance from W.
+kernels' distance from W, beside the count of the round body before this one
+(SASS_BEFORE) and the count of a 2-to-1 compression.
 """
 
 import contextlib
@@ -182,6 +183,11 @@ PROFILE = [("fibonacci", 1024), ("gate_zoo", 1024)]  # tools/profile_verifier.py
 # permutation, over SMs x 64 int32 lanes x the maximum SM clock; bytes over
 # the H100's 3.35 TB/s beside it.
 W_INSTRUCTIONS = 19180
+# the SASS instructions of one thread-form permutation under the round body
+# before csrc/poseidon.cuh's present one (its own count kernels: the first
+# constants, 8 full and 22 partial rounds), printed beside today's by --sass
+SASS_BEFORE = {"IMAD.WIDE": 11366, "IADD3": 10510, "IADD3.X": 3796, "VIADD": 1874, "UMOV": 1486, "IMAD.MOV": 1264, "IMAD.X": 984,
+               "SEL": 880, "ISETP": 768, "ULDC": 552, "MOV": 458, "IMAD.IADD": 432, "IMAD": 266, "LDC": 180, "S2R": 30}
 INV_PRODUCTS = 72  # csrc/field.cu's chain for a^(p - 2): 63 squarings and 9 products
 POW_WINDOW = 8  # bits a table of the least work of a fixed-generator power (pow_grouped_work)
 # int32 instructions of a Goldilocks product and add (W's reckoning), and of the
@@ -213,6 +219,22 @@ def device_phase():
     print(f"bound: {sms} SMs x {INT32_LANES_PER_SM} int32 lanes x {clock} MHz (clocks.max.sm) = {rate:.4e} instructions/s; "
           f"W = {W_INSTRUCTIONS} a permutation -> {W_INSTRUCTIONS / rate * 1e9:.4f} ns a permutation")
     return smi, rate
+
+
+def print_sass():
+    """The SASS instructions of one thread-form permutation and of one 2-to-1
+    compression (kernels.sass_instruction_count), by opcode, beside W and
+    beside SASS_BEFORE. Needs nvcc and cuobjdump."""
+    from plonky2_verifier_tpu_torch import kernels
+
+    pieces = kernels.sass_pieces()
+    counts = kernels.sass_instruction_count(pieces=pieces)
+    compression = sum(kernels.sass_instruction_count(compression=True, pieces=pieces).values())
+    by_op = lambda c: ", ".join(f"{k} {n}" for k, n in sorted(c.items(), key=lambda kv: -kv[1]))
+    print(f"sass: {sum(counts.values())} instructions in one thread-form permutation (W = {W_INSTRUCTIONS}), "
+          f"{compression} in a 2-to-1 compression: {by_op(counts)}")
+    print(f"sass before: {sum(SASS_BEFORE.values())} instructions in one thread-form permutation: {by_op(SASS_BEFORE)}")
+    print("sass pieces: " + ", ".join(f"{k} {sum(ops.values())}" for k, ops in sorted(pieces.items())))
 
 
 def bound_ms(permutations: int, n_bytes: int, rate: float):
@@ -1570,10 +1592,7 @@ def main():
     profile_path()
     phase("profiles")
     if "--sass" in sys.argv[1:]:
-        counts = kernels.sass_instruction_count()
-        top = sorted(counts.items(), key=lambda kv: -kv[1])
-        print(f"sass: {sum(counts.values())} instructions in one thread-form permutation "
-              f"(W = {W_INSTRUCTIONS}): " + ", ".join(f"{k} {n}" for k, n in top))
+        print_sass()
     paths = [("the main path", launches)] + [(f"the gate-zoo path at batch {b}", n) for b, n in zoo_launches.items()]
     paths += [(f"the stream of {STREAM_PROOFS}", stream_launches), ("the command line's stream", cli_launches), ("the shape circuits", shape_launches)]
     paths += [(f"the {MESHES[-1][0]} x {MESHES[-1][1]} mesh's first call, its ranks together", mesh_launches),

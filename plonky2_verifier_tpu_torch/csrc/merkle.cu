@@ -9,8 +9,9 @@
 // siblings are read once (32 L + 40 bytes a path, far below the ALU time).
 // Design: one thread per path. Index bit l says whether the current digest
 // is the right child at level l; the state [left, right, 0^4] is built in
-// registers and permuted (`permute<true>`: the zero lanes start at their
-// round constant), and lanes 0-3 carry to the next level. All the time is in
+// registers and permuted (`permute<true, 4>`: the zero lanes start at their
+// round constant, and the last round computes lanes 0-3 alone), and lanes
+// 0-3 carry to the next level. All the time is in
 // the shared round body, so that is where the design works (lazy reduction,
 // folded constants: poseidon.cuh). Blocks are one warp, and the grid is cut
 // so that every thread walks the same number of paths (`balanced_grid`): at
@@ -25,7 +26,7 @@ using namespace p2v;
 namespace {
 
 constexpr int THREADS = 32;
-// 28 warps an SM hold the compiler to 72 registers (16 bytes of spill), and
+// 28 warps an SM hold the compiler to 72 registers (it takes 69, no spill), and
 // 132 x 28 blocks take the standard shape's 3,584 in one wave. Left free it
 // takes 80-130 registers, the wave shrinks, and the L = 11 walk is 15-40 %
 // slower (measured on the H100).
@@ -52,7 +53,7 @@ merkle_kernel(const uint64_t* __restrict__ digest, const int64_t* __restrict__ i
                 s[4 + k] = right ? cur[k] : sb;
                 s[8 + k] = 0;
             }
-            permute<true>(s);
+            permute<true, 4>(s);
 #pragma unroll
             for (int k = 0; k < 4; ++k) cur[k] = s[k];
         }
@@ -63,8 +64,8 @@ merkle_kernel(const uint64_t* __restrict__ digest, const int64_t* __restrict__ i
 
 }  // namespace
 
-extern "C" int p2v_merkle_init(const void* pre, const void* post, const void* circ, const void* diag) {
-    cudaError_t e = upload_constants(pre, post, circ, diag);
+extern "C" int p2v_merkle_init(const void* pre, const void* post) {
+    cudaError_t e = upload_constants(pre, post);
     if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_resident, merkle_kernel, THREADS, 0);
     return (int)e;
 }

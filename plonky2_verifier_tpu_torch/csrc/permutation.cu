@@ -13,12 +13,14 @@
 //   threads a block, so 1024 states are 512 warps over all 132 SMs and a
 //   thread's chain is one S-box and one MDS row a round;
 // - thread (beyond): one state per thread, grid-stride over n.
-// The switch sits where the split form stops being the faster one on an
-// H100: the thread form's time stays flat at one warp's walk (0.058 ms)
-// until a few warps sit on every scheduler, while the split form's grows
-// with n because it spends about four times the instructions a state
-// (0.019 ms at n = 64, 0.048 at 8192, 0.090 at 16384); they cross between
-// 2^13 and 2^14 states (chip_smoke.py prints both forms' times).
+// The switch sits where the split form stopped being the faster one on an
+// H100: the thread form's time stays flat at one warp's walk until a few
+// warps sit on every scheduler, while the split form's grows with n because
+// it spends about four times the instructions a state. With the present
+// round body the permutation's forms cross between 2^12 and 2^13 states
+// (thread 0.042-0.045 ms up to 16384; split 0.028 ms at 4096, 0.048 at 8192,
+// 0.088 at 16384), the scan's between 2^12 and 2^14 (at 4096: thread 4.42
+// ms, split 2.58); tools/probe_kernels.py prints both forms' times.
 //
 // p2v_permutation_scan runs the whole transcript in one launch: for each of
 // the n_perms steps of the static schedule, overwrite the masked lanes of
@@ -42,7 +44,6 @@ constexpr int64_t SPLIT_MAX_STATES = 8192;
 // a copy of c_post that the split form's threads index by their own lane
 __device__ uint64_t g_post[N_ROUNDS * WIDTH];
 __device__ uint64_t g_pre[WIDTH];
-__device__ uint32_t g_diag[WIDTH];
 
 int g_resident_thread = 1, g_resident_scan = 1;
 
@@ -61,11 +62,15 @@ permutation_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, 
 
 #ifdef P2V_COUNT_ROUNDS
 // The pieces of one thread-form permutation as straight-line kernels, for
-// counting its instructions in the SASS (kernels.sass_instruction_count):
-// PIECE 0 loads and stores only, 1 adds round 0's constants and
-// canonicalises, 2 runs one full round, 3 one partial round.
+// counting its instructions in the SASS (kernels.sass_instruction_count).
+// The round index r is a kernel argument, so the round constants are read
+// as the rolled loops read them. PIECE 0 loads and stores only; 1 adds round
+// 0's constants and canonicalises; 2 is a full round (0-3, 26-28), 3 a
+// partial round (4-24), 4 round 25 (lane 0's S-box, twelve constants), 5
+// round 29 (no constants), 6 round 29 of a 2-to-1 compression (four rows),
+// 7 the compression's first constants and canonicalisation of four lanes.
 template <int PIECE>
-__global__ void count_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out) {
+__global__ void count_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int r) {
     uint64_t s[WIDTH];
 #pragma unroll
     for (int k = 0; k < WIDTH; ++k) s[k] = in[threadIdx.x * WIDTH + k];
@@ -74,15 +79,35 @@ __global__ void count_kernel(const uint64_t* __restrict__ in, uint64_t* __restri
 #pragma unroll
         for (int k = 0; k < WIDTH; ++k) s[k] = canonical(s[k]);
     }
-    if (PIECE == 2) round_body(s, 1);
-    if (PIECE == 3) round_body(s, 10);
+    if (PIECE == 2) {
+        full_sbox(s);
+        mds<WIDTH, WIDTH>(s, c_post + r * WIDTH);
+    }
+    if (PIECE == 3) partial_round(s, r);
+    if (PIECE == 4) {
+        s[0] = sbox7(s[0]);
+        mds<WIDTH, WIDTH>(s, c_post + r * WIDTH);
+    }
+    if (PIECE == 5 || PIECE == 6) {
+        full_sbox(s);
+        mds<PIECE == 5 ? WIDTH : 4, 0>(s, nullptr);
+    }
+    if (PIECE == 7) {
+        add_first_constants<true>(s);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[k] = canonical(s[k]);
+    }
 #pragma unroll
     for (int k = 0; k < WIDTH; ++k) out[threadIdx.x * WIDTH + k] = s[k];
 }
-template __global__ void count_kernel<0>(const uint64_t*, uint64_t*);
-template __global__ void count_kernel<1>(const uint64_t*, uint64_t*);
-template __global__ void count_kernel<2>(const uint64_t*, uint64_t*);
-template __global__ void count_kernel<3>(const uint64_t*, uint64_t*);
+template __global__ void count_kernel<0>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<1>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<2>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<3>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<4>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<5>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<6>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<7>(const uint64_t*, uint64_t*, int);
 #endif
 
 __device__ __forceinline__ void load_post(uint64_t* post) {
@@ -97,7 +122,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
 permutation_split_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
     __shared__ uint64_t post[N_ROUNDS * WIDTH];
     load_post(post);
-    const SplitLane L = split_lane(g_pre, g_diag);
+    const SplitLane L = split_lane(g_pre);
     const int64_t stride = (int64_t)gridDim.x * STATES_PER_BLOCK;
     const int64_t first = (int64_t)blockIdx.x * STATES_PER_BLOCK;
     for (int64_t base = first; base < n; base += stride) {
@@ -135,7 +160,7 @@ scan_split_kernel(const uint64_t* __restrict__ data, const int64_t* __restrict__
                   int64_t n_data, int n_perms) {
     __shared__ uint64_t post[N_ROUNDS * WIDTH];
     load_post(post);
-    const SplitLane L = split_lane(g_pre, g_diag);
+    const SplitLane L = split_lane(g_pre);
     const int64_t stride = (int64_t)gridDim.x * STATES_PER_BLOCK;
     const int64_t first = (int64_t)blockIdx.x * STATES_PER_BLOCK;
     for (int64_t base = first; base < batch; base += stride) {
@@ -161,11 +186,10 @@ bool use_split(int64_t n, int form) { return form == 2 || (form == 0 && n <= SPL
 
 }  // namespace
 
-extern "C" int p2v_permutation_init(const void* pre, const void* post, const void* circ, const void* diag) {
-    cudaError_t e = upload_constants(pre, post, circ, diag);
+extern "C" int p2v_permutation_init(const void* pre, const void* post) {
+    cudaError_t e = upload_constants(pre, post);
     if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_post, post, sizeof(uint64_t) * N_ROUNDS * WIDTH);
     if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_pre, pre, sizeof(uint64_t) * WIDTH);
-    if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_diag, diag, sizeof(uint32_t) * WIDTH);
     if (e == cudaSuccess)
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_resident_thread, permutation_kernel, THREADS, 0);
     if (e == cudaSuccess)

@@ -12,13 +12,12 @@ using namespace p2v;
 
 __device__ uint64_t g_post[N_ROUNDS * WIDTH];
 __device__ uint64_t g_pre[WIDTH];
-__device__ uint32_t g_diag[WIDTH];
 
 __global__ void probe(uint64_t* out, long long* cycles, int reps) {
     __shared__ uint64_t post[N_ROUNDS * WIDTH];
     for (int k = threadIdx.x; k < N_ROUNDS * WIDTH; k += blockDim.x) post[k] = g_post[k];
     __syncthreads();
-    const SplitLane L = split_lane(g_pre, g_diag);
+    const SplitLane L = split_lane(g_pre);
     uint64_t x = threadIdx.x * 0x9E3779B97F4A7C15ull + 1;
     const long long t0 = clock64();
     for (int i = 0; i < reps; ++i) x = mul_mod(x, x);
@@ -50,13 +49,11 @@ int main() {
     long long* cycles;
     if (cudaMalloc(&out, 8 * 128) != cudaSuccess || cudaMallocManaged(&cycles, 8 * 5) != cudaSuccess) return 1;
     uint64_t pre[WIDTH], post[N_ROUNDS * WIDTH];
-    const uint32_t circ[WIDTH] = {17, 15, 41, 16, 2, 28, 13, 13, 39, 18, 34, 20}, diag[WIDTH] = {8};
     for (int i = 0; i < WIDTH; ++i) pre[i] = i * 77 + 5;
     for (int i = 0; i < N_ROUNDS * WIDTH; ++i) post[i] = i * 1234567ull + 3;
-    if (upload_constants(pre, post, circ, diag) != cudaSuccess) return 1;
+    if (upload_constants(pre, post) != cudaSuccess) return 1;
     cudaMemcpyToSymbol(g_post, post, sizeof(post));
     cudaMemcpyToSymbol(g_pre, pre, sizeof(pre));
-    cudaMemcpyToSymbol(g_diag, diag, sizeof(diag));
     const int reps = 20;
     for (int threads : {32, 128}) {
         probe<<<1, threads>>>(out, cycles, reps);

@@ -42,10 +42,11 @@
 //   end within one short row of each other. The same 8 blocks an SM walking
 //   a fixed stride take 3.09 ms, one block a warp of rows (the hardware
 //   hands them out in order) 2.91.
-// - The launch bound asks for 16 blocks an SM: 128 registers, no spill. The
-//   Merkle walk's bound of 28 (72 registers, 8 bytes of spill in a loop that
-//   also keeps the row pointer and the chunk count) costs 4 % here (2.93
-//   ms), and a bound of 1 (144 registers) 3 % (2.89).
+// - The launch bound asks for 16 blocks an SM: up to 128 registers (the round
+//   body takes 92), no spill. With the round body before csrc/poseidon.cuh's
+//   present one, the Merkle walk's bound of 28 (72 registers, 8 bytes of
+//   spill in a loop that also keeps the row pointer and the chunk count) cost
+//   4 % here (2.93 ms), and a bound of 1 (144 registers) 3 % (2.89).
 // - The loop is the plain one: load 8 words, `permute`, again. Two steps
 //   were built, measured and taken out again: the next chunk in flight
 //   during the permutation (cp.async into shared memory: 2.7992 against
@@ -65,7 +66,7 @@ using namespace p2v;
 namespace {
 
 constexpr int THREADS = 32;
-constexpr int LAUNCH_BOUND_BLOCKS = 16;  // 128 registers a thread, no spill
+constexpr int LAUNCH_BOUND_BLOCKS = 16;  // up to 128 registers a thread, no spill
 constexpr int BLOCKS_PER_SM = 8;         // two warps a scheduler
 constexpr int MAX_SEGMENTS = 16;
 constexpr int NO_WARP = 0x7FFFFFFF;
@@ -177,8 +178,8 @@ cudaError_t launch_variant(const Segments& seg, uint64_t* out, int warps, int bl
 
 }  // namespace
 
-extern "C" int p2v_sponge_init(const void* pre, const void* post, const void* circ, const void* diag) {
-    return (int)upload_constants(pre, post, circ, diag);
+extern "C" int p2v_sponge_init(const void* pre, const void* post) {
+    return (int)upload_constants(pre, post);
 }
 
 // The most segments one grouped launch takes.

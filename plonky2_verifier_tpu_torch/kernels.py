@@ -4,10 +4,11 @@
 library with a plain C interface, under csrc/_build/, all compiles started
 together; a library is named by a sha256 of its source, the headers
 (csrc/*.cuh) and the flags, so an edited source rebuilds. `load()` opens
-them with ctypes once per process, uploads the Poseidon tables
-(`folded_round_constants`, the MDS) into each Poseidon kernel's constant
-memory, and returns the `KernelLibrary` whose methods launch the kernels:
-the three Poseidon kernels (permutation.cu, sponge.cu, merkle.cu), the
+them with ctypes once per process, uploads the Poseidon round constants
+(`folded_round_constants`; the MDS matrix is compiled into
+csrc/poseidon.cuh) into each Poseidon kernel's constant memory, and returns
+the `KernelLibrary` whose methods launch the kernels: the three Poseidon
+kernels (permutation.cu, sponge.cu, merkle.cu), the
 three field kernels (field.cu: the extension Horner sum, the inversion and
 the exponentiations, the last two also in the grouped form a verifier's
 forward launches once each), the levelized gate program (gates.cu), every
@@ -79,6 +80,23 @@ def folded_round_constants():
     return rc[0], post
 
 
+# The MDS sums of csrc/poseidon.cuh: a row's low accumulator starts from its
+# whole folded constant and adds coefficients (sum ROW_SUM at most) times
+# 32-bit halves; the join then adds (high accumulator >> 32) (2^32 - 1)
+# without a carry. Both hold if every constant is below JOIN_LIMIT.
+ROW_SUM = sum(MDS_CIRC) + max(MDS_DIAG)
+JOIN_LIMIT = 2**64 - 2 * ROW_SUM * (2**32 - 1)
+
+
+def check_round_body_bounds(post):
+    """Raise unless the folded constants `post` and the MDS coefficients
+    leave csrc/poseidon.cuh's accumulators the room they assume."""
+    if ROW_SUM * 2**32 >= 2**41:
+        raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
+    if max(c for row in post for c in row) >= JOIN_LIMIT:
+        raise ValueError("a folded round constant leaves the MDS join no room: it must be below JOIN_LIMIT")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -131,17 +149,22 @@ def build(extra_flags=()) -> dict:
     return libs
 
 
-def sass_instruction_count() -> dict:
-    """A cross-check of the kernels' distance from W (csrc/poseidon.cuh): the
-    SASS instructions one thread-form permutation executes, by opcode (IMAD
-    and IADD3 split by their first modifier: IMAD.WIDE multiplies, IMAD.MOV
-    is a register move, IADD3.X an add with carry).
-    permutation.cu is compiled with -DP2V_COUNT_ROUNDS, which adds four
-    straight-line kernels: loads and stores only, the first constant add
-    with the last canonicalisation, one full round, one partial round. A
-    permutation is the second, 8 of the third and 22 of the fourth, each
-    less the first. (The shipped loop adds a few instructions a round for
-    its counter and table address.) Needs nvcc and cuobjdump."""
+# csrc/permutation.cu's count_kernel pieces a thread-form permutation runs,
+# and how often: the first constants and canonicalisation, the full rounds
+# 0-3 and 26-28, the partial rounds 4-24, round 25, round 29
+PERMUTATION_PIECES = {1: 1, 2: 7, 3: 21, 4: 1, 5: 1}
+# a 2-to-1 compression (the Merkle walk's permute<true, 4>): its own first
+# constants and last round
+COMPRESSION_PIECES = {7: 1, 2: 7, 3: 21, 4: 1, 6: 1}
+
+
+def sass_pieces() -> dict:
+    """The SASS instructions of each of csrc/permutation.cu's count_kernel
+    pieces 1-7, by opcode (IMAD and IADD3 split by their first modifier:
+    IMAD.WIDE multiplies, IMAD.MOV is a register move, IADD3.X an add with
+    carry), the loads and stores of piece 0 taken out of each.
+    permutation.cu is compiled with -DP2V_COUNT_ROUNDS. Needs nvcc and
+    cuobjdump."""
     nvcc = _nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -150,23 +173,39 @@ def sass_instruction_count() -> dict:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
-    os.remove(cubin)
-    pieces = [{} for _ in range(4)]
-    piece = None
+    try:
+        sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
+    finally:
+        os.remove(cubin)
+    pieces, piece = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"count_kernelILi(\d)E", line)
-            piece = pieces[int(m.group(1))] if m else None
+            piece = pieces.setdefault(int(m.group(1)), {}) if m else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*(?:\.(?:WIDE|MOV|SHL|IADD|X))?)", line)
         if piece is not None and m and m.group(1) != "NOP":
             piece[m.group(1)] = piece.get(m.group(1), 0) + 1
-    if not all(pieces):
-        raise RuntimeError("the counting kernels were not found in the SASS")
-    base, ends, full, partial = pieces
-    ops = set().union(*pieces)
-    counts = {op: ends.get(op, 0) + 8 * full.get(op, 0) + 22 * partial.get(op, 0) - 31 * base.get(op, 0) for op in ops}
+    if sorted(pieces) != list(range(8)):
+        raise RuntimeError(f"the counting kernels were not all found in the SASS: {sorted(pieces)}")
+    base = pieces.pop(0)
+    less_base = lambda ops: {op: ops.get(op, 0) - base.get(op, 0) for op in set(ops) | set(base)}
+    return {k: {op: n for op, n in less_base(ops).items() if n} for k, ops in pieces.items()}
+
+
+def sass_instruction_count(compression: bool = False, pieces=None) -> dict:
+    """A cross-check of the kernels' distance from W (csrc/poseidon.cuh): the
+    SASS instructions one thread-form permutation executes, by opcode, as
+    the sum of its pieces (`sass_pieces`, or `pieces` as it returned them;
+    `PERMUTATION_PIECES`, or with `compression` the Merkle walk's 2-to-1
+    compression, `COMPRESSION_PIECES`). The rolled loops add a few
+    instructions a round for their counters and branches, which this leaves
+    out."""
+    pieces = pieces or sass_pieces()
+    counts = {}
+    for k, times in (COMPRESSION_PIECES if compression else PERMUTATION_PIECES).items():
+        for op, n in pieces[k].items():
+            counts[op] = counts.get(op, 0) + times * n
     return {op: n for op, n in counts.items() if n}
 
 
@@ -381,19 +420,16 @@ class KernelLibrary:
             "fold": {"p2v_coset_fold": [vp, i32, i64, i64, vp]},
             "plonk": {"p2v_partial_products": [vp, vp], "p2v_lookup_checks": [vp, vp], "p2v_gate_filter": [vp, vp]},
         }
-        if (sum(MDS_CIRC) + max(MDS_DIAG) + 1) * 2**32 >= 2**41:
-            raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
         pre, post = folded_round_constants()
+        check_round_body_bounds(post)
         pre, post = np.array(pre, dtype=np.uint64), np.array(post, dtype=np.uint64)
-        circ = np.array(MDS_CIRC, dtype=np.uint32)
-        diag = np.array(MDS_DIAG, dtype=np.uint32)
         self._fn = {}
         self._libs = []
         for source, fns in signatures.items():
             lib = ctypes.CDLL(paths[source])
             self._libs.append(lib)
             if source in POSEIDON_SOURCES:
-                fns = dict(fns, **{f"p2v_{source}_init": [vp, vp, vp, vp]})
+                fns = dict(fns, **{f"p2v_{source}_init": [vp, vp]})
             if hasattr(lib, "p2v_sponge_rows_variant"):  # built with SPONGE_VARIANTS_FLAG
                 fns["p2v_sponge_rows_variant"] = [vp, vp, vp, vp, i32, vp, i32, i32, vp, vp]
             if hasattr(lib, "p2v_partial_products_variant"):  # built with PP_VARIANTS_FLAG
@@ -404,7 +440,7 @@ class KernelLibrary:
                 fn.restype = ctypes.c_int
                 self._fn[name] = fn
             if source in POSEIDON_SOURCES:
-                err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data, circ.ctypes.data, diag.ctypes.data)
+                err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data)
                 _check_cuda(err, f"p2v_{source}_init")
         self.max_segments = self._fn["p2v_sponge_max_segments"]()
         self.gate_smem_limit = self._fn["p2v_gate_smem_limit"]()  # bytes of shared memory a block may take

@@ -63,7 +63,7 @@ a launch of the kernel costs under the device timing.
 5. builds csrc/probe_cycles.cu and prints the cycles one warp spends in one
    modular multiply, one S-box, one shuffle, and one permutation in each
    form (clock64 around 20 dependent repetitions);
-6. prints the SASS instruction count of one permutation (kernels.sass_instruction_count).
+6. prints the SASS instruction count of one permutation (chip_smoke.print_sass).
 
 Any failed check raises. Times are CUDA-event times of repeated launches.
 """
@@ -381,9 +381,7 @@ def main():
     probe_field(lib, rng, rate)
 
     print(cycles_probe())
-    counts = kernels.sass_instruction_count()
-    print(f"sass: {sum(counts.values())} instructions in one thread-form permutation (W = {cs.W_INSTRUCTIONS}): "
-          + ", ".join(f"{k} {n}" for k, n in sorted(counts.items(), key=lambda kv: -kv[1])))
+    cs.print_sass()
     print(f"card: {smi}")
 
 

@@ -184,6 +184,71 @@ def test_merkle_fold_grid_sizes(lib, consts, n):
     assert torch.equal(lib.merkle_fold(dig, idx, sibs), th.merkle_fold_plain(dig, idx, sibs, 2, consts))
 
 
+# The words at the edges of the round body's ranges (csrc/poseidon.cuh):
+# 0, 1, p - 1, p and 2^64 - 1, the last two not canonical.
+HASH_EDGE = np.array([0, 1, P - 1, P, 2**64 - 1], dtype=np.uint64)
+
+
+def _edge_words(seed, shape):
+    """Words drawn from HASH_EDGE; the first of every row is each edge word in turn."""
+    words = HASH_EDGE[np.random.default_rng(seed).integers(0, len(HASH_EDGE), size=shape)]
+    words.reshape(-1, shape[-1])[:, 0] = np.resize(HASH_EDGE, int(np.prod(shape[:-1])))
+    return words
+
+
+@pytest.mark.parametrize("index_bits", ["zeros", "ones"])
+@pytest.mark.parametrize("path_len", [3, 7, 11])
+def test_merkle_fold_on_edge_words(lib, consts, path_len, index_bits):
+    """Digests and siblings of edge words, every index bit 0 or every bit 1:
+    the kernel, the plain walk and golden/ give the same roots."""
+    n = 517
+    dig, sibs = _edge_words(path_len, (n, 4)), _edge_words(path_len + 1, (n, path_len, 4))
+    dig[:5] = HASH_EDGE[:, None]  # every lane one edge word
+    idx = np.full(n, 0 if index_bits == "zeros" else (1 << path_len) - 1, dtype=np.int64)
+    d, s, i = tf.from_u64(dig, "cuda"), tf.from_u64(sibs, "cuda"), torch.from_numpy(idx).cuda()
+    got = lib.merkle_fold(d, i, s)
+    assert torch.equal(got, th.merkle_fold_plain(d, i, s, path_len, consts))
+    roots = tf.to_u64(got)
+    for r in range(0, n, 37):
+        _, want = gh.reconstruct_merkle_root(tuple(int(x) for x in dig[r]), int(idx[r]), [tuple(int(x) for x in w) for w in sibs[r]])
+        assert tuple(int(x) for x in roots[r]) == want
+
+
+# the leaf widths of one verifier call on each benchmark circuit
+EDGE_SPONGE_WIDTHS = {"fibonacci": [135, 83, 32, 32, 20, 16], "gate zoo": [135, 91, 34, 32, 32, 16]}
+
+
+@pytest.mark.parametrize("name", list(EDGE_SPONGE_WIDTHS))
+def test_sponge_rows_grouped_on_edge_words(lib, consts, name):
+    """Rows of edge words at the widths one verifier call hashes, in one
+    grouped launch: the plain sponge and golden/ give the same digests."""
+    group = [tf.from_u64(_edge_words(10 + k, (300 + k, w)), "cuda") for k, w in enumerate(EDGE_SPONGE_WIDTHS[name])]
+    got = lib.sponge_rows_grouped(group)
+    for rows, g, w in zip(group, got, th.sponge_rows_grouped_plain(group, consts)):
+        assert torch.equal(g, w)
+        host, digests = tf.to_u64(rows), tf.to_u64(g)
+        for r in range(0, rows.shape[0], 61):
+            assert tuple(int(x) for x in digests[r]) == gh.sponge([int(x) for x in host[r]])
+
+
+def test_permutation_scan_on_edge_words_at_16384(lib, consts):
+    """The transcript scan at 16,384 states, the batch of the benchmark's
+    cells, in the thread form the launcher picks there, on data of edge
+    words: the plain scan gives the same states, and golden/ lane 0's."""
+    batch, n_perms, n_data = 16384, 9, 40
+    ov_idx, ov_mask = _schedule(70, n_perms, n_data)
+    data = tf.from_u64(_edge_words(71, (batch, n_data)), "cuda")
+    got = lib.permutation_scan(data, ov_idx, ov_mask)
+    assert torch.equal(got, lib.permutation_scan(data, ov_idx, ov_mask, "thread"))
+    assert torch.equal(got[:, :1024], tp.permutation_scan_plain(data[:1024], ov_idx, ov_mask, consts))
+    assert torch.equal(got[:, -1024:], tp.permutation_scan_plain(data[-1024:], ov_idx, ov_mask, consts))
+    for b in (0, 1, batch - 1):
+        state, host = [0] * 12, tf.to_u64(data)[b]
+        for i, m in zip(ov_idx.cpu().tolist(), ov_mask.cpu().tolist()):
+            state = gp.permutation([int(host[j]) if keep else s for j, keep, s in zip(i, m, state)])
+        assert [int(v) for v in tf.to_u64(got[-1, b])] == state
+
+
 def _noncanonical(seed, shape):
     """Words drawn from the edge band, x + p (x < 2^32 - 1) and random."""
     rng = np.random.default_rng(seed)

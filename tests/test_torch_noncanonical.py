@@ -37,6 +37,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 from plonky2_verifier_tpu.compiler.template import CircuitTemplate as JaxTemplate
 from plonky2_verifier_tpu.ops import field as jf
@@ -249,3 +250,49 @@ def test_partial_products_plain_equals_golden_on_reduced_words(maxdeg, r, n_chun
                                        ints(reduced["sigmas"][lane]), [int(x) for x in reduced["betas"][lane]],
                                        [int(x) for x in reduced["gammas"][lane]], [int(x) for x in reduced["k_is"]], maxdeg)
         assert [tuple(int(v) for v in x) for x in got[lane]] == gold, lane
+
+
+# The hash kernels read raw proof words too (leaf rows, digests, siblings,
+# transcript data), p and 2^64 - 1 among them. tests/test_torch_kernels.py
+# holds the kernels on the card to the plain versions on such words; here the
+# plain versions are held to golden/ on the same kind of words.
+HASH_EDGE = np.array([0, 1, P - 1, P, 2**64 - 1], dtype=np.uint64)
+HASH_CASES = ["merkle L=3, index bits 0", "merkle L=11, index bits 1", "sponge, fibonacci widths", "sponge, gate zoo widths", "scan"]
+
+
+def _edge_words(seed, shape):
+    return HASH_EDGE[np.random.default_rng(seed).integers(0, len(HASH_EDGE), size=shape)]
+
+
+@pytest.mark.parametrize("case", HASH_CASES)
+def test_hash_plain_versions_equal_golden_on_edge_words(case):
+    from plonky2_verifier_tpu_torch.golden import hashing as gh
+    from plonky2_verifier_tpu_torch.golden import poseidon as gp
+    from plonky2_verifier_tpu_torch.ops import hash as th
+    from plonky2_verifier_tpu_torch.ops import poseidon as tp
+
+    consts = tp.PoseidonConstants("cpu")
+    rows = lambda a: [[int(x) for x in r] for r in a]
+    if case.startswith("merkle"):
+        path_len = 3 if "L=3" in case else 11
+        dig, sibs = _edge_words(1, (5, 4)), _edge_words(2, (5, path_len, 4))
+        dig[:] = HASH_EDGE[:, None]  # one edge word in every lane of a digest
+        idx = np.full(5, 0 if case.endswith("0") else (1 << path_len) - 1, dtype=np.int64)
+        got = to_u64(th.merkle_fold_plain(tf.from_u64(dig, "cpu"), torch.from_numpy(idx), tf.from_u64(sibs, "cpu"), path_len, consts))
+        for i in range(5):
+            assert tuple(int(x) for x in got[i]) == gh.reconstruct_merkle_root(tuple(rows(dig)[i]), int(idx[i]), [tuple(s) for s in rows(sibs[i])])[1]
+    elif case.startswith("sponge"):
+        widths = [135, 83, 32, 32, 20, 16] if "fibonacci" in case else [135, 91, 34, 32, 32, 16]
+        group = [_edge_words(10 + k, (3, w)) for k, w in enumerate(widths)]
+        for g, digests in zip(group, th.sponge_rows_grouped_plain([tf.from_u64(g, "cpu") for g in group], consts)):
+            assert [tuple(int(x) for x in d) for d in to_u64(digests)] == [gh.sponge(r) for r in rows(g)]
+    else:
+        data = _edge_words(20, (2, 40))
+        rng = np.random.default_rng(21)
+        ov_idx, ov_mask = rng.integers(0, 40, size=(6, 12), dtype=np.int64), rng.integers(0, 3, size=(6, 12)) == 0
+        got = to_u64(tp.permutation_scan_plain(tf.from_u64(data, "cpu"), torch.from_numpy(ov_idx), torch.from_numpy(ov_mask), consts))
+        for b in range(2):
+            state = [0] * 12
+            for step in range(6):
+                state = gp.permutation([int(data[b, j]) if m else s for j, m, s in zip(ov_idx[step], ov_mask[step], state)])
+                assert [int(x) for x in got[step, b]] == state

@@ -180,3 +180,139 @@ def test_folded_round_constants_give_the_same_permutation():
             s = [gp._sbox(x) for x in s] if r < 4 or r >= 26 else [gp._sbox(s[0])] + s[1:]
             s = [(sum(mds[i][j] * s[j] for j in range(12)) + post[r][i]) % P for i in range(12)]
         assert s == gp.permutation(state)
+
+
+# A word-level model of the thread form of csrc/poseidon.cuh: the phase
+# schedule of `permute` (4 full rounds, the partial rounds 4-24, round 25 with
+# twelve constants, rounds 26-28, round 29 without constants), the MDS rows
+# as two sums of 32-bit halves, `join_halves` and `mul_mod` step by step,
+# each asserting the range its comment in the header claims.
+M64, M32, EPS = 2**64, 2**32 - 1, 2**32 - 1
+
+
+def _header_list(name):
+    """The integers of csrc/poseidon.cuh's `#define <name> a, b, ...`."""
+    import os
+    import re
+
+    with open(os.path.join(kernels.CSRC, "poseidon.cuh")) as f:
+        (line,) = re.findall(rf"^#define {name} (.*)$", f.read(), flags=re.M)
+    return tuple(int(x) for x in line.split(","))
+
+
+def _mul_mod_model(a, b):
+    prod = a * b  # (r3, r2, r1, r0), four partial products
+    lo, r2, r3 = prod % M64, (prod >> 64) & M32, prod >> 96
+    t = lo - r3
+    if t < 0:  # on a borrow the wrapped t is at least 2^64 - 2^32 + 1
+        t += M64
+        assert t >= M64 - 2**32 + 1
+        t -= EPS
+    u = t + r2 * EPS
+    k, u = u >> 64, u % M64
+    assert u + k * EPS < M64  # adding k (2^32 - 1) back cannot carry
+    return u + k * EPS
+
+
+def _sbox_model(x):
+    x2 = _mul_mod_model(x, x)
+    return _mul_mod_model(_mul_mod_model(x2, x), _mul_mod_model(x2, x2))
+
+
+def _join_model(acc_lo, acc_hi):
+    h, m = acc_hi >> 32, acc_hi & M32
+    u = acc_lo + h * EPS
+    assert u < M64  # the room the folded constants leave
+    high = (u >> 32) + m
+    k = high >> 32
+    u = (u & M32) | ((high & M32) << 32)
+    assert u + k * EPS < M64
+    return u + k * EPS
+
+
+def _mds_model(s, c, rows, n_const):
+    circ, diag = _header_list("P2V_MDS_CIRC"), _header_list("P2V_MDS_DIAG")
+    out = list(s)
+    for i in range(rows):
+        acc_lo, acc_hi = (c[i] if i < n_const else 0), 0
+        for coef, x in [(diag[i], s[i])] + [(circ[t], s[(i + t) % 12]) for t in range(12)]:
+            acc_lo += coef * (x & M32)
+            acc_hi += coef * (x >> 32)
+        assert acc_lo < M64 and acc_hi < 2**41
+        out[i] = _join_model(acc_lo, acc_hi)
+    return out
+
+
+def _permute_model(state, zero_cap=False, keep=12):
+    """permute<zero_cap, keep> of csrc/poseidon.cuh; returns lanes 0 .. keep - 1."""
+    pre, post = kernels.folded_round_constants()
+    s = []
+    for k, (x, c) in enumerate(zip(state, pre)):
+        if zero_cap and k >= 8:
+            s.append(c)  # the zero lanes start at their constant
+        else:
+            x += c
+            s.append(x - M64 + EPS if x >= M64 else x)  # add_rc
+    for f in range(2 * 4 + 1):
+        if f == 4:
+            for r in range(4, 25):
+                s[0] = _sbox_model(s[0])
+                assert post[r][1:] == [0] * 11  # rows 1-11 read no constant
+                s = _mds_model(s, post[r], 12, 1)
+            s[0] = _sbox_model(s[0])
+        else:
+            s = [_sbox_model(x) for x in s]
+        if f == 8:
+            break
+        s = _mds_model(s, post[f if f < 4 else f + 21], 12, 12)
+    assert post[29] == [0] * 12  # round 29 reads no constant
+    s = _mds_model(s, None, keep, 0)
+    assert all(x < M64 for x in s)
+    return [x - P if x >= P else x for x in s[:keep]]
+
+
+EDGE_LANES = [0, 1, P - 1, P, 2**64 - 1]
+SCHEDULE_STATES = [("random", None)] + [(f"every lane {w:#x}", w) for w in EDGE_LANES] + [("edge band", "band")]
+
+
+@pytest.mark.parametrize("what,word", SCHEDULE_STATES, ids=[w for w, _ in SCHEDULE_STATES])
+def test_round_body_schedule_model_equals_golden(what, word):
+    """The model of the kernel's schedule and word arithmetic gives golden's
+    permutation, on random states, on one edge word in every lane and on
+    mixed edge words; as a 2-to-1 compression (lanes 8-11 zero, rows 0-3 of
+    the last MDS) it gives golden's first four lanes."""
+    rng = np.random.default_rng(80)
+    if word is None:
+        states = [[int(x) for x in row] for row in rng.integers(0, P, size=(3, 12), dtype=np.uint64)]
+    elif word == "band":
+        states = [[int(x) for x in row] for row in EDGE[rng.integers(0, len(EDGE), size=(3, 12))]]
+    else:
+        states = [[word] * 12]
+    for state in states:
+        assert _permute_model(state) == gp.permutation(state)
+        cap = state[:8] + [0] * 4
+        assert _permute_model(cap, zero_cap=True, keep=4) == gp.permutation(cap)[:4]
+
+
+def test_header_mds_constants_equal_golden():
+    """csrc/poseidon.cuh's compile-time MDS matrix is Plonky2's."""
+    from plonky2_verifier_tpu_torch.golden.poseidon_constants import MDS_CIRC, MDS_DIAG
+
+    assert _header_list("P2V_MDS_CIRC") == tuple(MDS_CIRC)
+    assert _header_list("P2V_MDS_DIAG") == tuple(MDS_DIAG)
+    mds = gp.mds_matrix()
+    circ, diag = _header_list("P2V_MDS_CIRC"), _header_list("P2V_MDS_DIAG")
+    assert all(mds[i][j] == circ[(j - i) % 12] + (diag[i] if i == j else 0) for i in range(12) for j in range(12))
+
+
+def test_folded_constants_leave_the_join_its_room():
+    """kernels.check_round_body_bounds: every folded constant below
+    JOIN_LIMIT (the row's low sum starts from the whole constant), and a
+    table with one constant at the limit refused."""
+    pre, post = kernels.folded_round_constants()
+    kernels.check_round_body_bounds(post)
+    assert max(c for row in post for c in row) < kernels.JOIN_LIMIT
+    bad = [list(row) for row in post]
+    bad[7][3] = kernels.JOIN_LIMIT
+    with pytest.raises(ValueError, match="JOIN_LIMIT"):
+        kernels.check_round_body_bounds(bad)

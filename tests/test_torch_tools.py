@@ -167,6 +167,23 @@ def test_fold_work_counts_the_fft_form_and_the_kernels_butterflies():
     assert n_bytes == 8 * (2 * (lanes * (2 * arity + 3) + 2 * 1024 + arity * arity)) and f"the kernel's {kernel} instructions" in what
 
 
+def test_print_sass_sums_the_pieces_of_a_permutation_and_a_compression(capsys, monkeypatch):
+    """chip_smoke.print_sass on stand-in piece counts (csrc/permutation.cu's
+    count kernels need nvcc): a permutation is pieces 1 + 7 x 2 + 21 x 3 +
+    4 + 5, a compression 7 + 7 x 2 + 21 x 3 + 4 + 6; SASS_BEFORE beside."""
+    import chip_smoke as cs
+    from plonky2_verifier_tpu_torch import kernels
+
+    pieces = {k: {"IMAD.WIDE": 10 * k, "IADD3": k} for k in range(1, 8)}
+    monkeypatch.setattr(kernels, "sass_pieces", lambda: pieces)
+    cs.print_sass()
+    out = capsys.readouterr().out.splitlines()
+    perm = 11 * (1 + 7 * 2 + 21 * 3 + 4 + 5)
+    compression = 11 * (7 + 7 * 2 + 21 * 3 + 4 + 6)
+    assert out[0].startswith(f"sass: {perm} instructions in one thread-form permutation (W = 19180), {compression} in a 2-to-1 compression: IMAD.WIDE")
+    assert out[1].startswith(f"sass before: {sum(cs.SASS_BEFORE.values())} instructions") and sum(cs.SASS_BEFORE.values()) == 34846
+
+
 def test_gate_filter_work_at_the_zoo_benchmark_shape():
     """chip_smoke.gate_filter_work on the gate-zoo benchmark template's rows
     at 16,384 lanes (13 live gates of 123 constraints, 60 live factors in

@@ -220,7 +220,7 @@ def step_barriers(step_off: np.ndarray, lanes: int) -> int:
 @dataclass
 class PackedProgram:
     """`pack_program`'s arrays as the kernel takes them, on one device;
-    counts of its ops by kind for the bound (chip_smoke.py)."""
+    counts of its ops by kind for the bound (tools/probe_kernels.gate_work)."""
 
     lits: torch.Tensor  # (n_lits,) the program's literals
     loads: torch.Tensor

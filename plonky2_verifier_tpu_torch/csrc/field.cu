@@ -1,7 +1,7 @@
-// The verifier's field glue as three kernels: the extension Horner sum, the
-// inversion and the exponentiations, the last two also in the grouped form
-// that a verifier's forward launches once each (p2v_inv_grouped,
-// p2v_pow_grouped; below).
+// The verifier's field glue as three kernels: the extension Horner sum, and
+// the inversion and the exponentiations in the grouped form that a
+// verifier's forward launches once each (p2v_inv_grouped, p2v_pow_grouped;
+// below).
 //
 // None replaces a Pallas kernel: the JAX package compiles the same
 // functions with jax.jit into loops on the device --
@@ -34,7 +34,7 @@
 // products and 4 adds with an extension point, 3 products and 2.5 adds with
 // base-field values (two values a step), 2 and 2 with a base-field point,
 // 1 and 1 with both base-field; a product is 16 int32 instructions and an
-// add 4, as W counts them in poseidon.cuh (chip_smoke.horner_work). At
+// add 4, as W counts them in poseidon.cuh (tools/probe_kernels.horner_work). At
 // combineInitial's shape (28,672 rows x 254 base-field values) that is
 // 0.025 ms on the H100 against 0.017 ms to read the 58 MB of values.
 //
@@ -73,41 +73,13 @@
 // its horner_split_plain is this order in PyTorch (tests/test_torch_glue.py
 // holds it equal to the plain order on the CPU).
 //
-// p2v_inv: a^(p - 2) elementwise, inv(0) = 0 (the JAX convention). Any
-// addition chain gives the plain version's bits: every product is
-// canonical, and the chain below multiplies by the input first, so an input
-// >= p is reduced by its first product as the plain chain reduces it.
-// p - 2 = 2^64 - 2^32 - 1 in 63 squarings and 9 products (the plain
-// version's square-and-multiply spends 125). Elementwise and tiny at the
-// verifier's shapes (28,672 words): launch-bound; what it removes is the
-// plain chain's 5,876 launches.
-//
-// p2v_pow: base^e elementwise by LSB-first square-and-multiply from
-// acc = 1, as pow_dynamic_plain computes it. Two template flags: EXT (an
-// extension base, emul for every product; else base-field mul) and DYNAMIC
-// (an int64 exponent an element, below 2^n_bits: pow_dynamic; else one
-// exponent e from the host: ext_pow_const). Exponent bits at and above
-// n_bits are not read, as in the plain scan. Bits: acc starts canonical (1)
-// and every product is canonical, so e = 0 gives 1 and any other exponent
-// gives the canonical base^e, for a base word >= p too (its first product
-// reduces it). pow_dynamic_plain gives the same bits; ext_pow_const_plain
-// does for e >= 2 (its e = 1 returns the input's own bits and its e = 0 is
-// (1, 0): the wrapper, ops/field.ext_pow_const, answers both on the host
-// without a launch). Base row = i / b_rep at a stride of b_stride words: a
-// base broadcast by `expand` (a stride-0 axis, a scalar) is read where it
-// lies. Bound: integer ALU work, n_bits - 1 squarings and a product a set
-// bit (an emul is 5 products and 2 adds); elementwise, no reuse, so at the
-// verifier's (1024, 28) launch-bound.
-//
-// p2v_inv and p2v_pow stay the entry points of ops/field.inv, pow_dynamic and
-// ext_pow_const for tools and tests. The verifier's forward makes one call of
-// each of the two grouped kernels below instead (verifier_torch.
-// TorchVerifier._powers_and_inverses): every exponent of a forward is a
-// function of the transcript's output (zeta, alpha and the query indices),
-// and every denominator one of zeta and those powers, so both gather at one
-// place right after the transcript. One call each was five inversions and
-// six exponentiations a forward: 11 calls of the host's wrapper (0.03-0.10 ms
-// each) for ~0.05 ms of device work.
+// The verifier's forward makes one call of each of the two grouped kernels
+// below (verifier_torch.TorchVerifier._powers_and_inverses): every exponent
+// of a forward is a function of the transcript's output (zeta, alpha and the
+// query indices), and every denominator one of zeta and those powers, so
+// both gather at one place right after the transcript. One call each was
+// five inversions and six exponentiations a forward: 11 calls of the host's
+// wrapper (0.03-0.10 ms each) for ~0.05 ms of device work.
 //
 // p2v_pow_grouped: the powers of a forward from a segment table passed by
 // value (PowGroup, as p2v_sponge_rows_grouped passes its table), a thread an
@@ -122,21 +94,22 @@
 //   squaring (the table's 2^k powers are what square-and-multiply squares its
 //   way to, in every thread).
 // - EXT, base^e for an extension base a row and one exponent e >= 2 from the
-//   host: p2v_pow's square-and-multiply (zeta^n, alpha^(n_zs + n_lookup)).
+//   host: LSB-first square-and-multiply from acc = 1, an emul a product
+//   (zeta^n, alpha^(n_zs + n_lookup)).
 // Bits: a canonical power is unique, so the order of the products cannot
 // change a word: acc starts canonical (factor, 1) and every product is
 // canonical, for a base word >= p too (its first product reduces it). GEN
 // gives mul(factor, pow_dynamic_plain(g, e)) (e = 0: the factor), EXT gives
 // ext_pow_const_plain for e >= 2 (e = 0 and 1 are the host's, no launch).
 // Bound: integer ALU work, popcount(e) products a GEN element and
-// p2v_pow's emuls an EXT row; the query indices read once, each output
-// written once (chip_smoke.pow_grouped_work).
+// bit_length(e) - 1 squarings and popcount(e) - 1 products, emuls, an EXT
+// row; the query indices read once, each output written once.
 //
 // p2v_inv_grouped: a^(p - 2) elementwise with inv(0) = 0 by Montgomery's
 // batch trick. A thread takes a group of INV_GROUP words, i, i + T, i + 2T,
 // ... (T = the threads, so a warp reads neighbouring words at each step),
-// forms their prefix products, inverts the group's product by the Fermat
-// chain of p2v_inv (72 products), and sweeps back: a word's inverse is the
+// forms their prefix products, inverts the group's product by a Fermat
+// chain (72 products: fermat_inverse), and sweeps back: a word's inverse is the
 // running inverse times the prefix before it, and the running inverse then
 // takes the word in (2 products). 3 products a word and 72 a group, not 72
 // a word. A word that is 0 mod p (0, or p itself: the only word x + p that
@@ -145,8 +118,7 @@
 // first prefix word >= p is reduced by the product that reads it, or by the
 // chain's first product), so each word is inv_plain's. Bound: integer ALU
 // work, 72 products a group and 3 a word past the group's first (the
-// least that these steps need; chip_smoke.inv_grouped_work), against p2v_inv's
-// 72 a word.
+// least that these steps need), against 72 a word inverted alone.
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -156,7 +128,7 @@ using gl::Ext;
 namespace {
 
 constexpr int HORNER_THREADS = 256;
-constexpr int INV_THREADS = 256;
+constexpr int POW_GROUPED_THREADS = 256;
 constexpr int INV_GROUP = 8;  // words a thread of p2v_inv_grouped (kernels.INV_GROUP)
 // p2v_inv_grouped's block: a forward's 14,464 threads make 226 blocks, one or two on each of the 132
 // SMs (blocks of 256 left 75 SMs without one)
@@ -256,7 +228,12 @@ __device__ __forceinline__ uint64_t squarings(uint64_t x, int count) {
     return x;
 }
 
-// a^(p - 2) by 63 squarings and 9 products, the input multiplied in first
+// a^(p - 2), inv(0) = 0 (the JAX convention). Any addition chain gives the
+// plain version's bits: every product is canonical, and this chain
+// multiplies by the input first, so an input >= p is reduced by its first
+// product as the plain chain reduces it. p - 2 = 2^64 - 2^32 - 1 in 63
+// squarings and 9 products (the plain version's square-and-multiply spends
+// 125).
 __device__ __forceinline__ uint64_t fermat_inverse(uint64_t a) {
     // t_k = a^(2^k - 1)
     const uint64_t t2 = gl::mul(gl::mul(a, a), a);
@@ -268,11 +245,6 @@ __device__ __forceinline__ uint64_t fermat_inverse(uint64_t a) {
     const uint64_t t31 = gl::mul(gl::mul(t30, t30), a);
     const uint64_t t63 = gl::mul(squarings(t31, 32), t31);  // a^(2^63 - 2^31 - 1)
     return gl::mul(gl::mul(t63, t63), a);                    // a^(2^64 - 2^32 - 1) = a^(p - 2)
-}
-
-__global__ void inv_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) out[i] = fermat_inverse(in[i]);
 }
 
 // groups = ceil(n / INV_GROUP) threads; thread t takes the words t + j groups
@@ -308,46 +280,6 @@ __global__ void __launch_bounds__(INV_GROUPED_THREADS) inv_grouped_kernel(const 
     out[t] = zero & 1 ? 0 : u;  // t < groups <= n
 }
 
-struct PowArgs {
-    const uint64_t* b_re;
-    const uint64_t* b_im;  // EXT only
-    const int64_t* exps;   // DYNAMIC only: (n,)
-    uint64_t* out_re;
-    uint64_t* out_im;  // EXT only
-    int64_t n, b_stride, b_rep;  // base row = i / b_rep, at b_stride words a row
-    uint64_t e;                  // !DYNAMIC
-    int n_bits;
-};
-
-template <bool EXT, bool DYNAMIC>
-__global__ void pow_kernel(const PowArgs a) {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-        const int64_t at = i / a.b_rep * a.b_stride;
-        Ext s = {a.b_re[at], EXT ? a.b_im[at] : 0};
-        const uint64_t e = DYNAMIC ? (uint64_t)a.exps[i] : a.e;
-        Ext acc = {1, 0};
-        for (int k = 0; k < a.n_bits; ++k) {
-            if ((e >> k) & 1) {
-                if constexpr (EXT) {
-                    acc = gl::emul(acc, s);
-                } else {
-                    acc.re = gl::mul(acc.re, s.re);
-                }
-            }
-            if (k + 1 < a.n_bits) {
-                if constexpr (EXT) {
-                    s = gl::emul(s, s);
-                } else {
-                    s.re = gl::mul(s.re, s.re);
-                }
-            }
-        }
-        a.out_re[i] = acc.re;
-        if constexpr (EXT) a.out_im[i] = acc.im;
-    }
-}
-
 // One segment of p2v_pow_grouped; kernels.PowSegment field for field.
 struct PowSegment {
     uint64_t* out;          // GEN: n words; EXT: n real parts, then n imaginary parts
@@ -371,8 +303,8 @@ struct PowGroup {
     int64_t idx_row, q, total;        // total < 2^31
 };
 
-__global__ void __launch_bounds__(INV_THREADS) pow_grouped_kernel(const __grid_constant__ PowGroup g) {
-    const int64_t t = (int64_t)blockIdx.x * INV_THREADS + threadIdx.x;
+__global__ void __launch_bounds__(POW_GROUPED_THREADS) pow_grouped_kernel(const __grid_constant__ PowGroup g) {
+    const int64_t t = (int64_t)blockIdx.x * POW_GROUPED_THREADS + threadIdx.x;
     if (t >= g.total) return;
     // the segment of thread t: the segments that start at or before it, less one
     // (they start in order); read where it lies in the grid-constant table, no copy
@@ -384,7 +316,7 @@ __global__ void __launch_bounds__(INV_THREADS) pow_grouped_kernel(const __grid_c
     if (a.ext) {
         Ext s = {a.b_re[i * a.b_stride], a.b_im[i * a.b_stride]};
         Ext acc = {1, 0};
-        for (uint64_t e = a.e;;) {  // LSB first, as p2v_pow
+        for (uint64_t e = a.e;;) {  // LSB first
             if (e & 1) acc = gl::emul(acc, s);
             e >>= 1;
             if (!e) break;
@@ -435,37 +367,6 @@ extern "C" int p2v_horner(const void* v_re, const void* v_im, const void* p_re, 
     return (int)cudaGetLastError();
 }
 
-extern "C" int p2v_inv(const void* in, void* out, int64_t n, void* stream) {
-    if (n > 0) {
-        const int64_t blocks = (n + INV_THREADS - 1) / INV_THREADS;
-        inv_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), INV_THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint64_t*)in, (uint64_t*)out, n);
-    }
-    return (int)cudaGetLastError();
-}
-
-extern "C" int p2v_pow(const void* b_re, const void* b_im, const void* exps, void* out_re, void* out_im, int64_t n,
-                       int64_t b_stride, int64_t b_rep, uint64_t e, int n_bits, void* stream) {
-    if (n > 0) {
-        const PowArgs a = {(const uint64_t*)b_re, (const uint64_t*)b_im, (const int64_t*)exps, (uint64_t*)out_re,
-                           (uint64_t*)out_im, n, b_stride, b_rep, e, n_bits};
-        const int64_t want = (n + INV_THREADS - 1) / INV_THREADS;
-        const unsigned blocks = (unsigned)(want < 65535 ? want : 65535);
-        cudaStream_t s = (cudaStream_t)stream;
-        const bool ext = b_im != nullptr, dynamic = exps != nullptr;
-        if (ext && dynamic) {
-            pow_kernel<true, true><<<blocks, INV_THREADS, 0, s>>>(a);
-        } else if (ext) {
-            pow_kernel<true, false><<<blocks, INV_THREADS, 0, s>>>(a);
-        } else if (dynamic) {
-            pow_kernel<false, true><<<blocks, INV_THREADS, 0, s>>>(a);
-        } else {
-            pow_kernel<false, false><<<blocks, INV_THREADS, 0, s>>>(a);
-        }
-    }
-    return (int)cudaGetLastError();
-}
-
 extern "C" int p2v_inv_grouped(const void* in, void* out, int64_t n, void* stream) {
     if (n > 0) {
         const int64_t groups = (n + INV_GROUP - 1) / INV_GROUP;
@@ -497,8 +398,8 @@ extern "C" int p2v_pow_grouped(const void* segments, int count, const void* idx,
     g.q = q > 0 ? q : 1;
     g.total = total;
     if (total > 0) {
-        const unsigned blocks = (unsigned)((total + INV_THREADS - 1) / INV_THREADS);
-        pow_grouped_kernel<<<blocks, INV_THREADS, 0, (cudaStream_t)stream>>>(g);
+        const unsigned blocks = (unsigned)((total + POW_GROUPED_THREADS - 1) / POW_GROUPED_THREADS);
+        pow_grouped_kernel<<<blocks, POW_GROUPED_THREADS, 0, (cudaStream_t)stream>>>(g);
     }
     return (int)cudaGetLastError();
 }

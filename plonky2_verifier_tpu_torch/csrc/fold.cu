@@ -48,7 +48,7 @@
 // canonical, every value is the canonical representative of the same sum
 // mod p, and a canonical value is unique: the plain version's words.
 //
-// Bound (chip_smoke.fold_work): integer ALU work, counted for the least
+// Bound (tools/probe_kernels.fold_work): integer ALU work, counted for the least
 // work the function needs, an FFT of A log2(A) / 2 butterflies (4 adds
 // each, and a base-field twiddle times an extension value, 2 products, in
 // all but the A - 1 whose twiddle is 1) and the Horner chain (4 products

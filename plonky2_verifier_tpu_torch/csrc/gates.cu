@@ -30,7 +30,7 @@
 // product, 4 an add): an add is a reduction, a negation and an add on each
 // part, a multiply an emul, 5 products and 2 adds. The zoo's program (3,281
 // adds, 3,703 multiplies) at 1024 lanes is ~4.1x10^8 instructions, ~0.025 ms
-// on the H100 (chip_smoke.gate_work); the bytes
+// on the H100 (tools/probe_kernels.gate_work); the bytes
 // (inputs read once, outputs written once) are less. What a simple kernel
 // pays instead is latency: the zoo's program is a chain 125 ops deep, most
 // of its levels hold one op, and its tape of 7,849 slots (125.6 KB a lane)

@@ -29,9 +29,8 @@
 // a (b, round, chunk), L = maxdeg / 2 rounded up to a power of two, at most
 // 32 (kernels.partial_products_lanes, passed as lane_bits): two wires a
 // lane read fastest of 1, 2, 4 and 8 at the main path's shape, as did a
-// launch bound of 3 blocks an SM of 1, 3 and 4 (tools/probe_kernels.py
-// --pp-lanes; PERF.md §6). Lane l forms the terms of the chunk's routed
-// wires l, l + L, ..., each wire's
+// launch bound of 3 blocks an SM of 1, 3 and 4 (PERF.md §6). Lane l
+// forms the terms of the chunk's routed wires l, l + L, ..., each wire's
 //   w + k_i (beta zeta) + gamma  and  w + beta sigma + gamma
 // independent of the others (beta zeta formed once a round; four products,
 // each added to its words and reduced once, gl::mul_add), and multiplies
@@ -62,7 +61,7 @@
 // products, the tree or the reduction: the plain version's word, also where
 // proof words are y + p (tests/test_torch_stages.py and
 // tests/test_torch_noncanonical.py hold it).
-// Bound (chip_smoke.partial_products_work): integer ALU work, the least the
+// Bound (tools/probe_kernels.partial_products_work): integer ALU work, the least the
 // function needs: beta zeta a round (2 products); a wire's numerator term
 // k_i times it (2) and 3 adds, its denominator term an escale of sigma (2)
 // and 3 adds; a chunk's two products maxdeg - 1 emuls each, the two emuls
@@ -115,7 +114,7 @@
 // sub is the same; the port keeps those bits), re - cur and re - expected
 // (cur and expected canonical: num_lut >= 1, so cur is never re_next
 // itself), and the products by the selectors.
-// Bound (chip_smoke.lookup_work): integer ALU work, counted in the running
+// Bound (tools/probe_kernels.lookup_work): integer ALU work, counted in the running
 // pair's form (the least this code knows): a lookup slot's combo (2
 // products, 2 adds), its term (2 adds) and the pair's 2 emuls and add; a
 // table slot the same and the emul by its multiplicity; an RE step a combo
@@ -152,7 +151,7 @@
 // p: the canonical value of the exact sum, this kernel's word. Where a row
 // has one live slot sel_k is the raw sub word itself, as the plain chain's
 // where nothing multiplies it; the sum reduces its product alike.
-// Bound (chip_smoke.gate_filter_work): B L n_gc terms, each an emul (5
+// Bound (tools/probe_kernels.gate_filter_work): B L n_gc terms, each an emul (5
 // products, 2 adds) and 2 adds of the sum, beside L selector products of
 // span factors a lane; against the bytes, cons and the selector columns
 // read once, the output written once. The zoo at 16,384: ~0.150 ms by
@@ -169,6 +168,7 @@ using gl::ExtView;
 namespace {
 
 constexpr int PLONK_THREADS = 256;
+constexpr int PP_MIN_BLOCKS = 3;  // partial_products_kernel's launch bound, blocks an SM: of 1, 3 and 4 the fastest measured
 
 // kernels.PartialProductArgs field for field
 struct PartialProductArgs {
@@ -228,17 +228,13 @@ __device__ __forceinline__ void l0_term(const PartialProductArgs& a, int64_t q) 
 }
 
 // The grid is two regions of whole warps: groups of 2^a.lane_bits lanes a
-// (b, round, chunk) -- with ALL_ROUNDS (the probe's second form) a (b,
-// chunk) whose lanes run the rounds one after the other; a lane past the
-// last group copies it -- then a thread a (b, round) for L0, so that no
-// group's warp waits on it. MIN_BLOCKS: the launch bound's blocks an SM
-// (3 shipped, the probe's fastest; 1 leaves the registers to the compiler).
-template <bool ALL_ROUNDS, int MIN_BLOCKS>
-__global__ void __launch_bounds__(PLONK_THREADS, MIN_BLOCKS) partial_products_kernel(const PartialProductArgs a) {
+// (b, round, chunk) -- a lane past the last group copies it -- then a thread
+// a (b, round) for L0, so that no group's warp waits on it.
+__global__ void __launch_bounds__(PLONK_THREADS, PP_MIN_BLOCKS) partial_products_kernel(const PartialProductArgs a) {
     const int64_t t = (int64_t)blockIdx.x * PLONK_THREADS + threadIdx.x;
     const int lane_bits = a.lane_bits;
     const int L = 1 << lane_bits, lane = (int)(t & (L - 1));
-    const int per_b = ALL_ROUNDS ? a.n_chunks : a.r * a.n_chunks;  // groups a b
+    const int per_b = a.r * a.n_chunks;  // groups a b
     const int64_t groups = a.batch * per_b, chunk_threads = whole_warps(groups << lane_bits);
     if (t >= chunk_threads) {
         if (t - chunk_threads < a.batch * a.r) l0_term(a, t - chunk_threads);
@@ -248,39 +244,37 @@ __global__ void __launch_bounds__(PLONK_THREADS, MIN_BLOCKS) partial_products_ke
     const bool live = g < groups;
     if (!live) g = groups - 1;  // every lane of a warp takes part in the shuffles
     const unsigned b = (unsigned)g / (unsigned)per_b, rc = (unsigned)g - b * (unsigned)per_b;  // g < 2^31
-    const int c = (int)(rc % (unsigned)a.n_chunks), first = ALL_ROUNDS ? 0 : (int)(rc / (unsigned)a.n_chunks);
+    const int c = (int)(rc % (unsigned)a.n_chunks), round = (int)(rc / (unsigned)a.n_chunks);
     const int steps = (a.maxdeg + L - 1) >> lane_bits;  // wires a lane, the last ones past maxdeg for some lanes
     const Ext one = {1, 0}, zeta = gl::at(a.zeta, b);
     const int64_t i0 = (int64_t)c * a.maxdeg;
-    for (int round = first; round < (ALL_ROUNDS ? a.r : first + 1); ++round) {
-        const uint64_t beta = a.betas[(int64_t)b * a.r + round], gamma = a.gammas[(int64_t)b * a.r + round];
-        const Ext bz = gl::escale(beta, zeta);
-        Ext num, den;
-        wire_terms(a, b, i0 + min(lane, a.maxdeg - 1), beta, gamma, bz, num, den);
-        if (lane >= a.maxdeg) num = den = one;  // a select: no branch before the shuffles
-        for (int k = 1; k < steps; ++k) {  // the lane's further wires in order (times 1 past maxdeg)
-            const int d = lane + (k << lane_bits);
-            Ext tn, td;
-            wire_terms(a, b, i0 + min(d, a.maxdeg - 1), beta, gamma, bz, tn, td);
-            if (d >= a.maxdeg) tn = td = one;
-            num = gl::emul_once(num, tn);
-            den = gl::emul_once(den, td);
-        }
-        Ext e;
-        if (lane_bits == 0) {
-            e = gl::esub(gl::emul_once(current(a, b, round, c), num), gl::emul_once(current(a, b, round, c + 1), den));
-        } else {
-            const int odd = lane & 1;
-            Ext v = gl::emul_once(odd ? den : num, shfl_xor(odd ? num : den, 1, L));  // level 0: a side a lane
-            for (int j = 1; j < lane_bits; ++j) v = gl::emul_once(v, shfl_down(v, 1 << j, L));
-            v = gl::emul_once(current(a, b, round, c + odd), v);  // lane 0 the numerators' product, lane 1 the denominators'
-            e = gl::esub(v, shfl_down(v, 1, L));
-        }
-        if (live && lane == 0) {
-            const int64_t at = (int64_t)b * (a.r + (int64_t)a.r * a.n_chunks) + a.r + (int64_t)round * a.n_chunks + c;
-            a.out_re[at] = e.re;
-            a.out_im[at] = e.im;
-        }
+    const uint64_t beta = a.betas[(int64_t)b * a.r + round], gamma = a.gammas[(int64_t)b * a.r + round];
+    const Ext bz = gl::escale(beta, zeta);
+    Ext num, den;
+    wire_terms(a, b, i0 + min(lane, a.maxdeg - 1), beta, gamma, bz, num, den);
+    if (lane >= a.maxdeg) num = den = one;  // a select: no branch before the shuffles
+    for (int k = 1; k < steps; ++k) {  // the lane's further wires in order (times 1 past maxdeg)
+        const int d = lane + (k << lane_bits);
+        Ext tn, td;
+        wire_terms(a, b, i0 + min(d, a.maxdeg - 1), beta, gamma, bz, tn, td);
+        if (d >= a.maxdeg) tn = td = one;
+        num = gl::emul_once(num, tn);
+        den = gl::emul_once(den, td);
+    }
+    Ext e;
+    if (lane_bits == 0) {
+        e = gl::esub(gl::emul_once(current(a, b, round, c), num), gl::emul_once(current(a, b, round, c + 1), den));
+    } else {
+        const int odd = lane & 1;
+        Ext v = gl::emul_once(odd ? den : num, shfl_xor(odd ? num : den, 1, L));  // level 0: a side a lane
+        for (int j = 1; j < lane_bits; ++j) v = gl::emul_once(v, shfl_down(v, 1 << j, L));
+        v = gl::emul_once(current(a, b, round, c + odd), v);  // lane 0 the numerators' product, lane 1 the denominators'
+        e = gl::esub(v, shfl_down(v, 1, L));
+    }
+    if (live && lane == 0) {
+        const int64_t at = (int64_t)b * (a.r + (int64_t)a.r * a.n_chunks) + a.r + (int64_t)round * a.n_chunks + c;
+        a.out_re[at] = e.re;
+        a.out_im[at] = e.im;
     }
 }
 
@@ -495,44 +489,24 @@ __global__ void __launch_bounds__(FILTER_THREADS) gate_filter_kernel(const GateF
 
 unsigned blocks_for(int64_t threads) { return (unsigned)((threads + PLONK_THREADS - 1) / PLONK_THREADS); }
 
-template <bool ALL_ROUNDS, int MIN_BLOCKS>
 cudaError_t launch_partial_products(const PartialProductArgs& a, cudaStream_t stream) {
     const int lane_bits = a.lane_bits;
     if (a.batch < 0 || a.r < 0 || a.maxdeg < 1 || a.n_chunks < 1 || a.npp != a.n_chunks - 1 || lane_bits < 0 || lane_bits > 5)
         return cudaErrorInvalidValue;
-    const int64_t groups = a.batch * (ALL_ROUNDS ? 1 : a.r) * a.n_chunks;
+    const int64_t groups = a.batch * a.r * a.n_chunks;
     if (a.r > INT32_MAX / a.n_chunks || groups >= (INT32_MAX >> lane_bits) - 32 || a.batch * a.r >= INT32_MAX / 2)
         return cudaErrorInvalidValue;
     const int64_t threads = whole_warps(groups << lane_bits) + a.batch * a.r;
     if (threads > 0 && a.r > 0)
-        partial_products_kernel<ALL_ROUNDS, MIN_BLOCKS><<<blocks_for(threads), PLONK_THREADS, 0, stream>>>(a);
+        partial_products_kernel<<<blocks_for(threads), PLONK_THREADS, 0, stream>>>(a);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int p2v_partial_products(const void* args, void* stream) {
-    return (int)launch_partial_products<false, 3>(*(const PartialProductArgs*)args, (cudaStream_t)stream);
+    return (int)launch_partial_products(*(const PartialProductArgs*)args, (cudaStream_t)stream);
 }
-
-#ifdef P2V_PP_VARIANTS
-// the probe tool's forms (tools/probe_kernels.py --pp-lanes): a group a
-// (b, round, chunk) or with all_rounds a (b, chunk), under a launch bound
-// of min_blocks blocks an SM (1, 3 or 4)
-extern "C" int p2v_partial_products_variant(const void* args, int all_rounds, int min_blocks, void* stream) {
-    const PartialProductArgs& a = *(const PartialProductArgs*)args;
-    const cudaStream_t s = (cudaStream_t)stream;
-    switch (min_blocks * 2 + (all_rounds != 0)) {
-        case 2: return (int)launch_partial_products<false, 1>(a, s);
-        case 3: return (int)launch_partial_products<true, 1>(a, s);
-        case 6: return (int)launch_partial_products<false, 3>(a, s);
-        case 7: return (int)launch_partial_products<true, 3>(a, s);
-        case 8: return (int)launch_partial_products<false, 4>(a, s);
-        case 9: return (int)launch_partial_products<true, 4>(a, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-#endif
 
 extern "C" int p2v_lookup_checks(const void* args, void* stream) {
     const LookupArgs a = *(const LookupArgs*)args;

@@ -30,7 +30,7 @@
 //
 // At 132 SMs x 64 int32 lanes a clock and the H100's maximum SM clock of
 // 1.98 GHz (nvidia-smi clocks.max.sm) that is 1.147 ns a permutation.
-// chip_smoke.py computes each kernel's bound from W and the clock it reads.
+// tools/probe_kernels.py computes each kernel's bound from W and the clock it reads.
 // W keeps the textbook round structure
 // (every partial round a full MDS). The sparse-matrix form of the partial
 // rounds is reckoned no cheaper here: it trades twelve rows of coefficients

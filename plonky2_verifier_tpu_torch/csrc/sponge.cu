@@ -13,7 +13,7 @@
 // consecutive bytes a chunk, two full sectors, and a (28672, 135) matrix is
 // 0.009 ms of memory traffic against 0.56 ms of integer work.
 //
-// What the H100 showed (tools/probe_kernels.py times every point below, on
+// What the H100 showed (a probe of the kernel timed every point below, on
 // the six matrices of one verifier call, 172,032 rows of widths 135, 83, 32,
 // 32, 20 and 16): a warp scheduler retires this round body fastest with
 // exactly two warps on it. One warp alone leaves the S-box chain's latency
@@ -55,10 +55,6 @@
 //   constants as the start of lanes 8-11 in the first chunk, four MDS rows in
 //   the last round: 2.837 against 2.799 ms, 1.3 % slower; it saves under 1 %
 //   of the instructions and its two run-time branches cost more).
-//
-// With -DP2V_SPONGE_VARIANTS the file also builds the kernel under other
-// launch bounds behind p2v_sponge_rows_variant, which also takes the blocks
-// an SM and whether they draw or stride, for tools/probe_kernels.py.
 #include "poseidon.cuh"
 
 using namespace p2v;
@@ -83,7 +79,9 @@ struct Segments {
 };
 
 // The next warp of rows for this block: drawn from `counter` where there is
-// one (lane 0 draws, all 32 lanes take its number), else `strided`.
+// one (lane 0 draws, all 32 lanes take its number), else `strided`. Every
+// launch passes a counter; the strided branch stays because taking it out
+// changed the kernel's code (88 registers for 92) and it ran no faster.
 __device__ __forceinline__ int next_warp(int* counter, int strided) {
     if (counter == nullptr) return strided;
     int v = 0;
@@ -155,27 +153,6 @@ int make_segments(Segments& seg, const void* const* rows, const int64_t* n, cons
     return (int)warps;
 }
 
-#ifdef P2V_SPONGE_VARIANTS
-template <int BLOCKS>
-__global__ void __launch_bounds__(THREADS, BLOCKS)
-sponge_variant_kernel(const __grid_constant__ Segments seg, uint64_t* __restrict__ out, int total_warps, int* counter) {
-    sponge_body(seg, out, total_warps, counter);
-}
-
-// blocks_per_sm: that many blocks an SM (0: one block a warp of rows).
-// counter: null for the strided walk, else a device int to draw from.
-template <int BLOCKS>
-cudaError_t launch_variant(const Segments& seg, uint64_t* out, int warps, int blocks_per_sm, int* counter,
-                           cudaStream_t stream) {
-    cudaError_t e = counter != nullptr ? cudaMemsetAsync(counter, 0, sizeof(int), stream) : cudaSuccess;
-    if (e != cudaSuccess) return e;
-    const int cap = blocks_per_sm * g_sms;
-    const unsigned blocks = (unsigned)(blocks_per_sm > 0 && cap < warps ? cap : warps);
-    sponge_variant_kernel<BLOCKS><<<blocks, THREADS, 0, stream>>>(seg, out, warps, counter);
-    return cudaGetLastError();
-}
-#endif
-
 }  // namespace
 
 extern "C" int p2v_sponge_init(const void* pre, const void* post) {
@@ -208,23 +185,3 @@ extern "C" int p2v_sponge_rows(const void* rows, void* out, int64_t n, int width
     const int64_t out_row = 0;
     return p2v_sponge_rows_grouped(&rows, &n, &width, &out_row, 1, out, counter, stream);
 }
-
-#ifdef P2V_SPONGE_VARIANTS
-// bound: the launch bound's blocks an SM (28, 16 or 1); blocks_per_sm and
-// counter as launch_variant says.
-extern "C" int p2v_sponge_rows_variant(const void* const* rows, const int64_t* n, const int* width,
-                                       const int64_t* out_row, int count, void* out, int bound, int blocks_per_sm,
-                                       void* counter, void* stream) {
-    Segments seg;
-    const int warps = make_segments(seg, rows, n, width, out_row, count);
-    if (warps < 0) return (int)cudaErrorInvalidValue;
-    if (warps == 0) return (int)cudaGetLastError();
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (bound) {
-        case 28: return (int)launch_variant<28>(seg, (uint64_t*)out, warps, blocks_per_sm, (int*)counter, st);
-        case 16: return (int)launch_variant<16>(seg, (uint64_t*)out, warps, blocks_per_sm, (int*)counter, st);
-        case 1: return (int)launch_variant<1>(seg, (uint64_t*)out, warps, blocks_per_sm, (int*)counter, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-#endif

@@ -9,9 +9,9 @@ them with ctypes once per process, uploads the Poseidon round constants
 csrc/poseidon.cuh) into each Poseidon kernel's constant memory, and returns
 the `KernelLibrary` whose methods launch the kernels: the three Poseidon
 kernels (permutation.cu, sponge.cu, merkle.cu), the
-three field kernels (field.cu: the extension Horner sum, the inversion and
-the exponentiations, the last two also in the grouped form a verifier's
-forward launches once each), the levelized gate program (gates.cu), every
+three field kernels (field.cu: the extension Horner sum, and the inversion
+and the exponentiations in the grouped form a verifier's forward launches
+once each), the levelized gate program (gates.cu), every
 FRI coset fold of a forward (fold.cu), and L0 with the partial products,
 the lookup argument and the gate filter (plonk.cu).
 
@@ -45,15 +45,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 NVCC_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("permutation", "sponge", "merkle", "field", "gates", "fold", "plonk")
 POSEIDON_SOURCES = ("permutation", "sponge", "merkle")  # take the Poseidon tables at load
-KERNELS = ("permutation", "sponge_rows", "merkle_fold", "horner", "inv", "pow", "gate_program", "coset_fold", "partial_products",
-           "lookup_checks", "gate_filter")
-# launch counters: the permutation, sponge, inversion and exponentiation kernels have two entry points each
-COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv", "inv_grouped",
-            "pow", "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks", "gate_filter")
-# also builds the sponge kernel under other launch bounds, for the probe tool (csrc/sponge.cu)
-SPONGE_VARIANTS_FLAG = "-DP2V_SPONGE_VARIANTS"
-# also builds the partial-product kernel's other lanes and forms, for the probe tool (csrc/plonk.cu)
-PP_VARIANTS_FLAG = "-DP2V_PP_VARIANTS"
+# launch counters: the permutation and sponge kernels have two entry points each
+COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_grouped", "merkle_fold", "horner", "inv_grouped",
+            "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks", "gate_filter")
 FORMS = {"auto": 0, "thread": 1, "split": 2}
 WIDTH, N_ROUNDS, FIRST_PARTIAL, FIRST_LAST_FULL = 12, 30, 4, 26
 
@@ -113,27 +107,25 @@ def _read(path: str) -> bytes:
         return f.read()
 
 
-def build(extra_flags=()) -> dict:
+def build() -> dict:
     """Compile the kernels whose sources changed, all at once; return the
     library path of each source. Prints nvcc's report (registers and spills
-    per kernel) when it compiles. `extra_flags` go to nvcc after the
-    standing ones (the probe tool's -D switches)."""
+    per kernel) when it compiles."""
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device; torch.cuda.is_available() is False")
     nvcc = _nvcc()
-    flags = [*NVCC_FLAGS, *extra_flags]
     header = b"".join(_read(os.path.join(CSRC, h)) for h in sorted(os.listdir(CSRC)) if h.endswith(".cuh"))
     libs, running = {}, []
     for name in SOURCES:
         src = os.path.join(CSRC, f"{name}.cu")
-        h = hashlib.sha256(" ".join(flags).encode() + header + _read(src))
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + header + _read(src))
         libs[name] = lib = os.path.join(BUILD_DIR, f"libp2v_{name}_{h.hexdigest()[:16]}.so")
         if os.path.exists(lib):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [nvcc, *flags, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
         running.append((name, proc, tmp, lib))
     failed = []
@@ -411,8 +403,6 @@ class KernelLibrary:
             "merkle": {"p2v_merkle_fold": [vp, vp, vp, vp, i64, i32, vp]},
             "field": {
                 "p2v_horner": [vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, i64, i32, vp],
-                "p2v_inv": [vp, vp, i64, vp],
-                "p2v_pow": [vp, vp, vp, vp, vp, i64, i64, i64, ctypes.c_uint64, i32, vp],
                 "p2v_inv_grouped": [vp, vp, i64, vp],
                 "p2v_pow_grouped": [vp, i32, vp, i64, i64, vp],
             },
@@ -430,10 +420,6 @@ class KernelLibrary:
             self._libs.append(lib)
             if source in POSEIDON_SOURCES:
                 fns = dict(fns, **{f"p2v_{source}_init": [vp, vp]})
-            if hasattr(lib, "p2v_sponge_rows_variant"):  # built with SPONGE_VARIANTS_FLAG
-                fns["p2v_sponge_rows_variant"] = [vp, vp, vp, vp, i32, vp, i32, i32, vp, vp]
-            if hasattr(lib, "p2v_partial_products_variant"):  # built with PP_VARIANTS_FLAG
-                fns["p2v_partial_products_variant"] = [vp, i32, i32, vp]
             for name, argtypes in fns.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -499,14 +485,11 @@ class KernelLibrary:
             self.launches["sponge_rows"] += 1
         return out
 
-    def sponge_rows_grouped(self, rows_list, variant=None) -> list:
+    def sponge_rows_grouped(self, rows_list) -> list:
         """Several row matrices, each (n_k, width_k), hashed together:
         returns their digests (n_k, 4) in the order given. One launch takes
         `max_segments` matrices, longest rows first; a longer list takes
-        several launches. `variant` (the probe tool's) is (bound,
-        blocks_per_sm, drawn): the kernel built with SPONGE_VARIANTS_FLAG
-        under that launch bound, as p2v_sponge_rows_variant in
-        csrc/sponge.cu says, its blocks drawing their rows or striding."""
+        several launches."""
         for k, rows in enumerate(rows_list):
             _check_tensor(rows, f"rows[{k}]", (None, None))
         counts = [rows.shape[0] for rows in rows_list]
@@ -525,13 +508,7 @@ class KernelLibrary:
                 out.data_ptr(),
             ]
             counter = torch.empty(1, dtype=torch.int32, device=device)  # the blocks draw their rows from it
-            if variant is None:
-                err = self._fn["p2v_sponge_rows_grouped"](*args, counter.data_ptr(), _stream())
-            else:
-                bound, blocks_per_sm, drawn = variant
-                err = self._fn["p2v_sponge_rows_variant"](
-                    *args, bound, blocks_per_sm, counter.data_ptr() if drawn else None, _stream()
-                )
+            err = self._fn["p2v_sponge_rows_grouped"](*args, counter.data_ptr(), _stream())
             _check_cuda(err, "sponge_rows_grouped")
             self.launches["sponge_rows_grouped"] += 1
         return [out[s : s + n] for s, n in zip(starts, counts)]
@@ -582,51 +559,6 @@ class KernelLibrary:
             _check_cuda(err, "horner")
             self.launches["horner"] += 1
         return out[0], out[1]
-
-    def inv(self, a: torch.Tensor) -> torch.Tensor:
-        """a^(p - 2) elementwise, inv(0) = 0; a contiguous, any shape."""
-        _check_tensor(a, "a", (None,) * a.dim())
-        out = torch.empty_like(a)
-        if a.numel():
-            err = self._fn["p2v_inv"](a.data_ptr(), out.data_ptr(), a.numel(), _stream())
-            _check_cuda(err, "inv")
-            self.launches["inv"] += 1
-        return out
-
-    def pow(self, b_re, b_im, exponent, n_bits: int = 0, b_rep: int = 1):
-        """base^e elementwise, by square-and-multiply from 1 (csrc/field.cu):
-        b_re (rows,) at any stride, b_im likewise (None: a base-field
-        base); element i's base is row i // b_rep. `exponent` is an int64
-        (n,) tensor below 2^n_bits, n = rows x b_rep (pow_dynamic), or a
-        Python int of at least 2 (ext_pow_const, which answers 0 and 1
-        itself; n_bits is then its bit length). Returns (out_re, out_im),
-        each (n,), out_im None for a base-field base. e = 0 gives 1 and every
-        other exponent the canonical power: the bits of pow_dynamic_plain and
-        of ext_pow_const_plain on the repeated rows."""
-        _check_tensor(b_re, "b_re", (None,), contiguous=False)
-        if b_im is not None:
-            _check_tensor(b_im, "b_im", (b_re.shape[0],), contiguous=False)
-            if b_im.stride() != b_re.stride():
-                raise ValueError(f"b_im has strides {b_im.stride()}, unlike the real part's {b_re.stride()}")
-        n = b_re.shape[0] * b_rep
-        if isinstance(exponent, torch.Tensor):
-            _check_tensor(exponent, "exponent", (n,))
-            exps, e = exponent.data_ptr(), 0
-        else:
-            if not 2 <= exponent < 2**64:  # e = 0 and 1: ops/field.ext_pow_const answers them, with no launch
-                raise ValueError(f"exponent {exponent}: a host exponent is a u64 of at least 2")
-            exps, e, n_bits = None, exponent, exponent.bit_length()
-        if b_rep < 1 or not 0 <= n_bits <= 64:
-            raise ValueError(f"b_rep {b_rep}, n_bits {n_bits}")
-        out = torch.empty((1 if b_im is None else 2, n), dtype=torch.int64, device=b_re.device)
-        if n:
-            err = self._fn["p2v_pow"](
-                b_re.data_ptr(), None if b_im is None else b_im.data_ptr(), exps, out[0].data_ptr(),
-                None if b_im is None else out[1].data_ptr(), n, b_re.stride(0), b_rep, e, n_bits, _stream(),
-            )
-            _check_cuda(err, "pow")
-            self.launches["pow"] += 1
-        return out[0], None if b_im is None else out[1]
 
     def inv_grouped(self, a: torch.Tensor) -> torch.Tensor:
         """a^(p - 2) elementwise, inv(0) = 0, by the batch trick: a thread
@@ -822,18 +754,15 @@ class KernelLibrary:
             self.launches["coset_fold"] += 1
         return out
 
-    def partial_products(self, zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int,
-                         variant=None):
+    def partial_products(self, zeta_n, l0_den_inv, zs, zs_next, pps, wires, sigmas, betas, gammas, zeta, k_is, maxdeg: int):
         """L0(zeta)(z - 1) a round and the partial-product checks
         (csrc/plonk.cu), as verifier_torch.partial_products_plain computes
         them: every extension operand an (re, im) pair at any strides,
         zeta_n, l0_den_inv and zeta (B,), zs and zs_next (B, r), pps (B, r
         npp), wires and sigmas (B, ns) with ns = n_chunks maxdeg and npp =
         n_chunks - 1; betas and gammas (B, r) and k_is (ns,), contiguous.
-        Returns (out_re, out_im), each (B, r + r n_chunks). `variant` (the
-        probe tool's, on a library built with PP_VARIANTS_FLAG) is (lanes a
-        chunk, all rounds a lane, the launch bound's blocks an SM: 1, 3 or
-        4) for p2v_partial_products_variant."""
+        Returns (out_re, out_im), each (B, r + r n_chunks); a chunk takes
+        partial_products_lanes(maxdeg) lanes."""
         z = _ext_view(zs, "zs", (None, None))
         batch, r = zs[0].shape
         ns = sigmas[0].shape[1] if sigmas[0].dim() == 2 else -1
@@ -852,15 +781,9 @@ class KernelLibrary:
         out = torch.empty((2, batch, r + r * n_chunks), dtype=torch.int64, device=betas.device)
         a.betas, a.gammas, a.k_is, a.out_re, a.out_im = betas.data_ptr(), gammas.data_ptr(), k_is.data_ptr(), out[0].data_ptr(), out[1].data_ptr()
         a.batch, a.r, a.maxdeg, a.n_chunks, a.npp = batch, r, maxdeg, n_chunks, n_chunks - 1
-        lanes, all_rounds, min_blocks = variant or (partial_products_lanes(maxdeg), False, None)
-        if lanes < 1 or lanes > 32 or lanes & (lanes - 1):
-            raise ValueError(f"lanes {lanes}: not a power of two up to 32")
-        a.lane_bits = lanes.bit_length() - 1
+        a.lane_bits = partial_products_lanes(maxdeg).bit_length() - 1
         if batch and r:
-            if variant is None:
-                err = self._fn["p2v_partial_products"](ctypes.addressof(a), _stream())
-            else:
-                err = self._fn["p2v_partial_products_variant"](ctypes.addressof(a), int(all_rounds), min_blocks, _stream())
+            err = self._fn["p2v_partial_products"](ctypes.addressof(a), _stream())
             _check_cuda(err, "partial_products")
             self.launches["partial_products"] += 1
         return out[0], out[1]

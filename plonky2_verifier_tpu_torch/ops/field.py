@@ -14,14 +14,14 @@ as plonky2_verifier_tpu.ops.field._reduce128. Every result is canonical, so
 values are bit-exact against the golden model.
 
 The quadratic extension F_p[X]/(X^2 - 7) is a (re, im) pair of elements
-(`GExt`). `inv(0) = 0`, as in the JAX package. `inv`, `pow_dynamic` and
-`ext_pow_const` launch a CUDA kernel (csrc/field.cu) for CUDA tensors and
-take their `*_plain` versions for CPU tensors, as do their grouped forms,
-`inv_grouped` (several tensors inverted in one launch, by the batch trick)
-and `pow_grouped` (a forward's powers of fixed generators at exponents
-derived from the query indices, and of extension bases at host exponents,
-in one launch), which the verifier's forward calls once each; the other ops
-are plain PyTorch on any device.
+(`GExt`). `inv(0) = 0`, as in the JAX package. Two ops launch a CUDA
+kernel (csrc/field.cu) for CUDA tensors and take their `*_plain` versions
+for CPU tensors: `inv_grouped` (several tensors inverted in one launch, by
+the batch trick) and `pow_grouped` (a forward's powers of fixed generators
+at exponents derived from the query indices, and of extension bases at host
+exponents, in one launch), which the verifier's forward calls once each.
+The other ops, `inv_plain`, `pow_dynamic_plain` and `ext_pow_const_plain`
+among them, are plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -190,16 +190,6 @@ def pow_dynamic_plain(base, exponent, n_bits: int):
     return acc
 
 
-def pow_dynamic(base, exponent, n_bits: int):
-    """pow_dynamic_plain's power: one launch of the CUDA kernel
-    (csrc/field.cu) for CUDA tensors, the plain version for CPU tensors. A
-    base broadcast over the exponent's shape (a stride-0 `expand`, a scalar)
-    is read where it lies."""
-    if base.device.type == "cpu":
-        return pow_dynamic_plain(base, exponent, n_bits)
-    return _pow_kernel(base, None, exponent, max(n_bits, 1)).re
-
-
 def bit_reverse(idx, bits: int):
     """The low `bits` bits of each int64 index in reverse order."""
     out = torch.zeros_like(idx)
@@ -209,19 +199,9 @@ def bit_reverse(idx, bits: int):
 
 
 def inv_plain(a):
-    """a^(p-2) by Fermat; inv(0) = 0, as in the JAX package."""
+    """a^(p-2) by Fermat; inv(0) = 0, as in the JAX package. `ext_inv` and
+    `ext_div` reach it through this name."""
     return pow_const(a, P - 2)
-
-
-def inv(a):
-    """a^(p-2), inv(0) = 0: one launch of the CUDA kernel (csrc/field.cu)
-    for a CUDA tensor, inv_plain for a CPU tensor. `ext_inv` and `ext_div`
-    reach it through this name."""
-    if a.device.type == "cpu":
-        return inv_plain(a)
-    from .. import kernels
-
-    return kernels.load().inv(a.contiguous())  # the verifier's inputs are (B, Q) at most
 
 
 def inv_grouped_plain(parts):
@@ -334,7 +314,7 @@ def ext_inv_with(a: GExt, norm_inv) -> GExt:
 
 
 def ext_inv(a: GExt) -> GExt:
-    return ext_inv_with(a, inv(ext_norm(a)))
+    return ext_inv_with(a, inv_plain(ext_norm(a)))
 
 
 def ext_div(a: GExt, b: GExt) -> GExt:
@@ -357,17 +337,6 @@ def ext_pow_const_plain(a: GExt, e: int) -> GExt:
     return acc
 
 
-def ext_pow_const(a: GExt, e: int) -> GExt:
-    """ext_pow_const_plain's power: for CUDA tensors and e >= 2 one launch of
-    the CUDA kernel (csrc/field.cu), whose every result is canonical as the
-    plain chain's is for e >= 2; e = 0 and e = 1 (the input's own bits, which
-    a kernel's product would reduce) and CPU tensors take the plain version,
-    with no launch."""
-    if a.re.device.type == "cpu" or e < 2:
-        return ext_pow_const_plain(a, e)
-    return _pow_kernel(a.re, a.im, e, e.bit_length())
-
-
 def broadcast_rows(t: torch.Tensor, lead: int):
     """t (*lead axes, *tail) -> (rows, rep) with rows (m, *tail) such that row
     i of the flattened lead axes is rows[i // rep]. The trailing lead axes
@@ -381,32 +350,6 @@ def broadcast_rows(t: torch.Tensor, lead: int):
         rep *= t.shape[keep]
     rows = t[(slice(None),) * keep + (0,) * (lead - keep)]
     return rows.reshape(math.prod(t.shape[:keep]), *t.shape[lead:]), rep
-
-
-def _pow_kernel(re, im, exponent, n_bits: int) -> GExt:
-    """KernelLibrary.pow on a base (re, im) (im None: a base-field base, and
-    the result's im is None) and an exponent tensor broadcast with it, or a
-    Python int. Broadcast trailing axes of the base become the kernel's row
-    repeat; where the two parts are laid out unlike each other both are
-    copied, repeat 1."""
-    from .. import kernels
-
-    shape = re.shape
-    if isinstance(exponent, torch.Tensor):
-        # numpy's broadcast, not torch.broadcast_shapes: that one imports
-        # torch.fx's symbolic shapes (sympy) at its first call, seconds of a
-        # fresh process's first verifier call on the card
-        shape = np.broadcast_shapes(tuple(shape), tuple(exponent.shape))
-        re, exponent = re.expand(shape), exponent.expand(shape).reshape(-1)
-        im = None if im is None else im.expand(shape)
-    b_re, rep = broadcast_rows(re, len(shape))
-    b_im = None
-    if im is not None:
-        b_im, rep_im = broadcast_rows(im, len(shape))
-        if (rep_im, b_im.stride()) != (rep, b_re.stride()):
-            b_re, b_im, rep = re.reshape(-1).contiguous(), im.reshape(-1).contiguous(), 1
-    out_re, out_im = kernels.load().pow(b_re, b_im, exponent, n_bits, rep)
-    return GExt(out_re.reshape(shape), None if out_im is None else out_im.reshape(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -452,8 +395,8 @@ def pow_grouped(qidx, gens: Sequence[GeneratorPower], exts):
     """pow_grouped_plain's powers: for CUDA tensors one launch of the
     grouped exponentiation (csrc/field.cu p2v_pow_grouped; each generator's
     `table` on the card), every power canonical; an ext exponent of 0 or 1
-    (the input's own bits at 1) is answered on the host with no launch, as
-    ext_pow_const answers it. CPU tensors take the plain version."""
+    (the input's own bits at 1) is answered on the host with no launch, by
+    ext_pow_const_plain. CPU tensors take the plain version."""
     if qidx.device.type == "cpu":
         return pow_grouped_plain(qidx, gens, exts)
     return _pow_grouped_kernel(qidx, gens, exts)

@@ -1,5 +1,5 @@
 """Bit-exactness check of the field kernels on the card: the extension
-Horner sum, the Fermat inversion and the exponentiations (csrc/field.cu),
+Horner sum, the grouped inversion and the grouped exponentiation (csrc/field.cu),
 the levelized gate program (csrc/gates.cu), the FRI coset folds
 (csrc/fold.cu), and L0 with the partial products, the lookup argument and
 the gate filter (csrc/plonk.cu), against their plain PyTorch versions
@@ -7,19 +7,17 @@ the gate filter (csrc/plonk.cu), against their plain PyTorch versions
 `pow_dynamic_plain` / `ext_pow_const_plain`, `GateProgram.forward_plain`,
 `verifier_torch.coset_fold_plain`, `partial_products_plain`,
 `lookup_checks_plain`, `gate_filter_plain`) and the golden (Python-int) model. `tools/check_hash_kernels.py` runs it
-after the Poseidon kernels, for its command line and chip_smoke.py's kernel
-phase.
+after the Poseidon kernels, for its command line and for tools/probe_kernels.py.
 
 Every input mixes random canonical words with the p-edge band and random
 words x + p (x < 2^32 - 1): proof words need not be canonical, and the
 kernels must give the plain bits for them too.
-- inv: `n_random` random words, the band and 4,096 words x + p, flat and as
-  (rows, 28); zero words give zero; an empty tensor launches nothing;
-- inv_grouped (the batch inversion a forward launches once): the same words,
+- inv_grouped (the batch inversion a forward launches once): `n_random`
+  random words, the band and 4,096 words x + p, flat and as (rows, 28),
   then lengths 1-1,001 around the group of kernels.INV_GROUP words, each
   with a zero and a word p (0 mod p) in every position of a group, and all
   zeros; against inv_plain, golden and the kernel's own order in PyTorch
-  (inv_grouped_split_plain); no words launch nothing;
+  (inv_grouped_split_plain); zero words give zero; no words launch nothing;
 - horner: both template flags (base-field values, base-field point) in all
   four combinations, the interleaved openings' column stride of 2, rows
   repeated through v_rep and p_rep (the wrappers' stride-0 rows), widths
@@ -27,13 +25,6 @@ kernels must give the plain bits for them too.
   combineInitial's width of 254 on about 2^20 words, and small rows whose
   K makes kernels.horner_segments pick each segment count a row (1 to 32)
   in every flag pair (the check raises if a count was never picked);
-- pow: `n_random` words in both forms the verifier calls (a base-field base
-  with an exponent a word below 2^15, the base also one scalar read for
-  every word; an extension base with one exponent from the host, the base
-  also a row repeated 28 times), exponents 0, 1, 2^n - 1 and random (a
-  host exponent: 2, 3, 2^12, 2^64 - 1 and random), and on the card the
-  two other flag pairs against golden; e = 0 and 1 of ext_pow_const
-  launch nothing, and the library refuses them;
 - pow_grouped (a forward's powers in one launch): fixed-generator segments
   as the verifier makes them (query points over 15 bits, fold offsets with
   the index shifted and its low bits cleared, a final x of 0 bits, the
@@ -191,20 +182,6 @@ GATE_BATCHES = [37, 300, 400, 1030, 2112, 4225, 1, 0]
 GOLDEN_LANES = 2
 PLAIN_GATE_LANES = 8  # the plain stand-in runs the packed program in Python ints: a few lanes
 ZOO_COMMON = os.path.join(os.path.dirname(__file__), "..", "..", "fixtures", "gate_zoo_3abb3dc54fe7_common.json")
-
-
-def pow_rows_plain(b_re, b_im, exponent, n_bits: int = 0, b_rep: int = 1):
-    """What `KernelLibrary.pow` computes for the two flag pairs the verifier
-    calls, by their plain versions on the repeated rows: pow_dynamic_plain
-    (a base-field base, an exponent an element) and ext_pow_const_plain (an
-    extension base, one exponent of at least 2)."""
-    rows = lambda t: t.repeat_interleave(b_rep, 0)
-    if b_im is None and isinstance(exponent, torch.Tensor):
-        return tf.pow_dynamic_plain(rows(b_re), exponent, n_bits), None
-    if b_im is not None and isinstance(exponent, int) and exponent >= 2:
-        out = tf.ext_pow_const_plain(GExt(rows(b_re), rows(b_im)), exponent)
-        return out.re, out.im
-    raise ValueError("no plain version: the verifier calls a base-field base with an exponent an element, or an extension base with e >= 2")
 
 
 def inv_grouped_split_plain(a):
@@ -389,60 +366,6 @@ def gate_inputs(rng, lp, batch: int, dev):
         inputs[kind] = GExt(t[..., 0], t[..., 1])
         views.append((offset, inputs[kind].re, inputs[kind].im) if w else (offset, None, None))
     return inputs, views
-
-
-def check_pow(lib, c, rng, dev, n_random: int, kernel: bool):
-    """checks["pow"]: both flag pairs the verifier calls against their plain
-    versions and golden, and (`kernel`: lib is the kernel library, not the
-    plain stand-in) the other two against golden; a host exponent below 2
-    refused, the wrapper answering e = 0 and 1 without a launch."""
-    n = n_random
-    b_np = words(rng, (n, 2))
-    b = tf.from_u64(b_np, dev)
-    b_re, b_im = b[:, 0], b[:, 1]  # stride 2, as the interleaved openings
-    golden_at = list(range(0, n, max(n // 4, 1)))[:4] + [n - 1]
-    for name, exps_np in [("0", np.zeros(n, np.int64)), ("1", np.ones(n, np.int64)),
-                          ("2^15 - 1", np.full(n, 2**POW_BITS - 1, np.int64)),
-                          ("random", rng.integers(0, 2**POW_BITS, size=n, dtype=np.int64))]:
-        exps = torch.from_numpy(exps_np).to(dev)
-        got, none = lib.pow(b_re, None, exps, POW_BITS)
-        if none is not None or got.shape != (n,):
-            raise AssertionError(f"pow base-field, exponents {name}: shapes {got.shape}, {none}")
-        c.compare(got, tf.pow_dynamic_plain(b_re, exps, POW_BITS), f"base-field base, exponents {name}")
-        c.compare(got[golden_at], np.array([gf.fpow(int(b_np[i, 0]) % gf.P, int(exps_np[i])) for i in golden_at], np.uint64), f"exponents {name} vs golden")
-        scalar = b_re[:1]  # one word for every element, as the verifier's generator
-        c.compare(lib.pow(scalar, None, exps, POW_BITS, b_rep=n)[0], tf.pow_dynamic_plain(scalar.expand(n), exps, POW_BITS), f"a scalar base, exponents {name}")
-        if kernel:  # extension base, exponents an element (no call site): golden
-            re, im = lib.pow(b_re, b_im, exps, POW_BITS)
-            c.compare(torch.stack([re[golden_at], im[golden_at]], 1), np.array(
-                [gf.epow((int(b_np[i, 0]) % gf.P, int(b_np[i, 1]) % gf.P), int(exps_np[i])) for i in golden_at], np.uint64), f"extension base, exponents {name} vs golden")
-    rows = b[: max(n // 28, 1)]
-    for e in POW_CONST + [int(x) for x in rng.integers(2, 2**63, size=2)]:
-        what = f"extension base, e = {e}"
-        for rep in (1, 28):
-            base = GExt(rows[:, 0], rows[:, 1]) if rep == 28 else GExt(b_re, b_im)
-            got = lib.pow(base.re, base.im, e, b_rep=rep)
-            m = got[0].shape[0]
-            full = GExt(base.re.repeat_interleave(rep), base.im.repeat_interleave(rep))
-            want = tf.ext_pow_const_plain(full, e)
-            c.compare(torch.stack(got), torch.stack([want.re, want.im]), f"{what}, rows x {rep}")
-            at = [0, m // 2, m - 1]
-            gold = [gf.epow((int(x) % gf.P, int(y) % gf.P), e) for x, y in zip(tf.to_u64(full.re[at]), tf.to_u64(full.im[at]))]
-            c.compare(torch.stack([got[0][at], got[1][at]], 1), np.array(gold, np.uint64), f"{what}, rows x {rep} vs golden")
-        if kernel:  # base-field base, one exponent (no call site): golden
-            got, _ = lib.pow(b_re, None, e)
-            c.compare(got[golden_at], np.array([gf.fpow(int(b_np[i, 0]) % gf.P, e) for i in golden_at], np.uint64), f"base-field base, e = {e} vs golden")
-    before = lib.launches.get("pow", 0)
-    for e in (0, 1):  # the wrapper answers both on the host, the input's own bits at e = 1; the library refuses them
-        got, want = tf.ext_pow_const(GExt(b_re, b_im), e), tf.ext_pow_const_plain(GExt(b_re, b_im), e)
-        c.compare(torch.stack([got.re, got.im]), torch.stack([want.re, want.im]), f"ext_pow_const e = {e}")
-        try:
-            lib.pow(b_re, b_im, e)
-        except ValueError:
-            continue
-        raise AssertionError(f"pow took a host exponent {e}, which ext_pow_const answers itself")
-    if lib.pow(b_re[:0], None, exps[:0], POW_BITS)[0].numel() or lib.launches.get("pow", 0) != before:
-        raise AssertionError("pow launched for e < 2 through ext_pow_const, or for no words")
 
 
 INV_GROUPED_LENGTHS = [1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 1000, 1001]
@@ -1105,7 +1028,7 @@ def check_gate_filter(lib, c, rng, dev, max_lanes: int, commons=None):
 
 def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
     """The field kernels of `lib` (kernels.KernelLibrary, or the CPU run's
-    PlainLibrary) into checks["inv"], checks["horner"], checks["pow"],
+    PlainLibrary) into checks["inv"] (the grouped inversion), checks["horner"], checks["pow"] (the grouped exponentiation),
     checks["gate_program"], checks["coset_fold"], checks["partial_products"]
     checks["lookup_checks"] and checks["gate_filter"]; raises on the first
     word that differs."""
@@ -1117,16 +1040,6 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
         rng.integers(0, 2**32 - 1, size=4096, dtype=np.uint64) + np.uint64(P),
         rng.integers(0, P, size=n_random, dtype=np.uint64),
     ])
-    a = tf.from_u64(a_np, dev)
-    got = lib.inv(a)
-    c.compare(got, tf.inv_plain(a), f"{a_np.size} words")
-    head = a_np[: len(EDGE) + 4096 + 64]
-    c.compare(got[: head.size], np.array([pow(int(x) % P, P - 2, P) for x in head], dtype=np.uint64), "vs golden")
-    grid = a[: min(a.numel() // 28, 1024) * 28].reshape(-1, 28)  # (B, Q) as off_inv's
-    c.compare(lib.inv(grid), tf.inv_plain(grid), f"{tuple(grid.shape)}")
-    before = lib.launches.get("inv", 0)
-    if lib.inv(a[:0]).numel() or lib.launches.get("inv", 0) != before:
-        raise AssertionError("inv of no words launched or returned words")
     check_inv_grouped(lib, c, rng, dev, a_np)
 
     kernel = isinstance(lib, KernelLibrary)  # not the plain stand-in (also when its module runs as __main__)
@@ -1167,7 +1080,6 @@ def check_field_kernels(lib, checks, dev, n_random: int = N_RANDOM):
             c.compare(torch.stack([got[0][row], got[1][row]]), np.array(gold, dtype=np.uint64), f"{what} row {row} vs golden")
     if picked != set(HORNER_SEGMENTS):
         raise AssertionError(f"horner: the cases reached the segment counts {sorted(picked)}, not every one of {HORNER_SEGMENTS}")
-    check_pow(lib, checks["pow"], rng, dev, n_random, kernel)
     check_pow_grouped(lib, checks["pow"], rng, dev, n_random)
     check_gate_program(lib, checks["gate_program"], rng, dev, n_random if kernel else min(n_random, PLAIN_GATE_LANES), kernel)
     check_coset_fold(lib, checks["coset_fold"], rng, dev, n_random)

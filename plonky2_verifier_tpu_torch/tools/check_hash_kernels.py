@@ -18,12 +18,13 @@ Holds, against the plain PyTorch versions and the golden (Python-int) model:
   matrices than one launch takes);
 - the Merkle path walk over every path length in use, sibling ordering by
   index bit, sizes on both sides of one wave of blocks;
-- the extension Horner sum, the Fermat inversion, the exponentiations, the
-  levelized gate program, the FRI coset folds, L0 with the partial products
-  and the lookup argument (`check_field_kernels.check_field_kernels`).
+- the extension Horner sum, the grouped inversion and exponentiation, the
+  levelized gate program, the FRI coset folds, L0 with the partial
+  products, the lookup argument and the gate filter
+  (`check_field_kernels.check_field_kernels`).
 
-Prints one JSON line; exit code 0 iff every word is bit-exact. chip_smoke.py
-calls `check_kernels` for its kernel phase. With --device cpu the plain
+Prints one JSON line; exit code 0 iff every word is bit-exact.
+tools/probe_kernels.py calls `check_kernels` at a reduced size. With --device cpu the plain
 versions stand in for the kernels (PlainLibrary), so the run holds them
 against golden/ alone and needs no card.
 """
@@ -41,10 +42,9 @@ from ..golden import poseidon as gp
 from ..ops import field as tf
 from ..ops import hash as th
 from ..ops import poseidon as tp
-from ..kernels import horner_segments
+from ..kernels import COUNTERS, horner_segments
 from .check_field_kernels import (check_field_kernels, coset_fold_rows_plain, gate_filter_rows_plain, golden_packed_program, horner_split_plain,
-                                  inv_grouped_split_plain, lookup_checks_rows_plain, partial_products_rows_plain, pow_grouped_rows_plain,
-                                  pow_rows_plain)
+                                  inv_grouped_split_plain, lookup_checks_rows_plain, partial_products_rows_plain, pow_grouped_rows_plain)
 
 P = tf.P
 EDGE = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63, P, 2**64 - 1]  # the last two are not canonical
@@ -108,8 +108,7 @@ class PlainLibrary:
 
     def __init__(self, consts):
         self.consts = consts
-        self.launches = {"sponge_rows_grouped": 0, "horner": 0, "inv": 0, "inv_grouped": 0, "pow": 0, "pow_grouped": 0, "gate_program": 0,
-                         "coset_fold": 0, "partial_products": 0, "lookup_checks": 0, "gate_filter": 0}
+        self.launches = dict.fromkeys(COUNTERS, 0)
 
     def permutation(self, state, form="auto"):
         return tp.permutation_plain(state, self.consts)
@@ -133,11 +132,6 @@ class PlainLibrary:
         n, k = v_re.shape[0] * v_rep, v_re.shape[1]
         return horner_split_plain(v_re, v_im, p_re, p_im, v_rep, p_rep, horner_segments(n, k, self.sms))
 
-    def inv(self, a):
-        if a.numel():
-            self.launches["inv"] += 1
-        return tf.inv_plain(a)
-
     def inv_grouped(self, a):
         if a.numel():
             self.launches["inv_grouped"] += 1
@@ -146,11 +140,6 @@ class PlainLibrary:
     def pow_grouped(self, idx, gens, exts):
         out = pow_grouped_rows_plain(idx, gens, exts)  # raises, uncounted, where the library refuses
         self.launches["pow_grouped"] += any(x.numel() for x in out[0]) or any(re.numel() for re, _ in out[1])
-        return out
-
-    def pow(self, b_re, b_im, exponent, n_bits=0, b_rep=1):
-        out = pow_rows_plain(b_re, b_im, exponent, n_bits, b_rep)  # raises, uncounted, where the library refuses
-        self.launches["pow"] += bool(b_re.shape[0])
         return out
 
     def gate_program(self, inputs, packed, form="auto"):

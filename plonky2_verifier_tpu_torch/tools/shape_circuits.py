@@ -7,11 +7,15 @@ gate mixes with the hard gates and lookup blocks).
 The two functions are the port's own copies of tests/shape_grid_check.py
 (tiny_fixture) and tests/test_fuzz_circuits.py (_random_circuit), which
 build with the JAX package's CircuitBuilder; tests/test_torch_shapes.py
-holds the circuits and proofs of both equal. chip_smoke.py drives them on
-the card.
+holds the circuits and proofs of both equal. `check_circuit` drives one
+through TorchVerifier, on the CPU in tests/test_torch_shapes.py; with
+`transcript_equals_golden` it holds a verifier's debug transcript against
+golden/ (tests/test_torch_forward_card.py does on the card).
 """
 
 import random
+
+import numpy as np
 
 from ..gate_parser import Gate
 from ..golden import field as gf
@@ -161,3 +165,70 @@ def fuzz_fixture(seed: int):
             b.add_lookup(lut, rng.randrange(tsize))
     b.set_public_inputs([rng.randrange(1000) for _ in range(rng.randrange(0, 3))])
     return b.build(name=f"fuzz{seed}")
+
+
+def transcript_equals_golden(common, dbg, lane: int, vkey, pwp):
+    """Raises unless lane `lane` of a debug forward's challenges (`dbg`,
+    TorchVerifier(debug=True)'s out["debug"]) equal golden/'s for the proof:
+    zeta, the betas, gammas, alphas and lookup deltas, the FRI alpha, the
+    proof-of-work response, the query indices and the public-input hash."""
+    from ..golden.challenges import proof_challenges
+    from ..golden.hashing import sponge
+    from ..ops.field import to_u64
+
+    ch = proof_challenges(common, vkey, pwp)
+    u = lambda t: [int(v) for v in np.atleast_1d(to_u64(t[lane]))]
+    got = {
+        "zeta": (u(dbg["zeta"][0])[0], u(dbg["zeta"][1])[0]),
+        "betas": [u(b)[0] for b in dbg["betas"]],
+        "gammas": [u(g)[0] for g in dbg["gammas"]],
+        "alphas": [u(a)[0] for a in dbg["alphas"]],
+        "deltas": [tuple(u(x)[0] for x in d) for d in dbg["deltas"]],
+        "fri_alpha": (u(dbg["fri_alpha"][0])[0], u(dbg["fri_alpha"][1])[0]),
+        "pow_response": u(dbg["pow_response"])[0],
+        "query_indices": u(dbg["query_indices"]),
+        "pi_hash": tuple(u(dbg["pi_hash"])),
+    }
+    want = {
+        "zeta": tuple(ch.zeta),
+        "betas": list(ch.betas),
+        "gammas": list(ch.gammas),
+        "alphas": list(ch.alphas),
+        "deltas": [(d.a, d.b, d.alpha, d.delta) for d in ch.deltas],
+        "fri_alpha": tuple(ch.fri.alpha),
+        "pow_response": ch.fri.pow_response,
+        "query_indices": list(ch.fri.query_indices),
+        "pi_hash": tuple(sponge(pwp.public_inputs)),
+    }
+    for k in want:
+        if got[k] != want[k]:
+            raise AssertionError(f"lane {lane}: {k} differs from golden: {got[k]} != {want[k]}")
+
+
+def check_circuit(name: str, common, vkey, pwp, faults, device=None):
+    """One proof of a small circuit through TorchVerifier on `device` (None:
+    the card): a batch of 2 accepted with lane 0's transcript equal to
+    golden, then a batch that holds one fault a lane (the first word of that
+    array flipped; empty arrays passed over) and one intact lane behind
+    them, rejected on exactly the faulted lanes. Prints a line of the shape
+    and the verdicts; returns the verifier."""
+    from ..compiler import CircuitTemplate, flatten_proofs
+    from ..verifier_torch import TorchVerifier
+
+    tpl = CircuitTemplate(common)
+    v = TorchVerifier(tpl, debug=True, device=device)
+    out = v(v.prepare(flatten_proofs(tpl, [(vkey, pwp)] * 2)))
+    if v.to_host(out).tolist() != [True, True]:
+        raise AssertionError(f"{name}: an honest proof was rejected: {out['ok']}, eqs {out['eqs_ok']}, fri {out['fri_ok']}")
+    transcript_equals_golden(common, out["debug"], 0, vkey, pwp)
+    arrays = flatten_proofs(tpl, [(vkey, pwp)] * (len(faults) + 1))
+    live = [f for f in faults if f in arrays and arrays[f].size]
+    for lane, fault in enumerate(live):
+        arrays[fault].reshape(len(faults) + 1, -1)[lane, 0] ^= np.uint64(1)
+    ok = v.to_host(v(v.prepare({k: a[: len(live) + 1] for k, a in arrays.items()}))).tolist()
+    if ok != [False] * len(live) + [True]:
+        raise AssertionError(f"{name}: faults {live} gave verdicts {ok}")
+    print(f"shape {name}: degree_bits {tpl.degree_bits}, cap {tpl.cap_len}, initial path {tpl.initial_path_len}, steps "
+          f"{[(st['arity_bits'], st['path_len'], st['cap_len']) for st in tpl.steps]}, final poly {tpl.final_poly_len}, "
+          f"{tpl.n_pi} public inputs, {tpl.num_queries} queries: accepted, transcript equals golden, rejected {live}")
+    return v

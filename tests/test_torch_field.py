@@ -5,7 +5,10 @@ Inputs are random values plus the p-edge band, made with numpy from a seed
 and fed to both; the exponentiations also on words x + p (proof words need
 not be canonical), at e = 0, 1, 2 and random, where the two plain functions'
 conventions differ (pow_dynamic multiplies from 1, ext_pow_const returns
-the input's own bits at e = 1). Tolerance: bit-exact (integer arithmetic)."""
+the input's own bits at e = 1). The port's inversion and exponentiations
+are its plain versions (`inv_plain`, `pow_dynamic_plain`,
+`ext_pow_const_plain`), held against the JAX package's `inv`, `pow_dynamic`
+and `ext_pow_const`. Tolerance: bit-exact (integer arithmetic)."""
 
 import numpy as np
 import pytest
@@ -56,14 +59,14 @@ def test_binary_ops(ab, name, t_op, j_op, g_op):
 @pytest.mark.parametrize("name", ["neg", "square", "inv"])
 def test_unary_ops(ab, name):
     a, _ = ab
-    got = _torch(getattr(tf, name), a)
+    got = _torch(tf.inv_plain if name == "inv" else getattr(tf, name), a)
     np.testing.assert_array_equal(got, _jax(getattr(jf, name), a))
     golden = {"neg": gf.fneg, "square": lambda x: gf.fmul(x, x), "inv": lambda x: gf.finv(x) if x else 0}[name]
     assert [int(x) for x in got] == [golden(int(x)) for x in a]
 
 
 def test_inv_zero_is_zero():
-    assert int(_torch(tf.inv, np.zeros(1, dtype=np.uint64))[0]) == 0
+    assert int(_torch(tf.inv_plain, np.zeros(1, dtype=np.uint64))[0]) == 0
 
 
 @pytest.mark.parametrize("e", [0, 1, 7, 4096, P - 2])
@@ -77,7 +80,7 @@ def test_pow_const(ab, e):
 def test_pow_dynamic(ab):
     a, _ = ab
     exps = np.random.default_rng(3).integers(0, 1 << 15, size=a.shape, dtype=np.uint64)
-    got = tf.to_u64(tf.pow_dynamic(tf.from_u64(a, "cpu"), tf.from_u64(exps, "cpu"), 15))
+    got = tf.to_u64(tf.pow_dynamic_plain(tf.from_u64(a, "cpu"), tf.from_u64(exps, "cpu"), 15))
     want = jf.to_u64(jf.pow_dynamic(jf.from_u64(a), jf.from_u64(exps).lo, 15))
     np.testing.assert_array_equal(got, want)
     assert [int(x) for x in got] == [pow(int(x), int(e), P) for x, e in zip(a, exps)]
@@ -122,7 +125,7 @@ def test_ext_inv_and_div():
 def test_ext_pow_const(e):
     ar, ai = _ext_pair(8)
     golden = [gf.epow((int(a), int(b)), e) for a, b in zip(ar, ai)]
-    _check_ext(tf.ext_pow_const(_t_ext(ar, ai), e), jf.ext_pow_const(_j_ext(ar, ai), e), golden)
+    _check_ext(tf.ext_pow_const_plain(_t_ext(ar, ai), e), jf.ext_pow_const(_j_ext(ar, ai), e), golden)
 
 
 def test_ext_equal_and_where():
@@ -161,7 +164,7 @@ def _noncanonical(seed: int, n: int = 256) -> np.ndarray:
 def test_pow_dynamic_on_noncanonical_bases(e):
     a = _noncanonical(20)
     exps = np.full(a.shape, int(e), dtype=np.uint64) if e != "random" else np.random.default_rng(21).integers(0, 1 << 15, size=a.shape, dtype=np.uint64)
-    got = tf.to_u64(tf.pow_dynamic(tf.from_u64(a, "cpu"), tf.from_u64(exps, "cpu"), 15))
+    got = tf.to_u64(tf.pow_dynamic_plain(tf.from_u64(a, "cpu"), tf.from_u64(exps, "cpu"), 15))
     np.testing.assert_array_equal(got, jf.to_u64(jf.pow_dynamic(jf.from_u64(a), jf.from_u64(exps).lo, 15)))
     assert [int(x) for x in got] == [pow(int(x), int(k), P) for x, k in zip(a, exps)]  # canonical, 1 at e = 0
 
@@ -169,7 +172,7 @@ def test_pow_dynamic_on_noncanonical_bases(e):
 @pytest.mark.parametrize("e", [0, 1, 2, 3, 4096, 0x9E3779B97F4A7C15])
 def test_ext_pow_const_on_noncanonical_bases(e):
     ar, ai = _noncanonical(22), _noncanonical(23)
-    got = tf.ext_pow_const(_t_ext(ar, ai), e)
+    got = tf.ext_pow_const_plain(_t_ext(ar, ai), e)
     want = jf.ext_pow_const(_j_ext(ar, ai), e)
     np.testing.assert_array_equal(tf.to_u64(got.re), jf.to_u64(want.re))
     np.testing.assert_array_equal(tf.to_u64(got.im), jf.to_u64(want.im))

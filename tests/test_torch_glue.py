@@ -1,8 +1,9 @@
 """The field glue that launches the field kernels on the card
-(csrc/field.cu), on the CPU: `verifier_torch.horner_ext`, `horner_scaled`
-and `ops/field.inv` take their plain versions for CPU tensors, and each is
-held bit for bit against the JAX package's own function on the CPU
-(`verifier_jax.horner_ext`, `horner_scaled`, `ops.field.inv`).
+(csrc/field.cu), on the CPU: `verifier_torch.horner_ext` and
+`horner_scaled` take their plain versions for CPU tensors, and each, with
+`ops/field.inv_plain`, is held bit for bit against the JAX package's own
+function on the CPU (`verifier_jax.horner_ext`, `horner_scaled`,
+`ops.field.inv`).
 
 Inputs are made with numpy from a seed, half drawn from the p-edge band and
 half non-canonical words x + p (x < 2^32 - 1), as proof words may be. The
@@ -14,9 +15,8 @@ is what the kernel's BASE_POINT flag relies on. Last, the wrappers' card
 path (`_horner_kernel`: the verifier's views flattened to rows, stride-0
 rows passed as repeats) with the kernel library replaced by the plain
 version of its interface. The same for the exponentiations
-(`ops/field._pow_kernel`: a scalar base and a base broadcast over the query
-axis reach the kernel as one row and as repeated rows, never copied;
-`ext_pow_const` at e = 0 and 1 answers without the library) and the gate
+(`ops/field.pow_grouped` answers an extension base at e = 0 and 1 on the
+host, without a launch) and the gate
 program (`GateProgram._forward_kernel`: the inputs' views at their strides,
 the program packed for the verifier's padded slots) and the gate filter
 (`_gate_filter_kernel`: the selector columns' view and the template's
@@ -49,7 +49,6 @@ from plonky2_verifier_tpu_torch.tools.check_field_kernels import (
     golden_packed_program,
     horner_split_plain,
     horner_rows_plain,
-    pow_rows_plain,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -129,14 +128,14 @@ def test_point_with_zero_imaginary_part_through_both_forms(base_values):
 @pytest.mark.parametrize("shape", [(3, 28), (517,), (0,)])
 def test_inv(shape):
     a = _words(9, shape)
-    got = tf.to_u64(tf.inv(tf.from_u64(a, "cpu")))
+    got = tf.to_u64(tf.inv_plain(tf.from_u64(a, "cpu")))
     np.testing.assert_array_equal(got, jf.to_u64(jf.inv(jf.from_u64(a))))
     assert [int(x) for x in got.reshape(-1)] == [pow(int(x) % P, P - 2, P) for x in a.reshape(-1)]
 
 
 def test_inv_of_zero_is_zero():
     zero = np.array([0, P], dtype=np.uint64)  # 0 and its non-canonical twin
-    assert tf.to_u64(tf.inv(tf.from_u64(zero, "cpu"))).tolist() == [0, 0]
+    assert tf.to_u64(tf.inv_plain(tf.from_u64(zero, "cpu"))).tolist() == [0, 0]
     assert jf.to_u64(jf.inv(jf.from_u64(zero))).tolist() == [0, 0]
 
 
@@ -234,16 +233,11 @@ def test_card_path_horner_scaled_broadcasts_values_over_scales(monkeypatch):
 
 
 class _FieldLibrary:
-    """The kernel library's `pow` and `gate_program` by their plain versions,
-    recording what each call was given."""
+    """The kernel library's `gate_program` by its plain version, recording
+    what each call was given."""
 
     def __init__(self):
         self.calls = []
-
-    def pow(self, b_re, b_im, exponent, n_bits=0, b_rep=1):
-        self.calls.append({"rows": b_re.shape[0], "stride": b_re.stride(0), "rep": b_rep, "ext": b_im is not None,
-                           "exponent": exponent if isinstance(exponent, int) else tuple(exponent.shape), "n_bits": n_bits})
-        return pow_rows_plain(b_re, b_im, exponent, n_bits, b_rep)
 
     def gate_program(self, inputs, packed):
         self.calls.append({"strides": [None if re is None else (re.stride(), im.stride()) for _, re, im in inputs],
@@ -251,50 +245,23 @@ class _FieldLibrary:
         return golden_packed_program(inputs, packed)
 
 
-def _pow_layouts():
-    """The bases the verifier hands the exponentiations (B = 6, Q = 5) and
-    the rows and repeats that must reach the kernel."""
-    B, Q = 6, 5
-    exps = torch.from_numpy(np.random.default_rng(30).integers(0, 1 << 15, size=(B, Q), dtype=np.int64))
-    scalar = tf.constant(7, (1, 1), "cpu").expand(B, Q)
-    own = tf.from_u64(_words(31, (B, Q)), "cpu")
-    alpha = _port(*_ext_np(32, (B,)))
-    bq = GExt(alpha.re.unsqueeze(1).expand(B, Q), alpha.im.unsqueeze(1).expand(B, Q))
-    return [
-        ("a scalar generator", scalar, None, exps, {"rows": 1, "rep": B * Q, "ext": False, "exponent": (B * Q,), "n_bits": 15}),
-        ("a base of its own an element", own, None, exps, {"rows": B * Q, "stride": 1, "rep": 1, "ext": False, "exponent": (B * Q,), "n_bits": 15}),
-        ("alpha over the queries", bq.re, bq.im, 6, {"rows": B, "stride": 1, "rep": Q, "ext": True, "exponent": 6, "n_bits": 3}),
-        ("zeta^n", alpha.re, alpha.im, 4096, {"rows": B, "stride": 1, "rep": 1, "ext": True, "exponent": 4096, "n_bits": 13}),
-    ]
-
-
-@pytest.mark.parametrize("case", range(4), ids=[c[0] for c in _pow_layouts()])
-def test_card_path_pow_rows_and_repeats(monkeypatch, case):
-    lib = _FieldLibrary()
-    monkeypatch.setattr(kernels, "load", lambda: lib)
-    _, re, im, exponent, want = _pow_layouts()[case]
-    got = tf._pow_kernel(re, im, exponent, exponent.bit_length() if isinstance(exponent, int) else 15)  # as the wrappers call it
-    if im is None:
-        assert got.im is None and torch.equal(got.re, tf.pow_dynamic_plain(re, exponent, 15))
-    else:
-        plain = tf.ext_pow_const_plain(GExt(re, im), exponent)
-        assert torch.equal(got.re, plain.re) and torch.equal(got.im, plain.im)
-    (call,) = lib.calls
-    if want["rows"] == 1:
-        call.pop("stride")  # one row: its stride is never used
-    assert call == want
-
-
 @pytest.mark.parametrize("e", [0, 1])
 def test_ext_pow_const_small_exponents_launch_nothing(monkeypatch, e):
-    """e = 0 and 1 are answered as the plain version answers them, on any
-    device: (1, 0), and the input itself (x + p stays x + p)."""
-    def refuse():
-        raise AssertionError("ext_pow_const reached the kernel library")
+    """pow_grouped's card path answers an extension base at e = 0 and 1 as
+    the plain version answers them, on any device: (1, 0), and the input
+    itself (x + p stays x + p); the library gets no segment and launches
+    nothing."""
+    got = []
 
-    monkeypatch.setattr(kernels, "load", refuse)
+    class Library:
+        def pow_grouped(self, idx, gens, exts):
+            got.append((idx, gens, exts))
+            return [], []
+
+    monkeypatch.setattr(kernels, "load", lambda: Library())
     meta = GExt(torch.empty((4, 3), dtype=torch.int64, device="meta"), torch.empty((4, 3), dtype=torch.int64, device="meta"))
-    out = tf.ext_pow_const(meta, e)
+    gens, (out,) = tf.pow_grouped(torch.empty((4, 3), dtype=torch.int64, device="meta"), [], [(meta, e)])
+    assert gens == [] and got == [(None, [], [])]
     assert out.shape == (4, 3) and (out is meta) == (e == 1)
 
 

@@ -173,7 +173,8 @@ def test_every_host_module_of_the_closure_is_copied():
 
 def test_perms_per_proof_agrees_across_packages():
     """The analytic permutation count of both metrics modules on one small
-    template (chip_smoke.py holds the standard shape to its 2,774)."""
+    template (tests/test_torch_forward_card.py holds the standard shape to its
+    2,774)."""
     from plonky2_verifier_tpu.metrics import perms_per_proof as ref_perms
     from plonky2_verifier_tpu_torch.metrics import perms_per_proof
 

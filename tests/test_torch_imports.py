@@ -1,23 +1,26 @@
 """The port's import boundary and device dispatch, on a machine without CUDA.
 
-- Importing every port module (and chip_smoke.py, bench_torch.py) loads no
-  JAX and nothing of the JAX package; no source file of the port, nor
-  chip_smoke.py or bench_torch.py, holds
-  an import of either at any depth of nesting; a CPU rehearsal of
-  chip_smoke's paths (main, gate zoo, ingest, stream, command line, shapes,
-  the mesh of processes and the profile) loads neither, in this process or
-  in a spawned rank.
+- Importing every port module (and bench_torch.py) loads no JAX and nothing
+  of the JAX package; no source file of the port, nor bench_torch.py, holds
+  an import of either at any depth of nesting; each of the port's paths
+  run on the CPU at a tiny size (a forward, the gate zoo, the native ingest
+  and the stream, the command line, a shape circuit, a mesh of two gloo
+  processes, the profile) loads neither, in its process or in a spawned
+  rank.
+- One forward of each benchmark configuration's template at test size,
+  every field wrapper on its card path with the kernels' own order in
+  PyTorch standing in for the library, launches each kernel as often as on
+  the card and gives the plain path's verdicts.
 - On CPU tensors the wrappers take their plain versions and never touch the
-  kernel library (the field kernels' Horner sums and inversion too).
+  kernel library (the field kernels' Horner sums too).
 - Without CUDA, the entry points (TorchVerifier, PoseidonConstants,
   verify_batch) raise unless given device="cpu", building the kernels
-  raises, a wrapper given a non-CPU tensor raises instead of falling back,
-  and chip_smoke.py exits non-zero without printing a result."""
+  raises, and a wrapper given a non-CPU tensor raises instead of falling
+  back."""
 
 import ast
 import json
 import os
-import shutil
 import subprocess
 import sys
 
@@ -71,7 +74,6 @@ PORT_MODULES = [
     "plonky2_verifier_tpu_torch.tools.bench_ingest",
     "plonky2_verifier_tpu_torch.tools.shape_circuits",
     "plonky2_verifier_tpu_torch.bench",
-    "chip_smoke",
     "bench_torch",
 ]
 FORBIDDEN = ["jax", "jaxlib", "plonky2_verifier_tpu"]
@@ -97,7 +99,7 @@ def test_import_loads_no_jax(module):
 
 
 def _port_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "bench_torch.py")]
+    files = [os.path.join(ROOT, "bench_torch.py")]
     for folder, _, names in os.walk(os.path.join(ROOT, "plonky2_verifier_tpu_torch")):
         files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -105,7 +107,7 @@ def _port_sources():
 
 def test_no_source_imports_jax_or_the_jax_package():
     """An `import` or `from` of a forbidden package anywhere in the port's
-    sources, chip_smoke.py or bench_torch.py, inside functions too."""
+    sources or bench_torch.py, inside functions too."""
     files = _port_sources()
     assert len(files) > 40
     bad = []
@@ -123,173 +125,100 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
-REHEARSAL = """
-import sys, torch
-import chip_smoke as cs
-from plonky2_verifier_tpu_torch import kernels, verifier_torch as vt
-from plonky2_verifier_tpu_torch.ops import field as tf, hash as th, poseidon as tp
-
-consts = tp.PoseidonConstants("cpu")
-
-class Lib:  # stands in for the kernel library: counts, then runs the plain version
-    def reset_launches(self):
-        self.launches = dict.fromkeys(kernels.COUNTERS, 0)
-
-lib = Lib(); lib.reset_launches()
-from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
-checks = new_checks()
-def counted(name, fn, launches=lambda *a, **kw: True):
-    def run(*a, **kw):
-        lib.launches[name] += launches(*a, **kw)
-        return fn(*a, **kw)
-    return run
-tp.permutation_scan = counted("permutation_scan", tp.permutation_scan)
-th.sponge_rows = counted("sponge_rows", th.sponge_rows)
-th.sponge_rows_grouped = counted("sponge_rows_grouped", th.sponge_rows_grouped)
-th.merkle_fold = counted("merkle_fold", th.merkle_fold)
-vt.horner_ext = counted("horner", vt.horner_ext)  # the field kernels' wrappers
-vt.horner_scaled = counted("horner", vt.horner_scaled)
-tf.inv = counted("inv", tf.inv)
-tf.pow_dynamic = counted("pow", tf.pow_dynamic)
-tf.ext_pow_const = counted("pow", tf.ext_pow_const, lambda a, e: e >= 2)  # e = 0, 1 launch nothing
-tf.inv_grouped = counted("inv_grouped", tf.inv_grouped)
-tf.pow_grouped = counted("pow_grouped", tf.pow_grouped)
-from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
-GateProgram.forward = counted("gate_program", GateProgram.forward)
-vt.coset_folds = counted("coset_fold", vt.coset_folds, lambda evals, *a: bool(evals))  # no fold step, no launch
-vt.partial_products = counted("partial_products", vt.partial_products)
-vt.lookup_checks = counted("lookup_checks", vt.lookup_checks)
-vt.gate_filter = counted("gate_filter", vt.gate_filter, lambda sels, cons, cols, *a: bool(cols.shape[0]))  # no live gate, no launch
-cs.DEVICE, cs.BATCH = "cpu", 6
-cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
-cs.ZOO = {"num_query_rounds": 2, "proof_of_work_bits": 2}
-cs.ZOO_BATCHES, cs.ZOO_TIMED_CALLS = [7, 8], 0
-torch.cuda.synchronize = lambda: None
-v, dev, launches, fib = cs.main_path(lib, checks)
-assert launches["permutation_scan"] == 1 and launches["merkle_fold"] > 0, launches
-assert launches["sponge_rows"] == 1 and launches["sponge_rows_grouped"] == 1, launches
-assert (launches["horner"], launches["inv"], launches["inv_grouped"]) == (7, 0, 1), launches
-assert (launches["pow"], launches["pow_grouped"], launches["gate_program"]) == (0, 1, 1), launches
-assert (launches["coset_fold"], launches["partial_products"], launches["lookup_checks"]) == (1 if v.tpl.steps else 0, 1, 0), launches
-assert launches["gate_filter"] == 1, launches
-prover = cs.start_prover("gate_zoo", cs.ZOO)
-zoo_launches = cs.zoo_path(lib, cs.zoo_fixture(prover), checks)
-assert prover.returncode == 0
-assert sorted(zoo_launches) == [7, 8] and all(n["sponge_rows_grouped"] == n["lookup_checks"] == 1 for n in zoo_launches.values()), zoo_launches
-bad = LOADED
-assert not bad, bad
-"""
-
-
-def test_chip_smoke_main_path_rehearsal_loads_no_jax():
-    """chip_smoke.main_path and zoo_path (its fixture proved by the child
-    process) end to end on the CPU at a tiny size, the kernel library
-    replaced by counters around the plain versions: every phase passes, the
-    launch checks hold, and no forbidden module was loaded."""
-    code = REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN)
-    env = child_env()
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stdout + res.stderr
-    assert "rejected lanes [0, 1, 2, 3, 4, 5]\n" in res.stdout
-    assert res.stdout.count("rejected lanes [0, 1, 2, 3, 4, 5, 6]\n") == 2  # the zoo path, each batch
-    assert "gate zoo batch 8: lane 0 transcript equals golden" in res.stdout
-
-
-SERVING_REHEARSAL = REHEARSAL[: REHEARSAL.index("cs.DEVICE, cs.BATCH")] + """
-import json, os, time
-from plonky2_verifier_tpu_torch import native
-from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
+PATH_PROLOGUE = """
+import json, os, sys, tempfile
+from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
 from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
-from plonky2_verifier_tpu_torch.tools import shape_circuits as sc
 
-cs.DEVICE, cs.BATCH = "cpu", 4
-cs.INGEST_PROOFS, cs.STREAM_PROOFS, cs.STREAM_CORRUPT_EVERY = 5, 10, 4
-cs.CLI_BATCH, cs.CLI_REPEAT = 2, 3
-torch.cuda.synchronize = lambda: None
+TINY = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
 
-def fixture(queries):
-    common, vkey, pwp = get_fixture_proof("fibonacci", n_arith_rows=13, num_query_rounds=queries, proof_of_work_bits=2)
+
+def loaded():
+    return LOADED
+
+
+def tiny():
+    common, vkey, pwp = get_fixture_proof("fibonacci", **TINY)
     return CircuitTemplate(common), common, vkey, pwp
 
-fib = fixture(6)
-ingest = cs.ingest_phase(fib)
-assert os.path.dirname(native.get_fastload().__file__).endswith(os.path.join("plonky2_verifier_tpu_torch", "native", "_build"))
-launches, snap = cs.stream_path(lib, fib, 1.0, ingest)
-assert snap["proofs"] == 10, snap
-assert launches["permutation_scan"] == 3 and launches["sponge_rows_grouped"] == 3, launches
-cli = cs.cli_path(lib, {"fibonacci": fib, "other": fixture(2)}, checks)
-assert cli["permutation_scan"] == 4 and cli["sponge_rows_grouped"] == 4, cli
-assert all(checks[k].cases > 0 and checks[k].max_abs_err == 0 for k in ("horner", "inv", "pow", "gate_program", "partial_products")), {k: c.cases for k, c in checks.items()}
-sc.GRID, sc.FUZZ_SEEDS = [(4, 2, 0)], [13]
-shapes = cs.shapes_path(lib, checks)
-assert shapes["permutation_scan"] == 4 and shapes["merkle_fold"] == 4, shapes
-bad = LOADED
-assert not bad, bad
-"""
 
+def mesh_rank(batch):
+    from plonky2_verifier_tpu_torch.parallel import ShardedVerifier, make_mesh
 
-def test_chip_smoke_serving_phases_rehearsal_loads_no_jax():
-    """chip_smoke's ingest, stream, command-line and shape phases end to end
-    on the CPU (6 queries, batch 4; 10 proofs with every 4th corrupt; one grid
-    point and one fuzz seed), the kernel library replaced by counters around
-    the plain versions: every phase passes, the launch checks hold, the native
-    ingest built in the port's own folder ran, no forbidden module was loaded."""
-    code = SERVING_REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN)
-    env = child_env()
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
-    assert res.returncode == 0, res.stdout + res.stderr
-    final = json.loads(next(l for l in res.stdout.splitlines() if l.startswith("stream: final ")).removeprefix("stream: final "))
-    assert (final["proofs"], final["accepted"], final["rejected"], final["batches"]) == (10, 8, 2, 3)
-    assert "cli stream: exit code 0" in res.stdout and "verified (torch, batch 4" in res.stdout
-    assert "shape grid (4, 2, 0):" in res.stdout and "shape fuzz 13:" in res.stdout
+    tpl, _, vkey, pwp = tiny()
+    sv = ShardedVerifier(tpl, make_mesh(2, 1), device="cpu")
+    ok = sv.gather(sv(sv.shard_arrays(flatten_proofs(tpl, [(vkey, pwp)] * batch)))["ok"]).tolist()
+    return ok, loaded()
 
-
-MESH_REHEARSAL = """
-import sys, torch
-import chip_smoke as cs
-from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
-from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
-from plonky2_verifier_tpu_torch.parallel import run_ranks
-from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
 
 if __name__ == "__main__":
-    cs.DEVICE, cs.BATCH = "cpu", 4
-    cs.STANDARD = {"n_arith_rows": 13, "num_query_rounds": 2, "proof_of_work_bits": 2}
-    cs.MESHES, cs.MESH_BATCH, cs.MESH_TIMED_CALLS, cs.MESH_TIMEOUT_S = [(2, 2)], 8, 0, 240
-    cs.MESH_STREAM_BATCH, cs.MESH_STREAM_PROOFS, cs.STREAM_CORRUPT_EVERY = 4, 10, 4
-    cs.PROFILE = [("fibonacci6", 2)]
-    torch.cuda.synchronize = lambda: None
-    common, vkey, pwp = get_fixture_proof("fibonacci", **cs.STANDARD)
-    checks = new_checks()
-    cs.mesh_path((CircuitTemplate(common), common, vkey, pwp), checks, {"proofs_per_sec": 1.0, "steady_proofs_per_sec": 1.0}, 1.0)
-    unused = ("coset_fold", "lookup_checks")  # this fibonacci template has no fold step and no lookup
-    assert all(c.cases > 0 and c.max_abs_err == 0 for k, c in checks.items() if k not in unused), {k: c.cases for k, c in checks.items()}
-    cs.profile_path()
-    # a rank of run_ranks: what parallel.mesh's entry point of the children has loaded
-    in_ranks = run_ranks(eval, 2, ("LOADED".replace("sys.modules", "__import__('sys').modules"),), threads=1, timeout_s=120)
-    assert in_ranks == [[], []], in_ranks
-    bad = LOADED
-    assert not bad, bad
 """
+# each path as the body of the script's main block: it runs the path and
+# asserts what it gave
+PATHS = {
+    "forward": """
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+    tpl, _, vkey, pwp = tiny()
+    v = TorchVerifier(tpl, device="cpu")
+    assert v.to_host(v(v.prepare(flatten_proofs(tpl, [(vkey, pwp)] * 2)))).tolist() == [True, True]
+""",
+    "gate zoo": """
+    from plonky2_verifier_tpu_torch.verifier_torch import verify_batch
+    common, vkey, pwp = get_fixture_proof("gate_zoo", num_query_rounds=2, proof_of_work_bits=2)
+    tpl = CircuitTemplate(common)
+    assert tpl.n_lookup and verify_batch(tpl, flatten_proofs(tpl, [(vkey, pwp)] * 2), device="cpu")["ok"].tolist() == [True, True]
+""",
+    "ingest and stream": """
+    from plonky2_verifier_tpu_torch import native
+    from plonky2_verifier_tpu_torch.parallel import StreamVerifier
+    from plonky2_verifier_tpu_torch.tools.stream_verify import proof_stream
+    tpl, _, vkey, pwp = tiny()
+    items, bad = proof_stream(vkey, pwp, 5, 4, raw=True)
+    m = StreamVerifier(tpl, 8, raw_json=True, device="cpu").run(items)
+    assert native.get_fastload() is not None and (m.proofs, m.rejected, m.batches) == (5, bad, 1) == (5, 1, 1)
+""",
+    "command line": """
+    from plonky2_verifier_tpu_torch.__main__ import main
+    _, common, vkey, pwp = tiny()
+    with tempfile.TemporaryDirectory() as folder:
+        for obj, kind in [(common, "common"), (vkey, "vkey"), (pwp, "proof")]:
+            with open(os.path.join(folder, f"fib_{kind}.json"), "w") as f:
+                json.dump(obj.to_json(), f)
+        assert main(["verify", os.path.join(folder, "fib"), "--batch", "2", "--device", "cpu"]) == 0
+""",
+    "shape circuit": """
+    from plonky2_verifier_tpu_torch.prover.prove import prove
+    from plonky2_verifier_tpu_torch.tools import shape_circuits as sc
+    fx = sc.grid_fixture(*sc.GRID[0])
+    sc.check_circuit("grid", fx.common, *prove(fx), sc.GRID_FAULTS, device="cpu")
+""",
+    "mesh": """
+    from plonky2_verifier_tpu_torch.parallel import run_ranks
+    ranks = run_ranks(mesh_rank, 2, (4,), threads=1, timeout_s=240)
+    assert ranks == [([True] * 4, [])] * 2, ranks  # each rank's gathered verdict, and what the rank loaded
+""",
+    "profile": """
+    from plonky2_verifier_tpu_torch.tools.profile_verifier import stage_times
+    from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
+    tpl, _, vkey, pwp = tiny()
+    v = TorchVerifier(tpl, device="cpu")
+    assert stage_times(v, v.prepare(flatten_proofs(tpl, [(vkey, pwp)] * 2)))["stages_ms"]  # the profile's traced call
+""",
+}
 
 
-def test_chip_smoke_mesh_and_profile_rehearsal_loads_no_jax(tmp_path):
-    """chip_smoke.mesh_path (one 2 x 2 mesh of gloo processes and the 2 x 1
-    mesh stream) and profile_path on the CPU at a tiny size: every rank's
-    verdicts equal one process's, the last rank holds the wrappers at its
-    shapes, the stream's global counts hold on both ranks; neither this
-    process nor a spawned rank loaded a forbidden module. The script is a
-    file: spawned children import their parent's main module by its path."""
-    script = tmp_path / "rehearse_mesh.py"
-    script.write_text(MESH_REHEARSAL.replace("LOADED", _LOADED_FORBIDDEN))
+@pytest.mark.parametrize("path", list(PATHS))
+def test_path_loads_no_jax(tmp_path, path):
+    """Each of the port's paths at a tiny size on the CPU loads no JAX and
+    nothing of the JAX package; the mesh checks its spawned ranks too. The
+    script is a file: spawned children import their parent's main module by
+    its path."""
+    script = tmp_path / "path.py"
+    script.write_text(PATH_PROLOGUE.replace("LOADED", _LOADED_FORBIDDEN) + PATHS[path] + "    bad = loaded()\n    assert not bad, bad\n")
     env = child_env()
     env["PYTHONPATH"] = ROOT
-    res = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    res = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "mesh 2 x 2: 4 processes on one card, global batch 8 (4 lanes, 1 queries a rank)" in res.stdout
-    assert "n_valid 6 on every rank, rejected lanes [1, 7]" in res.stdout
-    assert "mesh stream 2 x 1: 10 proofs at global batch 4, counts [10, 8, 2, 3] on every rank" in res.stdout
-    assert "profile fibonacci6 batch 2" in res.stdout
 
 
 CARD_PATHS = """
@@ -298,11 +227,10 @@ from plonky2_verifier_tpu_torch import kernels, verifier_torch as vt
 from plonky2_verifier_tpu_torch.compiler.gates_torch import INPUT_KINDS, GateProgram
 from plonky2_verifier_tpu_torch.ops import field as tf
 from plonky2_verifier_tpu_torch.tools.check_field_kernels import (coset_fold_rows_plain, gate_programs, golden_packed_program,
-    horner_rows_plain, lookup_checks_rows_plain, partial_products_rows_plain, pow_rows_plain)
+    horner_rows_plain, lookup_checks_rows_plain, partial_products_rows_plain)
 
 class Lib:  # the library's field entry points by their plain versions
     horner = staticmethod(horner_rows_plain)
-    pow = staticmethod(pow_rows_plain)
     gate_program = staticmethod(golden_packed_program)
     coset_fold = staticmethod(coset_fold_rows_plain)
     partial_products = staticmethod(partial_products_rows_plain)
@@ -313,8 +241,6 @@ prog = GateProgram(lp, "cpu")
 before = set(sys.modules)
 kernels.load = lambda: Lib()
 x = tf.constant(5, (2, 3), "cpu")
-tf._pow_kernel(tf.constant(7, (1, 1), "cpu"), None, torch.arange(6).reshape(2, 3), 3)  # pow_dynamic's card path
-tf._pow_kernel(x, x, 4096, 13)  # ext_pow_const's
 vt._horner_kernel(tf.GExt(x, x), tf.GExt(x[:, 0], x[:, 0]))
 prog._forward_kernel({k: tf.ext_zeros((2, lp.input_slots[k][1]), "cpu") for k in INPUT_KINDS}, (2,))
 e = lambda *shape: tf.GExt(tf.constant(3, shape, "cpu"), tf.constant(5, shape, "cpu"))
@@ -327,8 +253,8 @@ print(sorted(m for m in set(sys.modules) - before if m.split(".")[0] == "sympy" 
 
 
 def test_card_paths_import_nothing_at_their_first_call():
-    """The wrappers' card paths (exponentiations, Horner sum, gate program,
-    coset folds, partial products, lookup argument),
+    """The wrappers' card paths (Horner sum, gate program, coset folds,
+    partial products, lookup argument),
     with the library's plain stand-ins, load no sympy: torch.broadcast_shapes
     imports torch.fx's symbolic shapes at its first call, which cost a fresh
     process ~3 s of its first verifier call on the card."""
@@ -339,50 +265,87 @@ def test_card_paths_import_nothing_at_their_first_call():
 
 CARD_FORWARD = """
 import json, sys, torch
-from plonky2_verifier_tpu_torch import kernels
+from plonky2_verifier_tpu_torch import kernels, verifier_torch as vt
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
-from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
-from plonky2_verifier_tpu_torch.ops import field as tf, poseidon as tp
+from plonky2_verifier_tpu_torch.compiler.gates_torch import GateProgram
+from plonky2_verifier_tpu_torch.ops import field as tf, hash as th, poseidon as tp
 from plonky2_verifier_tpu_torch.tools.check_hash_kernels import PlainLibrary
 from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 
-common, vkey, pwp = get_fixture_proof("fibonacci", n_arith_rows=13, num_query_rounds=2, proof_of_work_bits=2)
+FIXTURE
 tpl = CircuitTemplate(common)
 arrays = flatten_proofs(tpl, [(vkey, pwp)] * 2)
 arrays["openings1"][1, 0, 0] ^= 1
 v = TorchVerifier(tpl, device="cpu")
-plain = v(v.prepare(arrays))
+v._gate_packed = v.gates.pack(v._gate_out_slots)  # as a verifier on the card packs it
 lib = PlainLibrary(tp.PoseidonConstants("cpu"))  # the kernels' own order on the CPU, its launches counted
 before = set(sys.modules)
 kernels.load = lambda: lib
-tf.pow_grouped, tf.inv_grouped = tf._pow_grouped_kernel, tf._inv_grouped_kernel  # their card paths, on CPU tensors
+# the field wrappers' card paths, on CPU tensors
+tf.pow_grouped, tf.inv_grouped, vt.horner_ext = tf._pow_grouped_kernel, tf._inv_grouped_kernel, vt._horner_kernel
+vt.partial_products, vt.lookup_checks, vt.gate_filter = vt._partial_products_kernel, vt._lookup_checks_kernel, vt._gate_filter_kernel
+GateProgram.forward = GateProgram._forward_kernel
 
-def refuse(*a, **kw):
-    raise AssertionError("a forward reached a one-call inversion or exponentiation")
+def counted(name, fn, launches):  # a wrapper on its plain path, its launches counted as the library counts them
+    def run(*a, **kw):
+        lib.launches[name] += launches(*a)
+        return fn(*a, **kw)
+    return run
 
-tf.inv = tf.pow_dynamic = tf.ext_pow_const = refuse
+rows = lambda t, tail: t.shape[:-tail].numel()
+tp.permutation_scan = counted("permutation_scan", tp.permutation_scan, lambda data, ov_idx, *a: bool(data.shape[0] and ov_idx.shape[0]))
+th.sponge_rows = counted("sponge_rows", th.sponge_rows, lambda r, *a: bool(rows(r, 1)))
+th.sponge_rows_grouped = counted("sponge_rows_grouped", th.sponge_rows_grouped, lambda rs, *a: -(-sum(bool(rows(r, 1)) for r in rs) // 16))
+th.merkle_fold = counted("merkle_fold", th.merkle_fold, lambda d, *a: bool(rows(d, 1)))
+vt.horner_scaled = counted("horner", vt.horner_scaled, lambda values, scale: bool(scale.numel()))
+vt.coset_folds = counted("coset_fold", vt.coset_folds, lambda evals, *a: bool(evals and evals[0].numel()))
 out = v(v.prepare(arrays))
-print(json.dumps({"ok": out["ok"].tolist(), "plain_ok": plain["ok"].tolist(), "eqs": out["eqs_ok"].tolist(), "fri": out["fri_ok"].tolist(),
-                  "plain_eqs": plain["eqs_ok"].tolist(), "plain_fri": plain["fri_ok"].tolist(), "launches": lib.launches,
+print(json.dumps({"ok": out["ok"].tolist(), "eqs": out["eqs_ok"].tolist(), "fri": out["fri_ok"].tolist(), "launches": lib.launches,
+                  "merkle": (1 if tpl.initial_path_len else 0) + sum(1 for st in tpl.steps if st["path_len"]), "steps": len(tpl.steps),
+                  "lookups": tpl.common.num_lookup_polys > 0, "constraints": tpl.common.num_gate_constraints > 0,
                   "loaded": sorted(m for m in set(sys.modules) - before if m.split(".")[0] == "sympy" or "symbolic_shapes" in m)}))
 """
+# the benchmark configurations' templates at test size: lines that set common, vkey and pwp
+TEMPLATES = {
+    "fibonacci": """from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+common, vkey, pwp = get_fixture_proof("fibonacci", n_arith_rows=60, num_query_rounds=2, proof_of_work_bits=2)  # degree 6: a fold step""",
+    "gate zoo": """from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
+common, vkey, pwp = get_fixture_proof("gate_zoo", num_query_rounds=2, proof_of_work_bits=2)""",
+    "big lut": """from plonky2_verifier_tpu_torch.models.lookup import big_lut_fixture
+from plonky2_verifier_tpu_torch.prover.prove import prove
+fx = big_lut_fixture(table_size=64, inputs=(51, 5), num_query_rounds=2, proof_of_work_bits=2, seed=5)
+common, (vkey, pwp) = fx.common, prove(fx)""",
+}
 
 
-def test_a_forward_through_the_grouped_card_paths_with_a_stand_in_library():
-    """A fibonacci forward whose exponentiations and inversions take their
-    card paths (ops/field._pow_grouped_kernel, _inv_grouped_kernel), the
-    library replaced by the kernels' own order in PyTorch (PlainLibrary):
-    pow and inv at most 2 launches a forward each (one each here), the
-    one-call forms never reached, the verdicts of the plain path, no sympy
-    loaded at the first call."""
-    res = subprocess.run([sys.executable, "-c", CARD_FORWARD], cwd=ROOT, env=child_env(), capture_output=True, text=True, timeout=300)
+@pytest.mark.parametrize("template", list(TEMPLATES))
+def test_a_forward_through_the_grouped_card_paths_with_a_stand_in_library(template):
+    """A forward of each benchmark configuration's template at test size
+    (fibonacci, the gate zoo, Plonky2's big lookup table), its field wrappers
+    on their card paths (ops/field._pow_grouped_kernel, _inv_grouped_kernel,
+    the Horner sum's, the gate program's and the three stage kernels') with
+    the library replaced by the kernels' own order in PyTorch
+    (PlainLibrary), the hash wrappers and horner_scaled and the coset folds
+    counted as the library counts: every counter of one forward as on the
+    card -- the scan, the public-input sponge and the grouped sponge once,
+    the Merkle walk once a path, the Horner sum 7 times, every exponentiation
+    and every inversion in one launch each, the gate program once, the coset
+    folds once where there is a fold step, L0 with the partial products
+    once, the lookup argument once where there are lookups, the gate filter
+    once -- the verdicts of a planted fault (lane 1's first opening), and
+    no sympy loaded at the first call."""
+    code = CARD_FORWARD.replace("FIXTURE", TEMPLATES[template])
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=child_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["ok"] == out["plain_ok"] == [True, False]
-    assert (out["eqs"], out["fri"]) == (out["plain_eqs"], out["plain_fri"])
-    launches = out["launches"]
-    assert launches["pow_grouped"] <= 2 and launches["inv_grouped"] <= 2, launches
-    assert (launches["pow_grouped"], launches["inv_grouped"], launches["pow"], launches["inv"]) == (1, 1, 0, 0), launches
+    assert out["ok"] == out["eqs"] == [True, False]
+    assert out["fri"][0]
+    assert out["launches"] == {
+        "permutation": 0, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": out["merkle"], "horner": 7,
+        "inv_grouped": 1, "pow_grouped": 1, "gate_program": 1, "coset_fold": 1 if out["steps"] else 0, "partial_products": 1,
+        "lookup_checks": 1 if out["lookups"] else 0, "gate_filter": 1 if out["constraints"] else 0,
+    }
+    assert (template == "fibonacci") == bool(out["steps"]) != out["lookups"] and out["merkle"] and out["constraints"]
     assert out["loaded"] == []
 
 
@@ -420,12 +383,6 @@ def test_cpu_wrappers_take_plain_path(no_library):
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     scale = _rand(14, (3, 2))
     got, want = vt.horner_scaled(values, scale), vt.horner_scaled_plain(values, scale)
-    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
-    a = _rand(15, (3, 4))
-    assert torch.equal(tf.inv(a), tf.inv_plain(a))
-    exps = torch.arange(12, dtype=torch.int64).reshape(3, 4) * 999
-    assert torch.equal(tf.pow_dynamic(a, exps, 15), tf.pow_dynamic_plain(a, exps, 15))
-    got, want = tf.ext_pow_const(point, 4096), tf.ext_pow_const_plain(point, 4096)
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
 
 
@@ -488,13 +445,6 @@ def test_non_cpu_tensor_raises_instead_of_falling_back():
         th.sponge_rows_grouped([_rand(9, (4, 9)), torch.empty((4, 9), dtype=torch.int64, device="meta")], consts)
     with pytest.raises(RuntimeError, match="CUDA"):
         vt.horner_ext(torch.empty((4, 9), dtype=torch.int64, device="meta"), torch.empty((4,), dtype=torch.int64, device="meta"))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tf.inv(torch.empty((4,), dtype=torch.int64, device="meta"))
-    meta = torch.empty((4,), dtype=torch.int64, device="meta")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tf.pow_dynamic(meta, meta, 15)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tf.ext_pow_const(tf.GExt(meta, meta), 4096)
 
 
 def test_kernel_input_checks_reject_cpu_tensors():
@@ -510,17 +460,3 @@ def test_wrappers_reject_wrong_widths():
         th.merkle_fold(_rand(5, (2, 4)), torch.zeros(2, dtype=torch.int64), _rand(6, (2, 3, 4)), 2, consts)
     with pytest.raises(ValueError):
         tp.permutation_plain(_rand(7, (2, 8)), consts)
-
-
-def test_chip_smoke_fails_without_cuda():
-    _no_cuda()
-    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0
-    assert '"ok": true' not in res.stdout
-
-
-def test_chip_smoke_fails_alone(tmp_path):
-    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
-    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0
-    assert '"ok": true' not in res.stdout

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions and the golden
 model, on the card: the three Poseidon kernels, the three field kernels
-(the extension Horner sum, the Fermat inversion and the exponentiations,
-the last two also in their grouped forms), the levelized gate program (in both forms, the tapes in shared memory
+(the extension Horner sum, and the inversion and the exponentiations in
+their grouped forms), the levelized gate program (in both forms, the tapes in shared memory
 and in device scratch), the FRI coset folds, and L0 with the partial
 products, the lookup argument and the gate filter, their inputs drawn from the edge band and words
 x + p as well. Bit-exact (integer arithmetic).
@@ -256,18 +256,6 @@ def _noncanonical(seed, shape):
     return tf.from_u64(pool[rng.integers(0, len(pool), size=shape)], "cuda")
 
 
-def test_inv_kernel(lib):
-    a = torch.cat([tf.from_u64(EDGE, "cuda"), _noncanonical(60, 4099), _rand(61, 70001)])
-    got = lib.inv(a)
-    assert torch.equal(got, tf.inv_plain(a))
-    host = tf.to_u64(a)
-    assert [int(x) for x in tf.to_u64(got[:300])] == [pow(int(x) % P, P - 2, P) for x in host[:300]]
-    assert int(tf.to_u64(lib.inv(tf.from_u64(np.array([0, P], dtype=np.uint64), "cuda"))).max()) == 0
-    grid = a[: 1024 * 28].reshape(1024, 28)
-    assert torch.equal(lib.inv(grid), tf.inv_plain(grid))
-    assert lib.inv(a[:0]).shape == (0,)
-
-
 # (rows, K, v_rep, p_rep, the segments a row kernels.horner_segments picks on
 # the H100's 132 SMs): every count from 1 to 32 by K on few rows, and by the
 # rows' threads at 4,116 and 28,672 rows
@@ -350,12 +338,7 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     got, want = vt.horner_ext(values, point), vt.horner_ext_plain(values, point)
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     a = _rand(42, (2, 3))
-    assert torch.equal(tf.inv(a), tf.inv_plain(a))
     exps = torch.arange(6, dtype=torch.int64, device="cuda").reshape(2, 3) * 1000
-    assert torch.equal(tf.pow_dynamic(a, exps, 15), tf.pow_dynamic_plain(a, exps, 15))
-    for e in (1, 4096):  # e = 1 answers on the host
-        got, want = tf.ext_pow_const(point, e), tf.ext_pow_const_plain(point, e)
-        assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     (_, lp), = [p for p in gate_programs() if p[0] == "fibonacci"]
     prog = GateProgram(lp, "cuda")
     inputs, _ = gate_inputs(np.random.default_rng(43), lp, 3, "cuda")
@@ -387,8 +370,8 @@ def test_wrappers_count_launches_and_dispatch(lib, consts):
     got, want = vt.gate_filter(*gf_args), vt.gate_filter_plain(*gf_args)
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
     assert {k: lib.launches[k] - before[k] for k in before} == {
-        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1, "inv": 1,
-        "inv_grouped": 1, "pow": 2, "pow_grouped": 1, "gate_program": 1, "coset_fold": 1, "partial_products": 1, "lookup_checks": 1,
+        "permutation": 1, "permutation_scan": 1, "sponge_rows": 1, "sponge_rows_grouped": 1, "merkle_fold": 1, "horner": 1,
+        "inv_grouped": 1, "pow_grouped": 1, "gate_program": 1, "coset_fold": 1, "partial_products": 1, "lookup_checks": 1,
         "gate_filter": 1,
     }
 
@@ -422,9 +405,9 @@ def test_kernel_inputs_are_validated(lib):
     with pytest.raises(ValueError, match="CUDA tensor"):
         lib.horner(v, None, pt.cpu(), None)
     with pytest.raises(ValueError, match="contiguous"):
-        lib.inv(x.t())
+        lib.inv_grouped(x.t())
     with pytest.raises(ValueError, match="int64"):
-        lib.inv(x.to(torch.int32))
+        lib.inv_grouped(x.to(torch.int32))
 
 
 def test_entry_points_default_to_the_card(lib):
@@ -452,50 +435,15 @@ def test_entry_points_default_to_the_card(lib):
     # the Horner sums: alpha combination, quotient, y0, y1, g0, g1, a fold each step, the final polynomial;
     # every inversion (L0, the two combineInitial quotients, an offset each step) in one grouped launch, every
     # exponentiation (the query points, an offset each step, the final x, zeta^n, alpha^(n_zs + n_lookup)) in
-    # another, the one-call forms never; the gate program once
+    # another; the gate program once
     assert lib.launches["horner"] == before["horner"] + 7 + len(tpl.steps)
-    assert (lib.launches["inv"], lib.launches["inv_grouped"]) == (before["inv"], before["inv_grouped"] + 1)
-    assert (lib.launches["pow"], lib.launches["pow_grouped"]) == (before["pow"], before["pow_grouped"] + 1)
+    assert lib.launches["inv_grouped"] == before["inv_grouped"] + 1
+    assert lib.launches["pow_grouped"] == before["pow_grouped"] + 1
     assert lib.launches["gate_program"] == before["gate_program"] + 1
     cpu = verify_batch(tpl, arrays, debug=True, device="cpu")
     assert card["ok"].tolist() == cpu["ok"].tolist() == [True, False, True]
     np.testing.assert_array_equal(card["debug"]["zeta"][0], cpu["debug"]["zeta"][0])
     np.testing.assert_array_equal(card["debug"]["query_indices"], cpu["debug"]["query_indices"])
-
-
-@pytest.mark.parametrize("ext,dynamic", [(False, True), (True, False), (True, True), (False, False)])
-@pytest.mark.parametrize("rows,rep", [(4099, 1), (147, 28), (1, 1000), (0, 1)])
-def test_pow_kernel(lib, ext, dynamic, rows, rep):
-    """Every flag pair, a base of its own an element, repeated rows and one
-    scalar row, no rows (no launch), on non-canonical words: the plain
-    version where one exists (pow_dynamic's flags, ext_pow_const's) and
-    golden/ on a few elements; a host exponent below 2 is refused."""
-    n = rows * rep
-    b = _noncanonical(80 + rows, (rows, 2))
-    b_re, b_im = b[:, 0], (b[:, 1] if ext else None)
-    rng = np.random.default_rng(rows)
-    exponents = [torch.from_numpy(rng.integers(0, 1 << 15, size=n, dtype=np.int64)).cuda(), torch.zeros(n, dtype=torch.int64, device="cuda"),
-                 torch.full((n,), 2**15 - 1, dtype=torch.int64, device="cuda")] if dynamic else [2, 3, 4096, 2**64 - 1]
-    for e in exponents:
-        before = lib.launches["pow"]
-        got = lib.pow(b_re, b_im, e, 15, b_rep=rep)
-        assert lib.launches["pow"] == before + (1 if n else 0)
-        assert got[0].shape == (n,) and (got[1] is None) == (not ext)
-        full = b_re.repeat_interleave(rep)
-        if dynamic and not ext:
-            assert torch.equal(got[0], tf.pow_dynamic_plain(full, e, 15))
-        if ext and not dynamic:
-            want = tf.ext_pow_const_plain(GExt(full, b_im.repeat_interleave(rep)), e)
-            assert torch.equal(got[0], want.re) and torch.equal(got[1], want.im)
-        for i in [0, n // 2, n - 1] if n else []:
-            k = int(e[i]) if dynamic else e
-            base = (int(tf.to_u64(b_re)[i // rep]) % P, int(tf.to_u64(b_im)[i // rep]) % P if ext else 0)
-            want = gf.epow(base, k)
-            assert (int(tf.to_u64(got[0])[i]), int(tf.to_u64(got[1])[i]) if ext else 0) == want
-    if not dynamic:
-        for e in (0, 1):  # ops/field.ext_pow_const answers them itself
-            with pytest.raises(ValueError, match="at least 2"):
-                lib.pow(b_re, b_im, e)
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 17, 1001, 143361, 0])

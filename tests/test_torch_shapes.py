@@ -5,8 +5,8 @@ at seeds 13 and 23.
 
 Each circuit is built and proved by the JAX package (tiny_fixture,
 _random_circuit, its prover) and crosses into the port through to_json /
-from_json. There chip_smoke.check_circuit, the check that runs on the card
-too, holds it against golden/: a batch of 2 accepted, lane 0's challenges
+from_json. There tools/shape_circuits.check_circuit holds it against
+golden/: a batch of 2 accepted, lane 0's challenges
 equal, one fault a lane (tests/shape_grid_check.py, fuzz_device_check.py)
 rejected on exactly its lane. The port's own copies of those two functions
 (tools/shape_circuits.py) must give the same circuits and proofs, but at the
@@ -20,7 +20,6 @@ import json
 import numpy as np
 import pytest
 
-import chip_smoke as cs
 from plonky2_verifier_tpu.compiler import CircuitTemplate as RefTemplate
 from plonky2_verifier_tpu.compiler import flatten_proofs as ref_flatten
 from plonky2_verifier_tpu.prover.prove import prove as ref_prove
@@ -30,7 +29,6 @@ from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
 from plonky2_verifier_tpu_torch.golden.verifier import verify_proof
 from plonky2_verifier_tpu_torch.prover.prove import prove
 from plonky2_verifier_tpu_torch.tools import shape_circuits as sc
-from plonky2_verifier_tpu_torch.tools.check_hash_kernels import new_checks
 from plonky2_verifier_tpu_torch.verifier_torch import TorchVerifier
 from shape_grid_check import tiny_fixture
 from test_fuzz_circuits import _random_circuit
@@ -65,8 +63,7 @@ def test_the_lists_are_the_reference_tests():
 
 
 @pytest.mark.parametrize("kind,arg", CIRCUITS, ids=[f"{k}-{a}" for k, a in CIRCUITS])
-def test_shape_against_golden(kind, arg, monkeypatch, capsys):
-    monkeypatch.setattr(cs, "DEVICE", "cpu")
+def test_shape_against_golden(kind, arg, capsys):
     ref_fx, fx, faults = _build(kind, arg)
     ref_vkey, ref_pwp = ref_prove(ref_fx)
     # the port's copy and its prover give the same circuit and the same proof,
@@ -83,7 +80,7 @@ def test_shape_against_golden(kind, arg, monkeypatch, capsys):
     else:
         assert verify_proof(fx.common, vkey, pwp)
 
-    v, batches = cs.check_circuit(f"{kind} {arg}", *_cross(ref_fx.common, ref_vkey, ref_pwp), faults)
+    v = sc.check_circuit(f"{kind} {arg}", *_cross(ref_fx.common, ref_vkey, ref_pwp), faults, device="cpu")
     tpl, line = v.tpl, capsys.readouterr().out
     assert "accepted, transcript equals golden, rejected" in line
     if kind == "grid":
@@ -92,11 +89,6 @@ def test_shape_against_golden(kind, arg, monkeypatch, capsys):
     else:
         rejected = sc.FUZZ_FAULTS
     assert line.rstrip().endswith(f"rejected {rejected}")
-    assert batches == [2, len(rejected) + 1]  # the sizes at which the card run holds the kernels against plain
-    checks = new_checks()
-    cs.hold_against_plain(v, 2, checks, "cpu")  # on the CPU the wrappers are the plain versions: the shapes must be accepted
-    held = [name for name in checks if name != "merkle_fold" and (name != "lookup_checks" or tpl.common.num_lookup_polys)]  # no lookups here
-    assert all(checks[name].cases > 0 and checks[name].max_abs_err == 0 for name in held)
 
 
 def test_the_circuits_differ_in_shape():

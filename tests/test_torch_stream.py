@@ -14,6 +14,8 @@ the card: tests/test_torch_stream_card.py."""
 
 import copy
 import json
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -29,6 +31,7 @@ from plonky2_verifier_tpu_torch import types as pt
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
 from plonky2_verifier_tpu_torch.metrics import perms_per_proof
 from plonky2_verifier_tpu_torch.parallel import BucketedStreamVerifier, StreamVerifier, make_mesh, run_ranks, template_key
+from plonky2_verifier_tpu_torch.parallel import stream as port_stream
 from plonky2_verifier_tpu_torch.tools.stream_verify import stream_rank
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -112,10 +115,44 @@ def test_corrupted_pad_source_not_double_counted(fib):
     assert m.proofs == 2 and m.rejected == 1 and m.accepted == 1
 
 
+class _GatedPool(ThreadPoolExecutor):
+    """The prefetch pool of StreamVerifier.run, whose futures set `waited`
+    when the calling thread first asks for a result."""
+
+    waited = None
+
+    def submit(self, fn, *args, **kwargs):
+        future = super().submit(fn, *args, **kwargs)
+        result = future.result
+
+        def wait(*a, **kw):
+            self.waited.set()
+            return result(*a, **kw)
+
+        future.result = wait
+        return future
+
+
 @pytest.fixture(scope="module")
 def eight(fib):
+    """Two batches of 4 through run(), the prefetch thread's first flatten
+    held until the calling thread waits for it: the caller pays part of the
+    ingest whatever the host's load (without the gate a loaded host could
+    finish the flatten before the caller asked, and ingest_s read 0)."""
     seen = []
-    m, sv = _run_both(fib, (), 8, on_batch=lambda mm: seen.append(mm.snapshot()))
+    waited = threading.Event()
+    flatten = StreamVerifier._flatten
+
+    def gated(self, group):
+        if not waited.wait(timeout=120):
+            raise AssertionError("the calling thread never waited for the first batch")
+        return flatten(self, group)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_GatedPool, "waited", waited)
+        mp.setattr(port_stream, "ThreadPoolExecutor", _GatedPool)
+        mp.setattr(StreamVerifier, "_flatten", gated)
+        m, sv = _run_both(fib, (), 8, on_batch=lambda mm: seen.append(mm.snapshot()))
     return m, sv, seen
 
 
@@ -287,7 +324,7 @@ def test_a_failed_ingest_raises_out_of_run(fib):
 
 @pytest.mark.parametrize("raw", [False, True])
 def test_stream_tool_sprinkles_corrupt_proofs(fib, raw):
-    """tools/stream_verify.proof_stream (chip_smoke.py's traffic): every
+    """tools/stream_verify.proof_stream (the stream tool's traffic): every
     N-th proof has its pow_witness flipped, as objects or as JSON bytes."""
     import json
 

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from plonky2_verifier_tpu_torch import graft_entry, tracing
-from plonky2_verifier_tpu_torch.tools import bench_poseidon, check_hash_kernels, lookup_device_check, profile_verifier
+from plonky2_verifier_tpu_torch.tools import bench_poseidon, check_hash_kernels, lookup_device_check, probe_kernels as pk, profile_verifier
 from torch_threads import child_env, one_torch_thread  # noqa: F401  (one_torch_thread: autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -140,57 +140,55 @@ def test_profile_verifier_names_each_fold_step():
     tpl = CircuitTemplate(fx.common)
     assert tpl.steps
     v = TorchVerifier(tpl, device="cpu")
-    inv = tf.inv
+    inv_grouped = tf.inv_grouped
     res = profile_verifier.stage_times(v, v.prepare(flatten_proofs(tpl, [prove(fx)] * 2)))
     for s in range(len(tpl.steps)):
         assert f"fri: step {s} Merkle walk and opened slot" in res["stages_ms"]
     assert "fri: coset folds" in res["stages_ms"]
-    assert not tracing._on and tf.inv is inv
+    assert not tracing._on and tf.inv_grouped is inv_grouped
 
 
 def test_fold_work_counts_the_fft_form_and_the_kernels_butterflies():
-    """chip_smoke.fold_work at a fibonacci forward's folds (two steps of
+    """probe_kernels.fold_work at a fibonacci forward's folds (two steps of
     arity 16 over (1024, 28)): the least work in the FFT form (the bound
     the kernel's share is taken against), 32 butterflies of 4 adds, 17 of
     them with 2 products by a twiddle (the 15 by a twiddle 1 need none),
     and the Horner chain a (b, q); the kernel's count the same and an add
     a word for the canonicalisation, so never below the least."""
-    import chip_smoke as cs
 
     lanes, arity = 1024 * 28, 16
     evals = [torch.empty((1024, 28, arity, 2), dtype=torch.int64)] * 2
     idfts = [torch.empty((arity, arity), dtype=torch.int64)] * 2
-    least, n_bytes, what, kernel = cs.fold_work(evals, [None] * 2, [None] * 2, [None] * 2, idfts)
-    chain = arity * (4 * cs.PRODUCT + 4 * cs.ADD) + 4 * cs.PRODUCT
-    assert least == 2 * lanes * (32 * 4 * cs.ADD + 17 * 2 * cs.PRODUCT + chain) == 137_625_600
-    assert kernel == least + 2 * lanes * 2 * arity * cs.ADD == 144_965_632
+    least, n_bytes, what, kernel = pk.fold_work(evals, [None] * 2, [None] * 2, [None] * 2, idfts)
+    chain = arity * (4 * pk.PRODUCT + 4 * pk.ADD) + 4 * pk.PRODUCT
+    assert least == 2 * lanes * (32 * 4 * pk.ADD + 17 * 2 * pk.PRODUCT + chain) == 137_625_600
+    assert kernel == least + 2 * lanes * 2 * arity * pk.ADD == 144_965_632
     assert n_bytes == 8 * (2 * (lanes * (2 * arity + 3) + 2 * 1024 + arity * arity)) and f"the kernel's {kernel} instructions" in what
 
 
 def test_print_sass_sums_the_pieces_of_a_permutation_and_a_compression(capsys, monkeypatch):
-    """chip_smoke.print_sass on stand-in piece counts (csrc/permutation.cu's
+    """probe_kernels.print_sass on stand-in piece counts (csrc/permutation.cu's
     count kernels need nvcc): a permutation is pieces 1 + 7 x 2 + 21 x 3 +
-    4 + 5, a compression 7 + 7 x 2 + 21 x 3 + 4 + 6; SASS_BEFORE beside."""
-    import chip_smoke as cs
+    4 + 5, a compression 7 + 7 x 2 + 21 x 3 + 4 + 6; each piece's count
+    after them."""
     from plonky2_verifier_tpu_torch import kernels
 
     pieces = {k: {"IMAD.WIDE": 10 * k, "IADD3": k} for k in range(1, 8)}
     monkeypatch.setattr(kernels, "sass_pieces", lambda: pieces)
-    cs.print_sass()
+    pk.print_sass()
     out = capsys.readouterr().out.splitlines()
     perm = 11 * (1 + 7 * 2 + 21 * 3 + 4 + 5)
     compression = 11 * (7 + 7 * 2 + 21 * 3 + 4 + 6)
     assert out[0].startswith(f"sass: {perm} instructions in one thread-form permutation (W = 19180), {compression} in a 2-to-1 compression: IMAD.WIDE")
-    assert out[1].startswith(f"sass before: {sum(cs.SASS_BEFORE.values())} instructions") and sum(cs.SASS_BEFORE.values()) == 34846
+    assert out[1] == "sass pieces: " + ", ".join(f"{k} {11 * k}" for k in range(1, 8))
 
 
 def test_gate_filter_work_at_the_zoo_benchmark_shape():
-    """chip_smoke.gate_filter_work on the gate-zoo benchmark template's rows
+    """probe_kernels.gate_filter_work on the gate-zoo benchmark template's rows
     at 16,384 lanes (13 live gates of 123 constraints, 60 live factors in
     rows of 6 slots): a term an emul and 2 adds, a factor a subtraction and
     an emul past a gate's first; bound by the operations, 0.155 ms at the
     H100's int32 rate, beside 0.135 ms for the bytes."""
-    import chip_smoke as cs
     from plonky2_verifier_tpu_torch.compiler import CircuitTemplate
     from plonky2_verifier_tpu_torch.ops import field as tf
     from plonky2_verifier_tpu_torch.types import load_common
@@ -199,39 +197,38 @@ def test_gate_filter_work_at_the_zoo_benchmark_shape():
     v = TorchVerifier(CircuitTemplate(load_common(os.path.join(ROOT, "benchmark", "data", "gate-zoo-lookup-d12", "common.json"))), device="cpu")
     B, L, n_gc = 16384, 13, 123
     meta = lambda w: tf.GExt(torch.empty((B, w), dtype=torch.int64, device="meta"), torch.empty((B, w), dtype=torch.int64, device="meta"))
-    least, n_bytes, what = cs.gate_filter_work(meta(4), meta(L * n_gc), v._filter_cols, v._filter_consts, v._filter_mask, n_gc)
+    least, n_bytes, what = pk.gate_filter_work(meta(4), meta(L * n_gc), v._filter_cols, v._filter_consts, v._filter_mask, n_gc)
     assert v._filter_cols.shape[0] == L and int(v._filter_mask.sum()) == 60 and v._filter_consts.shape[1] == 6
-    assert least == B * (L * n_gc * (cs.EMUL + 2 * cs.ADD) + 60 * 2 * cs.ADD + (60 - L) * cs.EMUL) == 2_590_638_080
+    assert least == B * (L * n_gc * (pk.EMUL + 2 * pk.ADD) + 60 * 2 * pk.ADD + (60 - L) * pk.EMUL) == 2_590_638_080
     assert n_bytes == 8 * (2 * B * 4 + 2 * B * L * n_gc + 2 * B * n_gc + L + L * 6) + L * 6
-    ms, by = cs.field_bound_ms(least, n_bytes, 132 * cs.INT32_LANES_PER_SM * 1.98e9)
-    assert by == "operations" and 0.154 < ms < 0.156 and 0.134 < n_bytes / cs.HBM_BYTES_PER_S * 1e3 < 0.136
+    ms, by = pk.field_bound_ms(least, n_bytes, 132 * pk.INT32_LANES_PER_SM * 1.98e9)
+    assert by == "operations" and 0.154 < ms < 0.156 and 0.134 < n_bytes / pk.HBM_BYTES_PER_S * 1e3 < 0.136
     assert "13 live gates of 123 constraints" in what and "16 lanes a block" in what
 
 
 @pytest.mark.parametrize("routed,n_polys,maxdeg,rows,lanes", [(80, 7, 8, 26, (2, 4, 4)), (6, 2, 4, 2, (1, 1, 1))], ids=["zoo", "one-lane"])
 def test_lookup_work_counts_the_kernels_lanes(routed, n_polys, maxdeg, rows, lanes):
-    """chip_smoke.lookup_work on the zoo's shape and on one where every part
+    """probe_kernels.lookup_work on the zoo's shape and on one where every part
     of the kernel takes one lane: the least work in the running pair's
     form (the bound the kernel's share is taken against); the kernel's
     count names its lanes (kernels.lookup_split) and adds the lanes'
     meetings and segments to it -- with one lane each, one Horner step a
     round (re_next's own, where the running chain starts from it)."""
-    import chip_smoke as cs
     from plonky2_verifier_tpu_torch.ops import field as tf
 
     B, r = 3, 2
     ext = lambda w: tf.GExt(torch.zeros((B, w), dtype=torch.int64), torch.zeros((B, w), dtype=torch.int64))
     deltas = [tuple(torch.zeros(B, dtype=torch.int64) for _ in range(4))] * r
     coeffs, offsets = torch.zeros((rows, 2), dtype=torch.int64), torch.tensor([0, rows])
-    least, n_bytes, what, kernel = cs.lookup_work(ext(5), ext(routed), ext(r * n_polys), ext(r * n_polys), deltas, coeffs, offsets, routed, maxdeg)
+    least, n_bytes, what, kernel = pk.lookup_work(ext(5), ext(routed), ext(r * n_polys), ext(r * n_polys), deltas, coeffs, offsets, routed, maxdeg)
     n_sldc, num_lu, num_lut = n_polys - 1, routed // 2, routed // 3
-    slot = 2 * cs.PRODUCT + 4 * cs.ADD
-    per_round = (num_lu * (slot + 2 * cs.EMUL + 2 * cs.ADD) + num_lut * (slot + 3 * cs.EMUL + 2 * cs.ADD) + n_sldc * (4 * cs.EMUL + 6 * cs.ADD)
-                 + num_lut * (4 * cs.PRODUCT + 4 * cs.ADD) + 2 * cs.ADD + cs.EMUL + rows * 2 * (cs.PRODUCT + cs.ADD)
-                 + (cs.PRODUCT + 3 * cs.ADD + cs.EMUL) + 3 * cs.EMUL)
+    slot = 2 * pk.PRODUCT + 4 * pk.ADD
+    per_round = (num_lu * (slot + 2 * pk.EMUL + 2 * pk.ADD) + num_lut * (slot + 3 * pk.EMUL + 2 * pk.ADD) + n_sldc * (4 * pk.EMUL + 6 * pk.ADD)
+                 + num_lut * (4 * pk.PRODUCT + 4 * pk.ADD) + 2 * pk.ADD + pk.EMUL + rows * 2 * (pk.PRODUCT + pk.ADD)
+                 + (pk.PRODUCT + 3 * pk.ADD + pk.EMUL) + 3 * pk.EMUL)
     assert least == B * r * per_round and n_bytes > 0
     assert f"lanes {lanes[0]} a chunk, {lanes[1]} the RE transition, {lanes[2]} a table" in what
-    assert kernel > least if lanes != (1, 1, 1) else kernel == least + B * r * (4 * cs.PRODUCT + 4 * cs.ADD)
+    assert kernel > least if lanes != (1, 1, 1) else kernel == least + B * r * (4 * pk.PRODUCT + 4 * pk.ADD)
 
 
 def test_check_hash_kernels_plain_versions_against_golden(capsys):
@@ -251,7 +248,7 @@ def test_check_hash_kernels_reports_a_word_that_differs(capsys, monkeypatch):
     assert res["pass"] is False and res["error"].startswith("permutation KAT")
 
 
-@pytest.mark.parametrize("kernel", ["inv", "horner"])
+@pytest.mark.parametrize("kernel", ["horner"])
 def test_check_field_kernels_reports_a_word_that_differs(capsys, monkeypatch, kernel):
     """A stand-in that flips a bit of the field kernels' output is caught
     against the plain version."""
@@ -264,9 +261,9 @@ def test_check_field_kernels_reports_a_word_that_differs(capsys, monkeypatch, ke
 
 
 
-@pytest.mark.parametrize("kernel", ["pow", "gate_program"])
+@pytest.mark.parametrize("kernel", ["gate_program"])
 def test_check_field_kernels_catches_a_flipped_word(monkeypatch, kernel):
-    """The exponentiations' and the gate program's checks catch a stand-in
+    """The gate program's checks catch a stand-in
     that flips a bit of the real part (run without the Poseidon checks
     before them)."""
     from plonky2_verifier_tpu_torch.ops import poseidon as tp

@@ -218,8 +218,8 @@ def _assert_lane_matches_golden(common, dbg, lane, vkey, pwp):
 
 
 def test_cached_fixture_verifies():
-    """A proof loaded through models.cache (the JSON round trip chip_smoke.py
-    uses) verifies, with golden challenges. These parameters are the cached
+    """A proof loaded through models.cache (the JSON round trip the tools and
+    the card tests use) verifies, with golden challenges. These parameters are the cached
     fixture that tests/test_np_prover.py's reproducibility check reads, so
     this also writes it when no other test has yet."""
     common, vkey, pwp = get_fixture_proof("fibonacci", num_query_rounds=8, x0=6, x1=7)

@@ -26,7 +26,7 @@ using namespace p2v;
 namespace {
 
 constexpr int THREADS = 32;
-// 28 warps an SM hold the compiler to 72 registers (it takes 69, no spill), and
+// 28 warps an SM hold the compiler to 72 registers (it takes all 72, no spill), and
 // 132 x 28 blocks take the standard shape's 3,584 in one wave. Left free it
 // takes 80-130 registers, the wave shrinks, and the L = 11 walk is 15-40 %
 // slower (measured on the H100).
@@ -64,8 +64,9 @@ merkle_kernel(const uint64_t* __restrict__ digest, const int64_t* __restrict__ i
 
 }  // namespace
 
-extern "C" int p2v_merkle_init(const void* pre, const void* post) {
-    cudaError_t e = upload_constants(pre, post);
+// pre: round 0's constants; sparse: the thread form's tables (poseidon.cuh).
+extern "C" int p2v_merkle_init(const void* pre, const void* sparse) {
+    cudaError_t e = upload_constants(pre, sparse);
     if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g_resident, merkle_kernel, THREADS, 0);
     return (int)e;
 }

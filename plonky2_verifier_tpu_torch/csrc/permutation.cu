@@ -17,10 +17,12 @@
 // H100: the thread form's time stays flat at one warp's walk until a few
 // warps sit on every scheduler, while the split form's grows with n because
 // it spends about four times the instructions a state. With the present
-// round body the permutation's forms cross between 2^12 and 2^13 states
-// (thread 0.042-0.045 ms up to 16384; split 0.028 ms at 4096, 0.048 at 8192,
-// 0.088 at 16384), the scan's between 2^12 and 2^14 (at 4096: thread 4.42
-// ms, split 2.58); tools/probe_kernels.py prints both forms' times.
+// round bodies (the thread form's partial rounds sparse, the split form's
+// dense) the permutation's forms cross between 2^12 and 2^13 states (thread
+// 0.036-0.038 ms up to 16384; split 0.030 ms at 4096, 0.047 at 8192, 0.087 at
+// 16384), the scan's between 2^12 and 2^14 (thread 3.63 ms at 4096 and 3.72
+// at 16384; split 2.58 and 9.33); tools/probe_kernels.py prints both forms'
+// times.
 //
 // p2v_permutation_scan runs the whole transcript in one launch: for each of
 // the n_perms steps of the static schedule, overwrite the masked lanes of
@@ -41,7 +43,8 @@ constexpr int SPLIT_THREADS = 128;   // split form: 8 states a block
 constexpr int STATES_PER_BLOCK = SPLIT_THREADS / SPLIT_LANES;
 constexpr int64_t SPLIT_MAX_STATES = 8192;
 
-// a copy of c_post that the split form's threads index by their own lane
+// the split form's constants (kernels.folded_round_constants), which its
+// threads index by their own lane
 __device__ uint64_t g_post[N_ROUNDS * WIDTH];
 __device__ uint64_t g_pre[WIDTH];
 
@@ -63,17 +66,24 @@ permutation_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, 
 #ifdef P2V_COUNT_ROUNDS
 // The pieces of one thread-form permutation as straight-line kernels, for
 // counting its instructions in the SASS (kernels.sass_instruction_count).
-// The round index r is a kernel argument, so the round constants are read
-// as the rolled loops read them. PIECE 0 loads and stores only; 1 adds round
-// 0's constants and canonicalises; 2 is a full round (0-3, 26-28), 3 a
-// partial round (4-24), 4 round 25 (lane 0's S-box, twelve constants), 5
-// round 29 (no constants), 6 round 29 of a 2-to-1 compression (four rows),
-// 7 the compression's first constants and canonicalisation of four lanes.
+// The round index r is a kernel argument, so the tables are read as the
+// rolled loops read them. PIECE 0 loads and stores only; 1 adds round 0's
+// constants and canonicalises; 2 is a full round (0-3, 26-28); 3 a sparse
+// partial round; 4 one output of the initial matrix; 5 round 29 (no
+// constants); 6 round 29 of a 2-to-1 compression (four rows); 7 the
+// compression's first constants and canonicalisation of four lanes; 8 the
+// carried constants after the last sparse round (`add_tail`). Every piece
+// loads and stores the same 23 words a thread (piece 4's shift register
+// beside the state), so piece 0's instructions are every piece's overhead.
+constexpr int COUNT_WORDS = WIDTH + SPARSE;
+
 template <int PIECE>
 __global__ void count_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int r) {
-    uint64_t s[WIDTH];
+    uint64_t s[WIDTH], o[SPARSE];
 #pragma unroll
-    for (int k = 0; k < WIDTH; ++k) s[k] = in[threadIdx.x * WIDTH + k];
+    for (int k = 0; k < WIDTH; ++k) s[k] = in[threadIdx.x * COUNT_WORDS + k];
+#pragma unroll
+    for (int k = 0; k < SPARSE; ++k) o[k] = in[threadIdx.x * COUNT_WORDS + WIDTH + k];
     if (PIECE == 1) {
         add_first_constants(s);
 #pragma unroll
@@ -81,13 +91,10 @@ __global__ void count_kernel(const uint64_t* __restrict__ in, uint64_t* __restri
     }
     if (PIECE == 2) {
         full_sbox(s);
-        mds<WIDTH, WIDTH>(s, c_post + r * WIDTH);
+        mds<WIDTH, WIDTH>(s, c_full + r * WIDTH);
     }
-    if (PIECE == 3) partial_round(s, r);
-    if (PIECE == 4) {
-        s[0] = sbox7(s[0]);
-        mds<WIDTH, WIDTH>(s, c_post + r * WIDTH);
-    }
+    if (PIECE == 3) sparse_round(s, r);
+    if (PIECE == 4) initial_matrix_step(s, o, r);
     if (PIECE == 5 || PIECE == 6) {
         full_sbox(s);
         mds<PIECE == 5 ? WIDTH : 4, 0>(s, nullptr);
@@ -97,8 +104,11 @@ __global__ void count_kernel(const uint64_t* __restrict__ in, uint64_t* __restri
 #pragma unroll
         for (int k = 0; k < 4; ++k) s[k] = canonical(s[k]);
     }
+    if (PIECE == 8) add_tail(s);
 #pragma unroll
-    for (int k = 0; k < WIDTH; ++k) out[threadIdx.x * WIDTH + k] = s[k];
+    for (int k = 0; k < WIDTH; ++k) out[threadIdx.x * COUNT_WORDS + k] = s[k];
+#pragma unroll
+    for (int k = 0; k < SPARSE; ++k) out[threadIdx.x * COUNT_WORDS + WIDTH + k] = o[k];
 }
 template __global__ void count_kernel<0>(const uint64_t*, uint64_t*, int);
 template __global__ void count_kernel<1>(const uint64_t*, uint64_t*, int);
@@ -108,6 +118,7 @@ template __global__ void count_kernel<4>(const uint64_t*, uint64_t*, int);
 template __global__ void count_kernel<5>(const uint64_t*, uint64_t*, int);
 template __global__ void count_kernel<6>(const uint64_t*, uint64_t*, int);
 template __global__ void count_kernel<7>(const uint64_t*, uint64_t*, int);
+template __global__ void count_kernel<8>(const uint64_t*, uint64_t*, int);
 #endif
 
 __device__ __forceinline__ void load_post(uint64_t* post) {
@@ -186,8 +197,11 @@ bool use_split(int64_t n, int form) { return form == 2 || (form == 0 && n <= SPL
 
 }  // namespace
 
-extern "C" int p2v_permutation_init(const void* pre, const void* post) {
-    cudaError_t e = upload_constants(pre, post);
+// pre: round 0's constants; post: the split form's (30, 12) table
+// (kernels.folded_round_constants); sparse: the thread form's tables
+// (kernels.sparse_round_tables, poseidon.cuh).
+extern "C" int p2v_permutation_init(const void* pre, const void* post, const void* sparse) {
+    cudaError_t e = upload_constants(pre, sparse);
     if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_post, post, sizeof(uint64_t) * N_ROUNDS * WIDTH);
     if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_pre, pre, sizeof(uint64_t) * WIDTH);
     if (e == cudaSuccess)

@@ -31,13 +31,21 @@
 // At 132 SMs x 64 int32 lanes a clock and the H100's maximum SM clock of
 // 1.98 GHz (nvidia-smi clocks.max.sm) that is 1.147 ns a permutation.
 // tools/probe_kernels.py computes each kernel's bound from W and the clock it reads.
-// W keeps the textbook round structure
-// (every partial round a full MDS). The sparse-matrix form of the partial
-// rounds is reckoned no cheaper here: it trades twelve rows of coefficients
-// below 2^6 (two IMAD.WIDE a term) for 23 multiplies by full-width constants.
+// W keeps the textbook round structure (every partial round a full MDS), so
+// a time read against it cannot pass 100 %.
 //
-// How the thread form keeps near W (kernels.sass_instruction_count counts
-// 21,344 SASS instructions a permutation, 1.11 W):
+// The thread form runs the partial rounds in Plonky2's sparse form instead
+// (`partial_rounds`), and the trade is in the multiply pipe, which binds (see
+// below), more than in the count: a sparse round is 404 SASS instructions, of
+// them 98 IMAD.WIDE, on 23 products by full-width constants; a dense round was
+// 490, of them ~266 IMAD.WIDE on twelve rows of coefficients below 2^6. A
+// permutation went from 21,344 instructions (8,893 IMAD.WIDE) to 20,549
+// (5,527), and on the H100 the Merkle walk, the grouped sponge and the scan at
+// 16,384 states ran 16-20 % faster (kernels.sass_instruction_count;
+// tools/probe_kernels.py, in turns with the dense form).
+//
+// How the thread form keeps near W (20,549 SASS instructions a permutation,
+// 1.07 W):
 // - Every multiply-add is a PTX pair mad.lo.cc / madc.hi on the same
 //   operands, which ptxas emits as one IMAD.WIDE.U32 that adds a 64-bit word.
 //   From C, or from a plain mad.wide.u32, ptxas emits each product alone and
@@ -63,20 +71,22 @@
 //   sum is below 264 * 2^32 < 2^41, the low halves' sum starts from the
 //   whole constant, which kernels.py checks leaves it the room `join_halves`
 //   needs.
-// - Round constants: `c_pre` is round 0's; `c_post[r]` is what round r's MDS
-//   rows start their sums from. For a full round that is the next round's
-//   constants. In a partial round only lane 0 passes the S-box, so the
-//   constants of lanes 1-11 commute with the (linear) MDS and are carried
-//   forward: c_post[r] holds lane 0's constant alone and the rest arrives,
-//   multiplied through, in c_post[25] before the last four full rounds.
-//   c_post[29] is zero. kernels.py computes both tables from
-//   golden/poseidon_constants.py. A partial round's rows 1-11 start from
-//   zero and the last round's from nothing: neither reads a constant.
+// - Round constants: `c_pre` is round 0's; `c_full[f]` is what full round
+//   f's MDS rows start their sums from, the next round's constants (after
+//   round 3, Plonky2's FAST_PARTIAL_FIRST_ROUND_CONSTANT). The sparse rounds
+//   start row 0 from theirs and carry those of lanes 1-11 to the end
+//   (`sparse_round` says how); round 29's MDS reads none. The split form's
+//   table is its own (permutation.cu): there a partial round's dense MDS
+//   commutes with the constants of lanes 1-11, which arrive, multiplied
+//   through, before round 26. kernels.py computes every table from
+//   golden/poseidon_constants.py and checks the ranges they assume.
 // - In a 2-to-1 compression lanes 8-11 enter as zero: `permute<true, 4>`
 //   starts them at the constant, and its last MDS computes rows 0-3 only,
 //   the digest the Merkle walk keeps.
-// - The rounds run in two rolled loops (`permute` says how), one copy of each
-//   round body: the code a warp walks stays small.
+// - The rounds run in rolled loops (`permute` says how), one copy of each
+//   body: the full round, the sparse round, an output of the initial matrix.
+//   The code a warp walks stays small: the initial matrix unrolled took the
+//   Merkle walk past its 72 registers (424 bytes of spill) and 14 % slower.
 //
 // Two forms of the permutation:
 // - `permute`: one 12-lane state per thread, in registers (every lane index
@@ -85,7 +95,9 @@
 // - `permute_split`: one state per 16-lane half of a warp, one word a thread
 //   (lanes 12-15 mirror lanes 0-3), the 12 words carried to each MDS row by
 //   __shfl_sync. A full round's S-boxes run in parallel; in a partial round
-//   only lane 0's is kept. It spends ~4x the instructions a state
+//   only lane 0's is kept. It keeps the dense partial rounds: in the sparse
+//   form row 0 would wait on a 12-lane shuffle reduction every round, on the
+//   chain this form exists to shorten. It spends ~4x the instructions a state
 //   but cuts the serial chain a thread walks by about ten, which is what a
 //   small batch (a transcript step of 1024 states) waits for. It keeps its
 //   own product (`mul_mod_split`) and C rows: a thread there waits on its
@@ -119,14 +131,44 @@ __device__ constexpr uint32_t MDS_CIRC[WIDTH] = {P2V_MDS_CIRC};
 __device__ constexpr uint32_t MDS_DIAG[WIDTH] = {P2V_MDS_DIAG};
 static __constant__ uint32_t c_circ[WIDTH] = {P2V_MDS_CIRC};
 
+// The thread form's tables (kernels.sparse_round_tables computes them from
+// golden/poseidon_constants.py; one array, in this order, SPARSE_TABLE_WORDS
+// words):
+// - c_full[f]: what full round f's MDS rows start their sums from (rounds 0-3,
+//   then 26-28): the next round's constants, for round 3 Plonky2's
+//   FAST_PARTIAL_FIRST_ROUND_CONSTANT;
+// - c_init[c * 11 + j]: FAST_PARTIAL_ROUND_INITIAL_MATRIX[j][c], the weight of
+//   lane j + 1 in lane c + 1 after the initial matrix;
+// - c_w_hat, c_vs: FAST_PARTIAL_ROUND_W_HATS and _VS, 11 words a round;
+// - c_row0[r]: what sparse round r's row 0 starts from (see sparse_round);
+// - c_tail[j]: what lane j + 1 still owes after the last sparse round.
+constexpr int SPARSE = WIDTH - 1;  // lanes 1-11
+constexpr int N_FULL_MDS = 2 * HALF_FULL - 1;  // full rounds whose MDS starts from constants
+constexpr int SPARSE_TABLE_WORDS = N_FULL_MDS * WIDTH + SPARSE * SPARSE + 2 * N_PARTIAL * SPARSE + N_PARTIAL + SPARSE;
+
 static __constant__ uint64_t c_pre[WIDTH];
-static __constant__ uint64_t c_post[N_ROUNDS * WIDTH];
+static __constant__ uint64_t c_full[N_FULL_MDS * WIDTH];
+static __constant__ uint64_t c_init[SPARSE * SPARSE];
+static __constant__ uint64_t c_w_hat[N_PARTIAL * SPARSE];
+static __constant__ uint64_t c_vs[N_PARTIAL * SPARSE];
+static __constant__ uint64_t c_row0[N_PARTIAL];
+static __constant__ uint64_t c_tail[SPARSE];
 
 static int g_sms = 132;  // read from the device by upload_constants
 
-static cudaError_t upload_constants(const void* pre, const void* post) {
+static cudaError_t upload_constants(const void* pre, const void* sparse) {
     cudaError_t e = cudaMemcpyToSymbol(c_pre, pre, sizeof(c_pre));
-    if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_post, post, sizeof(c_post));
+    size_t at = 0;
+    auto next = [&](const void* symbol, size_t bytes) {
+        if (e == cudaSuccess) e = cudaMemcpyToSymbol(symbol, (const char*)sparse + at, bytes);
+        at += bytes;
+    };
+    next(c_full, sizeof(c_full));
+    next(c_init, sizeof(c_init));
+    next(c_w_hat, sizeof(c_w_hat));
+    next(c_vs, sizeof(c_vs));
+    next(c_row0, sizeof(c_row0));
+    next(c_tail, sizeof(c_tail));
     int dev = 0;
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
@@ -333,13 +375,6 @@ __device__ __forceinline__ void full_sbox(uint64_t s[WIDTH]) {
     for (int k = 0; k < WIDTH; ++k) s[k] = sbox7(s[k]);
 }
 
-// One partial round r (4-24): lane 0's S-box, then the MDS, row 0 starting
-// from the round's one constant (c_post[r] is zero on lanes 1-11).
-__device__ __forceinline__ void partial_round(uint64_t s[WIDTH], int r) {
-    s[0] = sbox7(s[0]);
-    mds<WIDTH, 1>(s, c_post + r * WIDTH);
-}
-
 // ZERO_CAP: lanes 8-11 of the input are zero (2-to-1 compression) and are
 // not read.
 template <bool ZERO_CAP = false>
@@ -348,16 +383,192 @@ __device__ __forceinline__ void add_first_constants(uint64_t s[WIDTH]) {
     for (int k = 0; k < WIDTH; ++k) s[k] = (ZERO_CAP && k >= 8) ? c_pre[k] : add_rc(s[k], c_pre[k]);
 }
 
+// ---------------------------------------------------------------------------
+// the partial rounds in Plonky2's sparse form (poseidon.rs: partial_rounds)
+
+// A dot product of full-width words, summed exactly and reduced once. The sum
+// is kept in 32-bit words: A = (a4, a3, a2, a1, a0) takes the start and each
+// term's x_lo w_lo + x_hi w_hi 2^64, B = (b2, b1, b0) the cross products
+// x_lo w_hi + x_hi w_lo at weight 2^32. Each product is a multiply-add whose
+// carry runs into the next word, and a4 and b2 count the carries out of the
+// top, at most one a product: for words below 2^64, 12 terms at most and a
+// start below 2^64 + 2^37, A < 13 2^128 and B < 24 2^64, so neither wraps.
+struct Dot {
+    uint32_t a0, a1, a2, a3, a4, b0, b1, b2;
+};
+
+// start + m y for a 32-bit coefficient m: A = start + m y_lo, B = m y_hi.
+__device__ __forceinline__ Dot dot_start(uint64_t start, uint64_t y, uint32_t m) {
+    Dot d;
+    asm("{\n\t"
+        ".reg .u32 z;\n\t"
+        "mov.u32 z, 0;\n\t"
+        "mad.lo.cc.u32 %0, %8, %10, %11;\n\t"
+        "madc.hi.cc.u32 %1, %8, %10, %12;\n\t"
+        "addc.u32 %2, z, z;\n\t"
+        "mul.lo.u32 %5, %9, %10;\n\t"
+        "mul.hi.u32 %6, %9, %10;\n\t"
+        "mov.u32 %3, z;\n\t"
+        "mov.u32 %4, z;\n\t"
+        "mov.u32 %7, z;\n\t"
+        "}"
+        : "=&r"(d.a0), "=&r"(d.a1), "=&r"(d.a2), "=&r"(d.a3), "=&r"(d.a4), "=&r"(d.b0), "=&r"(d.b1), "=&r"(d.b2)
+        : "r"((uint32_t)y), "r"((uint32_t)(y >> 32)), "r"(m), "r"((uint32_t)start), "r"((uint32_t)(start >> 32)));
+    return d;
+}
+
+// d += x w: four multiply-adds, x_lo w_lo and x_hi w_hi as one 128-bit add
+// into A, the cross products into B.
+__device__ __forceinline__ void dot_term(Dot& d, uint64_t x, uint64_t w) {
+    asm("{\n\t"
+        ".reg .u32 z;\n\t"
+        "mov.u32 z, 0;\n\t"
+        "mad.lo.cc.u32 %0, %8, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %8, %10, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+        "addc.u32 %4, %4, z;\n\t"
+        "mad.lo.cc.u32 %5, %8, %11, %5;\n\t"
+        "madc.hi.cc.u32 %6, %8, %11, %6;\n\t"
+        "addc.u32 %7, %7, z;\n\t"
+        "mad.lo.cc.u32 %5, %9, %10, %5;\n\t"
+        "madc.hi.cc.u32 %6, %9, %10, %6;\n\t"
+        "addc.u32 %7, %7, z;\n\t"
+        "}"
+        : "+r"(d.a0), "+r"(d.a1), "+r"(d.a2), "+r"(d.a3), "+r"(d.a4), "+r"(d.b0), "+r"(d.b1), "+r"(d.b2)
+        : "r"((uint32_t)x), "r"((uint32_t)(x >> 32)), "r"((uint32_t)w), "r"((uint32_t)(w >> 32)));
+}
+
+// The sum A + B 2^32 = (t4, t3, t2, t1, a0) in 32-bit words (mod p), with
+// 2^64 = 2^32 - 1, 2^96 = -1 and 2^128 = -2^32: (t1, a0) - (t4, t3) + t2 (2^32 - 1).
+// - (t4, t3) < 13 2^32 (the sum is below 13 2^128): on a borrow the wrapped
+//   difference is at least 2^64 - 13 2^32, and taking 2^32 - 1 from it
+//   cannot wrap (it adds p);
+// - t2 (2^32 - 1) as one multiply-add with a carry k out; on a carry the
+//   wrapped sum is below t2 (2^32 - 1) <= 2^64 - 2^33 + 1, so adding k (2^32 - 1)
+//   back cannot carry again. As `mul_mod`'s tail.
+__device__ __forceinline__ uint64_t dot_reduce(const Dot& d) {
+    uint32_t rl, rh;
+    asm("{\n\t"
+        ".reg .u32 z, e, t1, t2, t3, t4, b, k;\n\t"
+        "mov.u32 z, 0;\n\t"
+        "mov.u32 e, 0xFFFFFFFF;\n\t"
+        "add.cc.u32 t1, %3, %7;\n\t"
+        "addc.cc.u32 t2, %4, %8;\n\t"
+        "addc.cc.u32 t3, %5, %9;\n\t"
+        "addc.u32 t4, %6, z;\n\t"
+        "sub.cc.u32 %0, %2, t3;\n\t"
+        "subc.cc.u32 %1, t1, t4;\n\t"
+        "subc.u32 b, z, z;\n\t"  // 0xFFFFFFFF if it borrowed
+        "sub.cc.u32 %0, %0, b;\n\t"
+        "subc.u32 %1, %1, z;\n\t"
+        "mad.lo.cc.u32 %0, t2, e, %0;\n\t"
+        "madc.hi.cc.u32 %1, t2, e, %1;\n\t"
+        "addc.u32 k, z, z;\n\t"
+        "sub.cc.u32 %0, %0, k;\n\t"
+        "subc.u32 %1, %1, z;\n\t"
+        "add.u32 %1, %1, k;\n\t"
+        "}"
+        : "=&r"(rl), "=&r"(rh)
+        : "r"(d.a0), "r"(d.a1), "r"(d.a2), "r"(d.a3), "r"(d.a4), "r"(d.b0), "r"(d.b1), "r"(d.b2));
+    return ((uint64_t)rh << 32) | rl;
+}
+
+// a + y v (mod p): `mul_mod` with a as the addend of its first product. The
+// 128-bit y v + a <= (2^64 - 1) (v + 1) stays below 2^128 for v < 2^64, so the
+// top word does not wrap; the reduction is `mul_mod`'s, with its ranges.
+__device__ __forceinline__ uint64_t mul_add_mod(uint64_t y, uint64_t v, uint64_t a) {
+    uint32_t rl, rh;
+    asm("{\n\t"
+        ".reg .u32 z, e, r0, r1, r2, r3, b, k;\n\t"
+        "mov.u32 z, 0;\n\t"
+        "mov.u32 e, 0xFFFFFFFF;\n\t"
+        "mad.lo.cc.u32 r0, %2, %4, %6;\n\t"
+        "madc.hi.cc.u32 r1, %2, %4, %7;\n\t"
+        "madc.lo.cc.u32 r2, %3, %5, z;\n\t"
+        "madc.hi.u32 r3, %3, %5, z;\n\t"
+        "mad.lo.cc.u32 r1, %2, %5, r1;\n\t"
+        "madc.hi.cc.u32 r2, %2, %5, r2;\n\t"
+        "addc.u32 r3, r3, z;\n\t"
+        "mad.lo.cc.u32 r1, %3, %4, r1;\n\t"
+        "madc.hi.cc.u32 r2, %3, %4, r2;\n\t"
+        "addc.u32 r3, r3, z;\n\t"
+        "sub.cc.u32 r0, r0, r3;\n\t"
+        "subc.cc.u32 r1, r1, z;\n\t"
+        "subc.u32 b, z, z;\n\t"  // 0xFFFFFFFF if it borrowed
+        "sub.cc.u32 r0, r0, b;\n\t"
+        "subc.u32 r1, r1, z;\n\t"
+        "mad.lo.cc.u32 r0, r2, e, r0;\n\t"
+        "madc.hi.cc.u32 r1, r2, e, r1;\n\t"
+        "addc.u32 k, z, z;\n\t"
+        "sub.cc.u32 %0, r0, k;\n\t"
+        "subc.u32 %1, r1, z;\n\t"
+        "add.u32 %1, %1, k;\n\t"
+        "}"
+        : "=r"(rl), "=r"(rh)
+        : "r"((uint32_t)y), "r"((uint32_t)(y >> 32)), "r"((uint32_t)v), "r"((uint32_t)(v >> 32)),
+          "r"((uint32_t)a), "r"((uint32_t)(a >> 32)));
+    return ((uint64_t)rh << 32) | rl;
+}
+
+// Output c of the initial matrix on lanes 1-11 (which it reads, and does not
+// write): out shifts down one place and out[10] takes the output, so after
+// c = 0 .. 10 out[c] holds output c. One copy of the body in a rolled loop.
+__device__ __forceinline__ void initial_matrix_step(const uint64_t s[WIDTH], uint64_t out[SPARSE], int c) {
+    Dot d = {};
+#pragma unroll
+    for (int j = 0; j < SPARSE; ++j) dot_term(d, s[j + 1], c_init[c * SPARSE + j]);
+#pragma unroll
+    for (int k = 0; k + 1 < SPARSE; ++k) out[k] = out[k + 1];
+    out[SPARSE - 1] = dot_reduce(d);
+}
+
+// Sparse round r (0-21): lane 0's S-box, then
+//   lane 0 <- 25 y + sum_j W_HATS[r][j] s[j + 1] + c_row0[r],
+//   lane j + 1 <- s[j + 1] + y VS[r][j]     (y: lane 0 after its S-box).
+// Plonky2 adds FAST_PARTIAL_ROUND_CONSTANTS[r] to y after the S-box. Here its
+// share of row 0 (25 c) starts row 0's sum, and its share of lanes 1-11
+// (c VS[r][j]) is carried: lanes 1-11 run behind their true values by the
+// carried words D_j, whose share of row 0 (sum_j W_HATS[r][j] D_j) c_row0[r]
+// holds too, as row 0 of the last round holds round 26's constant of lane 0.
+// c_tail pays D_j and round 26's constants of lanes 1-11 after the loop.
+__device__ __forceinline__ void sparse_round(uint64_t s[WIDTH], int r) {
+    const uint64_t y = sbox7(s[0]);
+    Dot d = dot_start(c_row0[r], y, MDS_CIRC[0] + MDS_DIAG[0]);
+#pragma unroll
+    for (int j = 0; j < SPARSE; ++j) dot_term(d, s[j + 1], c_w_hat[r * SPARSE + j]);
+#pragma unroll
+    for (int j = 0; j < SPARSE; ++j) s[j + 1] = mul_add_mod(y, c_vs[r * SPARSE + j], s[j + 1]);
+    s[0] = dot_reduce(d);
+}
+
+__device__ __forceinline__ void add_tail(uint64_t s[WIDTH]) {
+#pragma unroll
+    for (int j = 0; j < SPARSE; ++j) s[j + 1] = add_rc(s[j + 1], c_tail[j]);
+}
+
+// Rounds 4-25 (Plonky2's partial rounds), entered after round 3's MDS with
+// FAST_PARTIAL_FIRST_ROUND_CONSTANT added (c_full[3]), left with round 26's
+// constants added to every lane.
+__device__ __forceinline__ void partial_rounds(uint64_t s[WIDTH]) {
+    uint64_t out[SPARSE] = {};
+#pragma unroll 1
+    for (int c = 0; c < SPARSE; ++c) initial_matrix_step(s, out, c);
+#pragma unroll
+    for (int k = 0; k < SPARSE; ++k) s[k + 1] = out[k];
+#pragma unroll 1
+    for (int r = 0; r < N_PARTIAL; ++r) sparse_round(s, r);
+    add_tail(s);
+}
+
 // The permutation. KEEP: the lanes the caller reads afterwards (4 for a
 // 2-to-1 compression); the last round's MDS computes only those rows, and
 // only they are made canonical.
 //
 // 4 full rounds, 22 partial, 4 full, in two rolled loops that hold one copy
-// of each body. Step f of the outer loop runs the full S-box layer of rounds
-// 0-3 (f = 0-3) and 26-29 (f = 5-8), and at f = 4 the partial rounds 4-24
-// and round 25's one S-box. The MDS with twelve constants that follows is
-// round f's, or round 25's (which brings the constants carried through the
-// partial rounds), or that of rounds 26-28. Round 29's has none. Three loops
+// of each body. Step f of the outer loop runs full round f (f = 0-3) or
+// 22 + f (f = 5-8), its MDS starting from c_full, and at f = 4 the partial
+// rounds in their sparse form. Round 29's MDS has no constants. Three loops
 // in a row would hold a second copy of the full round; the Merkle walk ran
 // 20 % longer so (measured on the H100), the code a warp walks being larger
 // than its instruction cache keeps.
@@ -367,14 +578,12 @@ __device__ __forceinline__ void permute(uint64_t s[WIDTH]) {
 #pragma unroll 1
     for (int f = 0;; ++f) {
         if (f == HALF_FULL) {
-#pragma unroll 1
-            for (int r = HALF_FULL; r < HALF_FULL + N_PARTIAL - 1; ++r) partial_round(s, r);
-            s[0] = sbox7(s[0]);
-        } else {
-            full_sbox(s);
+            partial_rounds(s);
+            continue;
         }
+        full_sbox(s);
         if (f == 2 * HALF_FULL) break;
-        mds<WIDTH, WIDTH>(s, c_post + (f < HALF_FULL ? f : f + N_PARTIAL - 1) * WIDTH);
+        mds<WIDTH, WIDTH>(s, c_full + (f < HALF_FULL ? f : f - 1) * WIDTH);
     }
     mds<KEEP, 0>(s, nullptr);
 #pragma unroll
@@ -387,8 +596,9 @@ __device__ __forceinline__ void permute(uint64_t s[WIDTH]) {
 constexpr int SPLIT_LANES = 16;  // threads a state; the first 12 hold a word
 
 // Per-thread constants of the split form: `post` points at a (30, 12) copy
-// of c_post that threads index by their own lane (shared or global memory:
-// constant memory serialises reads that differ across a warp).
+// of its table (kernels.folded_round_constants) that threads index by their
+// own lane (shared or global memory: constant memory serialises reads that
+// differ across a warp).
 //
 // Threads 12-15 of a half-warp hold no word of their own. They mirror
 // threads 0-3: same loads, same arithmetic, same stores of the same values.

@@ -48,10 +48,11 @@ int main() {
     uint64_t* out;
     long long* cycles;
     if (cudaMalloc(&out, 8 * 128) != cudaSuccess || cudaMallocManaged(&cycles, 8 * 5) != cudaSuccess) return 1;
-    uint64_t pre[WIDTH], post[N_ROUNDS * WIDTH];
+    uint64_t pre[WIDTH], post[N_ROUNDS * WIDTH], sparse[SPARSE_TABLE_WORDS];
     for (int i = 0; i < WIDTH; ++i) pre[i] = i * 77 + 5;
     for (int i = 0; i < N_ROUNDS * WIDTH; ++i) post[i] = i * 1234567ull + 3;
-    if (upload_constants(pre, post) != cudaSuccess) return 1;
+    for (int i = 0; i < SPARSE_TABLE_WORDS; ++i) sparse[i] = i * 0x9E3779B97F4A7C15ull % P;
+    if (upload_constants(pre, sparse) != cudaSuccess) return 1;
     cudaMemcpyToSymbol(g_post, post, sizeof(post));
     cudaMemcpyToSymbol(g_pre, pre, sizeof(pre));
     const int reps = 20;

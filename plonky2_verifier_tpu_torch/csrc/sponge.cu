@@ -43,7 +43,7 @@
 //   a fixed stride take 3.09 ms, one block a warp of rows (the hardware
 //   hands them out in order) 2.91.
 // - The launch bound asks for 16 blocks an SM: up to 128 registers (the round
-//   body takes 92), no spill. With the round body before csrc/poseidon.cuh's
+//   body takes 94), no spill. With the round body before csrc/poseidon.cuh's
 //   present one, the Merkle walk's bound of 28 (72 registers, 8 bytes of
 //   spill in a loop that also keeps the row pointer and the chunk count) cost
 //   4 % here (2.93 ms), and a bound of 1 (144 registers) 3 % (2.89).
@@ -155,8 +155,9 @@ int make_segments(Segments& seg, const void* const* rows, const int64_t* n, cons
 
 }  // namespace
 
-extern "C" int p2v_sponge_init(const void* pre, const void* post) {
-    return (int)upload_constants(pre, post);
+// pre: round 0's constants; sparse: the thread form's tables (poseidon.cuh).
+extern "C" int p2v_sponge_init(const void* pre, const void* sparse) {
+    return (int)upload_constants(pre, sparse);
 }
 
 // The most segments one grouped launch takes.

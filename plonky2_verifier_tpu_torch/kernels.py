@@ -4,9 +4,10 @@
 library with a plain C interface, under csrc/_build/, all compiles started
 together; a library is named by a sha256 of its source, the headers
 (csrc/*.cuh) and the flags, so an edited source rebuilds. `load()` opens
-them with ctypes once per process, uploads the Poseidon round constants
-(`folded_round_constants`; the MDS matrix is compiled into
-csrc/poseidon.cuh) into each Poseidon kernel's constant memory, and returns
+them with ctypes once per process, uploads the Poseidon tables (the thread
+form's `sparse_round_tables`, the split form's `folded_round_constants`;
+the MDS matrix is compiled into csrc/poseidon.cuh) into each Poseidon
+kernel's constant memory, and returns
 the `KernelLibrary` whose methods launch the kernels: the three Poseidon
 kernels (permutation.cu, sponge.cu, merkle.cu), the
 three field kernels (field.cu: the extension Horner sum, and the inversion
@@ -19,7 +20,8 @@ Both raise on any failure (no CUDA device, no nvcc, a compile error, a
 refused launch); nothing here falls back to the plain PyTorch versions.
 Each launch method validates its tensors, allocates the output with
 `torch.empty`, launches on the current stream without synchronising, checks
-`cudaGetLastError()`, and adds one to its entry in `launches`.
+`cudaGetLastError()`, and adds one to its entry in `launches`; a Poseidon
+launch also counts its permutations for the tracer (`count_permutations`).
 """
 
 from __future__ import annotations
@@ -35,9 +37,19 @@ import subprocess
 import numpy as np
 import torch
 
+from . import tracing
 from .golden.field import P
 from .golden.poseidon import mds_matrix
-from .golden.poseidon_constants import ALL_ROUND_CONSTANTS, MDS_CIRC, MDS_DIAG
+from .golden.poseidon_constants import (
+    ALL_ROUND_CONSTANTS,
+    FAST_PARTIAL_FIRST_ROUND_CONSTANT,
+    FAST_PARTIAL_ROUND_CONSTANTS,
+    FAST_PARTIAL_ROUND_INITIAL_MATRIX,
+    FAST_PARTIAL_ROUND_VS,
+    FAST_PARTIAL_ROUND_W_HATS,
+    MDS_CIRC,
+    MDS_DIAG,
+)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
@@ -50,11 +62,17 @@ COUNTERS = ("permutation", "permutation_scan", "sponge_rows", "sponge_rows_group
             "pow_grouped", "gate_program", "coset_fold", "partial_products", "lookup_checks", "gate_filter")
 FORMS = {"auto": 0, "thread": 1, "split": 2}
 WIDTH, N_ROUNDS, FIRST_PARTIAL, FIRST_LAST_FULL = 12, 30, 4, 26
+N_PARTIAL, SPARSE = FIRST_LAST_FULL - FIRST_PARTIAL, WIDTH - 1
+SPLIT_MAX_STATES = 8192  # csrc/permutation.cu: up to this many states (or scan rows) "auto" takes the split form
+# the tracer's work counters of the Poseidon kernels: permutations by round body
+SPARSE_PERMUTATIONS = "poseidon sparse permutations"  # the thread form (csrc/poseidon.cuh permute)
+DENSE_PERMUTATIONS = "poseidon dense permutations"  # the split form (permute_split)
 
 
 def folded_round_constants():
     """The round constants as the kernels take them (csrc/poseidon.cuh):
-    `pre` (12) is added to the input, and `post[r]` (30, 12) is what round
+    `pre` (12) is added to the input by both forms; the split form's dense
+    rounds read the rest (permutation.cu), where `post[r]` (30, 12) is what round
     r's MDS rows start their sums from, i.e. the constants entering round
     r + 1. In a partial round only lane 0 passes the S-box, so the constants
     of lanes 1-11 commute with the MDS: they are carried forward, multiplied
@@ -74,6 +92,50 @@ def folded_round_constants():
     return rc[0], post
 
 
+def sparse_round_tables() -> dict:
+    """The thread form's tables (csrc/poseidon.cuh), each a list of rows:
+    - "full" (7, 12): what the MDS rows of full rounds 0-3 and 26-28 start
+      from: the next round's constants, and for round 3 Plonky2's
+      FAST_PARTIAL_FIRST_ROUND_CONSTANT (poseidon.rs partial_first_constant_layer);
+    - "init" (11, 11): FAST_PARTIAL_ROUND_INITIAL_MATRIX transposed, row c
+      the weights of lanes 1-11 in lane c + 1 (mds_partial_layer_init);
+    - "w_hat", "vs" (22, 11): FAST_PARTIAL_ROUND_W_HATS and _VS as they are;
+    - "row0" (22, 1): what sparse round r's row 0 starts from;
+    - "tail" (1, 11): what lanes 1-11 still owe after the last sparse round.
+    Plonky2 adds FAST_PARTIAL_ROUND_CONSTANTS[r] to lane 0 after round r's
+    S-box. Its share of row 0 (m00 c, m00 = 25) goes into row0[r]; its share
+    of lane j + 1 (c VS[r][j]) is carried in D, the kernel's lanes 1-11
+    running behind their true values by D, so row0[r] also holds
+    sum_j W_HATS[r][j] D_j. Round 26's constants arrive the same way: lane
+    0's in row0[21], lanes 1-11's with the last D in "tail"."""
+    rc = [list(ALL_ROUND_CONSTANTS[WIDTH * r : WIDTH * (r + 1)]) for r in range(N_ROUNDS)]
+    m00 = MDS_CIRC[0] + MDS_DIAG[0]
+    carried, row0 = [0] * SPARSE, []
+    for r in range(N_PARTIAL):
+        c = FAST_PARTIAL_ROUND_CONSTANTS[r]
+        k = (m00 * c + sum(w * d for w, d in zip(FAST_PARTIAL_ROUND_W_HATS[r], carried))) % P
+        row0.append([(k + rc[FIRST_LAST_FULL][0]) % P if r == N_PARTIAL - 1 else k])
+        carried = [(d + c * v) % P for d, v in zip(carried, FAST_PARTIAL_ROUND_VS[r])]
+    return {
+        "full": rc[1:FIRST_PARTIAL] + [list(FAST_PARTIAL_FIRST_ROUND_CONSTANT)] + rc[FIRST_LAST_FULL + 1 :],
+        "init": [[FAST_PARTIAL_ROUND_INITIAL_MATRIX[j][c] for j in range(SPARSE)] for c in range(SPARSE)],
+        "w_hat": [list(row) for row in FAST_PARTIAL_ROUND_W_HATS],
+        "vs": [list(row) for row in FAST_PARTIAL_ROUND_VS],
+        "row0": row0,
+        "tail": [[(d + c) % P for d, c in zip(carried, rc[FIRST_LAST_FULL][1:])]],
+    }
+
+
+# the tables' shapes, in the order csrc/poseidon.cuh's upload_constants reads them from one array
+SPARSE_SHAPES = {"full": (2 * FIRST_PARTIAL - 1, WIDTH), "init": (SPARSE, SPARSE), "w_hat": (N_PARTIAL, SPARSE),
+                 "vs": (N_PARTIAL, SPARSE), "row0": (N_PARTIAL, 1), "tail": (1, SPARSE)}
+
+
+def sparse_table_words(tables) -> list:
+    """The tables as one list of words, in the order upload_constants reads them."""
+    return [c for name in SPARSE_SHAPES for row in tables[name] for c in row]
+
+
 # The MDS sums of csrc/poseidon.cuh: a row's low accumulator starts from its
 # whole folded constant and adds coefficients (sum ROW_SUM at most) times
 # 32-bit halves; the join then adds (high accumulator >> 32) (2^32 - 1)
@@ -89,6 +151,26 @@ def check_round_body_bounds(post):
         raise ValueError("the kernels' MDS accumulators assume coefficients of sum < 2^9")
     if max(c for row in post for c in row) >= JOIN_LIMIT:
         raise ValueError("a folded round constant leaves the MDS join no room: it must be below JOIN_LIMIT")
+
+
+def check_sparse_bounds(tables):
+    """Raise unless the thread form's tables fit csrc/poseidon.cuh: the rows
+    have the lengths the header reads; the full rounds' constants start
+    dense MDS rows (below JOIN_LIMIT, as check_round_body_bounds); `add_tail`
+    needs a canonical constant (below p); every other word is a multiplicand
+    of `dot_term` or `mul_add_mod`, or the start of `dot_start`, whose ranges
+    hold for any 64-bit word; row 0's own coefficient is dot_start's 32-bit
+    multiplier."""
+    for name, (rows, cols) in SPARSE_SHAPES.items():
+        if len(tables[name]) != rows or any(len(row) != cols for row in tables[name]):
+            raise ValueError(f"sparse table {name} is not ({rows}, {cols})")
+        if any(not 0 <= c < 2**64 for row in tables[name] for c in row):
+            raise ValueError(f"sparse table {name} holds a word outside [0, 2^64)")
+    check_round_body_bounds(tables["full"])
+    if max(tables["tail"][0]) >= P:
+        raise ValueError("a tail constant is not canonical: add_rc needs it below p")
+    if MDS_CIRC[0] + MDS_DIAG[0] >= 2**32:
+        raise ValueError("row 0's own coefficient must fit dot_start's 32-bit multiplier")
 
 
 def _nvcc() -> str:
@@ -143,18 +225,21 @@ def build() -> dict:
 
 # csrc/permutation.cu's count_kernel pieces a thread-form permutation runs,
 # and how often: the first constants and canonicalisation, the full rounds
-# 0-3 and 26-28, the partial rounds 4-24, round 25, round 29
-PERMUTATION_PIECES = {1: 1, 2: 7, 3: 21, 4: 1, 5: 1}
+# 0-3 and 26-28, the 22 sparse partial rounds, the 11 outputs of the initial
+# matrix, the carried constants after them, round 29
+PERMUTATION_PIECES = {1: 1, 2: 7, 3: 22, 4: 11, 8: 1, 5: 1}
 # a 2-to-1 compression (the Merkle walk's permute<true, 4>): its own first
 # constants and last round
-COMPRESSION_PIECES = {7: 1, 2: 7, 3: 21, 4: 1, 6: 1}
+COMPRESSION_PIECES = {7: 1, 2: 7, 3: 22, 4: 11, 8: 1, 6: 1}
+N_PIECES = 9
 
 
 def sass_pieces() -> dict:
     """The SASS instructions of each of csrc/permutation.cu's count_kernel
-    pieces 1-7, by opcode (IMAD and IADD3 split by their first modifier:
+    pieces 1-8, by opcode (IMAD and IADD3 split by their first modifier:
     IMAD.WIDE multiplies, IMAD.MOV is a register move, IADD3.X an add with
-    carry), the loads and stores of piece 0 taken out of each.
+    carry), piece 0's instructions taken out of each and no global load or
+    store counted (they move a piece's words in and out, not the permutation's).
     permutation.cu is compiled with -DP2V_COUNT_ROUNDS. Needs nvcc and
     cuobjdump."""
     nvcc = _nvcc()
@@ -178,11 +263,11 @@ def sass_pieces() -> dict:
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*(?:\.(?:WIDE|MOV|SHL|IADD|X))?)", line)
         if piece is not None and m and m.group(1) != "NOP":
             piece[m.group(1)] = piece.get(m.group(1), 0) + 1
-    if sorted(pieces) != list(range(8)):
+    if sorted(pieces) != list(range(N_PIECES)):
         raise RuntimeError(f"the counting kernels were not all found in the SASS: {sorted(pieces)}")
     base = pieces.pop(0)
     less_base = lambda ops: {op: ops.get(op, 0) - base.get(op, 0) for op in set(ops) | set(base)}
-    return {k: {op: n for op, n in less_base(ops).items() if n} for k, ops in pieces.items()}
+    return {k: {op: n for op, n in less_base(ops).items() if n and op not in ("LDG", "STG")} for k, ops in pieces.items()}
 
 
 def sass_instruction_count(compression: bool = False, pieces=None) -> dict:
@@ -199,6 +284,19 @@ def sass_instruction_count(compression: bool = False, pieces=None) -> dict:
         for op, n in pieces[k].items():
             counts[op] = counts.get(op, 0) + times * n
     return {op: n for op, n in counts.items() if n}
+
+
+def split_form(n: int, form: str) -> bool:
+    """Whether csrc/permutation.cu runs n states (or scan rows) in the split
+    form: asked for, or picked by "auto" up to SPLIT_MAX_STATES."""
+    return form == "split" or (form == "auto" and n <= SPLIT_MAX_STATES)
+
+
+def count_permutations(n: int, split: bool) -> None:
+    """The tracer's counter of a Poseidon launch's permutations, by round
+    body: the split form's dense rounds or the thread form's sparse ones.
+    Host arithmetic only; nothing while the tracer is off."""
+    tracing.count(DENSE_PERMUTATIONS if split else SPARSE_PERMUTATIONS, n)
 
 
 class GateArgs(ctypes.Structure):
@@ -412,21 +510,26 @@ class KernelLibrary:
         }
         pre, post = folded_round_constants()
         check_round_body_bounds(post)
+        tables = sparse_round_tables()
+        check_sparse_bounds(tables)
         pre, post = np.array(pre, dtype=np.uint64), np.array(post, dtype=np.uint64)
+        sparse = np.array(sparse_table_words(tables), dtype=np.uint64)
         self._fn = {}
         self._libs = []
         for source, fns in signatures.items():
             lib = ctypes.CDLL(paths[source])
             self._libs.append(lib)
+            # the split form's table goes to the permutation kernels alone
+            init_args = (pre, post, sparse) if source == "permutation" else (pre, sparse)
             if source in POSEIDON_SOURCES:
-                fns = dict(fns, **{f"p2v_{source}_init": [vp, vp]})
+                fns = dict(fns, **{f"p2v_{source}_init": [vp] * len(init_args)})
             for name, argtypes in fns.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 self._fn[name] = fn
             if source in POSEIDON_SOURCES:
-                err = self._fn[f"p2v_{source}_init"](pre.ctypes.data, post.ctypes.data)
+                err = self._fn[f"p2v_{source}_init"](*(a.ctypes.data for a in init_args))
                 _check_cuda(err, f"p2v_{source}_init")
         self.max_segments = self._fn["p2v_sponge_max_segments"]()
         self.gate_smem_limit = self._fn["p2v_gate_smem_limit"]()  # bytes of shared memory a block may take
@@ -449,6 +552,7 @@ class KernelLibrary:
             err = self._fn["p2v_permutation"](state.data_ptr(), out.data_ptr(), n, FORMS[form], _stream())
             _check_cuda(err, "permutation")
             self.launches["permutation"] += 1
+            count_permutations(n, split_form(n, form))
         return out
 
     def permutation_scan(
@@ -471,6 +575,7 @@ class KernelLibrary:
             )
             _check_cuda(err, "permutation_scan")
             self.launches["permutation_scan"] += 1
+            count_permutations(batch * n_perms, split_form(batch, form))
         return states
 
     def sponge_rows(self, rows: torch.Tensor, width: int) -> torch.Tensor:
@@ -483,6 +588,7 @@ class KernelLibrary:
             err = self._fn["p2v_sponge_rows"](rows.data_ptr(), out.data_ptr(), n, width, counter.data_ptr(), _stream())
             _check_cuda(err, "sponge_rows")
             self.launches["sponge_rows"] += 1
+            count_permutations(n * -(-width // 8), False)
         return out
 
     def sponge_rows_grouped(self, rows_list) -> list:
@@ -511,6 +617,7 @@ class KernelLibrary:
             err = self._fn["p2v_sponge_rows_grouped"](*args, counter.data_ptr(), _stream())
             _check_cuda(err, "sponge_rows_grouped")
             self.launches["sponge_rows_grouped"] += 1
+            count_permutations(sum(counts[k] * -(-rows_list[k].shape[1] // 8) for k in seg), False)
         return [out[s : s + n] for s, n in zip(starts, counts)]
 
     def merkle_fold(self, digest: torch.Tensor, index: torch.Tensor, sibs: torch.Tensor) -> torch.Tensor:
@@ -526,6 +633,7 @@ class KernelLibrary:
             )
             _check_cuda(err, "merkle_fold")
             self.launches["merkle_fold"] += 1
+            count_permutations(n * sibs.shape[1], False)
         return out
 
     def horner(self, v_re, v_im, p_re, p_im, v_rep: int = 1, p_rep: int = 1):

@@ -579,21 +579,6 @@ def cycles_probe() -> str:
         os.remove(exe)
 
 
-def cycles_probe() -> str:
-    """Build csrc/probe_cycles.cu into csrc/_build/ and return its output."""
-    nvcc = kernels._nvcc()
-    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    exe = os.path.join(kernels.BUILD_DIR, f"probe_cycles.{os.getpid()}")
-    cmd = [nvcc, *kernels.ARCH_FLAGS, "-I", kernels.CSRC, "-o", exe, os.path.join(kernels.CSRC, "probe_cycles.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    try:
-        return subprocess.run([exe], capture_output=True, text=True, check=True).stdout.strip()
-    finally:
-        os.remove(exe)
-
-
 def main():
     smi, rate = device_phase()
     t = time.time()

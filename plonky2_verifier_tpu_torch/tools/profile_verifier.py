@@ -25,7 +25,9 @@ gathered on the device):
     fold step's Merkle walk and opened slot, the final polynomial; the span
     "fri_checks"). The stages add up to the staged call, the span "forward".
     Beside them the tracer's work counters of the call ("counts": the
-    lookup argument's padded table rows x rounds x lanes);
+    lookup argument's padded table rows x rounds x lanes; on the card the
+    Poseidon kernels' permutations by round body, the thread form's sparse
+    partial rounds and the split form's dense ones, and the sparse share);
 (b) under torch.profiler, on the card, `calls` calls with `in_flight` of them
     enqueued (the next enqueued before the wait for a verdict, as
     benchmark/program.py runs them): `cudaLaunchKernel` calls a forward, the
@@ -57,7 +59,7 @@ from collections import deque
 
 import torch
 
-from .. import tracing
+from .. import kernels, tracing
 from .. import verifier_torch as vt
 from ..compiler import CircuitTemplate, flatten_proofs
 from ..models.cache import get_fixture_proof
@@ -303,6 +305,11 @@ def main(argv=None) -> int:
     res = profile_verifier(args.model, args.batch, args.device, args.proofs, args.in_flight)
     for stage, ms in res["stages_ms"].items():
         print(f"{stage}: {ms:.3f} ms")
+    for name, n in res["counts"].items():
+        print(f"{name}: {n:.0f} a call")
+    perms = [res["counts"].get(k, 0) for k in (kernels.SPARSE_PERMUTATIONS, kernels.DENSE_PERMUTATIONS)]
+    if sum(perms):
+        print(f"poseidon sparse share: {perms[0] / sum(perms):.4f}")
     print(json.dumps(res))
     return 0
 

@@ -30,7 +30,9 @@ frames of this package: "ops/field.py:262 < verifier_torch.py:748").
 The work counters. `count(name, n)` adds n to the counter `name` of the
 innermost open span, as the verifier counts the lookup argument's table
 work (`LOOKUP_TABLE_ROWS`: padded table rows x challenge rounds x lanes, each
-forward). Host arithmetic only: a count reads nothing from the card.
+forward) and kernels.py each Poseidon launch's permutations by round body
+(`kernels.SPARSE_PERMUTATIONS`, the thread form; `kernels.DENSE_PERMUTATIONS`,
+the split form). Host arithmetic only: a count reads nothing from the card.
 
 The store is module state, so it outlives the verifier that filled it:
 `report()` reads it, `reset()` empties it. Nothing is written to a file.

@@ -249,6 +249,79 @@ def test_permutation_scan_on_edge_words_at_16384(lib, consts):
         assert [int(v) for v in tf.to_u64(got[-1, b])] == state
 
 
+def _random_and_above_p(seed, shape):
+    """Random words, a quarter of them lifted to x + p (x < 2^32 - 1, so below
+    2^64): the thread form reads words >= p as it reads proof words."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, P, size=shape, dtype=np.uint64)
+    lift = rng.integers(0, 4, size=shape) == 0
+    words[lift] = rng.integers(0, 2**32 - 1, size=int(lift.sum()), dtype=np.uint64) + np.uint64(P)
+    return words
+
+
+@pytest.mark.parametrize("n", [8193, 16384, 70001])
+def test_thread_form_above_the_switch_on_random_words_and_words_above_p(lib, consts, n):
+    """Above SPLIT_MAX_STATES the launcher runs the thread form (its sparse
+    partial rounds): states of random words and words x + p, and every edge
+    word in every lane, give the plain permutation and golden/'s."""
+    states = _random_and_above_p(n, (n, 12))
+    states[: len(HASH_EDGE)] = HASH_EDGE[:, None]
+    x = tf.from_u64(states, "cuda")
+    got = lib.permutation(x)
+    assert torch.equal(got, lib.permutation(x, "thread"))
+    assert torch.equal(got[:4096], tp.permutation_plain(x[:4096], consts))
+    host = tf.to_u64(got)
+    for i in list(range(len(HASH_EDGE))) + list(range(len(HASH_EDGE), n, 997)):
+        assert [int(v) for v in host[i]] == gp.permutation([int(w) for w in states[i]])
+
+
+@pytest.mark.parametrize("name", list(EDGE_SPONGE_WIDTHS))
+def test_sponge_rows_grouped_on_random_words_and_words_above_p(lib, consts, name):
+    """One grouped launch at the widths one verifier call hashes, rows of
+    random words and words x + p: the plain sponge and golden/ give the same
+    digests."""
+    group = [tf.from_u64(_random_and_above_p(20 + k, (1000 + 37 * k, w)), "cuda") for k, w in enumerate(EDGE_SPONGE_WIDTHS[name])]
+    got = lib.sponge_rows_grouped(group)
+    for rows, g, w in zip(group, got, th.sponge_rows_grouped_plain(group, consts)):
+        assert torch.equal(g, w)
+        host, digests = tf.to_u64(rows), tf.to_u64(g)
+        for r in range(0, rows.shape[0], 97):
+            assert tuple(int(x) for x in digests[r]) == gh.sponge([int(x) for x in host[r]])
+
+
+@pytest.mark.parametrize("path_len", [3, 7, 11])
+def test_merkle_fold_on_random_words_and_words_above_p(lib, consts, path_len):
+    """The 2-to-1 compression (its zero lanes and four last rows) on paths of
+    random words and words x + p, random index bits: the kernel, the plain
+    walk and golden/ give the same roots."""
+    n = 4099
+    dig, sibs = _random_and_above_p(30 + path_len, (n, 4)), _random_and_above_p(40 + path_len, (n, path_len, 4))
+    idx = np.random.default_rng(path_len).integers(0, 1 << path_len, size=n, dtype=np.int64)
+    d, s, i = tf.from_u64(dig, "cuda"), tf.from_u64(sibs, "cuda"), torch.from_numpy(idx).cuda()
+    got = lib.merkle_fold(d, i, s)
+    assert torch.equal(got, th.merkle_fold_plain(d, i, s, path_len, consts))
+    roots = tf.to_u64(got)
+    for r in range(0, n, 101):
+        _, want = gh.reconstruct_merkle_root(tuple(int(x) for x in dig[r]), int(idx[r]), [tuple(int(x) for x in w) for w in sibs[r]])
+        assert tuple(int(x) for x in roots[r]) == want
+
+
+def test_permutation_scan_on_random_words_and_words_above_p_at_16384(lib, consts):
+    """The transcript scan at 16,384 rows (the thread form) on data of random
+    words and words x + p: the plain scan's states, and golden/'s lanes."""
+    batch, n_perms, n_data = 16384, 9, 40
+    ov_idx, ov_mask = _schedule(72, n_perms, n_data)
+    host = _random_and_above_p(73, (batch, n_data))
+    data = tf.from_u64(host, "cuda")
+    got = lib.permutation_scan(data, ov_idx, ov_mask)
+    assert torch.equal(got[:, :1024], tp.permutation_scan_plain(data[:1024], ov_idx, ov_mask, consts))
+    for b in (0, 5000, batch - 1):
+        state = [0] * 12
+        for i, m in zip(ov_idx.cpu().tolist(), ov_mask.cpu().tolist()):
+            state = gp.permutation([int(host[b, j]) if keep else s for j, keep, s in zip(i, m, state)])
+        assert [int(v) for v in tf.to_u64(got[-1, b])] == state
+
+
 def _noncanonical(seed, shape):
     """Words drawn from the edge band, x + p (x < 2^32 - 1) and random."""
     rng = np.random.default_rng(seed)

@@ -183,10 +183,13 @@ def test_folded_round_constants_give_the_same_permutation():
 
 
 # A word-level model of the thread form of csrc/poseidon.cuh: the phase
-# schedule of `permute` (4 full rounds, the partial rounds 4-24, round 25 with
-# twelve constants, rounds 26-28, round 29 without constants), the MDS rows
-# as two sums of 32-bit halves, `join_halves` and `mul_mod` step by step,
-# each asserting the range its comment in the header claims.
+# schedule of `permute` (4 full rounds; the partial rounds in Plonky2's sparse
+# form: the initial matrix, 22 sparse rounds, the carried constants; rounds
+# 26-28; round 29 without constants), the dense MDS rows as two sums of 32-bit
+# halves, `join_halves`, `mul_mod`, `mul_add_mod` and the sparse rows' `Dot`
+# step by step, each asserting the range its comment in the header claims.
+# The dense schedule beside it is the split form's (its tables,
+# kernels.folded_round_constants), in the same word arithmetic.
 M64, M32, EPS = 2**64, 2**32 - 1, 2**32 - 1
 
 
@@ -200,8 +203,9 @@ def _header_list(name):
     return tuple(int(x) for x in line.split(","))
 
 
-def _mul_mod_model(a, b):
-    prod = a * b  # (r3, r2, r1, r0), four partial products
+def _reduce_model(prod):
+    """mul_mod's tail on the 128-bit (r3, r2, r1, r0)."""
+    assert prod < 2**128
     lo, r2, r3 = prod % M64, (prod >> 64) & M32, prod >> 96
     t = lo - r3
     if t < 0:  # on a borrow the wrapped t is at least 2^64 - 2^32 + 1
@@ -212,6 +216,22 @@ def _mul_mod_model(a, b):
     k, u = u >> 64, u % M64
     assert u + k * EPS < M64  # adding k (2^32 - 1) back cannot carry
     return u + k * EPS
+
+
+def _mul_mod_model(a, b):
+    return _reduce_model(a * b)  # (r3, r2, r1, r0), four partial products
+
+
+def _mul_add_model(y, v, a):
+    """mul_add_mod: a as the addend of the first product; y v + a < 2^128."""
+    assert y < M64 and v < M64 and a < M64
+    return _reduce_model(y * v + a)
+
+
+def _add_rc_model(x, c):
+    assert c < P  # one canonical operand: on a carry the wrapped sum is at most p - 2
+    x += c
+    return x - M64 + EPS if x >= M64 else x
 
 
 def _sbox_model(x):
@@ -243,16 +263,72 @@ def _mds_model(s, c, rows, n_const):
     return out
 
 
+def _dot_model(terms, start=0, y=0, m=0):
+    """dot_start (start + m y), dot_term a term, dot_reduce: A and B exact,
+    their top words (a4, b2) counting the carries out."""
+    assert start < M64 and y < M64 and m < 2**32 and len(terms) <= 11
+    a, b = start + m * (y & M32), m * (y >> 32)
+    assert a < 2**96 and b < M64  # dot_start: a2 takes the one carry, B is one product
+    for x, w in terms:
+        assert x < M64 and w < M64
+        a += (x & M32) * (w & M32) + ((x >> 32) * (w >> 32) << 64)
+        b += (x & M32) * (w >> 32) + (x >> 32) * (w & M32)
+    assert a < 13 * 2**128 and b < 24 * 2**64  # a4 and b2 (each a 32-bit word) hold the carries
+    t = a + (b << 32)  # (t4, t3, t2, t1, a0)
+    t0, t1, t2, h = t & M32, (t >> 32) & M32, (t >> 64) & M32, t >> 96
+    assert h < 13 * 2**32
+    u = t0 + (t1 << 32) - h
+    if u < 0:  # on a borrow the wrapped difference leaves room to take 2^32 - 1
+        u += M64
+        assert u >= M64 - 13 * 2**32
+        u -= EPS
+    u += t2 * EPS
+    k, u = u >> 64, u % M64
+    assert u + k * EPS < M64
+    return u + k * EPS
+
+
+def _first_constants_model(state, pre, zero_cap):
+    # the zero lanes of a compression start at their constant
+    return [c if zero_cap and k >= 8 else _add_rc_model(x, c) for k, (x, c) in enumerate(zip(state, pre))]
+
+
+def _partial_rounds_model(s, t):
+    """partial_rounds: the initial matrix, the 22 sparse rounds, add_tail."""
+    m00 = _header_list("P2V_MDS_CIRC")[0] + _header_list("P2V_MDS_DIAG")[0]
+    s = [s[0]] + [_dot_model(list(zip(s[1:], t["init"][c]))) for c in range(11)]
+    for r in range(22):
+        y = _sbox_model(s[0])
+        row0 = _dot_model(list(zip(s[1:], t["w_hat"][r])), t["row0"][r][0], y, m00)
+        s = [row0] + [_mul_add_model(y, v, x) for x, v in zip(s[1:], t["vs"][r])]
+    return [s[0]] + [_add_rc_model(x, c) for x, c in zip(s[1:], t["tail"][0])]
+
+
 def _permute_model(state, zero_cap=False, keep=12):
-    """permute<zero_cap, keep> of csrc/poseidon.cuh; returns lanes 0 .. keep - 1."""
+    """permute<zero_cap, keep> of csrc/poseidon.cuh (the thread form);
+    returns lanes 0 .. keep - 1."""
+    pre, _ = kernels.folded_round_constants()
+    t = kernels.sparse_round_tables()
+    s = _first_constants_model(state, pre, zero_cap)
+    for f in range(2 * 4 + 1):
+        if f == 4:
+            s = _partial_rounds_model(s, t)
+            continue
+        s = [_sbox_model(x) for x in s]
+        if f == 8:
+            break
+        s = _mds_model(s, t["full"][f if f < 4 else f - 1], 12, 12)
+    s = _mds_model(s, None, keep, 0)  # round 29 reads no constant
+    assert all(x < M64 for x in s)
+    return [x - P if x >= P else x for x in s[:keep]]
+
+
+def _permute_dense_model(state, zero_cap=False, keep=12):
+    """The dense schedule the split form runs on kernels.folded_round_constants
+    (every partial round a full MDS, lanes 1-11's constants carried to round
+    25), in the same word arithmetic; returns lanes 0 .. keep - 1."""
     pre, post = kernels.folded_round_constants()
-    s = []
-    for k, (x, c) in enumerate(zip(state, pre)):
-        if zero_cap and k >= 8:
-            s.append(c)  # the zero lanes start at their constant
-        else:
-            x += c
-            s.append(x - M64 + EPS if x >= M64 else x)  # add_rc
+    s = _first_constants_model(state, pre, zero_cap)
     for f in range(2 * 4 + 1):
         if f == 4:
             for r in range(4, 25):
@@ -275,23 +351,74 @@ EDGE_LANES = [0, 1, P - 1, P, 2**64 - 1]
 SCHEDULE_STATES = [("random", None)] + [(f"every lane {w:#x}", w) for w in EDGE_LANES] + [("edge band", "band")]
 
 
-@pytest.mark.parametrize("what,word", SCHEDULE_STATES, ids=[w for w, _ in SCHEDULE_STATES])
-def test_round_body_schedule_model_equals_golden(what, word):
-    """The model of the kernel's schedule and word arithmetic gives golden's
-    permutation, on random states, on one edge word in every lane and on
-    mixed edge words; as a 2-to-1 compression (lanes 8-11 zero, rows 0-3 of
-    the last MDS) it gives golden's first four lanes."""
+def _schedule_states(word):
     rng = np.random.default_rng(80)
     if word is None:
-        states = [[int(x) for x in row] for row in rng.integers(0, P, size=(3, 12), dtype=np.uint64)]
-    elif word == "band":
-        states = [[int(x) for x in row] for row in EDGE[rng.integers(0, len(EDGE), size=(3, 12))]]
-    else:
-        states = [[word] * 12]
-    for state in states:
-        assert _permute_model(state) == gp.permutation(state)
+        return [[int(x) for x in row] for row in rng.integers(0, P, size=(3, 12), dtype=np.uint64)]
+    if word == "band":
+        return [[int(x) for x in row] for row in EDGE[rng.integers(0, len(EDGE), size=(3, 12))]]
+    return [[word] * 12]
+
+
+def _holds_golden(model, word):
+    for state in _schedule_states(word):
+        assert model(state) == gp.permutation(state)
         cap = state[:8] + [0] * 4
-        assert _permute_model(cap, zero_cap=True, keep=4) == gp.permutation(cap)[:4]
+        assert model(cap, zero_cap=True, keep=4) == gp.permutation(cap)[:4]
+
+
+@pytest.mark.parametrize("what,word", SCHEDULE_STATES, ids=[w for w, _ in SCHEDULE_STATES])
+def test_round_body_schedule_model_equals_golden(what, word):
+    """The model of the thread form's schedule and word arithmetic (the
+    sparse partial rounds) gives golden's permutation, on random states, on
+    one edge word in every lane and on mixed edge words; as a 2-to-1
+    compression (lanes 8-11 zero, rows 0-3 of the last MDS) it gives
+    golden's first four lanes."""
+    _holds_golden(_permute_model, word)
+
+
+@pytest.mark.parametrize("what,word", SCHEDULE_STATES, ids=[w for w, _ in SCHEDULE_STATES])
+def test_dense_schedule_model_equals_golden(what, word):
+    """The dense schedule on the split form's tables, in the same word
+    arithmetic, gives golden's permutation and compression on the same
+    states."""
+    _holds_golden(_permute_dense_model, word)
+
+
+@pytest.mark.parametrize("what,word", SCHEDULE_STATES, ids=[w for w, _ in SCHEDULE_STATES])
+def test_sparse_round_tables_give_the_same_permutation(what, word):
+    """The thread form's tables exactly as kernels.py uploads them
+    (kernels.sparse_round_tables, one array in kernels.sparse_table_words'
+    order): in Python ints, the four full rounds from round 0's constants
+    and "full", the initial matrix, 22 sparse rounds from "row0", "w_hat"
+    and "vs", the carried "tail", the last four full rounds, give golden's
+    permutation. The tables taken unchanged equal Plonky2's FAST_PARTIAL_*."""
+    from plonky2_verifier_tpu_torch.golden import poseidon_constants as pc
+
+    pre, _ = kernels.folded_round_constants()
+    t = kernels.sparse_round_tables()
+    words = kernels.sparse_table_words(t)
+    assert len(words) == 722 and all(0 <= c < P for c in words)
+    assert t["w_hat"] == [list(r) for r in pc.FAST_PARTIAL_ROUND_W_HATS]
+    assert t["vs"] == [list(r) for r in pc.FAST_PARTIAL_ROUND_VS]
+    assert t["init"] == [list(r) for r in zip(*pc.FAST_PARTIAL_ROUND_INITIAL_MATRIX)]
+    assert t["full"][3] == list(pc.FAST_PARTIAL_FIRST_ROUND_CONSTANT)
+    mds = gp.mds_matrix()
+    dense = lambda s, c: [(sum(mds[i][j] * s[j] for j in range(12)) + c[i]) % P for i in range(12)]
+    for state in _schedule_states(word):
+        s = [(x + c) % P for x, c in zip(state, pre)]
+        for f in range(4):
+            s = dense([gp._sbox(x) for x in s], t["full"][f])
+        s = [s[0]] + [sum(w * x for w, x in zip(t["init"][c], s[1:])) % P for c in range(11)]
+        for r in range(22):
+            y = gp._sbox(s[0])
+            s = [(mds[0][0] * y + sum(w * x for w, x in zip(t["w_hat"][r], s[1:])) + t["row0"][r][0]) % P] + [
+                (x + y * v) % P for x, v in zip(s[1:], t["vs"][r])
+            ]
+        s = [s[0]] + [(x + c) % P for x, c in zip(s[1:], t["tail"][0])]
+        for f in range(4, 8):
+            s = dense([gp._sbox(x) for x in s], t["full"][f] if f < 7 else [0] * 12)
+        assert s == gp.permutation(state)
 
 
 def test_header_mds_constants_equal_golden():
@@ -316,3 +443,40 @@ def test_folded_constants_leave_the_join_its_room():
     bad[7][3] = kernels.JOIN_LIMIT
     with pytest.raises(ValueError, match="JOIN_LIMIT"):
         kernels.check_round_body_bounds(bad)
+
+
+def test_sparse_tables_leave_the_accumulators_their_room():
+    """kernels.check_sparse_bounds accepts today's tables and refuses one
+    planted word at each range's limit: a full round's constant at
+    JOIN_LIMIT, a tail constant at p (add_rc's canonical operand), a W_HAT
+    at 2^64 (a 64-bit multiplicand), a row of the wrong length."""
+    t = kernels.sparse_round_tables()
+    kernels.check_sparse_bounds(t)
+    for name, row, col, word, match in [("full", 5, 7, kernels.JOIN_LIMIT, "JOIN_LIMIT"), ("tail", 0, 10, P, "canonical"),
+                                        ("w_hat", 13, 4, 2**64, "outside"), ("init", 3, None, None, "is not")]:
+        bad = {k: [list(r) for r in v] for k, v in t.items()}
+        if col is None:
+            bad[name][row].pop()
+        else:
+            bad[name][row][col] = word
+        with pytest.raises(ValueError, match=match):
+            kernels.check_sparse_bounds(bad)
+    assert max(t["tail"][0]) < P and max(c for row in t["full"] for c in row) < kernels.JOIN_LIMIT
+
+
+def test_sparse_tables_upload_in_the_headers_order():
+    """kernels.sparse_table_words packs the tables in the order in which
+    csrc/poseidon.cuh's upload_constants copies them to its constant tables
+    (c_full, c_init, c_w_hat, c_vs, c_row0, c_tail), each of the size the
+    header declares."""
+    import os
+    import re
+
+    with open(os.path.join(kernels.CSRC, "poseidon.cuh")) as f:
+        src = f.read()
+    order = re.findall(r"next\(c_(\w+), sizeof", src)
+    assert order == list(kernels.SPARSE_SHAPES) == ["full", "init", "w_hat", "vs", "row0", "tail"]
+    sizes = dict(re.findall(r"static __constant__ uint64_t c_(\w+)\[([^\]]+)\];", src))
+    consts = {"N_FULL_MDS": 7, "WIDTH": 12, "SPARSE": 11, "N_PARTIAL": 22}
+    for name, (rows, cols) in kernels.SPARSE_SHAPES.items():
+        assert eval(sizes[name], {}, consts) == rows * cols, name

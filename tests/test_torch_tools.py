@@ -168,19 +168,20 @@ def test_fold_work_counts_the_fft_form_and_the_kernels_butterflies():
 
 def test_print_sass_sums_the_pieces_of_a_permutation_and_a_compression(capsys, monkeypatch):
     """probe_kernels.print_sass on stand-in piece counts (csrc/permutation.cu's
-    count kernels need nvcc): a permutation is pieces 1 + 7 x 2 + 21 x 3 +
-    4 + 5, a compression 7 + 7 x 2 + 21 x 3 + 4 + 6; each piece's count
-    after them."""
+    count kernels need nvcc): a permutation is pieces 1 + 7 x 2 + 22 x 3 +
+    11 x 4 + 8 + 5 (the sparse partial rounds, the initial matrix's 11
+    outputs, the carried constants), a compression 7 + 7 x 2 + 22 x 3 +
+    11 x 4 + 8 + 6; each piece's count after them."""
     from plonky2_verifier_tpu_torch import kernels
 
-    pieces = {k: {"IMAD.WIDE": 10 * k, "IADD3": k} for k in range(1, 8)}
+    pieces = {k: {"IMAD.WIDE": 10 * k, "IADD3": k} for k in range(1, kernels.N_PIECES)}
     monkeypatch.setattr(kernels, "sass_pieces", lambda: pieces)
     pk.print_sass()
     out = capsys.readouterr().out.splitlines()
-    perm = 11 * (1 + 7 * 2 + 21 * 3 + 4 + 5)
-    compression = 11 * (7 + 7 * 2 + 21 * 3 + 4 + 6)
+    perm = 11 * (1 + 7 * 2 + 22 * 3 + 11 * 4 + 8 + 5)
+    compression = 11 * (7 + 7 * 2 + 22 * 3 + 11 * 4 + 8 + 6)
     assert out[0].startswith(f"sass: {perm} instructions in one thread-form permutation (W = 19180), {compression} in a 2-to-1 compression: IMAD.WIDE")
-    assert out[1] == "sass pieces: " + ", ".join(f"{k} {11 * k}" for k in range(1, 8))
+    assert out[1] == "sass pieces: " + ", ".join(f"{k} {11 * k}" for k in range(1, 9))
 
 
 def test_gate_filter_work_at_the_zoo_benchmark_shape():

@@ -24,7 +24,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from plonky2_verifier_tpu_torch import tracing
+from plonky2_verifier_tpu_torch import metrics, tracing
 from plonky2_verifier_tpu_torch.compiler import CircuitTemplate, flatten_proofs
 from plonky2_verifier_tpu_torch.models.cache import get_fixture_proof
 from plonky2_verifier_tpu_torch.parallel.stream import paid_ns
@@ -258,8 +258,12 @@ def test_a_cpu_forward_launches_no_gate_filter(cpu_verifier, monkeypatch):
 def test_card_a_benchmark_forward_synchronises_zero_times(config):
     """The benchmark's proofs of each template, 64 lanes: a traced forward
     counts no host-device synchronisation (syncs_per_forward's counter),
-    each forward launches the gate filter exactly once, and the lookup
-    argument's table work counts the padded table rows x rounds x lanes."""
+    each forward launches the gate filter exactly once, the lookup
+    argument's table work counts the padded table rows x rounds x lanes, and
+    the Poseidon kernels count every permutation of the reference's count
+    (metrics.perms_per_proof) by round body: the transcript scan's, at 64
+    rows, in the split form's dense rounds, the rest in the thread form's
+    sparse ones."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from plonky2_verifier_tpu_torch import kernels
@@ -281,4 +285,31 @@ def test_card_a_benchmark_forward_synchronises_zero_times(config):
     assert rep["forwards"] == 2 and rep["syncs_per_forward"] == 0, rep["syncs"]
     assert lib.launches["gate_filter"] - before == 2
     rows = v._lut_coeffs.shape[0] * tpl.r * 64
-    assert rep["counts_per_forward"] == ({tracing.LOOKUP_TABLE_ROWS: rows} if rows else {})
+    dense = 64 * len(tpl.schedule.permutes)
+    assert rep["counts_per_forward"] == dict({tracing.LOOKUP_TABLE_ROWS: rows} if rows else {}, **{
+        kernels.DENSE_PERMUTATIONS: dense, kernels.SPARSE_PERMUTATIONS: 64 * metrics.perms_per_proof(tpl) - dense})
+
+
+def test_poseidon_launches_count_their_permutations_by_round_body(monkeypatch):
+    """kernels.count_permutations books a launch's permutations to the
+    split form's dense rounds or the thread form's sparse ones, by the
+    launcher's rule (kernels.split_form: "auto" takes the split form up to
+    csrc/permutation.cu's SPLIT_MAX_STATES); in a forward's span they reach
+    report()'s counters, and nothing is counted while the tracer is off."""
+    import re
+
+    from plonky2_verifier_tpu_torch import kernels
+
+    with open(os.path.join(kernels.CSRC, "permutation.cu")) as f:
+        (limit,) = re.findall(r"constexpr int64_t SPLIT_MAX_STATES = (\d+);", f.read())
+    assert kernels.SPLIT_MAX_STATES == int(limit) == 8192
+    assert [kernels.split_form(n, form) for n, form in [(8192, "auto"), (8193, "auto"), (16384, "split"), (1, "thread")]] == [
+        True, False, True, False]
+    kernels.count_permutations(5, True)  # off: nothing
+    tracing.enable()
+    with tracing.forward(torch.device("cpu")):
+        kernels.count_permutations(8192 * 113, kernels.split_form(8192, "auto"))
+        kernels.count_permutations(16384 * 113, kernels.split_form(16384, "auto"))
+        kernels.count_permutations(3 * 11, False)
+    tracing.disable()
+    assert tracing.report()["counts_per_forward"] == {kernels.DENSE_PERMUTATIONS: 8192 * 113, kernels.SPARSE_PERMUTATIONS: 16384 * 113 + 33}

@@ -3,7 +3,9 @@ proofs the configuration's data holds, and the lanes that `--seed` draws.
 
 Layout under the benchmark's directory (`bench_dir`):
   configs/<config>.json   the circuit, its source, the fixture that made the
-                          proofs, and the guarantees a run is held to
+                          proofs, the guarantees a run is held to, and
+                          optionally its Plonky2 `generic_config`
+                          (PoseidonGoldilocksConfig where absent)
   traffic/<traffic>.json  batch, batches in flight, pool, faults, loop
   data/<config>/          common.json, vkey_<i>.json, proof_<i>.json
   metrics/<metric>.py     one per-layer metric's reader
@@ -16,6 +18,8 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from reference.hashing import HASHERS, POSEIDON_CONFIG
 
 VERDICTS = ("ok", "eqs_ok", "fri_ok")  # a lane's verdicts, as the program reports them
 
@@ -33,6 +37,7 @@ class Cell:
     common: dict  # the common circuit data's JSON
     proofs: list  # [{"vkey": ..., "proof": ...}], the configuration's honest proofs
     faults: list  # the traffic's faults whose word exists in these proofs
+    generic_config: str  # the Plonky2 GenericConfig the proofs were made with, which names their hasher
 
 
 def find_workload(manifest: dict, name: str) -> dict:
@@ -63,9 +68,19 @@ def flip_word(doc: dict, path: str) -> dict:
     return doc
 
 
+def generic_config(config: dict) -> str:
+    """The configuration's `generic_config`, PoseidonGoldilocksConfig where
+    it names none; a name the reference has no hasher for is refused."""
+    name = config.get("generic_config", POSEIDON_CONFIG)
+    if name not in HASHERS:
+        raise SystemExit(f"configuration {config.get('name')!r}: generic_config {name!r} is none of {sorted(HASHERS)}")
+    return name
+
+
 def load_cell(bench_dir: str, manifest: dict, workload: str) -> Cell:
     w = find_workload(manifest, workload)
     config = load_json(os.path.join(bench_dir, "configs", f"{w['config']}.json"))
+    hasher = generic_config(config)
     traffic = load_json(os.path.join(bench_dir, "traffic", f"{w['traffic']}.json"))
     if traffic.get("loop") != "closed":
         raise SystemExit(f"traffic {w['traffic']!r}: loop {traffic.get('loop')!r}; this harness runs a closed loop only")
@@ -74,7 +89,7 @@ def load_cell(bench_dir: str, manifest: dict, workload: str) -> Cell:
     proofs = [{"vkey": load_json(os.path.join(data, f"vkey_{i}.json")),
                "proof": load_json(os.path.join(data, f"proof_{i}.json"))} for i in range(len(config["proofs"]))]
     faults = [f for f in traffic["faults"] if _resolve(proofs[0], f["path"]) is not None]
-    return Cell(w, config, traffic, common, proofs, faults)
+    return Cell(w, config, traffic, common, proofs, faults, hasher)
 
 
 def variants(cell: Cell) -> list:

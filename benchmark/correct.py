@@ -27,12 +27,13 @@ def _judge(args):
     return judge(*args)
 
 
-def reference(common: dict, variants: list) -> list:
-    """The reference's verdicts and challenge words of each input, a process
-    an input up to the host's cores."""
+def reference(common: dict, variants: list, generic_config: str) -> list:
+    """The reference's verdicts and challenge words of each input under the
+    cell's hasher (`generic_config`), a process an input up to the host's
+    cores."""
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=min(len(variants), os.cpu_count() or 1), mp_context=ctx) as ex:
-        return list(ex.map(_judge, [(common, v["vkey"], v["proof"]) for v in variants]))
+        return list(ex.map(_judge, [(common, v["vkey"], v["proof"], generic_config) for v in variants]))
 
 
 def compare(records: list, plans: list, words: list, ref: list) -> dict:

@@ -9,6 +9,13 @@ gathering lanes from them. The window drives `TorchVerifier.__call__` on the
 pool's batches in a closed loop with `in_flight` batches enqueued: batch k + 1
 is enqueued before the loop waits for batch k's verdict lanes, which are
 copied to pinned host memory behind an event.
+
+The hasher: a configuration that names a Plonky2 GenericConfig other than
+PoseidonGoldilocksConfig (cell.generic_config) builds its verifier as
+`TorchVerifier(tpl, device=..., generic_config=<name>)`; a Poseidon one
+passes no such keyword. The port takes that keyword from the change that
+adds the first configuration of another hasher; until then only Poseidon
+configurations run.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from cell import VERDICTS
+from reference.hashing import POSEIDON_CONFIG
 
 
 def _u64(t) -> np.ndarray:
@@ -51,7 +59,8 @@ class Program:
         arrays = flatten_proofs(tpl, inputs)
         self.parts["flatten_s"] = time.perf_counter() - t
         t = time.perf_counter()
-        self.v = TorchVerifier(tpl, device=device)
+        hasher = {} if cell.generic_config == POSEIDON_CONFIG else {"generic_config": cell.generic_config}
+        self.v = TorchVerifier(tpl, device=device, **hasher)
         self.parts["construct_s"] = time.perf_counter() - t
         t = time.perf_counter()
         distinct = self.v.prepare(arrays)

@@ -3,7 +3,10 @@
 `Challenger` is plonky2/src/iop/challenger.rs's duplex sponge in overwrite
 mode: an observed element clears the outputs and is buffered, 8 buffered
 elements (the rate) force a duplexing; a challenge duplexes first when inputs
-are buffered or no output is left, then pops the last output.
+are buffered or no output is left, then pops the last output. Its
+permutation of 12 words is the hasher's (hashing.py): Poseidon's, or
+KeccakPermutation's; a digest is observed as its words (`observe_hash`:
+`to_vec`).
 
 `proof_challenges` is plonky2/src/plonk/get_challenges.rs's
 `get_challenges` with the challenger's `fri_challenges`
@@ -22,27 +25,30 @@ from dataclasses import dataclass
 
 from . import poseidon
 from .field import Ext
+from .hashing import digest_words
 
 NUM_COINS_LOOKUP = 4
+WIDTH, RATE = 12, 8  # hash/hashing.rs SPONGE_WIDTH, SPONGE_RATE
 
 
 class Challenger:
-    def __init__(self):
-        self.state = [0] * poseidon.WIDTH
+    def __init__(self, permute):
+        self.permute = permute
+        self.state = [0] * WIDTH
         self.inputs: list = []
         self.outputs: list = []
 
     def _duplex(self):
-        assert len(self.inputs) <= poseidon.RATE
+        assert len(self.inputs) <= RATE
         self.state[:len(self.inputs)] = self.inputs
         self.inputs = []
-        self.state = poseidon.permute(self.state)
-        self.outputs = self.state[:poseidon.RATE]
+        self.state = self.permute(self.state)
+        self.outputs = self.state[:RATE]
 
     def observe(self, x: int):
         self.outputs = []
         self.inputs.append(x)
-        if len(self.inputs) == poseidon.RATE:
+        if len(self.inputs) == RATE:
             self._duplex()
 
     def observe_all(self, xs):
@@ -55,7 +61,7 @@ class Challenger:
 
     def observe_cap(self, cap):
         for h in cap:
-            self.observe_all(h)
+            self.observe_all(digest_words(h))
 
     def challenge(self) -> int:
         if self.inputs or not self.outputs:
@@ -85,12 +91,14 @@ class Challenges:
 
 
 def proof_challenges(proof, challenger: Challenger = None) -> Challenges:
-    """`proof` is a proof.Proof; the transcript runs in `challenger`."""
-    c = challenger or Challenger()
+    """`proof` is a proof.Proof; the transcript runs in `challenger`, by
+    default one with the permutation of the proof's hasher. The public
+    inputs' hash is Poseidon's (InnerHasher) whatever the hasher."""
+    c = challenger or Challenger(proof.hasher.permute)
     cd = proof.common
     n = cd.num_challenges
     pi_hash = poseidon.hash_no_pad(proof.public_inputs)
-    c.observe_all(proof.circuit_digest)
+    c.observe_all(digest_words(proof.circuit_digest))
     c.observe_all(pi_hash)
     c.observe_cap(proof.wires_cap)
     betas = c.challenges(n)

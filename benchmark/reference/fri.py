@@ -5,18 +5,19 @@ Merkle opening, the final polynomial), with the batches of
 plonk/circuit_data.rs `get_fri_instance` (at zeta: the constants and sigmas,
 the wires, the Zs and partial products, the quotient chunks, the lookup Zs;
 at g zeta: the Zs and the lookup Zs) and hash/merkle_proofs.rs
-`verify_merkle_proof_to_cap`. The coset's interpolation is Lagrange's."""
+`verify_merkle_proof_to_cap` with the configuration's hasher (hashing.py),
+whose digests it compares: words, or bytes. The coset's interpolation is
+Lagrange's."""
 
 from __future__ import annotations
 
-from . import poseidon
 from .field import MULTIPLICATIVE_GROUP_GENERATOR, P, ZERO, Ext, inv, primitive_root_of_unity, reverse_bits
 
 
-def merkle_ok(leaf, index: int, siblings, cap) -> bool:
-    digest = poseidon.hash_or_noop(leaf)
+def merkle_ok(hasher, leaf, index: int, siblings, cap) -> bool:
+    digest = hasher.hash_or_noop(leaf)
     for sib in siblings:
-        digest = poseidon.two_to_one(sib, digest) if index & 1 else poseidon.two_to_one(digest, sib)
+        digest = hasher.two_to_one(sib, digest) if index & 1 else hasher.two_to_one(digest, sib)
         index >>= 1
     return index < len(cap) and digest == cap[index]
 
@@ -74,7 +75,7 @@ def check_fri(proof, ch) -> bool:
         if len(initial) != len(caps) or len(steps) != len(cd.reduction_arity_bits):
             return False
         for (leaf, path), cap in zip(initial, caps):
-            if not merkle_ok(leaf, x_index, path, cap):
+            if not merkle_ok(proof.hasher, leaf, x_index, path, cap):
                 return False
         x = MULTIPLICATIVE_GROUP_GENERATOR * pow(omega, reverse_bits(x_index, log_n), P) % P
         # fri_combine_initial
@@ -96,7 +97,8 @@ def check_fri(proof, ch) -> bool:
             start = x * pow(gen, arity - reverse_bits(within, arity_bits), P) % P
             xs = [start * pow(gen, k, P) % P for k in range(arity)]
             old = interpolate(xs, ordered, ch.fri_betas[i])
-            if not merkle_ok([w for e in evals for w in (e.a, e.b)], coset_index, path, proof.commit_phase_merkle_caps[i]):
+            leaf = [w for e in evals for w in (e.a, e.b)]
+            if not merkle_ok(proof.hasher, leaf, coset_index, path, proof.commit_phase_merkle_caps[i]):
                 return False
             x = pow(x, arity, P)
             x_index = coset_index

@@ -1,16 +1,19 @@
 """A Plonky2 proof, its verifier key and its common circuit data, read from
 the JSON forms that serde gives Plonky2's ProofWithPublicInputs,
 VerifierOnlyCircuitData and CommonCircuitData (the fields this verifier
-reads; a hash is {"elements": [4 words]}, an extension element [a, b])."""
+reads; a digest as hashing.read_digest reads it: a HashOut {"elements":
+[4 words]} or a BytesHash<25>'s 25 bytes; an extension element [a, b]).
+The hasher is the configuration's, which the JSON does not name."""
 
 from __future__ import annotations
 
 from .field import Ext
 from .gates import parse_gate
+from .hashing import HASHERS, POSEIDON_CONFIG, read_digest
 
 
 def _hashes(cap) -> list:
-    return [[int(x) for x in h["elements"]] for h in cap]
+    return [read_digest(h) for h in cap]
 
 
 def _exts(xs) -> list:
@@ -57,11 +60,14 @@ class Common:
 
 
 class Proof:
-    """One proof with its verifier key, against `common`."""
+    """One proof with its verifier key, against `common`, under `hasher`
+    (hashing.hasher of the configuration's GenericConfig; Poseidon's where
+    none is given)."""
 
-    def __init__(self, common: Common, vkey: dict, doc: dict):
+    def __init__(self, common: Common, vkey: dict, doc: dict, hasher=HASHERS[POSEIDON_CONFIG]):
         self.common = common
-        self.circuit_digest = [int(x) for x in vkey["circuit_digest"]["elements"]]
+        self.hasher = hasher
+        self.circuit_digest = read_digest(vkey["circuit_digest"])
         self.constants_sigmas_cap = _hashes(vkey["constants_sigmas_cap"])
         self.public_inputs = [int(x) for x in doc["public_inputs"]]
         pr = doc["proof"]

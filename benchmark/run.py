@@ -146,12 +146,13 @@ def run(argv=None, root: str = ROOT, device=None) -> int:
         return 3
 
     t = time.perf_counter()
-    ref = correct.reference(cell.common, inputs)
+    ref = correct.reference(cell.common, inputs, cell.generic_config)
     checks = correct.compare(records, plans, words, ref)
     reference_s = time.perf_counter() - t
 
     obs = {"batch": cell.traffic["batch"], "records": records, "span": span, "setup_s": records[0]["due"] - T_START,
-           "window_peak_bytes": window_peak, "on_card": on_card, "perms_per_proof": ref[0]["permutations"]}
+           "window_peak_bytes": window_peak, "on_card": on_card, "perms_per_proof": ref[0]["permutations"],
+           "keccak_per_proof": ref[0]["keccak_permutations"]}
     entries = metric_entries(manifest, args.workload, bool(args.trace))
     metrics = {}
     for m in entries:
@@ -173,7 +174,8 @@ def run(argv=None, root: str = ROOT, device=None) -> int:
     latencies_ms = sorted(round((r["done"] - r["due"]) * 1e3, 3) for r in records)
     print(json.dumps({"workload": args.workload, "seed": args.seed, "batches": len(records),
                       "samples_behind_verdict_ms_p95": len(records), "setup_parts_s": parts, "trace_s": trace_s,
-                      "perms_per_proof": obs["perms_per_proof"], "launches": program.launches(),
+                      "perms_per_proof": obs["perms_per_proof"],
+                      "keccak_per_proof": obs["keccak_per_proof"], "launches": program.launches(),
                       "reference_s": reference_s, "span": {k: v for k, v in (span or {}).items() if k != "breakdown"},
                       "verdict_ms_sorted_tail": latencies_ms[-12:], "control": args.control}), file=sys.stderr)
     for name, c in checks.items():

@@ -60,6 +60,14 @@ def test_cell_files_found_by_name(workload):
 
 
 @pytest.mark.parametrize("config", CONFIGS)
+def test_configuration_names_no_generic_config_or_a_known_one(config):
+    """A configuration's `generic_config` is absent (PoseidonGoldilocksConfig)
+    or one of the two whose hasher the reference has."""
+    cfg = load(os.path.join(BENCH, "configs", f"{config}.json"))
+    assert cfg.get("generic_config", "PoseidonGoldilocksConfig") in ("PoseidonGoldilocksConfig", "KeccakGoldilocksConfig")
+
+
+@pytest.mark.parametrize("config", CONFIGS)
 def test_committed_proofs_match_their_configuration(config):
     cfg = load(os.path.join(BENCH, "configs", f"{config}.json"))
     data = os.path.join(BENCH, "data", config)
